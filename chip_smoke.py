@@ -6,11 +6,22 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``python_ray_tracer_tpu_torch`` from
-``csrc/``, holds each against its plain PyTorch version on the card,
-drives the port's main path (the ``render`` CLI at 960x540) through the
-kernels, compares the frame with the JAX package's golden image, and
-times the kernels.  Phases print on their own lines; any failure exits
-non-zero.  The last line is one JSON object:
+``csrc/`` (one ``nvcc`` per source, all at once), holds each kernel
+against its plain PyTorch version on the card, and drives the port's two
+main paths through the kernels at 960x540:
+
+* the hard forward render: the ``render`` CLI, held against the JAX
+  package's golden image (``trace_deep``, ``bounce_step``);
+* the smooth-visibility training step: ``render --visibility smooth``
+  (``smooth_fwd_deep``), a non-L2 loss backpropagated through ``render()``
+  (``smooth_bwd_deep``), ``optimize`` and the first Adam step's loss and
+  gradients against the JAX golden (``train_deep``), and a recovery task
+  whose loss must halve.
+
+Then it times every kernel beside its plain version and its bound, and the
+benchmark's Adam step.  Phases print on their own lines; any failure exits
+non-zero.  The line before the last lists the kernels as JSON; the last
+line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the package beside it, it fails.
 """
@@ -30,11 +41,20 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT = 960, 540
+N_RAYS = WIDTH * HEIGHT
 GOLDEN = "python_ray_tracer_tpu_torch/testdata/reference_960x540_d3_f32.npz"
-KERNEL_SOURCE = "python_ray_tracer_tpu_torch/csrc/bounce_sub.cu"
+TRAIN_GOLDEN = "python_ray_tracer_tpu_torch/testdata/reference_960x540_d3_smooth_train_f32.npz"
+HARD, SMOOTH = ("trace_deep", "bounce_step"), ("smooth_fwd_deep", "smooth_bwd_deep", "train_deep")
+SOURCE = {
+    **{k: "python_ray_tracer_tpu_torch/csrc/bounce_sub.cu" for k in HARD},
+    **{k: "python_ray_tracer_tpu_torch/csrc/bounce_smooth_sub.cu" for k in SMOOTH},
+}
 REPLACES = {
     "trace_deep": "python_ray_tracer_tpu/ops/pallas_bounce_sub.py:416",
     "bounce_step": "python_ray_tracer_tpu/ops/pallas_bounce_sub.py:382",
+    "smooth_fwd_deep": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1329",
+    "smooth_bwd_deep": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1370",
+    "train_deep": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1799",
 }
 # Kernel vs plain version: at most this share of values may differ by more
 # than the dtype's threshold.  The two evaluate the same IEEE operations in
@@ -42,8 +62,36 @@ REPLACES = {
 # where pow/sin round differently and a hit or shadow test flips on it.
 MAX_BAD_SHARE = 1e-4
 THRESHOLD = {torch.float32: 1e-5, torch.float64: 1e-12}
+# The per-ray gradients (g_o, g_d), kernel vs plain version, take the same
+# operations in the same order too: every value within RAY_GRAD_TOL of
+# max(1, |plain value|), since silhouette rays carry gradients up to ~1e8
+# where interior rays carry ~1.  Bitwise equal on the reference scene (f64:
+# within 6e-20); on all_effects, whose forward is bitwise equal, a few
+# hundred of 1.5M f32 values part by up to 1.2e-4 of it in the adjoint.
+RAY_GRAD_TOL = {torch.float32: 1e-3, torch.float64: 1e-12}
+# The table gradients sum 518,400 rays per warp and then over warps, where
+# the plain version's torch.sum associates otherwise.  Each column (one
+# parameter field; each scene constant) is held within COLUMN_RTOL of that
+# column's own largest value; readings reach 3.1e-6 (f32) and 2.6e-15 (f64).
+COLUMN_RTOL = {torch.float32: 3e-5, torch.float64: 1e-12}
 # Main path vs the JAX golden: share of uint8 values allowed to differ.
 MAX_GOLDEN_SHARE = 1e-3
+# A float32 gradient of this loss is only as exact as float32 allows: the
+# JAX golden's own f32 gradient is 14% off its f64 one on the smallest leaf
+# (d/d specular_roughness, 7e-6) and 0.35% on the radii.  So a float32
+# route is held against the float64 answer, and may be off it by at most
+# NOISE_FACTOR times what a peer f32 route (torch autograd of the
+# pure-torch route, or the XLA path of the golden) is, plus NOISE_FLOOR of
+# the leaf's largest value: no less exact than the peer, within that factor.
+NOISE_FACTOR = 3.0
+NOISE_FLOOR = 1e-5
+# float64: the kernels' adjoint vs torch autograd, relative to each leaf's
+# largest value (the two differ in the winner's quadratic form only).
+F64_RTOL = 1e-6
+# The published peaks of one H100 SXM (NVIDIA's datasheet): HBM
+# bytes/s and float32 operations/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -69,12 +117,14 @@ def phase_device() -> str:
 def phase_build() -> None:
     from python_ray_tracer_tpu_torch.ops import _build
 
-    path, log, seconds = _build.build()
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
-    _build.load_library()
-    print(f"[build] {path.name} built in {seconds:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for source, (path, log, seconds) in _build.build_all().items():
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
+        _build.load_library(source)
+        print(f"[build] {path.name} built in {seconds:.1f} s")
+    print(f"[build] all sources built in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _inputs(name: str, dtype: torch.dtype, device: str, width: int, height: int):
@@ -118,26 +168,180 @@ CASES = (
 )
 
 
+def _per_value_check(label: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype) -> float:
+    """At most MAX_BAD_SHARE of the values may differ by more than the dtype's threshold."""
+    if kernel.dtype.is_floating_point and not bool(torch.isfinite(kernel).all()):
+        fail(f"{label}: non-finite output")
+    diff = (kernel.double() - plain.double()).abs()
+    max_abs = float(diff.max())
+    n_bad = int((diff > THRESHOLD[dtype]).sum())
+    print(f"[kernels] {label}: max_abs {max_abs:.3e}, {n_bad} of {diff.numel()} values > {THRESHOLD[dtype]:g}")
+    if n_bad > MAX_BAD_SHARE * diff.numel():
+        fail(f"{label}: {n_bad / diff.numel():.2e} of values differ by more than {THRESHOLD[dtype]:g} (limit {MAX_BAD_SHARE:g})")
+    return max_abs
+
+
+def _per_ray_check(label: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype) -> float:
+    """Every value within RAY_GRAD_TOL x max(1, |plain value|)."""
+    if not bool(torch.isfinite(kernel).all()):
+        fail(f"{label}: non-finite output")
+    diff = (kernel.double() - plain.double()).abs()
+    scaled = diff / plain.double().abs().clamp_min(1.0)
+    worst = float(scaled.max())
+    n_off = int((scaled > THRESHOLD[dtype]).sum())
+    print(f"[kernels] {label}: max_abs {float(diff.max()):.3e}, largest difference / max(1, |value|) {worst:.3e} "
+          f"(limit {RAY_GRAD_TOL[dtype]:g}); {n_off} of {diff.numel()} values above {THRESHOLD[dtype]:g} of it")
+    if worst > RAY_GRAD_TOL[dtype]:
+        fail(f"{label}: a value differs by {worst:.3e} x max(1, |value|) (limit {RAY_GRAD_TOL[dtype]:g})")
+    return float(diff.max())
+
+
+def _column_check(label: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype) -> float:
+    """Each column's largest difference within COLUMN_RTOL of the column's
+    own largest |plain value| (a column that is 0 must be 0)."""
+    if not bool(torch.isfinite(kernel).all()):
+        fail(f"{label}: non-finite values")
+    k, p = (t.double().reshape(-1, t.shape[-1] if t.dim() else 1) for t in (kernel, plain))
+    err, scale = (k - p).abs().amax(dim=0), p.abs().amax(dim=0)
+    ratio = torch.where(err == 0, 0.0, err / scale)  # inf where a zero column is not
+    worst = int(ratio.argmax())
+    print(f"[kernels] {label}: max_abs {float(err.max()):.3e}; worst column {worst} of {err.numel()}: "
+          f"{float(err[worst]):.3e} of its largest value {float(scale[worst]):.3e} = {float(ratio[worst]):.3e} "
+          f"(limit {COLUMN_RTOL[dtype]:g}); per column: {' '.join(f'{float(r):.1e}' for r in ratio)}")
+    if float(ratio[worst]) > COLUMN_RTOL[dtype]:
+        fail(f"{label}: column {worst} differs by {float(ratio[worst]):.3e} of its largest value (limit {COLUMN_RTOL[dtype]:g})")
+    return float(err.max())
+
+
+def _grad_check(label: str, name: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype) -> float:
+    """Per-ray gradients value by value; sums (sse, table gradients) column by column."""
+    if name in ("g_o", "g_d"):
+        return _per_ray_check(f"{label} {name}", kernel, plain, dtype)
+    return _column_check(f"{label} {name}", kernel, plain, dtype)
+
+
+def _relative_check(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float) -> None:
+    """Largest difference relative to the largest |want|; fails above ``rtol``."""
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: non-finite values")
+    got, want = got.detach().double(), want.detach().double()
+    max_abs = float((got - want).abs().max())
+    scale = max(float(want.abs().max()), 1e-30)
+    print(f"[main] {label}: max_abs {max_abs:.3e}, relative to max |value| {scale:.3e}: {max_abs / scale:.3e} (limit {rtol:g})")
+    if max_abs > rtol * scale:
+        fail(f"{label}: differs by {max_abs / scale:.3e} of its largest value (limit {rtol:g})")
+
+
+def _noise_check(label: str, got, peer, exact) -> None:
+    """``got`` is within NOISE_FACTOR x ``peer``'s distance of ``exact`` (+ floor)."""
+    got, peer, exact = (torch.as_tensor(x).detach().double().cpu() for x in (got, peer, exact))
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: non-finite values")
+    err, peer_err = float((got - exact).abs().max()), float((peer - exact).abs().max())
+    limit = NOISE_FACTOR * peer_err + NOISE_FLOOR * float(exact.abs().max())
+    print(f"[main] {label}: off the f64 answer by {err:.3e}, the f32 peer by {peer_err:.3e} (limit {limit:.3e})")
+    if err > limit:
+        fail(f"{label}: {err:.3e} off the f64 answer, more than {NOISE_FACTOR:g} x the f32 peer's {peer_err:.3e}")
+
+
 def phase_kernels(device: str = "cuda", width: int = WIDTH, height: int = HEIGHT) -> dict[str, float]:
-    """Each kernel against its plain version; returns the max abs error per kernel."""
+    """Each hard kernel against its plain version; returns the max abs error per kernel."""
     errs: dict[str, float] = {}
     for route, name, depth, dtype in CASES:
         kernel, plain = _run_case(route, name, depth, dtype, device, width, height)
         if device == "cuda":
             torch.cuda.synchronize()
-        if not bool(torch.isfinite(kernel).all()):
-            fail(f"{route} {name} depth {depth}: non-finite output")
-        diff = (kernel - plain).abs()
-        max_abs = float(diff.max())
-        n_bad = int((diff > THRESHOLD[dtype]).sum())
-        share = n_bad / diff.numel()
         label = f"{route} {name} depth {depth} {str(dtype).split('.')[-1]} {width}x{height}"
-        print(f"[kernels] {label}: max_abs {max_abs:.3e}, {n_bad} of {diff.numel()} values > {THRESHOLD[dtype]:g}")
-        if share > MAX_BAD_SHARE:
-            fail(f"{label}: {share:.2e} of values differ by more than {THRESHOLD[dtype]:g} (limit {MAX_BAD_SHARE:g})")
+        max_abs = _per_value_check(label, kernel, plain, dtype)
         if dtype == torch.float32:
             errs[route] = max(errs.get(route, 0.0), max_abs)
     return errs
+
+
+def _smooth_inputs(name: str, dtype: torch.dtype, depth: int, width: int = WIDTH, height: int = HEIGHT):
+    """Rays, tables and scalars of a built-in scene, as the smooth route makes them."""
+    from python_ray_tracer_tpu_torch import RenderConfig
+    from python_ray_tracer_tpu_torch.camera import ray_directions_t
+    from python_ray_tracer_tpu_torch.models import scenes
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth_sub import _kernel_inputs
+
+    scene = getattr(scenes, f"{name}_scene")(width, height, dtype=dtype, device="cuda")
+    cfg = RenderConfig(max_depth=depth, dtype=dtype, visibility="smooth", use_pallas=True)
+    return _kernel_inputs(scene.camera.position, ray_directions_t(scene.camera, dtype), scene, cfg)
+
+
+def _cotangent(d: torch.Tensor) -> torch.Tensor:
+    """A seeded acc cotangent (3, N) for the backward kernel."""
+    return torch.rand(d.shape, generator=torch.Generator("cuda").manual_seed(0), device="cuda", dtype=d.dtype) - 0.5
+
+
+SMOOTH_CASES = (
+    ("reference", 3, torch.float32),
+    ("reference", 6, torch.float32),
+    ("all_effects", 3, torch.float32),
+    ("reference", 3, torch.float64),
+)
+
+
+def phase_smooth_kernels() -> dict[str, float]:
+    """The three smooth kernels against their plain versions at 960x540; returns
+    the max abs error per kernel over the float32 cases."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    errs = dict.fromkeys(SMOOTH, 0.0)
+    fwd_names = ("acc", "osave", "dsave", "thrsave", "alivesave", "idx", "hit", "clear")
+    grad_names = ("g_o", "g_d", "g_geom", "g_mat", "g_consts")
+    for name, depth, dtype in SMOOTH_CASES:
+        o, d, tables, kw = _smooth_inputs(name, dtype, depth)
+        label = f"{name} depth {depth} {str(dtype).split('.')[-1]} {WIDTH}x{HEIGHT}"
+        fk = bss.smooth_fwd_deep(o, d, *tables, **kw)
+        torch.cuda.synchronize()
+        fp = bss.smooth_fwd_deep_plain(o, d, *tables, **kw)
+        err = {"smooth_fwd_deep": 0.0, "smooth_bwd_deep": 0.0, "train_deep": 0.0}
+        for out_name, k, p in zip(fwd_names, fk, fp):
+            if k.numel():
+                err["smooth_fwd_deep"] = max(err["smooth_fwd_deep"], _per_value_check(f"smooth_fwd_deep {label} {out_name}", k, p, dtype))
+        g_acc = _cotangent(d)
+        bk = bss.smooth_bwd_deep(o, d, *fp[1:], *tables, g_acc, **kw)  # both replay the plain residuals
+        torch.cuda.synchronize()
+        bp = bss.smooth_bwd_deep_plain(o, d, *fp[1:], *tables, g_acc, **kw)
+        for out_name, k, p in zip(grad_names, bk, bp):
+            err["smooth_bwd_deep"] = max(err["smooth_bwd_deep"], _grad_check(f"smooth_bwd_deep {label}", out_name, k, p, dtype))
+        tgt = (torch.clamp(fp[0], 0.0, 1.0) * 0.9).contiguous()
+        tk = bss.train_deep(o, d, tgt, *tables, **kw)
+        tk2 = bss.train_deep(o, d, tgt, *tables, **kw)
+        torch.cuda.synchronize()
+        tp = bss.train_deep_plain(o, d, tgt, *tables, **kw)
+        for out_name, k, p in zip(("sse",) + grad_names, tk, tp):
+            err["train_deep"] = max(err["train_deep"], _grad_check(f"train_deep {label}", out_name, k, p, dtype))
+        same = all(torch.equal(a, b) for a, b in zip(tk, tk2))
+        print(f"[kernels] train_deep {label}: two launches bitwise equal: {same}", flush=True)
+        if not same:
+            fail(f"train_deep {label}: two launches on the same inputs differ")
+        if dtype == torch.float32:
+            errs = {k: max(errs[k], err[k]) for k in SMOOTH}
+    return errs
+
+
+def _reset_launches() -> None:
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub
+
+    for counts in (bounce_sub.LAUNCHES, bounce_smooth_sub.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _launches() -> dict[str, int]:
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub
+
+    return {**bounce_sub.LAUNCHES, **bounce_smooth_sub.LAUNCHES}
+
+
+def _expect_launched(what: str, launches: dict[str, int], kernels: tuple[str, ...]) -> None:
+    print(f"[main] launches during {what}: {launches}", flush=True)
+    for k in kernels:
+        if launches[k] == 0:
+            fail(f"{what} never launched kernel {k}")
 
 
 def phase_main_path(tmp: Path) -> dict[str, int]:
@@ -149,21 +353,16 @@ def phase_main_path(tmp: Path) -> dict[str, int]:
     """
     from python_ray_tracer_tpu_torch import RenderConfig, cli, render
     from python_ray_tracer_tpu_torch.models.scenes import reference_scene
-    from python_ray_tracer_tpu_torch.ops import bounce_sub
     from python_ray_tracer_tpu_torch.render import auto_max_depth
     from python_ray_tracer_tpu_torch.utils.image import load_png, to_uint8
 
     size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
     depths = ("3", "1", "auto")
-    for k in bounce_sub.LAUNCHES:
-        bounce_sub.LAUNCHES[k] = 0
+    _reset_launches()
     for depth in depths:
         cli.main(["render", "--builtin", "reference", *size, "--depth", depth, "-o", str(tmp / f"d{depth}.png")])
-    launches = dict(bounce_sub.LAUNCHES)
-    print(f"[main] launches during the CLI renders: {launches}")
-    for k, v in launches.items():
-        if v == 0:
-            fail(f"the main path never launched kernel {k}")
+    launches = _launches()
+    _expect_launched("the CLI renders", launches, HARD)
 
     scene = reference_scene(WIDTH, HEIGHT, dtype=torch.float32, device="cuda")
     golden = np.load(REPO / GOLDEN)["image"]
@@ -174,13 +373,118 @@ def phase_main_path(tmp: Path) -> dict[str, int]:
         else:
             n = 1 if depth == "1" else auto_max_depth(scene)
             ref, against = to_uint8(render(scene, RenderConfig(max_depth=n, use_pallas=False))), "the pure-torch route"
-        if img.shape != ref.shape:
-            fail(f"depth {depth}: CLI frame has shape {img.shape}, expected {ref.shape}")
-        delta = np.abs(img.astype(np.int32) - ref.astype(np.int32))
-        n_diff = int((delta > 0).sum())
-        print(f"[main] depth {depth} vs {against}: {n_diff} of {delta.size} uint8 values differ, max diff {int(delta.max())}")
-        if n_diff > MAX_GOLDEN_SHARE * delta.size:
-            fail(f"depth {depth}: {n_diff} uint8 values differ from {against} (limit {MAX_GOLDEN_SHARE:g} of them)")
+        _compare_uint8(f"depth {depth}", img, ref, against)
+    return launches
+
+
+def _compare_uint8(label: str, img: np.ndarray, ref: np.ndarray, against: str) -> None:
+    if img.shape != ref.shape:
+        fail(f"{label}: CLI frame has shape {img.shape}, expected {ref.shape}")
+    delta = np.abs(img.astype(np.int32) - ref.astype(np.int32))
+    n_diff = int((delta > 0).sum())
+    print(f"[main] {label} vs {against}: {n_diff} of {delta.size} uint8 values differ, max diff {int(delta.max())}")
+    if n_diff > MAX_GOLDEN_SHARE * delta.size:
+        fail(f"{label}: {n_diff} uint8 values differ from {against} (limit {MAX_GOLDEN_SHARE:g} of them)")
+
+
+def _smooth_cfg(dtype: torch.dtype = torch.float32, **kw):
+    from python_ray_tracer_tpu_torch import RenderConfig
+
+    return RenderConfig(max_depth=3, dtype=dtype, visibility="smooth", **kw)
+
+
+def _leaf_grads(params) -> dict[str, torch.Tensor]:
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p)) for k, p in params.items()}
+
+
+def phase_smooth_main(tmp: Path) -> dict[str, int]:
+    """The training slice's main path on CUDA; returns each smooth kernel's
+    launches, each read from the run that is its main path."""
+    from python_ray_tracer_tpu_torch import cli, render
+    from python_ray_tracer_tpu_torch.models.scenes import reference_scene
+    from python_ray_tracer_tpu_torch.optim import adam, combine, init_state, make_loss_fn, make_train_step, scene_to_params
+    from python_ray_tracer_tpu_torch.utils.image import load_png, to_uint8
+
+    size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
+    scene = reference_scene(WIDTH, HEIGHT, dtype=torch.float32, device="cuda")
+    launches: dict[str, int] = {}
+
+    # 1. render --visibility smooth: smooth_fwd_deep, against the pure-torch route.
+    _reset_launches()
+    cli.main(["render", "--visibility", "smooth", *size, "--depth", "3", "-o", str(tmp / "smooth.png")])
+    counts = _launches()
+    _expect_launched("the smooth CLI render", counts, ("smooth_fwd_deep",))
+    launches["smooth_fwd_deep"] = counts["smooth_fwd_deep"]
+    with torch.no_grad():
+        ref = to_uint8(render(scene, _smooth_cfg()))
+    _compare_uint8("smooth depth 3", load_png(tmp / "smooth.png"), ref, "the pure-torch route")
+
+    # 2. A non-L2 loss through render(): smooth_bwd_deep, against torch
+    #    autograd of the pure-torch route, in f32 (the main path) and f64.
+    weight = torch.rand((HEIGHT, WIDTH, 3), generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        scene_d = reference_scene(WIDTH, HEIGHT, dtype=dtype, device="cuda")
+        for route, use_pallas in (("kernels", True), ("pure-torch", False)):
+            params = scene_to_params(scene_d)
+            _reset_launches()
+            cfg = _smooth_cfg(use_pallas=use_pallas, dtype=dtype)
+            loss = torch.sum(render(combine(params, scene_d), cfg) * weight.to(dtype)) / N_RAYS
+            loss.backward()
+            torch.cuda.synchronize()
+            if use_pallas and dtype == torch.float32:
+                counts = _launches()
+                _expect_launched("the weighted-sum loss through render()", counts, ("smooth_fwd_deep", "smooth_bwd_deep"))
+                launches["smooth_bwd_deep"] = counts["smooth_bwd_deep"]
+            grads[route, dtype] = _leaf_grads(params)
+            print(f"[main] weighted-sum loss, {route} {str(dtype).split('.')[-1]}: {float(loss.detach()):.10e}")
+    for key, exact in grads["pure-torch", torch.float64].items():
+        _relative_check(f"weighted-sum loss d/d{key}, kernels vs torch autograd, f64",
+                        grads["kernels", torch.float64][key], exact, F64_RTOL)
+        _noise_check(f"weighted-sum loss d/d{key}, kernels f32 (peer: torch autograd f32)",
+                     grads["kernels", torch.float32][key], grads["pure-torch", torch.float32][key], exact)
+
+    # 3. cli optimize against the port's own clipped hard-render PNG: train_deep.
+    metrics = tmp / "optimize.jsonl"
+    _reset_launches()
+    cli.main(["optimize", "--visibility", "smooth", *size, "--depth", "3", "--target", str(tmp / "d3.png"),
+              "--steps", "20", "--sync-every", "10", "--lr", "1e-3", "--metrics", str(metrics)])
+    counts = _launches()
+    _expect_launched("cli optimize", counts, ("train_deep",))
+    launches["train_deep"] = counts["train_deep"]
+    losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
+    print(f"[main] cli optimize: {len(losses)} steps, loss {losses[0]:.6e} -> {losses[-1]:.6e}")
+    if len(losses) != 20 or not all(np.isfinite(losses)):
+        fail(f"cli optimize logged {len(losses)} losses, finite: {all(np.isfinite(losses))}")
+
+    # 4. The first Adam step's loss and gradients against the JAX f32
+    #    golden, calibrated by the golden's own distance from JAX's f64 answer.
+    golden = np.load(REPO / TRAIN_GOLDEN)
+    target = torch.tensor(np.load(REPO / GOLDEN)["image"], dtype=torch.float32, device="cuda") / 255.0
+    params = scene_to_params(scene)
+    loss = make_loss_fn(scene, target, _smooth_cfg(use_pallas=True))(params)
+    loss.backward()
+    print(f"[main] first step: loss {float(loss.detach()):.8e}, the JAX golden f32 {float(golden['loss']):.8e}, "
+          f"f64 {float(golden['loss64']):.8e}")
+    _noise_check("first-step loss (peer: the JAX f32 golden)", loss, golden["loss"], golden["loss64"])
+    for key, g in _leaf_grads(params).items():
+        _noise_check(f"first step d/d{key} (peer: the JAX f32 golden)", g, golden[f"grad/{key}"], golden[f"grad64/{key}"])
+
+    # 5. Recovery: perturb one specular gain; Adam lr 2e-2, 20 steps halves the loss.
+    with torch.no_grad():
+        target = torch.clamp(render(scene, _smooth_cfg(use_pallas=True)), 0.0, 1.0)
+    params = scene_to_params(scene, sphere_fields=("specular_gain",), light_fields=(), camera=False)
+    with torch.no_grad():
+        params["spheres.specular_gain"][1] += 0.3
+    step = make_train_step(make_loss_fn(scene, target, _smooth_cfg(use_pallas=True)))
+    state = init_state(params, adam(2e-2))
+    history = []
+    for _ in range(20):
+        state, loss = step(state)
+        history.append(float(loss))
+    print(f"[main] recovery: loss {history[0]:.6e} -> {history[-1]:.6e} in 20 Adam steps")
+    if not history[-1] < 0.5 * history[0]:
+        fail(f"recovery task: loss {history[0]:.6e} -> {history[-1]:.6e} did not halve")
     return launches
 
 
@@ -200,38 +504,126 @@ def time_ms(fn, warmup: int = 5, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def phase_timing(card: str) -> dict[str, tuple[float, float]]:
-    """Kernel and plain-version ms at reference 960x540, f32; returns (ms, plain_ms) per kernel."""
-    from python_ray_tracer_tpu_torch import RenderConfig, render
+def count_ops(fn) -> int:
+    """Elementwise floating-point operations ``fn`` performs, counted on its torch calls.
+
+    Every arithmetic, comparison, select, min/max and transcendental call
+    counts one operation per element of its largest operand (a sigmoid
+    three: negate-exp, add, divide); a reduction counts its input's
+    elements.  Indexing, copies and casts count nothing.  The smooth plain
+    versions do the kernels' work lane by lane: each lane's own tier of the
+    winner's quadratic, and each sphere's material gradients summed over
+    the lanes it won; a few selects (the checker texture) still evaluate
+    both arms.
+    """
+    from torch.overrides import TorchFunctionMode
+
+    weights = {"sigmoid": 3}
+    counted = {
+        "add", "radd", "iadd", "sub", "rsub", "isub", "mul", "rmul", "imul", "truediv", "rtruediv", "div", "rdiv",
+        "neg", "sqrt", "exp", "sigmoid", "sin", "cos", "pow", "rpow", "minimum", "maximum", "clamp", "clamp_min",
+        "abs", "sign", "trunc", "mod", "rmod", "remainder", "where", "lt", "le", "gt", "ge", "eq", "ne",
+        "and", "or", "invert", "sum", "prod",
+    }
+    total = 0
+
+    class Counter(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            nonlocal total
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", "").strip("_")
+            if name in counted:
+                sizes = [a.numel() for a in (*args, out) if isinstance(a, torch.Tensor)]
+                total += weights.get(name, 1) * max(sizes, default=1)
+            return out
+
+    with Counter():
+        fn()
+    return total
+
+
+def _bound(ops: int, n_bytes: int) -> tuple[float, str]:
+    """Least time for ``ops`` float32 operations and ``n_bytes`` of traffic, ms."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS_PER_S * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_timing(card: str) -> dict[str, dict]:
+    """Kernel and plain-version ms at reference 960x540 depth 3, f32, with each
+    kernel's bound; then the render frame and the benchmark's Adam step."""
+    from python_ray_tracer_tpu_torch import RenderConfig, bench, render
     from python_ray_tracer_tpu_torch.models.scenes import reference_scene
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
     from python_ray_tracer_tpu_torch.ops import bounce_sub as bs
 
     o, d, tables, kw = _inputs("reference", torch.float32, "cuda", WIDTH, HEIGHT)
     ones, zeros = torch.ones_like(d[0]), torch.zeros_like(d)
-    n = WIDTH * HEIGHT
-    res = {
+    so, sd, stables, skw = _smooth_inputs("reference", torch.float32, 3)
+    fwd = bss.smooth_fwd_deep(so, sd, *stables, **skw)
+    g_acc = _cotangent(sd)
+    tgt = (torch.clamp(fwd[0], 0.0, 1.0) * 0.9).contiguous()
+    bwd = bss.smooth_bwd_deep(so, sd, *fwd[1:], *stables, g_acc, **skw)
+    calls = {
         "trace_deep": (
-            time_ms(lambda: bs.trace_deep(o, d, *tables, depth=3, **kw)),
-            time_ms(lambda: bs.trace_deep_plain(o, d, *tables, depth=3, **kw)),
+            lambda: bs.trace_deep(o, d, *tables, depth=3, **kw),
+            lambda: bs.trace_deep_plain(o, d, *tables, depth=3, **kw),
+            _nbytes(o, d, d),  # o, d in; acc out
         ),
         "bounce_step": (
-            time_ms(lambda: bs.bounce_step(o, d, ones, ones, zeros, *tables, **kw)),
-            time_ms(lambda: bs.bounce_step_plain(o, d, ones, ones, zeros, *tables, **kw)),
+            lambda: bs.bounce_step(o, d, ones, ones, zeros, *tables, **kw),
+            lambda: bs.bounce_step_plain(o, d, ones, ones, zeros, *tables, **kw),
+            2 * _nbytes(o, d, ones, ones, zeros),  # the five state arrays in and out
+        ),
+        "smooth_fwd_deep": (
+            lambda: bss.smooth_fwd_deep(so, sd, *stables, **skw),
+            lambda: bss.smooth_fwd_deep_plain(so, sd, *stables, **skw),
+            _nbytes(so, sd, *fwd),
+        ),
+        "smooth_bwd_deep": (
+            lambda: bss.smooth_bwd_deep(so, sd, *fwd[1:], *stables, g_acc, **skw),
+            lambda: bss.smooth_bwd_deep_plain(so, sd, *fwd[1:], *stables, g_acc, **skw),
+            _nbytes(so, sd, *fwd[1:], g_acc, *bwd),
+        ),
+        "train_deep": (
+            lambda: bss.train_deep(so, sd, tgt, *stables, **skw),
+            lambda: bss.train_deep_plain(so, sd, tgt, *stables, **skw),
+            _nbytes(so, sd, tgt, *bss.train_deep(so, sd, tgt, *stables, **skw)),
         ),
     }
+    res: dict[str, dict] = {}
+    for name, (kernel, plain, n_bytes) in calls.items():
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, warmup=1, iters=3)
+        ops = count_ops(plain)
+        bound_ms, bound_by = _bound(ops, n_bytes)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        print(f"[timing] {name}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({ops / N_RAYS:.0f} operations per ray, {n_bytes} bytes), "
+              f"kernel at {bound_ms / ms:.1%} of its bound (reference {WIDTH}x{HEIGHT} f32, depth 3 "
+              f"or one bounce; {card})", flush=True)
     scene = reference_scene(WIDTH, HEIGHT, dtype=torch.float32, device="cuda")
-    frame_k = time_ms(lambda: render(scene, RenderConfig(max_depth=3, use_pallas=True)))
-    frame_p = time_ms(lambda: render(scene, RenderConfig(max_depth=3, use_pallas=False)))
-    for label, ms in (
-        ("trace_deep kernel, depth 3", res["trace_deep"][0]),
-        ("trace_deep plain version, depth 3", res["trace_deep"][1]),
-        ("bounce_step kernel, one bounce", res["bounce_step"][0]),
-        ("bounce_step plain version, one bounce", res["bounce_step"][1]),
-        ("render() through the kernels, depth 3", frame_k),
-        ("render() pure-torch route, depth 3", frame_p),
-    ):
-        print(f"[timing] {label}: {ms:.4f} ms/frame, {n / (ms * 1e-3):.4e} rays/s "
-              f"(reference {WIDTH}x{HEIGHT} f32; {card})", flush=True)
+    with torch.no_grad():
+        for label, cfg in (
+            ("hard, through the kernels", RenderConfig(max_depth=3, use_pallas=True)),
+            ("hard, pure-torch route", RenderConfig(max_depth=3, use_pallas=False)),
+            ("smooth, through the kernels", _smooth_cfg(use_pallas=True)),
+            ("smooth, pure-torch route", _smooth_cfg()),
+        ):
+            ms = time_ms(lambda: render(scene, cfg))
+            print(f"[timing] render() {label}, depth 3: {ms:.4f} ms/frame, {N_RAYS / (ms * 1e-3):.4e} rays/s "
+                  f"(reference {WIDTH}x{HEIGHT} f32; {card})", flush=True)
+    record = bench.main(width=WIDTH, height=HEIGHT, depth=3, steps=200, profile_steps=20)
+    print(f"[timing] bench Adam step: {record['step_ms']:.4f} ms/step, {record['value']:.4e} rays/s, "
+          f"{record['train_deep_launches_per_step']:g} train_deep launches per step; device time "
+          f"{record['profile_device_ms_per_step']:.4f} ms/step in {record['profile_device_ops_per_step']:.0f} "
+          f"kernels and copies, busy {record['device_busy_share']:.1%} of the step "
+          f"({record['profile_wall_ms_per_step']:.4f} ms/step under torch.profiler; {card})", flush=True)
+    for name, us in record["profile_device_us_per_step"].items():
+        print(f"[timing]   device time per step: {us:9.2f} us  {name}")
     return res
 
 
@@ -241,21 +633,22 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     errs = phase_kernels()
+    errs.update(phase_smooth_kernels())
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(Path(tmp))
+        launches.update(phase_smooth_main(Path(tmp)))
     timings = phase_timing(card)
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": errs[name],
-            "ms": timings[name][0],
-            "plain_ms": timings[name][1],
+            **timings[name],
         }
-        for name in ("trace_deep", "bounce_step")
+        for name in HARD + SMOOTH
     ]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -1,9 +1,11 @@
-"""Carry a scene across frameworks as a flat dict of numpy arrays.
+"""Carry a scene, or its parameters, across frameworks as numpy arrays.
 
-The keys are the JAX ``Scene`` pytree's leaf paths (``spheres.center``,
-``lights.dome_color``, ``camera.position``, ``texture_atlas``, ...), so a
-JAX scene flattened with its leaf paths rebuilds here as the same scene.
-The static fields (frame size, ``n_exact``) travel as arguments.
+The scene keys are the JAX ``Scene`` pytree's leaf paths
+(``spheres.center``, ``lights.dome_color``, ``camera.position``,
+``texture_atlas``, ...), so a JAX scene flattened with its leaf paths
+rebuilds here as the same scene.  The static fields (frame size,
+``n_exact``) travel as arguments.  Parameter dicts keep the keys of the
+JAX ``optim.scene_to_params``.
 """
 
 from __future__ import annotations
@@ -60,3 +62,21 @@ def scene_from_numpy(
         texture_atlas=leaf("texture_atlas"),
         texture_hw=leaf("texture_hw"),
     )
+
+
+def params_to_numpy(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A parameter dict (or its gradients) as numpy, same keys."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def params_from_numpy(
+    arrays: dict[str, np.ndarray],
+    *,
+    device: torch.device | str,
+    dtype: torch.dtype,
+) -> dict[str, torch.Tensor]:
+    """Leaves that require grad, keyed as the JAX ``scene_to_params`` dict
+    (``spheres.center``, ``lights.point_position``, ``camera.position``, ...)."""
+    return {
+        k: torch.tensor(np.asarray(v)).to(dtype).to(device).requires_grad_(True) for k, v in arrays.items()
+    }

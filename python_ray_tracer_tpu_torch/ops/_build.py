@@ -1,8 +1,9 @@
-"""Build and load the CUDA kernel library from the package's own sources.
+"""Build and load the CUDA kernel libraries from the package's own sources.
 
-``nvcc`` compiles ``csrc/*.cu`` into a shared library with a plain C
-interface, loaded with ``ctypes``.  The library's file name carries a hash
-of the sources and flags, so an edit rebuilds it; it lands in the
+``nvcc`` compiles each ``csrc/*.cu`` source into its own shared library
+with a plain C interface, loaded with ``ctypes``; :func:`build_all` starts
+one ``nvcc`` per source, all at once.  A library's file name carries a hash
+of its source and the flags, so an edit rebuilds it; it lands in the
 package's ``_build/`` directory at first use.  A missing ``nvcc`` or a
 failed build raises: there is no fallback.
 
@@ -22,10 +23,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bounce_sub.cu",)
+SOURCES = ("bounce_sub.cu", "bounce_smooth_sub.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -45,46 +48,76 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (looked on PATH, in $CUDA_HOME and /usr/local/cuda); cannot build the kernels")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(source: str) -> Path:
+    """Where the library of ``source`` lives for its current text and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libprt_kernels_{digest.hexdigest()[:16]}.so"
+    digest.update((CSRC / source).read_bytes())
+    return BUILD_DIR / f"libprt_{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str, float]:
-    """Compile the library unless it is already there.
+def build_all(sources: tuple[str, ...] = SOURCES) -> dict[str, tuple[Path, str, float]]:
+    """Compile every library that is not there yet, one ``nvcc`` per source,
+    all running at once.
 
-    Returns ``(path, compiler log, build seconds)``; the log holds ptxas's
-    per-kernel register and shared-memory report.  An existing library
-    returns an empty log and 0 seconds.
+    Returns ``{source: (path, compiler log, build seconds)}``; the log holds
+    ptxas's per-kernel register, shared-memory and spill report.  An
+    existing library returns an empty log and 0 seconds.
     """
-    out = library_path()
-    if out.exists():
-        return out, "", 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return out, proc.stdout + proc.stderr, seconds
+    results: dict[str, tuple[Path, str, float]] = {}
+    running = []
+    for source in sources:
+        out = library_path(source)
+        if out.exists():
+            results[source] = (out, "", 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((source, out, tmp, proc, time.perf_counter()))
+    failures = []
+    for source, out, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc {source} failed with code {proc.returncode}:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+        results[source] = (out, log, seconds)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return results
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed, then load the library once per process."""
-    path, _, _ = build()
+def load_library(source: str) -> ctypes.CDLL:
+    """Build ``source`` if needed, then load its library once per process."""
+    path, _, _ = build_all((source,))[source]
     lib = ctypes.CDLL(str(path))
     lib.prt_error_string.argtypes = [ctypes.c_int]
     lib.prt_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def error_string(err: int) -> str:
-    """``cudaGetErrorString`` of a code an entry returned."""
-    return load_library().prt_error_string(err).decode()
+@functools.cache
+def _entry(source: str, name: str, dtype: torch.dtype, signature: str):
+    """The C entry ``prt_<name>_<f32|f64>`` of ``source`` with its argtypes:
+    one code per argument before the trailing stream, p = pointer, i = int,
+    r = the dtype's real."""
+    lib = load_library(source)
+    real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "r": real}
+    fn = getattr(lib, f"prt_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = [codes[c] for c in signature] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(source: str, name: str, signature: str, dtype: torch.dtype, *args) -> None:
+    """Launch entry ``name`` of ``source`` on the current stream (tensors go
+    as their data pointers); raise on the CUDA error the entry returns."""
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = _entry(source, name, dtype, signature)(*c_args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        message = load_library(source).prt_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {message} ({err})")

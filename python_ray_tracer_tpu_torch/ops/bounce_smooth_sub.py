@@ -1,0 +1,782 @@
+"""Smooth-visibility bounce kernels: plain versions, wrappers and autograd.
+
+Port of the deterministic, no-atlas part of
+:mod:`python_ray_tracer_tpu.ops.pallas_bounce_smooth_sub`.  Three TPU
+kernels become CUDA kernels in ``csrc/bounce_smooth_sub.cu``, one thread
+per ray over the (3, N) layout of :func:`..camera.ray_directions_t`:
+
+* ``_fwd_kernel_sub_deep`` -> ``smooth_fwd_deep``: the whole smooth bounce
+  chain, acc plus the per-depth residuals the adjoint replays from;
+* ``_bwd_kernel_sub_deep`` -> ``smooth_bwd_deep``: the reverse adjoint
+  chain from those residuals: ray and table gradients;
+* ``_train_kernel_sub_deep`` -> ``train_deep``: forward chain, the L2
+  loss's cotangent and the reverse adjoint in one launch; returns the SSE
+  and every gradient and writes no residuals.
+
+Beside them sit their plain PyTorch versions: :func:`fwd_sub_math` is the
+body of the JAX ``_FwdSub`` (unrolled mode) and :func:`adjoint_bounce` its
+handwritten adjoint (Phases A-G), term for term, over (N,) rows.  A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+the kernel or raises.  Table gradients come back as ``geom`` (S, 4),
+``mat`` (S, 19) and ``consts`` (1, 16) tensors; autograd carries them
+through the table builders onto the scene's parameters, as JAX transposes
+them onto its scene arrays.
+
+:class:`_TraceSubDeep` pairs ``smooth_fwd_deep`` with ``smooth_bwd_deep``
+(any loss through ``render()``); :class:`_TrainLossSubDeep` wraps
+``train_deep``, whose backward is a scalar multiply of the gradients its
+forward already computed.  :data:`LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from types import SimpleNamespace
+
+import torch
+
+from . import _build
+from .bounce_smooth import (
+    EPS_DEN, b_cterm_plain, compensated_b_cterm, dot3, norm3, quad_sol_disc, sig, sol_disc_adjoint,
+    sol_disc_exact, sol_disc_plain,
+)
+from .shading import AMBIENT, GLINT_EXPONENT, NUDGE, SHADING_EPS, ipow
+from .tables import (
+    CX, CY, CZ, DCB, DCG, DCR, DG, IG, IOR, KIND, MAT_COLS, N_CONST, RAD, ROUGH, SG, TFI, TFT, TFW,
+    consts_row, geometry_table, material_table,
+)
+from .vecmath import sqrt
+
+# The kernels stage the side tables in shared memory, sized for this many
+# spheres (csrc/bounce_smooth_sub.cu kMaxSpheres: 23 values per sphere in
+# f64 stay under the 48 KB a block may take without opting in).
+MAX_SMOOTH_SPHERES = 256
+
+# train_deep keeps each bounce's replay state in a per-thread array of this
+# many entries (csrc/bounce_smooth_sub.cu kMaxTrainDepth); deeper L2 losses
+# take the two-launch pair through render().
+MAX_TRAIN_DEPTH = 64
+
+LAUNCHES = {"smooth_fwd_deep": 0, "smooth_bwd_deep": 0, "train_deep": 0}
+
+_SOURCE = "bounce_smooth_sub.cu"
+
+_NEG_BIG = -3.0e38  # max-disc fallback sentinel of the JAX kernel body
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the JAX kernel bodies, term for term, on (N,) rows.
+# ---------------------------------------------------------------------------
+
+
+def _sphere(geom, k):
+    return (geom[k, 0], geom[k, 1], geom[k, 2]), geom[k, 3]
+
+
+def _sphere_fn(k: int, s_cheap: int):
+    return sol_disc_plain if k < s_cheap else sol_disc_exact
+
+
+def fwd_sub_math(o, d, thr, alive, geom, mat, consts, *, faraway, s_cheap, sharp_e, sharp_s, saved=None):
+    """One smooth bounce (``_FwdSub``): every intermediate the adjoint reads.
+
+    ``o``/``d`` are 3-tuples of (N,) rows, ``thr``/``alive`` (N,).  With
+    ``saved = (idx, hit, clear)`` the winner and shadow sweeps are skipped
+    and their saved results used, as the backward kernels replay.
+    """
+    f = SimpleNamespace()
+    dtype = o[0].dtype
+    s_total = geom.shape[0]
+    f.dtype, f.thr, f.alive = dtype, thr, alive
+    f.sharp_e, f.sharp_s = sharp_e, sharp_s
+
+    saved_clear = None
+    if saved is not None:
+        f.idx, f.hit, saved_clear = saved
+    else:
+        far = torch.full_like(o[0], faraway)
+        tmin = far
+        imin = torch.zeros(o[0].shape, dtype=torch.int32, device=o[0].device)
+        dmax = torch.full_like(o[0], _NEG_BIG)
+        idmax = imin
+        for k in range(s_total):
+            c, r = _sphere(geom, k)
+            sol, disc, t, _, _ = _sphere_fn(k, s_cheap)(o, d, c, r, faraway)
+            take = t < tmin  # strict: lowest index wins exact ties
+            tmin = torch.where(take, t, tmin)
+            imin = torch.where(take, k, imin)
+            taked = disc > dmax
+            dmax = torch.where(taked, disc, dmax)
+            idmax = torch.where(taked, k, idmax)
+        f.hit = tmin != faraway
+        f.idx = torch.where(f.hit, imin, idmax).to(torch.int32)
+
+    rows = mat[f.idx.long()].T  # (19, N): each lane's winner row
+
+    def m(col):
+        return rows[col]
+
+    f.m = m
+    f.c_w = (m(CX), m(CY), m(CZ))
+    f.r_w = m(RAD)
+
+    # Winner-only per-lane quadratic, tier-matched to the sweep.
+    if s_cheap == s_total:
+        f.b_w, f.ct_w = b_cterm_plain(o, d, f.c_w, f.r_w)
+    elif s_cheap == 0:
+        f.b_w, f.ct_w = compensated_b_cterm(o, d, f.c_w, f.r_w)
+    else:
+        # Each lane evaluates its winner's tier only, as the kernels branch;
+        # the values are those of the JAX kernel's select over both tiers.
+        is_exact = f.idx >= s_cheap
+        f.b_w, f.ct_w = torch.empty_like(f.r_w), torch.empty_like(f.r_w)
+        for tier, lanes in ((b_cterm_plain, ~is_exact), (compensated_b_cterm, is_exact)):
+            sub = [tuple(v[i][lanes] for i in range(3)) for v in (o, d, f.c_w)]
+            f.b_w[lanes], f.ct_w[lanes] = tier(*sub, f.r_w[lanes])
+    f.sol_w, f.disc_w, _ = quad_sol_disc(f.b_w, f.ct_w, faraway)
+
+    f.sig_de = sig(sharp_e * f.disc_w)
+    f.sig_se = sig(sharp_e * f.sol_w)
+    f.cov_w = f.sig_de * f.sig_se
+    f.coverage = f.cov_w * alive
+
+    f.t_safe = torch.where(f.hit, f.sol_w, torch.ones_like(f.sol_w))
+    f.p = tuple(o[i] + d[i] * f.t_safe for i in range(3))
+    f.inv_r = 1.0 / f.r_w
+    f.normal = tuple((f.p[i] - f.c_w[i]) * f.inv_r for i in range(3))
+
+    f.cam = (consts[0, 0], consts[0, 1], consts[0, 2])
+    f.light = (consts[0, 3], consts[0, 4], consts[0, 5])
+    f.dome_c = (consts[0, 6], consts[0, 7], consts[0, 8])
+    f.dome_t = consts[0, 9]
+
+    f.L, f.l_mag = norm3(tuple(f.light[i] - f.p[i] for i in range(3)))
+    f.V, f.v_mag = norm3(tuple(f.cam[i] - f.p[i] for i in range(3)))
+    f.p_n = tuple(f.p[i] + f.normal[i] * NUDGE for i in range(3))
+
+    if saved_clear is not None:
+        f.clear = saved_clear
+    else:
+        clear = torch.ones_like(o[0])
+        for k in range(s_total):
+            c, r = _sphere(geom, k)
+            sol, disc, _, _, _ = _sphere_fn(k, s_cheap)(f.p_n, f.L, c, r, faraway)
+            occl = sig(sharp_s * disc) * sig(sharp_s * sol)
+            clear = clear * torch.where(f.idx == k, torch.ones_like(occl), 1.0 - occl)
+        f.clear = clear
+
+    f.n_dot_l = torch.clamp_min(dot3(f.normal, f.L), 0.0)
+    cx = torch.trunc(f.p[0] * 2.0).to(torch.int32) % 2
+    cz = torch.trunc(f.p[2] * 2.0).to(torch.int32) % 2
+    f.checker = (cx == cz).to(dtype)
+    f.is_checker = m(KIND) == 1.0
+    f.tex = tuple(torch.where(f.is_checker, f.checker, m(c)) for c in (DCR, DCG, DCB))
+    f.dw = f.n_dot_l * f.clear * m(DG)
+
+    f.relu_ny = torch.clamp_min(f.normal[1], 0.0)
+    f.dome_up = f.relu_ny * f.dome_t
+    f.dome = tuple(f.dome_c[i] * f.dome_up for i in range(3))
+
+    f.H, f.h_mag = norm3(tuple(f.L[i] + f.V[i] for i in range(3)))
+    f.nv_raw = dot3(f.normal, f.V)
+    f.nh_raw = dot3(f.normal, f.H)
+    f.vh_raw = dot3(f.V, f.H)
+    f.nl_raw = dot3(f.normal, f.L)
+    f.n_dot_v = torch.clamp(f.nv_raw, 0.0, 1.0)
+    f.n_dot_h = torch.clamp(f.nh_raw, 0.0, 1.0)
+    f.v_dot_h = torch.clamp(f.vh_raw, 0.0, 1.0)
+    f.n_dot_l_c = torch.clamp(f.nl_raw, 0.0, 1.0)
+    ior = m(IOR)
+    f.f0 = ipow((ior - 1.0) / (ior + 1.0), 2)
+    f.one_m_vdh5 = ipow(1.0 - f.v_dot_h, 5)
+    f.fresnel = f.f0 + (1.0 - f.f0) * f.one_m_vdh5
+    f.alpha = ipow(m(ROUGH), 2)
+    f.ggx_den = ipow(f.n_dot_h, 2) * (ipow(f.alpha, 2) - 1.0) + 1.0
+    f.dist = ipow(f.alpha, 2) / (math.pi * (ipow(f.ggx_den, 2) + SHADING_EPS))
+
+    def g1(x):
+        root = sqrt(ipow(f.alpha, 2) + (1.0 - ipow(f.alpha, 2)) * ipow(x, 2))
+        return 2.0 * x / (x + root + SHADING_EPS), root
+
+    f.g1l, f.g1l_root = g1(f.n_dot_l_c)
+    f.g1v, f.g1v_root = g1(f.n_dot_v)
+    f.geom = f.g1l * f.g1v
+    f.spec_den = 4.0 * f.n_dot_v + SHADING_EPS
+    f.spec_base = (f.fresnel * f.dist * f.geom) / f.spec_den
+    f.one_m_ndv = 1.0 - f.n_dot_v
+    f.glint = torch.pow(f.one_m_ndv, GLINT_EXPONENT) * f.n_dot_l_c
+    f.spec_gate = f.n_dot_v > 0
+    f.spec = torch.where(f.spec_gate, f.spec_base + m(SG) * f.glint, torch.zeros_like(f.glint))
+    f.spec_term = f.spec * m(SG) * f.clear
+
+    f.view_angle = torch.clamp(f.nv_raw, 0.0, 1.0)
+    f.angle_factor = torch.abs(f.view_angle - 0.5) * 2.0
+    f.phase = f.angle_factor * math.pi * m(TFT) * 10.0
+    f.ip = torch.sin(f.phase)
+    f.hue = (m(TFI) - 1.0) / 2.0
+    f.irid_w = m(TFW) * m(IG)
+    f.irid_base = (
+        f.ip * f.hue + (1.0 - f.hue) * (1.0 - f.ip),
+        f.ip * (1.0 - f.hue) + f.hue * (1.0 - f.ip),
+        0.5 + 0.5 * f.ip,
+    )
+    f.irid = tuple(f.irid_base[i] * f.irid_w for i in range(3))
+
+    f.color = tuple(AMBIENT + f.tex[i] * f.dw + f.dome[i] + f.spec_term + f.irid[i] for i in range(3))
+
+    f.w = thr * f.coverage
+    f.refl_coeff = 0.5 * m(SG) * f.clear
+    f.thr_out = f.w * f.refl_coeff
+
+    f.ddn = 2.0 * dot3(d, f.normal)
+    f.refl, f.u_mag = norm3(tuple(d[i] - f.normal[i] * f.ddn for i in range(3)))
+    return f
+
+
+def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap):
+    """One bounce's handwritten adjoint (``_adjoint_bounce``, Phases A-G).
+
+    ``cots = (g_o_out, g_dout, g_thr_out, g_alive_out, g_acc)``, the
+    cotangents of the bounce's outputs.  Returns those of its inputs
+    ``(g_o, g_d, g_thr, g_alive)``; the table gradients are added into
+    ``ggeom`` (S, 4), ``gmat`` (S, 19) and ``gconst`` (1, 16) in place.
+    """
+    g_o_out, g_dout, g_thr_o, g_alive_o, g_acc = cots
+    dtype = f.dtype
+    m = f.m
+    s_total = geom.shape[0]
+    zero = torch.zeros_like(f.w)
+
+    # --- Phase A: top level and shading ---
+    g_color = tuple(g_acc[i] * f.w for i in range(3))
+    g_w = g_acc[0] * f.color[0] + g_acc[1] * f.color[1] + g_acc[2] * f.color[2]
+    g_w = g_w + g_thr_o * f.refl_coeff
+    g_rc = g_thr_o * f.w
+    g_sg = 0.5 * f.clear * g_rc
+    g_clear = 0.5 * m(SG) * g_rc
+    g_coverage = g_alive_o + g_w * f.thr
+    g_thr_in = g_w * f.coverage
+
+    # continuation direction: dout = refl = u / |u|
+    g_refl = g_dout
+    rdot = dot3(f.refl, g_refl)
+    inv_umag = 1.0 / torch.clamp_min(f.u_mag, EPS_DEN)
+    g_u = tuple((g_refl[i] - f.refl[i] * rdot) * inv_umag for i in range(3))
+    g_d_acc = list(g_u)
+    g_ddn = -dot3(f.normal, g_u)
+    g_n_acc = [-f.ddn * g_u[i] for i in range(3)]
+    for i in range(3):
+        g_d_acc[i] = g_d_acc[i] + 2.0 * f.normal[i] * g_ddn
+        g_n_acc[i] = g_n_acc[i] + 2.0 * d[i] * g_ddn
+
+    g_tex = tuple(g_color[i] * f.dw for i in range(3))
+    g_dw = g_color[0] * f.tex[0] + g_color[1] * f.tex[1] + g_color[2] * f.tex[2]
+    g_spec_term = g_color[0] + g_color[1] + g_color[2]
+    g_irid_w = g_color[0] * f.irid_base[0] + g_color[1] * f.irid_base[1] + g_color[2] * f.irid_base[2]
+    g_ip = f.irid_w * (
+        g_color[0] * (2.0 * f.hue - 1.0) + g_color[1] * (1.0 - 2.0 * f.hue) + g_color[2] * 0.5
+    )
+    g_hue = f.irid_w * (g_color[0] * (2.0 * f.ip - 1.0) + g_color[1] * (1.0 - 2.0 * f.ip))
+    g_tfw = g_irid_w * m(IG)
+    g_ig = g_irid_w * m(TFW)
+    g_tfi = g_hue * 0.5
+    g_phase = torch.cos(f.phase) * g_ip
+    g_af = math.pi * 10.0 * m(TFT) * g_phase
+    g_tft = f.angle_factor * math.pi * 10.0 * g_phase
+    g_va = 2.0 * torch.sign(f.view_angle - 0.5) * g_af
+    gate_nv = ((f.nv_raw > 0) & (f.nv_raw < 1)).to(dtype)
+    g_nv_raw = g_va * gate_nv
+    g_spec = g_spec_term * m(SG) * f.clear
+    g_sg = g_sg + g_spec_term * f.spec * f.clear
+    g_clear = g_clear + g_spec_term * f.spec * m(SG)
+    g_spec = torch.where(f.spec_gate, g_spec, zero)
+    g_spec_base = g_spec
+    g_sg = g_sg + g_spec * f.glint
+    g_glint = g_spec * m(SG)
+    g_one_m_ndv = g_glint * GLINT_EXPONENT * torch.pow(f.one_m_ndv, GLINT_EXPONENT - 1.0) * f.n_dot_l_c
+    g_ndv = -g_one_m_ndv
+    g_nlc = g_glint * torch.pow(f.one_m_ndv, GLINT_EXPONENT)
+    inv_sden = 1.0 / f.spec_den
+    g_fres = g_spec_base * f.dist * f.geom * inv_sden
+    g_dist = g_spec_base * f.fresnel * f.geom * inv_sden
+    g_geom = g_spec_base * f.fresnel * f.dist * inv_sden
+    g_sden = -g_spec_base * f.spec_base * inv_sden
+    g_ndv = g_ndv + 4.0 * g_sden
+    A = f.alpha
+    g_g1l = g_geom * f.g1v
+    g_g1v = g_geom * f.g1l
+
+    def g1_adj(x, R, g_g1):
+        Rs = torch.clamp_min(R, EPS_DEN)
+        den = x + R + SHADING_EPS
+        Rp = (1.0 - ipow(A, 2)) * x / Rs
+        gx = g_g1 * 2.0 * (R + SHADING_EPS - x * Rp) / (den * den)
+        dRdA = A * (1.0 - x * x) / Rs
+        gA = g_g1 * (-2.0 * x / (den * den)) * dRdA
+        return gx, gA
+
+    gx_l, gA_l = g1_adj(f.n_dot_l_c, f.g1l_root, g_g1l)
+    gx_v, gA_v = g1_adj(f.n_dot_v, f.g1v_root, g_g1v)
+    g_nlc = g_nlc + gx_l
+    g_ndv = g_ndv + gx_v
+    g_A = zero + gA_l + gA_v
+    Dq = f.ggx_den
+    denD = math.pi * (Dq * Dq + SHADING_EPS)
+    g_A = g_A + g_dist * 2.0 * A / denD
+    g_Dq = g_dist * (-(A * A) * 2.0 * Dq * math.pi) / (denD * denD)
+    g_ndh = g_Dq * 2.0 * f.n_dot_h * (A * A - 1.0)
+    g_A = g_A + g_Dq * ipow(f.n_dot_h, 2) * 2.0 * A
+    g_f0 = g_fres * (1.0 - f.one_m_vdh5)
+    g_vdh = -g_fres * (1.0 - f.f0) * 5.0 * ipow(1.0 - f.v_dot_h, 4)
+    ior = m(IOR)
+    ratio = (ior - 1.0) / (ior + 1.0)
+    g_ior = g_f0 * 2.0 * ratio * (2.0 / ipow(ior + 1.0, 2))
+    g_rough = 2.0 * m(ROUGH) * g_A
+    g_ndv_raw = g_ndv * gate_nv + g_nv_raw
+    g_ndh_raw = g_ndh * ((f.nh_raw > 0) & (f.nh_raw < 1)).to(dtype)
+    g_vdh_raw = g_vdh * ((f.vh_raw > 0) & (f.vh_raw < 1)).to(dtype)
+    g_nlc_raw = g_nlc * ((f.nl_raw > 0) & (f.nl_raw < 1)).to(dtype)
+    g_dome_c = tuple(g_color[i] * f.dome_up for i in range(3))
+    g_dome_up = g_color[0] * f.dome_c[0] + g_color[1] * f.dome_c[1] + g_color[2] * f.dome_c[2]
+    g_relu_ny = g_dome_up * f.dome_t
+    g_dome_t = g_dome_up * f.relu_ny
+    g_n_acc[1] = g_n_acc[1] + g_relu_ny * (f.normal[1] > 0).to(dtype)
+    g_ndl = g_dw * f.clear * m(DG)
+    g_clear = g_clear + g_dw * f.n_dot_l * m(DG)
+    g_dg = g_dw * f.n_dot_l * f.clear
+    g_nl_relu = g_ndl * (f.nl_raw > 0).to(dtype)
+    is_const = (~f.is_checker).to(dtype)
+    g_dcc = tuple(g_tex[i] * is_const for i in range(3))
+    g_cov_w = g_coverage * f.alive
+    g_alive_in = g_coverage * f.cov_w
+    g_disc_w = g_cov_w * f.sig_se * f.sig_de * (1.0 - f.sig_de) * f.sharp_e
+    g_sol_w = g_cov_w * f.sig_de * f.sig_se * (1.0 - f.sig_se) * f.sharp_e
+
+    g_L_acc = [f.normal[i] * (g_nlc_raw + g_nl_relu) for i in range(3)]
+    g_V_acc = [f.normal[i] * g_ndv_raw + f.H[i] * g_vdh_raw for i in range(3)]
+    g_H_acc = [f.normal[i] * g_ndh_raw + f.V[i] * g_vdh_raw for i in range(3)]
+    for i in range(3):
+        g_n_acc[i] = g_n_acc[i] + f.V[i] * g_ndv_raw + f.H[i] * g_ndh_raw + f.L[i] * (g_nlc_raw + g_nl_relu)
+
+    # --- Phase B: H = (L + V) / |L + V| ---
+    hdot = dot3(f.H, g_H_acc)
+    inv_hmag = 1.0 / torch.clamp_min(f.h_mag, EPS_DEN)
+    for i in range(3):
+        g_lv = (g_H_acc[i] - f.H[i] * hdot) * inv_hmag
+        g_L_acc[i] = g_L_acc[i] + g_lv
+        g_V_acc[i] = g_V_acc[i] + g_lv
+
+    # --- Phase C: shadow-product adjoint, one sphere at a time ---
+    g_pn_s = [zero, zero, zero]
+    for k in range(s_total):
+        c, r = _sphere(geom, k)
+        sol, disc, _, b, ct = _sphere_fn(k, s_cheap)(f.p_n, f.L, c, r, faraway)
+        sd = sig(f.sharp_s * disc)
+        ss = sig(f.sharp_s * sol)
+        occl = sd * ss
+        is_self = f.idx == k
+        fac = torch.where(is_self, torch.ones_like(occl), 1.0 - occl)
+        g_fac = g_clear * f.clear / torch.clamp_min(fac, EPS_DEN)
+        g_occl = torch.where(is_self, zero, -g_fac)
+        g_disc_j = g_occl * ss * sd * (1.0 - sd) * f.sharp_s
+        g_sol_j = g_occl * sd * ss * (1.0 - ss) * f.sharp_s
+        g_b, g_ct = sol_disc_adjoint(b, ct, g_sol_j, g_disc_j)
+        oc = tuple(f.p_n[i] - c[i] for i in range(3))
+        for i in range(3):
+            g_pn_s[i] = g_pn_s[i] + 2.0 * f.L[i] * g_b + 2.0 * oc[i] * g_ct
+            g_L_acc[i] = g_L_acc[i] + 2.0 * oc[i] * g_b
+            ggeom[k, i] += torch.sum(-2.0 * f.L[i] * g_b - 2.0 * oc[i] * g_ct)
+        ggeom[k, 3] += torch.sum(-2.0 * r * g_ct)
+
+    # --- Phase D: p_n, L, V unit-vector transposes ---
+    g_pn = [g_o_out[i] + g_pn_s[i] for i in range(3)]
+    g_p = list(g_pn)
+    for i in range(3):
+        g_n_acc[i] = g_n_acc[i] + NUDGE * g_pn[i]
+    ldot = dot3(f.L, g_L_acc)
+    inv_lmag = 1.0 / torch.clamp_min(f.l_mag, EPS_DEN)
+    g_light = []
+    for i in range(3):
+        g_lv = (g_L_acc[i] - f.L[i] * ldot) * inv_lmag
+        g_light.append(g_lv)
+        g_p[i] = g_p[i] - g_lv
+    vdot = dot3(f.V, g_V_acc)
+    inv_vmag = 1.0 / torch.clamp_min(f.v_mag, EPS_DEN)
+    g_cam = []
+    for i in range(3):
+        g_vv = (g_V_acc[i] - f.V[i] * vdot) * inv_vmag
+        g_cam.append(g_vv)
+        g_p[i] = g_p[i] - g_vv
+
+    # --- Phase E: normal, p, winner quadratic ---
+    g_cw = [zero, zero, zero]
+    g_rw = -dot3(f.normal, g_n_acc) * f.inv_r
+    for i in range(3):
+        g_p[i] = g_p[i] + g_n_acc[i] * f.inv_r
+        g_cw[i] = g_cw[i] - g_n_acc[i] * f.inv_r
+    g_o_in = list(g_p)
+    g_t = dot3(d, g_p)
+    for i in range(3):
+        g_d_acc[i] = g_d_acc[i] + g_p[i] * f.t_safe
+    g_sol_w = g_sol_w + torch.where(f.hit, g_t, zero)
+    g_bw, g_ctw = sol_disc_adjoint(f.b_w, f.ct_w, g_sol_w, g_disc_w)
+    oc_w = tuple(o[i] - f.c_w[i] for i in range(3))
+    for i in range(3):
+        g_o_in[i] = g_o_in[i] + 2.0 * d[i] * g_bw + 2.0 * oc_w[i] * g_ctw
+        g_d_acc[i] = g_d_acc[i] + 2.0 * oc_w[i] * g_bw
+        g_cw[i] = g_cw[i] - 2.0 * d[i] * g_bw - 2.0 * oc_w[i] * g_ctw
+    g_rw = g_rw - 2.0 * f.r_w * g_ctw
+
+    # --- Phase F: per-lane material gradients into their winner's row ---
+    cols = (CX, CY, CZ, RAD, DG, DCR, DCG, DCB, SG, ROUGH, IG, IOR, TFW, TFT, TFI)
+    vals = torch.stack([
+        g_cw[0], g_cw[1], g_cw[2], g_rw, g_dg, g_dcc[0], g_dcc[1], g_dcc[2],
+        g_sg, g_rough, g_ig, g_ior, g_tfw, g_tft, g_tfi,
+    ])  # (15, N)
+    for k in range(s_total):
+        gmat[k, list(cols)] += torch.sum(vals[:, f.idx == k], dim=1)
+
+    # --- Phase G: scene constants ---
+    const_vals = (*g_cam, *g_light, *g_dome_c, g_dome_t)
+    gconst[0, : len(const_vals)] += torch.stack([torch.sum(v) for v in const_vals])
+
+    return tuple(g_o_in), tuple(g_d_acc), g_thr_in, g_alive_in
+
+
+def smooth_fwd_deep_plain(o, d, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+    """Plain version of ``smooth_fwd_deep``: ``depth`` smooth bounces from
+    unit throughput.  Returns ``(acc, osave, dsave, thrsave, alivesave,
+    idx, hit, clear)``: acc (3, N); the state entering bounces 1..depth-1,
+    (3*(depth-1), N) for o and d and (depth-1, N) for thr and alive; and
+    per bounce (depth, N) the winner (int32), hit (0/1) and shadow clear."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    n = d.shape[1]
+    o3, d3 = tuple(o), tuple(d)
+    thr = torch.ones_like(d[0])
+    alive = torch.ones_like(d[0])
+    acc = [torch.zeros_like(d[0]) for _ in range(3)]
+    osave, dsave, thrsave, alivesave, idx, hit, clear = [], [], [], [], [], [], []
+    for dep in range(depth):
+        if dep > 0:
+            osave += list(o3)
+            dsave += list(d3)
+            thrsave.append(thr)
+            alivesave.append(alive)
+        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, **kw)
+        acc = [acc[i] + f.color[i] * f.w for i in range(3)]
+        idx.append(f.idx)
+        hit.append(f.hit.to(d.dtype))
+        clear.append(f.clear)
+        o3, d3, thr, alive = f.p_n, f.refl, f.thr_out, f.coverage
+
+    def stack(xs, dt=d.dtype):
+        return torch.stack(xs) if xs else torch.empty((0, n), dtype=dt, device=d.device)
+
+    return (
+        torch.stack(acc), stack(osave), stack(dsave), stack(thrsave), stack(alivesave),
+        stack(idx, torch.int32), stack(hit), stack(clear),
+    )
+
+
+def _reverse_chain(states, g_acc, geom, mat, consts, kw):
+    """The adjoint chain in reverse depth order over replayed bounces.
+
+    ``states[dep] = (o, d, thr, alive, saved)``.  The trace discards the
+    last bounce's ``(o, d, thr, alive)``, so their cotangents start at zero;
+    ``g_acc`` is the same for every bounce (acc is a pure accumulator)."""
+    ggeom, gmat, gconst = torch.zeros_like(geom), torch.zeros_like(mat), torch.zeros_like(consts)
+    zero = torch.zeros_like(g_acc[0])
+    g_o, g_d, g_thr, g_alive = (zero, zero, zero), (zero, zero, zero), zero, zero
+    for o3, d3, thr, alive, saved in reversed(states):
+        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, saved=saved, **kw)
+        g_o, g_d, g_thr, g_alive = adjoint_bounce(
+            f, o3, d3, (g_o, g_d, g_thr, g_alive, g_acc), geom, ggeom, gmat, gconst,
+            faraway=kw["faraway"], s_cheap=kw["s_cheap"],
+        )
+    return torch.stack(g_o), torch.stack(g_d), ggeom, gmat, gconst
+
+
+def smooth_bwd_deep_plain(
+    o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc,
+    *, depth, faraway, s_cheap, sharp_e, sharp_s,
+):
+    """Plain version of ``smooth_bwd_deep``: from the forward's residuals
+    and acc's cotangent (3, N), returns ``(g_o, g_d, g_geom, g_mat, g_consts)``."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    ones = torch.ones_like(d[0])
+    states = []
+    for dep in range(depth):
+        if dep == 0:
+            o3, d3, thr, alive = tuple(o), tuple(d), ones, ones
+        else:
+            j = 3 * (dep - 1)
+            o3, d3 = tuple(osave[j : j + 3]), tuple(dsave[j : j + 3])
+            thr, alive = thrsave[dep - 1], alivesave[dep - 1]
+        states.append((o3, d3, thr, alive, (idx[dep], hit[dep] != 0, clear[dep])))
+    return _reverse_chain(states, tuple(g_acc), geom, mat, consts, kw)
+
+
+def clip_gate(x, lo: float, hi: float):
+    """d/dx of ``jnp.clip(x, lo, hi)`` with JAX's 0.5 split at exact boundaries."""
+    dt = x.dtype
+    g_lo = 0.5 * ((x >= lo).to(dt) + (x > lo).to(dt))
+    y = torch.clamp_min(x, lo)
+    g_hi = 0.5 * ((y <= hi).to(dt) + (y < hi).to(dt))
+    return g_lo * g_hi
+
+
+def train_deep_plain(o, d, tgt, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+    """Plain version of ``train_deep``: ``sum((clip(acc, 0, 1) - tgt)^2)``
+    over all (3, N) values and its gradients.  Returns ``(sse, g_o, g_d,
+    g_geom, g_mat, g_consts)``; the 1/(3N) of the mean is the caller's."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    o3, d3 = tuple(o), tuple(d)
+    thr = torch.ones_like(d[0])
+    alive = torch.ones_like(d[0])
+    acc = [torch.zeros_like(d[0]) for _ in range(3)]
+    states = []
+    for _ in range(depth):
+        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, **kw)
+        acc = [acc[i] + f.color[i] * f.w for i in range(3)]
+        states.append((o3, d3, thr, alive, (f.idx, f.hit, f.clear)))
+        o3, d3, thr, alive = f.p_n, f.refl, f.thr_out, f.coverage
+    sse = torch.zeros_like(d[0])
+    g_acc = []
+    for i in range(3):
+        e = torch.clamp(acc[i], 0.0, 1.0) - tgt[i]
+        sse = sse + e * e
+        g_acc.append(2.0 * e * clip_gate(acc[i], 0.0, 1.0))
+    return (torch.sum(sse), *_reverse_chain(states, tuple(g_acc), geom, mat, consts, kw))
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version on CPU tensors, kernel launch on CUDA tensors.
+# ---------------------------------------------------------------------------
+
+
+def _check(rays: dict, geom, mat, consts, *, s_cheap: int, depth: int, stacks: dict | None = None) -> torch.device:
+    """Validate what the kernels take; returns the common device."""
+    stacks = stacks or {}
+    tensors = {**rays, **{k: v for k, (v, _) in stacks.items()}, "geom": geom, "mat": mat, "consts": consts}
+    ref = next(iter(rays.values()))
+    n = ref.shape[-1]
+    s = geom.shape[0]
+    for name, t in tensors.items():
+        want_dt = torch.int32 if name == "idx" else ref.dtype
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise ValueError(
+                f"{name}: the kernels compute their own gradients; call them through "
+                "_TraceSubDeep/_TrainLossSubDeep or pass a detached tensor"
+            )
+        if t.device != ref.device or t.dtype != want_dt:
+            raise ValueError(f"{name}: expected {want_dt} on {ref.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    for name, t in rays.items():
+        if t.shape != (3, n):
+            raise ValueError(f"{name}: expected shape (3, {n}), got {tuple(t.shape)}")
+    for name, (t, rows) in stacks.items():
+        if t.shape != (rows, n):
+            raise ValueError(f"{name}: expected shape ({rows}, {n}), got {tuple(t.shape)}")
+    if geom.shape != (s, 4) or mat.shape != (s, MAT_COLS) or consts.shape != (1, N_CONST):
+        raise ValueError("tables: expected geom (S, 4), mat (S, 19) and consts (1, 16)")
+    if not 1 <= s <= MAX_SMOOTH_SPHERES:
+        raise ValueError(f"the smooth kernels take 1..{MAX_SMOOTH_SPHERES} spheres, got {s}")
+    if not 0 <= s_cheap <= s:
+        raise ValueError(f"s_cheap must lie in 0..{s}, got {s_cheap}")
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    if n == 0:
+        raise ValueError("no rays to trace")
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {ref.dtype}")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {ref.device}")
+    return ref.device
+
+
+# C signatures of the entries in csrc/bounce_smooth_sub.cu, before the
+# trailing stream: p = pointer, i = int, r = the dtype's real.
+_SIGNATURES = {
+    # o, d, geom, mat, consts, acc, osave, dsave, thrsave, alivesave, idx,
+    # hit, clear; n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
+    "smooth_fwd_deep": "ppppp" "pppppppp" "iiii" "rrr",
+    # o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat,
+    # consts, g_acc, g_o, g_d, partials, table grads; n, s_cheap, s_total,
+    # depth; faraway, sharp_e, sharp_s
+    "smooth_bwd_deep": "ppppppppp" "ppp" "p" "pppp" "iiii" "rrr",
+    # o, d, tgt, geom, mat, consts, g_o, g_d, partials, sse + table grads;
+    # n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
+    "train_deep": "ppp" "ppp" "pppp" "iiii" "rrr",
+}
+
+# Per-warp partial sums of the table gradients: 4 + 19 values per sphere,
+# 16 scene constants, and the SSE (train_deep only).
+_WARP = 32
+
+
+def _n_vals(s: int) -> int:
+    return (4 + MAT_COLS) * s + N_CONST + 1
+
+
+def _launch(name: str, dtype: torch.dtype, *args) -> None:
+    """Launch kernel ``name`` on the current stream and count it."""
+    _build.launch(_SOURCE, name, _SIGNATURES[name], dtype, *args)
+    LAUNCHES[name] += 1
+
+
+def _scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s):
+    return (n, s_cheap, s, depth, float(faraway), float(sharp_e), float(sharp_s))
+
+
+def _split_grads(flat, s: int):
+    """(n_vals,) reduced partials -> (g_geom, g_mat, g_consts, sse)."""
+    g_geom = flat[: 4 * s].reshape(s, 4)
+    g_mat = flat[4 * s : (4 + MAT_COLS) * s].reshape(s, MAT_COLS)
+    g_consts = flat[(4 + MAT_COLS) * s : (4 + MAT_COLS) * s + N_CONST].reshape(1, N_CONST)
+    return g_geom, g_mat, g_consts, flat[-1]
+
+
+def smooth_fwd_deep(o, d, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+    """The smooth chain in one launch; outputs as :func:`smooth_fwd_deep_plain`."""
+    kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    device = _check({"o": o, "d": d}, geom, mat, consts, s_cheap=s_cheap, depth=depth)
+    if device.type == "cpu":
+        return smooth_fwd_deep_plain(o, d, geom, mat, consts, **kw)
+    n, s = d.shape[1], geom.shape[0]
+    with torch.cuda.device(device):
+        e = functools.partial(torch.empty, dtype=d.dtype, device=device)
+        outs = (
+            e((3, n)), e((3 * (depth - 1), n)), e((3 * (depth - 1), n)), e((depth - 1, n)),
+            e((depth - 1, n)), torch.empty((depth, n), dtype=torch.int32, device=device),
+            e((depth, n)), e((depth, n)),
+        )
+        _launch("smooth_fwd_deep", d.dtype, o, d, geom, mat, consts, *outs,
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
+    return outs
+
+
+def smooth_bwd_deep(
+    o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc,
+    *, depth, faraway, s_cheap, sharp_e, sharp_s,
+):
+    """The reverse adjoint chain in one launch (plus the fixed-order
+    reduction of the table gradients); outputs as :func:`smooth_bwd_deep_plain`."""
+    kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    stacks = {
+        "osave": (osave, 3 * (depth - 1)), "dsave": (dsave, 3 * (depth - 1)),
+        "thrsave": (thrsave, depth - 1), "alivesave": (alivesave, depth - 1),
+        "idx": (idx, depth), "hit": (hit, depth), "clear": (clear, depth),
+    }
+    device = _check({"o": o, "d": d, "g_acc": g_acc}, geom, mat, consts, s_cheap=s_cheap, depth=depth, stacks=stacks)
+    if device.type == "cpu":
+        return smooth_bwd_deep_plain(o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc, **kw)
+    n, s = d.shape[1], geom.shape[0]
+    with torch.cuda.device(device):
+        g_o, g_d = torch.empty_like(d), torch.empty_like(d)
+        partials = torch.zeros((_n_vals(s), (n + _WARP - 1) // _WARP), dtype=d.dtype, device=device)
+        flat = torch.empty((_n_vals(s),), dtype=d.dtype, device=device)
+        _launch("smooth_bwd_deep", d.dtype, o, d, osave, dsave, thrsave, alivesave, idx, hit, clear,
+                geom, mat, consts, g_acc, g_o, g_d, partials, flat,
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
+    g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
+    return g_o, g_d, g_geom, g_mat, g_consts
+
+
+def train_deep(o, d, tgt, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+    """Loss and every gradient in one launch (plus the fixed-order reduction
+    of the table gradients and the SSE); outputs as :func:`train_deep_plain`."""
+    kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    device = _check({"o": o, "d": d, "tgt": tgt}, geom, mat, consts, s_cheap=s_cheap, depth=depth)
+    if depth > MAX_TRAIN_DEPTH:
+        raise ValueError(f"train_deep takes depth <= {MAX_TRAIN_DEPTH}, got {depth}")
+    if device.type == "cpu":
+        return train_deep_plain(o, d, tgt, geom, mat, consts, **kw)
+    n, s = d.shape[1], geom.shape[0]
+    with torch.cuda.device(device):
+        g_o, g_d = torch.empty_like(d), torch.empty_like(d)
+        partials = torch.zeros((_n_vals(s), (n + _WARP - 1) // _WARP), dtype=d.dtype, device=device)
+        flat = torch.empty((_n_vals(s),), dtype=d.dtype, device=device)
+        _launch("train_deep", d.dtype, o, d, tgt, geom, mat, consts, g_o, g_d, partials, flat,
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
+    g_geom, g_mat, g_consts, sse = _split_grads(flat, s)
+    return sse, g_o, g_d, g_geom, g_mat, g_consts
+
+
+# ---------------------------------------------------------------------------
+# Autograd: the kernels' own adjoints stand in for torch's.
+# ---------------------------------------------------------------------------
+
+
+class _TraceSubDeep(torch.autograd.Function):
+    """acc (3, N) of the smooth chain; backward launches ``smooth_bwd_deep``."""
+
+    @staticmethod
+    def forward(ctx, o, d, geom, mat, consts, kw):
+        acc, *res = smooth_fwd_deep(o, d, geom, mat, consts, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(o, d, *res, geom, mat, consts)
+        return acc
+
+    @staticmethod
+    def backward(ctx, g_acc):
+        g_o, g_d, g_geom, g_mat, g_consts = smooth_bwd_deep(*ctx.saved_tensors, g_acc.contiguous(), **ctx.kw)
+        return g_o, g_d, g_geom, g_mat, g_consts, None
+
+
+class _TrainLossSubDeep(torch.autograd.Function):
+    """SSE of the clipped chain against ``tgt``; the forward's one
+    ``train_deep`` launch already computed every gradient, so backward only
+    scales them.  The target is a constant of the loss: its cotangent is
+    zero by contract, as in the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, o, d, tgt, geom, mat, consts, kw):
+        sse, *grads = train_deep(o, d, tgt, geom, mat, consts, **kw)
+        ctx.save_for_backward(*grads)
+        return sse
+
+    @staticmethod
+    def backward(ctx, g):
+        g_o, g_d, g_geom, g_mat, g_consts = ctx.saved_tensors
+        return g * g_o, g * g_d, None, g * g_geom, g * g_mat, g * g_consts, None
+
+
+def _kernel_inputs(origin, dirs_t, scene, cfg):
+    """(o, d) (3, N), the three tables and the scalar parameters."""
+    if scene.spheres.count > MAX_SMOOTH_SPHERES:
+        raise NotImplementedError(
+            f"{scene.spheres.count} spheres: the smooth kernels stage at most {MAX_SMOOTH_SPHERES} "
+            "spheres in shared memory; bigger tables wait for the port of "
+            "python_ray_tracer_tpu.ops.pallas_bounce_smooth.trace_fused_smooth"
+        )
+    dtype = cfg.dtype
+    d = dirs_t.to(dtype).contiguous()
+    o = origin.to(dtype).reshape(3, 1).expand(d.shape).contiguous()
+    tables = (geometry_table(scene, dtype), material_table(scene, dtype), consts_row(scene, dtype))
+    kw = dict(
+        depth=cfg.max_depth, faraway=cfg.faraway, s_cheap=scene.spheres.count - scene.spheres.n_exact,
+        sharp_e=float(cfg.edge_sharpness), sharp_s=float(cfg.shadow_sharpness),
+    )
+    return o, d, tables, kw
+
+
+def trace_fused_smooth_sub(origin, dirs_t, scene, cfg) -> torch.Tensor:
+    """Smooth-visibility trace through the depth-fused kernel pair; (N, 3)."""
+    o, d, tables, kw = _kernel_inputs(origin, dirs_t, scene, cfg)
+    return _TraceSubDeep.apply(o, d, *tables, kw).T
+
+
+def fused_train_l2(origin, dirs_t, target, scene, cfg) -> torch.Tensor:
+    """L2 pixel loss (mean over N*3 values of the CLIPPED render against
+    ``target`` (N, 3)) through the single-launch train kernel.
+
+    The gradient flows to the scene (rays, sphere tables, lights, camera)
+    only: ``target`` is a constant of the loss, and its cotangent is zero
+    by contract.
+    """
+    o, d, tables, kw = _kernel_inputs(origin, dirs_t, scene, cfg)
+    n = d.shape[1]
+    tgt = target.detach().to(cfg.dtype).reshape(n, 3).T.contiguous()
+    return _TrainLossSubDeep.apply(o, d, tgt, *tables, kw) / (n * 3)

@@ -21,8 +21,6 @@ path went through the kernels.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
@@ -44,6 +42,8 @@ MAX_SUB_SPHERES = 64
 _BIG = 3.0e38
 
 LAUNCHES = {"trace_deep": 0, "bounce_step": 0}
+
+_SOURCE = "bounce_sub.cu"
 
 
 # ---------------------------------------------------------------------------
@@ -329,25 +329,9 @@ _SIGNATURES = {
 }
 
 
-@functools.cache
-def _entry(name: str, dtype: torch.dtype):
-    """The C entry ``prt_<name>_<f32|f64>`` with its argtypes declared."""
-    lib = _build.load_library()
-    real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
-    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "r": real}
-    fn = getattr(lib, f"prt_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
-    fn.argtypes = [codes[c] for c in _SIGNATURES[name]] + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Launch kernel ``name`` on the current stream; raise on the CUDA error
-    its entry returns, count it otherwise."""
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = _entry(name, dtype)(*c_args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: {_build.error_string(err)} ({err})")
+    """Launch kernel ``name`` on the current stream and count it."""
+    _build.launch(_SOURCE, name, _SIGNATURES[name], dtype, *args)
     LAUNCHES[name] += 1
 
 

@@ -43,7 +43,9 @@ def _roots(b: torch.Tensor, c_term: torch.Tensor, faraway: float) -> IntersectRe
     disc = b * b - 4.0 * c_term
     pos = disc > 0
     sq = torch.where(pos, sqrt(torch.where(pos, disc, torch.ones_like(disc))), torch.zeros_like(disc))
-    qroot = -0.5 * (b + torch.copysign(sq, b))
+    # jnp.copysign(sq, b), as a select: torch.copysign's gradient is 0 where
+    # sq == 0, JAX's is +-1 (the values part only at b == -0.0).
+    qroot = -0.5 * (b + torch.where(b < 0, -sq, sq))
     safe_q = torch.where(qroot == 0, torch.ones_like(qroot), qroot)
     other = torch.where(qroot == 0, torch.zeros_like(qroot), c_term / safe_q)
     t0 = torch.minimum(qroot, other)

@@ -4,7 +4,9 @@
 Every live term of the reference shader, per lane, with per-lane
 materials gathered by nearest-hit index: ambient, diffuse x texture, dome,
 GGX specular + glint, thin-film iridescence.  Term order and association
-follow the JAX package so float64 renders agree to roundoff.
+follow the JAX package so float64 renders agree to roundoff, and the
+clamps are :func:`.vecmath.clip`/:func:`.vecmath.relu0` so their gradients
+at exact boundaries split as ``jax.grad``'s do.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..scene import TEXTURE_CHECKER, TEXTURE_IMAGE, Lights, Scene, Spheres
-from .vecmath import dot, normalize, sqrt
+from .vecmath import clip, dot, normalize, relu0, sqrt
 
 AMBIENT = 0.004
 SHADING_EPS = 1e-8
@@ -77,7 +79,7 @@ def texture_color(point: torch.Tensor, normal: torch.Tensor, mat: LaneMaterial, 
 
 def dome_light(normal: torch.Tensor, lights: Lights) -> torch.Tensor:
     """Dome contribution: summed intensities times the LAST dome's color."""
-    updot = torch.clamp_min(normal[..., 1], 0.0)
+    updot = relu0(normal[..., 1])
     intensity = torch.sum(lights.dome_intensity) * updot
     return lights.dome_color[-1][None, :] * intensity[..., None]
 
@@ -94,10 +96,10 @@ def ggx_specular(
     V = normalize(to_camera)
     H = normalize(L + V)
 
-    n_dot_v = torch.clamp(dot(normal, V), 0.0, 1.0)
-    n_dot_h = torch.clamp(dot(normal, H), 0.0, 1.0)
-    v_dot_h = torch.clamp(dot(V, H), 0.0, 1.0)
-    n_dot_l = torch.clamp(dot(normal, L), 0.0, 1.0)
+    n_dot_v = clip(dot(normal, V), 0.0, 1.0)
+    n_dot_h = clip(dot(normal, H), 0.0, 1.0)
+    v_dot_h = clip(dot(V, H), 0.0, 1.0)
+    n_dot_l = clip(dot(normal, L), 0.0, 1.0)
 
     f0 = ipow((mat.specular_ior - 1.0) / (mat.specular_ior + 1.0), 2)
     fresnel = f0 + (1.0 - f0) * ipow(1.0 - v_dot_h, 5)
@@ -123,7 +125,7 @@ def ggx_specular(
 
 def iridescence(normal: torch.Tensor, to_camera: torch.Tensor, mat: LaneMaterial) -> torch.Tensor:
     """Thin-film interference tint."""
-    view_angle = torch.clamp(dot(normal, to_camera), 0.0, 1.0)
+    view_angle = clip(dot(normal, to_camera), 0.0, 1.0)
     angle_factor = torch.abs(view_angle - 0.5) * 2.0
     phase = angle_factor * math.pi * mat.thin_film_thickness * 10.0
     ip = torch.sin(phase)
@@ -156,7 +158,7 @@ def shade(
     term order ``((((ambient + diffuse) + dome) + spec) + iridescence)``."""
     ambient = torch.full_like(point, AMBIENT)
 
-    n_dot_l = torch.clamp_min(dot(normal, to_light), 0.0)
+    n_dot_l = relu0(dot(normal, to_light))
     diffuse = texture_color(point, normal, mat, scene) * (n_dot_l * in_light * mat.diffuse_gain)[..., None]
 
     dome = dome_light(normal, scene.lights)

@@ -1,21 +1,25 @@
 """The renderer: ``render(scene, cfg) -> (H, W, 3)`` float image.
 
-Port of the hard-visibility, single-shard, deterministic path of
-:mod:`python_ray_tracer_tpu.render`.  The reference's unbounded mirror
-recursion is a fixed-depth loop carrying ``(origin, direction, throughput,
-alive, accum)``; every lane computes every bounce and dead lanes are
-multiplied away.
+Port of the single-shard, deterministic paths of
+:mod:`python_ray_tracer_tpu.render`, hard and smooth visibility.  The
+reference's unbounded mirror recursion is a fixed-depth loop carrying
+``(origin, direction, throughput, alive, accum)``; every lane computes
+every bounce and dead lanes are multiplied away.
 
 Two routes, chosen as the JAX package chooses them:
 
-* ``cfg.use_pallas`` -> :func:`.ops.bounce_sub.trace_fused_sub`, the
-  hand-written CUDA bounce kernels (their plain torch version on a CPU
-  tensor);
+* ``cfg.use_pallas`` -> the hand-written CUDA kernels (their plain torch
+  versions on a CPU tensor): :func:`.ops.bounce_sub.trace_fused_sub` for
+  hard visibility, :func:`.ops.bounce_smooth_sub.trace_fused_smooth_sub`
+  (the depth-fused smooth pair, a ``torch.autograd.Function``) for smooth;
 * otherwise :func:`trace`, the pure-torch bounce loop that mirrors the JAX
-  XLA path term for term.
+  XLA path term for term.  Torch autograd through it is the oracle for the
+  kernels' handwritten adjoints.
 
-Every route the JAX package has and this port does not raises
-``NotImplementedError`` naming the JAX function it waits for.
+:func:`l2_loss_fused` is the L2 training loss as one ``train_deep``
+launch, where :func:`fused_train_l2_ok` allows it.  Every route the JAX
+package has and this port does not raises ``NotImplementedError`` naming
+the JAX function it waits for.
 """
 
 from __future__ import annotations
@@ -29,13 +33,21 @@ from .config import VISIBILITY_SMOOTH, RenderConfig
 from .ops.intersect import (
     IntersectResult,
     intersect_all,
-    intersect_all_stable,
     intersect_two_tier,
     nearest_hit,
 )
+from .ops.bounce_smooth_sub import MAX_SMOOTH_SPHERES, MAX_TRAIN_DEPTH, fused_train_l2, trace_fused_smooth_sub
+from .ops.bounce_sub import trace_fused_sub
 from .ops.shading import NUDGE, gather_material, shade
 from .ops.vecmath import normalize, reflect
 from .scene import Scene
+
+# Scope of the culled smooth route of the JAX package
+# (ops/pallas_culled_smooth.cull_smooth_ok), which this port does not have.
+MIN_CULL_SPHERES = 96
+MAX_CULL_EXACT = 8
+MIN_CULL_SMOOTH_RAYS = 518_400
+MAX_BLK_SPHERES_SMOOTH = 4096
 
 
 def auto_max_depth(
@@ -83,6 +95,32 @@ def _shadow_hard(res: IntersectResult, idx: torch.Tensor, dtype: torch.dtype) ->
     return (t_self <= tmin_others).to(dtype)
 
 
+def _soft_cover(sol: torch.Tensor, disc: torch.Tensor, sharpness: float) -> torch.Tensor:
+    """Soft "this quadratic has a positive root": ``sig(k disc) * sig(k sol)``."""
+    return torch.sigmoid(sharpness * disc) * torch.sigmoid(sharpness * sol)
+
+
+def _shadow_smooth(res: IntersectResult, idx: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """Smooth shadow: product over *other* spheres of (1 - soft occlusion)."""
+    occl = _soft_cover(res.sol, res.disc, cfg.shadow_sharpness)  # (N, S)
+    s = res.t.shape[1]
+    not_self = torch.arange(s, dtype=torch.int32, device=idx.device)[None, :] != idx[:, None]
+    return torch.prod(torch.where(not_self, 1.0 - occl, torch.ones_like(occl)), dim=1)
+
+
+def _smooth_winner_idx(res: IntersectResult, near) -> torch.Tensor:
+    """Hit lanes keep the nearest sphere; miss lanes attribute coverage (and
+    its gradient) to the sphere whose discriminant came closest to zero."""
+    fidx = torch.argmax(res.disc.detach(), dim=1).to(torch.int32)  # selector only
+    return torch.where(near.hit, near.idx, fidx)
+
+
+def _coverage_at(res: IntersectResult, idx: torch.Tensor, sharpness: float) -> torch.Tensor:
+    """Soft coverage of each lane's winning sphere."""
+    cover_all = _soft_cover(res.sol, res.disc, sharpness)
+    return torch.gather(cover_all, 1, idx.long()[:, None])[:, 0]
+
+
 def trace(
     origin: torch.Tensor,  # (N, 3) or (3,)
     direction: torch.Tensor,  # (N, 3) unit
@@ -92,8 +130,11 @@ def trace(
     """Trace N rays to ``cfg.max_depth`` bounces; returns (N, 3) color.
 
     Misses contribute black; ``to_camera`` always points at the ORIGINAL
-    camera, every bounce (reference quirk kept).
+    camera, every bounce (reference quirk kept).  Smooth visibility relaxes
+    coverage and shadow with sigmoids, and the next bounce's ``alive`` is
+    the coverage itself.
     """
+    smooth = cfg.visibility == VISIBILITY_SMOOTH
     dtype = cfg.dtype
     direction = direction.to(dtype)
     n = direction.shape[0]
@@ -105,10 +146,15 @@ def trace(
     alive = torch.ones((n,), dtype=dtype, device=d.device)
     accum = torch.zeros((n, 3), dtype=dtype, device=d.device)
     for _ in range(cfg.max_depth):
-        near = nearest_hit(_sweep(o, d, scene, cfg).t, cfg.faraway)
-        idx = near.idx
+        res = _sweep(o, d, scene, cfg)
+        near = nearest_hit(res.t, cfg.faraway)
         hit = near.hit.to(dtype)
-        coverage = hit * alive
+        if smooth:
+            idx = _smooth_winner_idx(res, near)
+            coverage = _coverage_at(res, idx, cfg.edge_sharpness) * alive
+        else:
+            idx = near.idx
+            coverage = hit * alive
 
         t_safe = torch.where(near.hit, near.t, torch.ones_like(near.t))
         mat = gather_material(scene.spheres, idx)
@@ -119,23 +165,37 @@ def trace(
         to_camera = normalize(cam_pos[None, :] - p)
         p_nudged = p + normal * NUDGE
 
-        in_light = _shadow_hard(_sweep(p_nudged, to_light, scene, cfg), idx, dtype)
+        shadow_res = _sweep(p_nudged, to_light, scene, cfg)
+        if smooth:
+            in_light = _shadow_smooth(shadow_res, idx, cfg)
+        else:
+            in_light = _shadow_hard(shadow_res, idx, dtype)
         local = shade(p, normal, to_light, to_camera, in_light, mat, scene)
 
         accum = accum + local.color * (throughput * coverage)[:, None]
         throughput = throughput * coverage * local.refl_coeff
-        alive = alive * hit
+        alive = coverage if smooth else alive * hit
         o = p_nudged
         d = reflect(d, normal)
     return accum
 
 
+def cull_smooth_ok(scene: Scene, cfg: RenderConfig, n_rays: int) -> bool:
+    """Would the JAX package take its culled smooth route here?"""
+    return (
+        cfg.use_pallas
+        and cfg.visibility == VISIBILITY_SMOOTH
+        and MIN_CULL_SPHERES <= scene.spheres.count <= MAX_BLK_SPHERES_SMOOTH
+        and scene.spheres.n_exact <= MAX_CULL_EXACT
+        and n_rays >= MIN_CULL_SMOOTH_RAYS
+    )
+
+
 def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
     """Refuse every route of the JAX renderer this port does not have yet."""
+    smooth_kernels = cfg.visibility == VISIBILITY_SMOOTH and cfg.use_pallas
     waits = None
-    if cfg.visibility == VISIBILITY_SMOOTH:
-        waits = "smooth visibility (render._trace_smooth_fused, trace's smooth branch)"
-    elif cfg.samples_per_pixel > 1:
+    if cfg.samples_per_pixel > 1:
         waits = "supersampling (render.render's jittered sample scan, ops.rng)"
     elif cfg.stochastic_roughness:
         waits = "stochastic roughness (ops.vecmath.ggx_perturb_reflect, ops.rng)"
@@ -147,6 +207,15 @@ def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
         waits = "ray chunking (render._render_sample's lax.map over tiles)"
     elif cfg.pallas_interpret:
         waits = "interpret mode (a CUDA kernel has none; pallas_interpret has no counterpart)"
+    elif smooth_kernels and cull_smooth_ok(scene, cfg, scene.camera.width * scene.camera.height):
+        waits = "the culled smooth route (ops.pallas_culled_smooth.trace_culled_smooth)"
+    elif smooth_kernels and cfg.max_depth == 1:
+        waits = "smooth depth 1 through the kernels (ops.pallas_bounce_smooth_sub._bounce_sub)"
+    elif smooth_kernels and scene.spheres.count > MAX_SMOOTH_SPHERES:
+        waits = (
+            f"smooth kernels for more than {MAX_SMOOTH_SPHERES} spheres "
+            "(ops.pallas_bounce_smooth.trace_fused_smooth)"
+        )
     if waits is not None:
         raise NotImplementedError(f"not ported yet: {waits} in python_ray_tracer_tpu")
 
@@ -154,12 +223,41 @@ def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
 def _render_sample(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """One center ray per pixel -> flat (H*W, 3) colors."""
     if cfg.use_pallas:
-        from .ops.bounce_sub import trace_fused_sub
-
         dirs_t = ray_directions_t(scene.camera, cfg.dtype)
+        if cfg.visibility == VISIBILITY_SMOOTH:
+            return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg)
         return trace_fused_sub(scene.camera.position, dirs_t, scene, cfg)
     dirs = ray_directions(scene.camera, cfg.dtype)
     return trace(scene.camera.position, dirs, scene, cfg)
+
+
+def fused_train_l2_ok(scene: Scene, cfg: RenderConfig) -> bool:
+    """Is the single-launch train kernel applicable?
+
+    Scope of :func:`l2_loss_fused`: smooth visibility through the kernels,
+    one center ray per pixel, no atlas, depth 2 and up (depth 1 is the JAX
+    package's scan route), tables within the kernels' shared memory, and
+    not a scene the JAX package would send down its culled route.
+    """
+    n_rays = scene.camera.width * scene.camera.height
+    return (
+        cfg.use_pallas
+        and cfg.visibility == VISIBILITY_SMOOTH
+        and 2 <= cfg.max_depth <= MAX_TRAIN_DEPTH
+        and cfg.samples_per_pixel == 1
+        and not scene.has_atlas
+        and scene.spheres.count <= MAX_SMOOTH_SPHERES
+        and not cfg.ray_chunk
+        and not cull_smooth_ok(scene, cfg, n_rays)
+    )
+
+
+def l2_loss_fused(scene: Scene, target: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """``l2_image_loss(render(scene, cfg), target)`` as one ``train_deep``
+    launch.  Callers gate on :func:`fused_train_l2_ok`."""
+    _check_scope(scene, cfg)
+    dirs_t = ray_directions_t(scene.camera, cfg.dtype)
+    return fused_train_l2(scene.camera.position, dirs_t, target.reshape(-1, 3), scene, cfg)
 
 
 def render(scene: Scene, cfg: RenderConfig) -> torch.Tensor:

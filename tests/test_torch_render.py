@@ -183,7 +183,7 @@ def _ninety_six_spheres():
 
 
 _UNPORTED = {
-    "smooth": dict(visibility="smooth"),
+    "smooth_depth1_kernels": dict(visibility="smooth", use_pallas=True, max_depth=1),
     "spp2": dict(samples_per_pixel=2),
     "stochastic": dict(stochastic_roughness=True),
     "tie_sum": dict(tie_mode="sum"),
