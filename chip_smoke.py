@@ -7,8 +7,10 @@ Run from the root of a checkout, with no arguments:
 
 It builds the CUDA kernels of ``python_ray_tracer_tpu_torch`` from
 ``csrc/`` (one ``nvcc`` per source, all at once), holds each kernel
-against its plain PyTorch version on the card, and drives the port's two
-main paths through the kernels at 960x540:
+against its plain PyTorch version on the card (mirror and glossy xi
+continuations), shows the card's per-ray RNG draw bitwise equal to the
+CPU's and to JAX's, and drives the port's main paths through the kernels
+at 960x540:
 
 * the hard forward render: the ``render`` CLI, held against the JAX
   package's golden image (``trace_deep``, ``bounce_step``);
@@ -16,10 +18,15 @@ main paths through the kernels at 960x540:
   (``smooth_fwd_deep``), a non-L2 loss backpropagated through ``render()``
   (``smooth_bwd_deep``), ``optimize`` and the first Adam step's loss and
   gradients against the JAX golden (``train_deep``), and a recovery task
-  whose loss must halve.
+  whose loss must halve;
+* sampling: ``render --stochastic-roughness`` against a JAX golden,
+  ``--spp 4``, the smooth stochastic and depth-1 renders, ``optimize
+  --stochastic-roughness`` and its first step against a JAX golden;
+* the one-bounce smooth pair: a loss through ``render()`` at smooth depth
+  1 (``smooth_fwd_step``, ``smooth_bwd_step``) against torch autograd.
 
-Then it times every kernel beside its plain version and its bound, and the
-benchmark's Adam step.  Phases print on their own lines; any failure exits
+Then it times every kernel (and each one's glossy variant) beside its plain
+version and its bound, the benchmark's Adam step and the stochastic one.  Phases print on their own lines; any failure exits
 non-zero.  The line before the last lists the kernels as JSON; the last
 line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -28,6 +35,7 @@ Without a CUDA device, or without the package beside it, it fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -44,7 +52,14 @@ WIDTH, HEIGHT = 960, 540
 N_RAYS = WIDTH * HEIGHT
 GOLDEN = "python_ray_tracer_tpu_torch/testdata/reference_960x540_d3_f32.npz"
 TRAIN_GOLDEN = "python_ray_tracer_tpu_torch/testdata/reference_960x540_d3_smooth_train_f32.npz"
-HARD, SMOOTH = ("trace_deep", "bounce_step"), ("smooth_fwd_deep", "smooth_bwd_deep", "train_deep")
+# JAX goldens of the sampled paths at seed SEED: the hard stochastic frame
+# with the first and last 4,096 lanes of its first bounce's xi draw, and the
+# stochastic training loss's first step (f32 and f64).
+STOCH_GOLDEN = "python_ray_tracer_tpu_torch/testdata/reference_960x540_d3_stochastic_f32.npz"
+STOCH_TRAIN_GOLDEN = "python_ray_tracer_tpu_torch/testdata/reference_960x540_d3_smooth_train_stochastic_f32.npz"
+SEED = 7
+HARD = ("trace_deep", "bounce_step")
+SMOOTH = ("smooth_fwd_deep", "smooth_bwd_deep", "train_deep", "smooth_fwd_step", "smooth_bwd_step")
 SOURCE = {
     **{k: "python_ray_tracer_tpu_torch/csrc/bounce_sub.cu" for k in HARD},
     **{k: "python_ray_tracer_tpu_torch/csrc/bounce_smooth_sub.cu" for k in SMOOTH},
@@ -55,6 +70,8 @@ REPLACES = {
     "smooth_fwd_deep": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1329",
     "smooth_bwd_deep": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1370",
     "train_deep": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1799",
+    "smooth_fwd_step": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:544",
+    "smooth_bwd_step": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1040",
 }
 # Kernel vs plain version: at most this share of values may differ by more
 # than the dtype's threshold.  The two evaluate the same IEEE operations in
@@ -85,8 +102,13 @@ MAX_GOLDEN_SHARE = 1e-3
 # the leaf's largest value: no less exact than the peer, within that factor.
 NOISE_FACTOR = 3.0
 NOISE_FLOOR = 1e-5
-# float64: the kernels' adjoint vs torch autograd, relative to each leaf's
-# largest value (the two differ in the winner's quadratic form only).
+# float64: the kernels' adjoint vs an exact autograd (torch's of the
+# pure-torch route, or JAX's of the XLA path in a golden), relative to each
+# leaf's largest value.  They differ where the quadratic's form differs and
+# where Phase C divides by max(1 - occlusion, 1e-6), as the JAX kernels'
+# adjoint does, while autograd takes the exact product rule: on lanes deep
+# in another sphere's shadow.  The smooth depth-1 loss weighs those lanes
+# most and reads closest to this limit.
 F64_RTOL = 1e-6
 # The published peaks of one H100 SXM (NVIDIA's datasheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores.
@@ -142,29 +164,50 @@ def _inputs(name: str, dtype: torch.dtype, device: str, width: int, height: int)
     return o, d, tables, dict(faraway=faraway(dtype), s_cheap=s_cheap)
 
 
-def _run_case(route: str, name: str, depth: int, dtype: torch.dtype, device: str, width: int, height: int):
+def _trace_key() -> int:
+    """The trace key of render()'s sample 0 at seed SEED (spp 1)."""
+    from python_ray_tracer_tpu_torch.ops.rng import fold_seed, seed_root
+
+    return fold_seed(fold_seed(seed_root(SEED), 0), 4)
+
+
+def _xis(stochastic: bool, n: int, depth: int, dtype: torch.dtype, device: str = "cuda") -> list:
+    """Each bounce's (2, N) xi on the main path's schedule, or Nones."""
+    from python_ray_tracer_tpu_torch.ops.rng import bounce_xi
+
+    return bounce_xi(_trace_key(), n, depth, dtype, device) if stochastic else [None] * depth
+
+
+def _run_case(route: str, name: str, depth: int, dtype: torch.dtype, device: str, width: int, height: int,
+              stochastic: bool = False):
     """(kernel acc, plain acc) of one case; the wrapper on CUDA tensors launches the kernel."""
     from python_ray_tracer_tpu_torch.ops import bounce_sub as bs
 
     o, d, tables, kw = _inputs(name, dtype, device, width, height)
+    xis = _xis(stochastic, d.shape[1], depth, dtype, device)
     if route == "trace_deep":
-        return bs.trace_deep(o, d, *tables, depth=depth, **kw), bs.trace_deep_plain(o, d, *tables, depth=depth, **kw)
+        xi = torch.cat(xis) if stochastic else None
+        return bs.trace_deep(o, d, *tables, xi, depth=depth, **kw), bs.trace_deep_plain(o, d, *tables, xi, depth=depth, **kw)
     outs = []
     for step in (bs.bounce_step, bs.bounce_step_plain):
         state = (o, d, torch.ones_like(d[0]), torch.ones_like(d[0]), torch.zeros_like(d))
-        for _ in range(depth):
-            state = step(*state, *tables, **kw)
+        for xi in xis:
+            state = step(*state, *tables, xi, **kw)
         outs.append(state[4])
     return tuple(outs)
 
 
 CASES = (
-    ("trace_deep", "reference", 3, torch.float32),
-    ("trace_deep", "reference", 6, torch.float32),
-    ("trace_deep", "all_effects", 3, torch.float32),
-    ("bounce_step", "reference", 1, torch.float32),
-    ("bounce_step", "reference", 12, torch.float32),
-    ("trace_deep", "reference", 3, torch.float64),
+    ("trace_deep", "reference", 3, torch.float32, False),
+    ("trace_deep", "reference", 6, torch.float32, False),
+    ("trace_deep", "all_effects", 3, torch.float32, False),
+    ("bounce_step", "reference", 1, torch.float32, False),
+    ("bounce_step", "reference", 12, torch.float32, False),
+    ("trace_deep", "reference", 3, torch.float64, False),
+    ("trace_deep", "reference", 3, torch.float32, True),
+    ("trace_deep", "all_effects", 3, torch.float32, True),
+    ("bounce_step", "reference", 3, torch.float32, True),
+    ("trace_deep", "reference", 3, torch.float64, True),
 )
 
 
@@ -215,7 +258,7 @@ def _column_check(label: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: 
 
 def _grad_check(label: str, name: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype) -> float:
     """Per-ray gradients value by value; sums (sse, table gradients) column by column."""
-    if name in ("g_o", "g_d"):
+    if name in ("g_o", "g_d", "g_thr", "g_alive"):
         return _per_ray_check(f"{label} {name}", kernel, plain, dtype)
     return _column_check(f"{label} {name}", kernel, plain, dtype)
 
@@ -245,13 +288,14 @@ def _noise_check(label: str, got, peer, exact) -> None:
 
 
 def phase_kernels(device: str = "cuda", width: int = WIDTH, height: int = HEIGHT) -> dict[str, float]:
-    """Each hard kernel against its plain version; returns the max abs error per kernel."""
+    """Each hard kernel against its plain version, mirror and glossy; returns
+    the max abs error per kernel."""
     errs: dict[str, float] = {}
-    for route, name, depth, dtype in CASES:
-        kernel, plain = _run_case(route, name, depth, dtype, device, width, height)
+    for route, name, depth, dtype, stochastic in CASES:
+        kernel, plain = _run_case(route, name, depth, dtype, device, width, height, stochastic)
         if device == "cuda":
             torch.cuda.synchronize()
-        label = f"{route} {name} depth {depth} {str(dtype).split('.')[-1]} {width}x{height}"
+        label = f"{route} {name} depth {depth} {str(dtype).split('.')[-1]} {width}x{height}{' glossy' if stochastic else ''}"
         max_abs = _per_value_check(label, kernel, plain, dtype)
         if dtype == torch.float32:
             errs[route] = max(errs.get(route, 0.0), max_abs)
@@ -276,51 +320,114 @@ def _cotangent(d: torch.Tensor) -> torch.Tensor:
 
 
 SMOOTH_CASES = (
-    ("reference", 3, torch.float32),
-    ("reference", 6, torch.float32),
-    ("all_effects", 3, torch.float32),
-    ("reference", 3, torch.float64),
+    ("reference", 3, torch.float32, False),
+    ("reference", 6, torch.float32, False),
+    ("all_effects", 3, torch.float32, False),
+    ("reference", 3, torch.float64, False),
+    ("reference", 3, torch.float32, True),
+    ("all_effects", 3, torch.float32, True),
+    ("reference", 3, torch.float64, True),
 )
+GRAD_NAMES = ("g_o", "g_d", "g_geom", "g_mat", "g_consts")
+
+
+def _step_state(o, d, tables, kw, xi):
+    """The state after one bounce of the chain from the camera (thr and
+    alive other than 1), as the second bounce's smooth_fwd_step takes it."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    ones = torch.ones_like(d[0])
+    return bss.smooth_fwd_step_plain(o, d, ones, ones, torch.zeros_like(d), *tables, xi, **kw)[:5]
+
+
+def _step_cotangents(outs) -> list[torch.Tensor]:
+    """Seeded nonzero cotangents of the five state outputs of a bounce."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    return [torch.rand(t.shape, generator=gen, device="cuda", dtype=t.dtype) - 0.5 for t in outs[:5]]
+
+
+def _check_step_pair(label: str, o, d, tables, kw, xis, dtype, err: dict) -> None:
+    """smooth_fwd_step and smooth_bwd_step on the second bounce of the chain
+    against their plain versions; smooth_bwd_step twice, bitwise."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    skw = {k: v for k, v in kw.items() if k != "depth"}
+    state = _step_state(o, d, tables, skw, xis[0])
+    fk = bss.smooth_fwd_step(*state, *tables, xis[1], **skw)
+    torch.cuda.synchronize()
+    fp = bss.smooth_fwd_step_plain(*state, *tables, xis[1], **skw)
+    for out_name, k, p in zip(("o", "d", "thr", "alive", "acc", "idx", "hit", "clear"), fk, fp):
+        err["smooth_fwd_step"] = max(err["smooth_fwd_step"], _per_value_check(f"smooth_fwd_step {label} {out_name}", k, p, dtype))
+    args = (*state[:4], *fp[5:], *tables, *_step_cotangents(fp), xis[1])
+    bk = bss.smooth_bwd_step(*args, **skw)
+    bk2 = bss.smooth_bwd_step(*args, **skw)
+    torch.cuda.synchronize()
+    bp = bss.smooth_bwd_step_plain(*args, **skw)
+    for out_name, k, p in zip(("g_o", "g_d", "g_thr", "g_alive", "g_geom", "g_mat", "g_consts"), bk, bp):
+        err["smooth_bwd_step"] = max(err["smooth_bwd_step"], _grad_check(f"smooth_bwd_step {label}", out_name, k, p, dtype))
+    same = all(torch.equal(a, b) for a, b in zip(bk, bk2))
+    print(f"[kernels] smooth_bwd_step {label}: two launches bitwise equal: {same}", flush=True)
+    if not same:
+        fail(f"smooth_bwd_step {label}: two launches on the same inputs differ")
 
 
 def phase_smooth_kernels() -> dict[str, float]:
-    """The three smooth kernels against their plain versions at 960x540; returns
-    the max abs error per kernel over the float32 cases."""
+    """The five smooth kernels against their plain versions at 960x540,
+    mirror and glossy; returns the max abs error per kernel over the
+    float32 cases."""
     from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
 
     errs = dict.fromkeys(SMOOTH, 0.0)
     fwd_names = ("acc", "osave", "dsave", "thrsave", "alivesave", "idx", "hit", "clear")
-    grad_names = ("g_o", "g_d", "g_geom", "g_mat", "g_consts")
-    for name, depth, dtype in SMOOTH_CASES:
+    for name, depth, dtype, stochastic in SMOOTH_CASES:
         o, d, tables, kw = _smooth_inputs(name, dtype, depth)
-        label = f"{name} depth {depth} {str(dtype).split('.')[-1]} {WIDTH}x{HEIGHT}"
-        fk = bss.smooth_fwd_deep(o, d, *tables, **kw)
+        xis = _xis(stochastic, d.shape[1], depth, dtype)
+        xi = torch.cat(xis) if stochastic else None
+        label = f"{name} depth {depth} {str(dtype).split('.')[-1]} {WIDTH}x{HEIGHT}{' glossy' if stochastic else ''}"
+        fk = bss.smooth_fwd_deep(o, d, *tables, xi, **kw)
         torch.cuda.synchronize()
-        fp = bss.smooth_fwd_deep_plain(o, d, *tables, **kw)
-        err = {"smooth_fwd_deep": 0.0, "smooth_bwd_deep": 0.0, "train_deep": 0.0}
+        fp = bss.smooth_fwd_deep_plain(o, d, *tables, xi, **kw)
+        err = dict.fromkeys(SMOOTH, 0.0)
         for out_name, k, p in zip(fwd_names, fk, fp):
             if k.numel():
                 err["smooth_fwd_deep"] = max(err["smooth_fwd_deep"], _per_value_check(f"smooth_fwd_deep {label} {out_name}", k, p, dtype))
         g_acc = _cotangent(d)
-        bk = bss.smooth_bwd_deep(o, d, *fp[1:], *tables, g_acc, **kw)  # both replay the plain residuals
+        bk = bss.smooth_bwd_deep(o, d, *fp[1:], *tables, g_acc, xi, **kw)  # both replay the plain residuals
         torch.cuda.synchronize()
-        bp = bss.smooth_bwd_deep_plain(o, d, *fp[1:], *tables, g_acc, **kw)
-        for out_name, k, p in zip(grad_names, bk, bp):
+        bp = bss.smooth_bwd_deep_plain(o, d, *fp[1:], *tables, g_acc, xi, **kw)
+        for out_name, k, p in zip(GRAD_NAMES, bk, bp):
             err["smooth_bwd_deep"] = max(err["smooth_bwd_deep"], _grad_check(f"smooth_bwd_deep {label}", out_name, k, p, dtype))
         tgt = (torch.clamp(fp[0], 0.0, 1.0) * 0.9).contiguous()
-        tk = bss.train_deep(o, d, tgt, *tables, **kw)
-        tk2 = bss.train_deep(o, d, tgt, *tables, **kw)
+        tk = bss.train_deep(o, d, tgt, *tables, xi, **kw)
+        tk2 = bss.train_deep(o, d, tgt, *tables, xi, **kw)
         torch.cuda.synchronize()
-        tp = bss.train_deep_plain(o, d, tgt, *tables, **kw)
-        for out_name, k, p in zip(("sse",) + grad_names, tk, tp):
+        tp = bss.train_deep_plain(o, d, tgt, *tables, xi, **kw)
+        for out_name, k, p in zip(("sse",) + GRAD_NAMES, tk, tp):
             err["train_deep"] = max(err["train_deep"], _grad_check(f"train_deep {label}", out_name, k, p, dtype))
         same = all(torch.equal(a, b) for a, b in zip(tk, tk2))
         print(f"[kernels] train_deep {label}: two launches bitwise equal: {same}", flush=True)
         if not same:
             fail(f"train_deep {label}: two launches on the same inputs differ")
+        _check_step_pair(label, o, d, tables, kw, xis, dtype, err)
         if dtype == torch.float32:
             errs = {k: max(errs[k], err[k]) for k in SMOOTH}
     return errs
+
+
+def phase_xi() -> None:
+    """The per-ray RNG on the card: bitwise the CPU's draw, and bitwise the
+    JAX package's draw stored in the stochastic golden."""
+    from python_ray_tracer_tpu_torch.ops.rng import bounce_xi
+
+    golden = np.load(REPO / STOCH_GOLDEN)
+    card = bounce_xi(_trace_key(), N_RAYS, 1, torch.float32, "cuda")[0].cpu()
+    cpu = bounce_xi(_trace_key(), N_RAYS, 1, torch.float32, "cpu")[0]
+    same_cpu = torch.equal(card, cpu)
+    same_jax = np.array_equal(card[:, :4096].T.numpy(), golden["xi_head"]) and np.array_equal(card[:, -4096:].T.numpy(), golden["xi_tail"])
+    print(f"[xi] first bounce's uniform2 draw ({N_RAYS} x 2, f32, seed {SEED}) on the card: bitwise equal to the CPU's "
+          f"{same_cpu}, to the JAX golden's first and last 4096 lanes {same_jax}", flush=True)
+    if not (same_cpu and same_jax):
+        fail("the card's xi draw differs from the CPU's or from JAX's")
 
 
 def _reset_launches() -> None:
@@ -488,6 +595,131 @@ def phase_smooth_main(tmp: Path) -> dict[str, int]:
     return launches
 
 
+def _cli_render(tmp: Path, out: str, *args: str) -> np.ndarray:
+    from python_ray_tracer_tpu_torch import cli
+    from python_ray_tracer_tpu_torch.utils.image import load_png
+
+    cli.main(["render", "--width", str(WIDTH), "--height", str(HEIGHT), *args, "-o", str(tmp / out)])
+    return load_png(tmp / out)
+
+
+def phase_sampled_main(tmp: Path) -> None:
+    """The sampled renders through the CLI on CUDA, each run read for its
+    launches: hard stochastic at depth 3 (trace_deep glossy, against the JAX
+    golden) and 1 (bounce_step glossy), --spp 4, smooth stochastic
+    (smooth_fwd_deep glossy) and smooth depth 1 (smooth_fwd_step, mirror and
+    glossy), each of the rest against the pure-torch route on the card."""
+    from python_ray_tracer_tpu_torch import RenderConfig, render
+    from python_ray_tracer_tpu_torch.models.scenes import reference_scene
+    from python_ray_tracer_tpu_torch.utils.image import to_uint8
+
+    seed = ["--seed", str(SEED)]
+    runs = (
+        ("hard stochastic depth 3", ("--stochastic-roughness", *seed), ("trace_deep",),
+         dict(stochastic_roughness=True, rng_seed=SEED)),
+        ("hard stochastic depth 1", ("--stochastic-roughness", *seed, "--depth", "1"), ("bounce_step",),
+         dict(stochastic_roughness=True, rng_seed=SEED, max_depth=1)),
+        ("hard spp 4", ("--spp", "4", *seed), ("trace_deep",), dict(samples_per_pixel=4, rng_seed=SEED)),
+        ("smooth stochastic depth 3", ("--visibility", "smooth", "--stochastic-roughness", *seed), ("smooth_fwd_deep",),
+         dict(visibility="smooth", stochastic_roughness=True, rng_seed=SEED)),
+        ("smooth depth 1", ("--visibility", "smooth", "--depth", "1"), ("smooth_fwd_step",),
+         dict(visibility="smooth", max_depth=1)),
+        ("smooth stochastic depth 1", ("--visibility", "smooth", "--depth", "1", "--stochastic-roughness", *seed),
+         ("smooth_fwd_step",), dict(visibility="smooth", max_depth=1, stochastic_roughness=True, rng_seed=SEED)),
+    )
+    scene = reference_scene(WIDTH, HEIGHT, dtype=torch.float32, device="cuda")
+    for i, (label, args, kernels, cfg_kw) in enumerate(runs):
+        _reset_launches()
+        img = _cli_render(tmp, f"sampled{i}.png", *args)
+        _expect_launched(f"the CLI render, {label}", _launches(), kernels)
+        if i == 0:
+            ref, against = np.load(REPO / STOCH_GOLDEN)["image"], "the JAX golden"
+        else:
+            with torch.no_grad():
+                ref = to_uint8(render(scene, RenderConfig(**{"max_depth": 3, **cfg_kw})))
+            against = "the pure-torch route"
+        _compare_uint8(label, img, ref, against)
+
+
+def phase_step_main() -> dict[str, int]:
+    """The one-bounce smooth pair's main path: a weighted-sum loss through
+    render() at smooth depth 1, stochastic, on CUDA; its gradients against
+    torch autograd of the pure-torch route (f64, and f32 under the noise
+    rule).  Returns the pair's launches from the f32 kernel run."""
+    from python_ray_tracer_tpu_torch import render
+    from python_ray_tracer_tpu_torch.models.scenes import reference_scene
+    from python_ray_tracer_tpu_torch.optim import combine, scene_to_params
+
+    weight = torch.rand((HEIGHT, WIDTH, 3), generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    grads, launches = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        scene = reference_scene(WIDTH, HEIGHT, dtype=dtype, device="cuda")
+        for route, use_pallas in (("kernels", True), ("pure-torch", False)):
+            params = scene_to_params(scene)
+            _reset_launches()
+            cfg = _smooth_cfg(dtype, use_pallas=use_pallas, stochastic_roughness=True, rng_seed=SEED)
+            cfg = dataclasses.replace(cfg, max_depth=1)
+            loss = torch.sum(render(combine(params, scene), cfg) * weight.to(dtype)) / N_RAYS
+            loss.backward()
+            torch.cuda.synchronize()
+            if use_pallas and dtype == torch.float32:
+                counts = _launches()
+                _expect_launched("the depth-1 loss through render()", counts, ("smooth_fwd_step", "smooth_bwd_step"))
+                launches = {k: counts[k] for k in ("smooth_fwd_step", "smooth_bwd_step")}
+            grads[route, dtype] = _leaf_grads(params)
+            print(f"[main] depth-1 loss, {route} {str(dtype).split('.')[-1]}: {float(loss.detach()):.10e}")
+    for key, exact in grads["pure-torch", torch.float64].items():
+        _relative_check(f"depth-1 loss d/d{key}, kernels vs torch autograd, f64",
+                        grads["kernels", torch.float64][key], exact, F64_RTOL)
+        _noise_check(f"depth-1 loss d/d{key}, kernels f32 (peer: torch autograd f32)",
+                     grads["kernels", torch.float32][key], grads["pure-torch", torch.float32][key], exact)
+    return launches
+
+
+def phase_stochastic_train(tmp: Path) -> None:
+    """``optimize --stochastic-roughness`` through train_deep (glossy), and
+    its first Adam step's loss and every gradient against the JAX golden:
+    f32 under the noise rule, f64 within F64_RTOL."""
+    from python_ray_tracer_tpu_torch import cli
+    from python_ray_tracer_tpu_torch.models.scenes import reference_scene
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
+
+    metrics = tmp / "optimize_stochastic.jsonl"
+    _reset_launches()
+    cli.main(["optimize", "--visibility", "smooth", "--width", str(WIDTH), "--height", str(HEIGHT), "--depth", "3",
+              "--stochastic-roughness", "--seed", str(SEED), "--target", str(tmp / "d3.png"), "--steps", "5",
+              "--sync-every", "5", "--lr", "1e-3", "--metrics", str(metrics)])
+    counts = _launches()
+    _expect_launched("cli optimize --stochastic-roughness", counts, ("train_deep",))
+    losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
+    print(f"[main] cli optimize --stochastic-roughness: {len(losses)} steps, loss {losses[0]:.6e} -> {losses[-1]:.6e}")
+    if len(losses) != 5 or not all(np.isfinite(losses)):
+        fail(f"cli optimize --stochastic-roughness logged {len(losses)} losses, finite: {all(np.isfinite(losses))}")
+
+    golden = np.load(REPO / STOCH_TRAIN_GOLDEN)
+    for dtype in (torch.float32, torch.float64):
+        scene = reference_scene(WIDTH, HEIGHT, dtype=dtype, device="cuda")
+        target = torch.tensor(np.load(REPO / GOLDEN)["image"], dtype=dtype, device="cuda") / 255.0
+        params = scene_to_params(scene)
+        cfg = _smooth_cfg(dtype, use_pallas=True, stochastic_roughness=True, rng_seed=SEED)
+        loss = make_loss_fn(scene, target, cfg)(params)
+        loss.backward()
+        tag = str(dtype).split(".")[-1]
+        print(f"[main] stochastic first step {tag}: loss {float(loss.detach()):.8e}, the JAX golden f32 "
+              f"{float(golden['loss']):.8e}, f64 {float(golden['loss64']):.8e}")
+        if dtype == torch.float32:
+            _noise_check("stochastic first-step loss (peer: the JAX f32 golden)", loss, golden["loss"], golden["loss64"])
+            for key, g in _leaf_grads(params).items():
+                _noise_check(f"stochastic first step d/d{key} (peer: the JAX f32 golden)", g,
+                             golden[f"grad/{key}"], golden[f"grad64/{key}"])
+        else:
+            _relative_check("stochastic first-step loss f64 vs the JAX f64 golden", loss.cpu(),
+                            torch.as_tensor(golden["loss64"]), F64_RTOL)
+            for key, g in _leaf_grads(params).items():
+                _relative_check(f"stochastic first step d/d{key} f64 vs the JAX f64 golden", g.cpu(),
+                                torch.as_tensor(golden[f"grad64/{key}"]), F64_RTOL)
+
+
 def time_ms(fn, warmup: int = 5, iters: int = 20) -> float:
     """Median of ``iters`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
     for _ in range(warmup):
@@ -554,7 +786,8 @@ def _nbytes(*tensors) -> int:
 
 def phase_timing(card: str) -> dict[str, dict]:
     """Kernel and plain-version ms at reference 960x540 depth 3, f32, with each
-    kernel's bound; then the render frame and the benchmark's Adam step."""
+    kernel's bound, and each kernel's glossy variant beside it; then the
+    render frame, the benchmark's Adam step and the stochastic one."""
     from python_ray_tracer_tpu_torch import RenderConfig, bench, render
     from python_ray_tracer_tpu_torch.models.scenes import reference_scene
     from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
@@ -567,6 +800,13 @@ def phase_timing(card: str) -> dict[str, dict]:
     g_acc = _cotangent(sd)
     tgt = (torch.clamp(fwd[0], 0.0, 1.0) * 0.9).contiguous()
     bwd = bss.smooth_bwd_deep(so, sd, *fwd[1:], *stables, g_acc, **skw)
+    # The one-bounce pair on the chain's second bounce, with seeded
+    # cotangents on all five outputs.
+    sskw = {k: v for k, v in skw.items() if k != "depth"}
+    state = _step_state(so, sd, stables, sskw, None)
+    sfwd = bss.smooth_fwd_step(*state, *stables, **sskw)
+    sbwd_args = (*state[:4], *sfwd[5:], *stables, *_step_cotangents(sfwd))
+    sbwd = bss.smooth_bwd_step(*sbwd_args, **sskw)
     calls = {
         "trace_deep": (
             lambda: bs.trace_deep(o, d, *tables, depth=3, **kw),
@@ -593,6 +833,29 @@ def phase_timing(card: str) -> dict[str, dict]:
             lambda: bss.train_deep_plain(so, sd, tgt, *stables, **skw),
             _nbytes(so, sd, tgt, *bss.train_deep(so, sd, tgt, *stables, **skw)),
         ),
+        "smooth_fwd_step": (
+            lambda: bss.smooth_fwd_step(*state, *stables, **sskw),
+            lambda: bss.smooth_fwd_step_plain(*state, *stables, **sskw),
+            _nbytes(*state, *sfwd),  # the state in; the next state and the residuals out
+        ),
+        "smooth_bwd_step": (
+            lambda: bss.smooth_bwd_step(*sbwd_args, **sskw),
+            lambda: bss.smooth_bwd_step_plain(*sbwd_args, **sskw),
+            _nbytes(*sbwd_args, *sbwd),  # state, residuals, tables, cotangents in; gradients out
+        ),
+    }
+    # Each kernel's glossy variant on the same inputs, xi drawn on the main
+    # path's schedule (the xi stacks are inputs: their bytes count too).
+    xis = _xis(True, N_RAYS, 3, torch.float32)
+    xi_all, xi_1 = torch.cat(xis), xis[1]
+    glossy = {
+        "trace_deep": lambda: bs.trace_deep(o, d, *tables, xi_all, depth=3, **kw),
+        "bounce_step": lambda: bs.bounce_step(o, d, ones, ones, zeros, *tables, xi_1, **kw),
+        "smooth_fwd_deep": lambda: bss.smooth_fwd_deep(so, sd, *stables, xi_all, **skw),
+        "smooth_bwd_deep": lambda: bss.smooth_bwd_deep(so, sd, *fwd[1:], *stables, g_acc, xi_all, **skw),
+        "train_deep": lambda: bss.train_deep(so, sd, tgt, *stables, xi_all, **skw),
+        "smooth_fwd_step": lambda: bss.smooth_fwd_step(*state, *stables, xi_1, **sskw),
+        "smooth_bwd_step": lambda: bss.smooth_bwd_step(*sbwd_args, xi_1, **sskw),
     }
     res: dict[str, dict] = {}
     for name, (kernel, plain, n_bytes) in calls.items():
@@ -605,6 +868,10 @@ def phase_timing(card: str) -> dict[str, dict]:
               f"by {bound_by} ({ops / N_RAYS:.0f} operations per ray, {n_bytes} bytes), "
               f"kernel at {bound_ms / ms:.1%} of its bound (reference {WIDTH}x{HEIGHT} f32, depth 3 "
               f"or one bounce; {card})", flush=True)
+    for name, fn in glossy.items():
+        g_ms, ms = time_ms(fn), time_ms(calls[name][0])
+        print(f"[timing] {name} glossy: kernel {g_ms:.4f} ms beside the mirror kernel's {ms:.4f} ms in turn "
+              f"({g_ms / ms:.3f}x; reference {WIDTH}x{HEIGHT} f32; {card})", flush=True)
     scene = reference_scene(WIDTH, HEIGHT, dtype=torch.float32, device="cuda")
     with torch.no_grad():
         for label, cfg in (
@@ -624,7 +891,34 @@ def phase_timing(card: str) -> dict[str, dict]:
           f"({record['profile_wall_ms_per_step']:.4f} ms/step under torch.profiler; {card})", flush=True)
     for name, us in record["profile_device_us_per_step"].items():
         print(f"[timing]   device time per step: {us:9.2f} us  {name}")
+    step_ms = _stochastic_step_ms(scene)
+    print(f"[timing] stochastic Adam step (--stochastic-roughness, one glossy train_deep launch per step): "
+          f"{step_ms:.4f} ms/step, {N_RAYS / (step_ms * 1e-3):.4e} rays/s (reference {WIDTH}x{HEIGHT} f32, depth 3, "
+          f"best of 3 calls of 100 steps; {card})", flush=True)
     return res
+
+
+def _stochastic_step_ms(scene) -> float:
+    """ms/step of the stochastic smooth L2 Adam step, timed as bench.py times
+    the deterministic one: warm-up, then the best of three calls of 100
+    steps, each ending in a CUDA synchronise."""
+    from python_ray_tracer_tpu_torch.optim import adam, init_state, make_loss_fn, make_train_step_k, scene_to_params
+
+    target = torch.tensor(np.load(REPO / GOLDEN)["image"], dtype=torch.float32, device="cuda") / 255.0
+    cfg = _smooth_cfg(use_pallas=True, stochastic_roughness=True, rng_seed=SEED)
+    step_k = make_train_step_k(make_loss_fn(scene, target, cfg))
+    state = init_state(scene_to_params(scene), adam(1e-3))
+    state, _ = step_k(state, 20)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, losses = step_k(state, 100)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / 100)
+    if not bool(torch.isfinite(losses).all()):
+        fail("the stochastic Adam step gave a non-finite loss")
+    return best * 1e3
 
 
 def main() -> int:
@@ -634,9 +928,13 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     errs.update(phase_smooth_kernels())
+    phase_xi()
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(Path(tmp))
         launches.update(phase_smooth_main(Path(tmp)))
+        launches.update(phase_step_main())
+        phase_sampled_main(Path(tmp))
+        phase_stochastic_train(Path(tmp))
     timings = phase_timing(card)
     kernels = [
         {

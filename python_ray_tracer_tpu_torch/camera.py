@@ -32,18 +32,42 @@ def pixel_grid(width: int, height: int, dtype: torch.dtype, device: torch.device
     return torch.stack([x, y, torch.zeros_like(x)], dim=-1).to(dtype)
 
 
-def ray_directions_t(camera: Camera, dtype: torch.dtype) -> torch.Tensor:
-    """(3, H*W) unit ray directions, component axis first (the kernels' layout)."""
+def pixel_pitch(width: int, height: int) -> tuple[float, float]:
+    """Screen-space (dx, dy) between adjacent pixel centers."""
+    aspect_ratio = float(width) / float(height)
+    dx = 2.0 / (width - 1) if width > 1 else 0.0
+    dy = (2.0 / aspect_ratio) / (height - 1) if height > 1 else 0.0
+    return dx, dy
+
+
+def ray_directions_t(camera: Camera, dtype: torch.dtype, jitter_t: torch.Tensor | None = None) -> torch.Tensor:
+    """(3, H*W) unit ray directions, component axis first (the kernels' layout).
+
+    ``jitter_t`` is an optional (2, H*W) subpixel offset in pixel units.
+    """
     pos = camera.position.to(dtype)
     grid = pixel_grid(camera.width, camera.height, dtype, pos.device).T  # (3, N)
+    if jitter_t is not None:
+        dx, dy = pixel_pitch(camera.width, camera.height)
+        pitch = torch.tensor([dx, -dy], dtype=dtype, device=pos.device)
+        grid = torch.cat([grid[0:2] + jitter_t.to(dtype) * pitch[:, None], grid[2:3]])
     v = grid - pos[:, None]
     mag = sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
     inv = 1.0 / torch.where(mag == 0, torch.ones_like(mag), mag)
     return (v * inv[None, :]).contiguous()
 
 
-def ray_directions(camera: Camera, dtype: torch.dtype) -> torch.Tensor:
-    """(H*W, 3) unit ray directions from the camera through the pixel grid."""
+def ray_directions(camera: Camera, dtype: torch.dtype, jitter: torch.Tensor | None = None) -> torch.Tensor:
+    """(H*W, 3) unit ray directions from the camera through the pixel grid.
+
+    ``jitter`` is an optional (H*W, 2) subpixel offset in [-0.5, 0.5) pixel
+    units (supersampling); None keeps the reference's center rays.
+    """
     pos = camera.position.to(dtype)
     grid = pixel_grid(camera.width, camera.height, dtype, pos.device)
+    if jitter is not None:
+        dx, dy = pixel_pitch(camera.width, camera.height)
+        pitch = torch.tensor([dx, -dy, 0.0], dtype=dtype, device=pos.device)  # y decreases downward
+        offs = torch.cat([jitter.to(dtype), torch.zeros_like(jitter[:, :1], dtype=dtype)], dim=1)
+        grid = grid + offs * pitch[None, :]
     return normalize(grid - pos[None, :])

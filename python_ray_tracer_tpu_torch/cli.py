@@ -2,6 +2,7 @@
 
     python -m python_ray_tracer_tpu_torch.cli render --builtin reference -o out.png
     python -m python_ray_tracer_tpu_torch.cli render --depth auto --device cpu -o out.png
+    python -m python_ray_tracer_tpu_torch.cli render --spp 4 --stochastic-roughness --seed 7 -o out.png
     python -m python_ray_tracer_tpu_torch.cli optimize --visibility smooth --target ref.png --steps 200
     python -m python_ray_tracer_tpu_torch.cli bench
 
@@ -37,6 +38,9 @@ def _add_render_opts(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "float64"])
     p.add_argument("--visibility", type=str, default="hard", choices=["hard", "smooth"])
+    p.add_argument("--spp", type=int, default=1, help="samples per pixel (jittered supersampling)")
+    p.add_argument("--stochastic-roughness", action="store_true", help="sample glossy GGX reflections")
+    p.add_argument("--seed", type=int, default=0, help="PRNG seed for sampling")
     p.add_argument("--device", type=str, default="cuda", help="torch device (default cuda; no CPU fallback)")
     p.add_argument("--metrics", type=str, help="JSONL metrics output path")
 
@@ -60,6 +64,9 @@ def _build(args, device: torch.device):
         dtype=dtype,
         visibility=args.visibility,
         use_pallas=device.type == "cuda",
+        samples_per_pixel=args.spp,
+        stochastic_roughness=args.stochastic_roughness,
+        rng_seed=args.seed,
     )
     make = builtin.reference_scene if args.builtin == "reference" else builtin.all_effects_scene
     scene = make(args.width, args.height, dtype=dtype, device=device)

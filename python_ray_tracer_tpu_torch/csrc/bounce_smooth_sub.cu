@@ -1,6 +1,6 @@
 // Smooth-visibility bounce kernels for Hopper (sm_90a), CUDA C++.
 //
-// Replaces three TPU kernels of python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:
+// Replaces five TPU kernels of python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:
 //   _fwd_kernel_sub_deep   (:1329, launched at :1454) -> smooth_fwd_deep
 //       the smooth bounce chain; writes acc and the per-depth residuals
 //       (entering state, winner, hit, shadow clear) the adjoint replays.
@@ -11,11 +11,19 @@
 //       forward chain, the L2 cotangent 2 (clip(acc) - tgt) clip'(acc), and
 //       the reverse adjoint in one launch; the per-bounce replay state stays
 //       in thread-local memory, nothing but gradients and the SSE leaves.
-// All three share fwd_bounce() (the TPU kernels' _FwdSub, :227, unrolled
-// mode) and adjoint_bounce() (_adjoint_bounce, :578), deterministic mirror
-// continuation, no atlas.  The plain PyTorch versions are in
-// ops/bounce_smooth_sub.py (fwd_sub_math, adjoint_bounce) and evaluate the
-// same expressions in the same order.
+//   _fwd_kernel_sub        (:544, launched at :1159)  -> smooth_fwd_step
+//       one bounce: the state (o, d, thr, alive, acc) in and out, plus the
+//       residuals (idx, hit, clear); the depth-1 route and the scan route.
+//   _bwd_kernel_sub        (:1040, launched at :1204) -> smooth_bwd_step
+//       its adjoint: cotangents of all five outputs in, those of (o, d,
+//       thr, alive) and the table gradients out; acc's passes through.
+// All five share fwd_bounce() (the TPU kernels' _FwdSub, :227, unrolled
+// mode) and adjoint_bounce() (_adjoint_bounce, :578), no atlas.  Each is
+// instantiated twice: with the mirror continuation, and with the stochastic
+// glossy one (kXi; :497-538 forward, :610-657 adjoint), whose uniforms xi
+// come from the wrapper on the JAX package's seed schedule.  The plain
+// PyTorch versions are in ops/bounce_smooth_sub.py (fwd_sub_math,
+// adjoint_bounce) and evaluate the same expressions in the same order.
 //
 // What bounds them on this card: per ray and bounce, S winner and S shadow
 // quadratics (the exact tier ~4x the plain one), three sigmoids per sphere,
@@ -24,8 +32,10 @@
 // gradients out, plus 11 residual values per bounce for the fwd/bwd pair).
 // That is far above the H100's ~20 FLOP/B f32 ridge: compute- and
 // latency-bound, branchy, and with ~150 live values per bounce register
-// pressure is the first limit.  The design follows from that, not from the
-// TPU layout:
+// pressure is the first limit.  The one-bounce pair is the exception by
+// count: it moves the whole state per launch (100-120 B per ray) for one
+// bounce's work, so its least time is set by the bytes.  The design follows
+// from that, not from the TPU layout:
 //   * one thread per ray over the (3, N) layout, ragged edge masked; no
 //     (8, 128) packing and no padding;
 //   * the geometry (S, 4), material (S, 19) and consts (1, 16) tables are
@@ -105,6 +115,7 @@ template <typename T> __device__ __forceinline__ T pow4(T x) {
   const T x2 = x * x;
   return x2 * x2;
 }
+template <typename T> __device__ __forceinline__ T pow3(T x) { return x * (x * x); }
 template <typename T> __device__ __forceinline__ T pow5(T x) {
   const T x2 = x * x;
   return x * (x2 * x2);
@@ -227,14 +238,19 @@ template <typename T> struct Fwd {
   T g1l, g1l_root, g1v, g1v_root, geom, spec_den, spec_base, one_m_ndv, glint, spec;
   T view_angle, angle_factor, phase, ip, hue, irid_w;
   T w, refl_coeff, thr_out, ddn;
+  // Glossy continuation (kXi): dout = pert ? r_pert : refl.
+  V3<T> dout, t1v, t2v, hvec, r_pert;
+  T xi1, cos_t, sin_t, cphi, sphi, s_sign, a_b, sc, ss, hw_mag, dhn, r_mag;
+  bool pert;
 };
 
 // One smooth bounce.  saved = true replays with the given idx/hit/clear
-// (no winner or shadow sweep).
-template <typename T>
+// (no winner or shadow sweep).  kXi: the continuation is glossy, from the
+// uniforms (xi1, xi2); otherwise the mirror.
+template <typename T, bool kXi>
 __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T>& d, T thr, T alive,
                                            const T* geom, const T* mat, const T* cst, const Scal<T>& sc,
-                                           bool saved) {
+                                           bool saved, T xi1, T xi2) {
   f.o = o;
   f.d = d;
   f.thr = thr;
@@ -358,6 +374,36 @@ __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T
 
   f.ddn = T(2) * dot3(d, f.normal);
   f.refl = norm3(V3<T>{d.x - f.normal.x * f.ddn, d.y - f.normal.y * f.ddn, d.z - f.normal.z * f.ddn}, f.u_mag);
+  if (!kXi) {
+    f.dout = f.refl;
+    return;
+  }
+
+  // Glossy continuation (_FwdSub :497-538, ops/vecmath.ggx_perturb_reflect
+  // term for term): reflect about a GGX-sampled microfacet half-vector.
+  const V3<T>& n = f.normal;
+  f.xi1 = xi1;
+  const T t2q = pow2(f.alpha) * xi1 / vmax(T(1) - xi1, T(1e-8));
+  f.cos_t = T(1) / m_sqrt(T(1) + t2q);  // a division, never rsqrt
+  f.sin_t = m_sqrt(vmax(T(1) - pow2(f.cos_t), T(0)));
+  const T phi = T(2.0 * kPi) * xi2;
+  f.cphi = m_cos(phi);
+  f.sphi = m_sin(phi);
+  f.s_sign = n.z >= T(0) ? T(1) : T(-1);
+  f.a_b = T(-1) / (f.s_sign + n.z);
+  const T b_b = n.x * n.y * f.a_b;
+  f.t1v = {T(1) + f.s_sign * n.x * n.x * f.a_b, f.s_sign * b_b, -f.s_sign * n.x};
+  f.t2v = {b_b, f.s_sign + n.y * n.y * f.a_b, -n.y};
+  f.sc = f.sin_t * f.cphi;
+  f.ss = f.sin_t * f.sphi;
+  V3<T> hw;
+  for (int i = 0; i < 3; ++i) hw[i] = f.t1v[i] * f.sc + f.t2v[i] * f.ss + n[i] * f.cos_t;
+  f.hvec = norm3(hw, f.hw_mag);
+  f.dhn = T(2) * dot3(d, f.hvec);
+  f.r_pert = norm3(V3<T>{d.x - f.hvec.x * f.dhn, d.y - f.hvec.y * f.dhn, d.z - f.hvec.z * f.dhn}, f.r_mag);
+  // Below-surface samples keep the mirror; the gate is piecewise constant.
+  f.pert = dot3(f.r_pert, n) > T(0);
+  f.dout = f.pert ? f.r_pert : f.refl;
 }
 
 // Warp-level partial sums of the table gradients: every lane of the warp
@@ -415,10 +461,68 @@ __device__ __forceinline__ int v_mat(int s, int k, int c) { return 4 * s + kMatC
 __device__ __forceinline__ int v_const(int s, int c) { return (4 + kMatCols) * s + c; }
 __device__ __forceinline__ int v_sse(int s) { return (4 + kMatCols) * s + kNConst; }
 
+// The glossy continuation's adjoint (_adjoint_bounce :615-657): splits
+// g_dout by the recomputed pert gate into the mirror branch's share (g_refl,
+// returned in place) and the microfacet branch, chained back to d (g_d_p),
+// the normal (g_n_p) and alpha (the return value).
+template <typename T>
+__device__ __forceinline__ T ggx_adjoint(const Fwd<T>& f, V3<T>& g_refl, V3<T>& g_d_p, V3<T>& g_n_p) {
+  const V3<T>& d = f.d;
+  V3<T> g_r;
+  for (int i = 0; i < 3; ++i) {
+    g_r[i] = f.pert ? g_refl[i] : T(0);
+    g_refl[i] = f.pert ? T(0) : g_refl[i];
+  }
+  // r_pert = ur / |ur|, ur = d - hvec dhn, dhn = 2 d.hvec
+  const T rdotp = dot3(f.r_pert, g_r);
+  const T inv_rmag = T(1) / vmax(f.r_mag, T(kEpsDen));
+  V3<T> g_ur;
+  for (int i = 0; i < 3; ++i) g_ur[i] = (g_r[i] - f.r_pert[i] * rdotp) * inv_rmag;
+  g_d_p = g_ur;
+  const T g_dhn = -dot3(f.hvec, g_ur);
+  V3<T> g_h;
+  for (int i = 0; i < 3; ++i) g_h[i] = -f.dhn * g_ur[i];
+  for (int i = 0; i < 3; ++i) {
+    g_d_p[i] = g_d_p[i] + T(2) * f.hvec[i] * g_dhn;
+    g_h[i] = g_h[i] + T(2) * d[i] * g_dhn;
+  }
+  // hvec = hw / |hw|, hw = t1v sc + t2v ss + normal cos_t
+  const T hdotp = dot3(f.hvec, g_h);
+  const T inv_wmag = T(1) / vmax(f.hw_mag, T(kEpsDen));
+  V3<T> g_wv;
+  for (int i = 0; i < 3; ++i) g_wv[i] = (g_h[i] - f.hvec[i] * hdotp) * inv_wmag;
+  const T g_sc = dot3(f.t1v, g_wv);
+  const T g_ss = dot3(f.t2v, g_wv);
+  T g_cos = dot3(f.normal, g_wv);
+  V3<T> g_t1, g_t2;
+  for (int i = 0; i < 3; ++i) {
+    g_t1[i] = f.sc * g_wv[i];
+    g_t2[i] = f.ss * g_wv[i];
+    g_n_p[i] = f.cos_t * g_wv[i];
+  }
+  // Branchless tangent frame: s piecewise constant, a = -1/(s+nz) with
+  // da/dnz = a^2, b = nx ny a.
+  const T sgn = f.s_sign, ab = f.a_b;
+  const V3<T>& nrm = f.normal;
+  const T g_bb = sgn * g_t1.y + g_t2.x;
+  const T g_ab = sgn * nrm.x * nrm.x * g_t1.x + nrm.y * nrm.y * g_t2.y + nrm.x * nrm.y * g_bb;
+  g_n_p.x = g_n_p.x + T(2) * sgn * nrm.x * ab * g_t1.x - sgn * g_t1.z + nrm.y * ab * g_bb;
+  g_n_p.y = g_n_p.y + nrm.x * ab * g_bb + T(2) * nrm.y * ab * g_t2.y - g_t2.z;
+  g_n_p.z = g_n_p.z + ab * ab * g_ab;
+  // sin_t = sqrt(max(0, 1 - cos^2)), gated at sin_t > 1e-6 (the sample is
+  // then the mirror, whose slope the mirror branch carries).
+  const T g_sin = f.cphi * g_sc + f.sphi * g_ss;
+  const T slope = f.sin_t > T(1e-6) ? -f.cos_t / vmax(f.sin_t, T(1e-6)) : T(0);
+  g_cos = g_cos + slope * g_sin;
+  // cos_t = (1 + t2q)^(-1/2), t2q = alpha^2 xi1 / max(1 - xi1, 1e-8)
+  const T g_t2q = T(-0.5) * pow3(f.cos_t) * g_cos;
+  return T(2) * f.alpha * f.xi1 / vmax(T(1) - f.xi1, T(1e-8)) * g_t2q;
+}
+
 // One bounce's handwritten adjoint (Phases A-G).  In: the cotangents of the
 // bounce's outputs; out (in place): those of its inputs.  g_acc passes
 // through (acc is a pure accumulator).  Table gradients go to the partials.
-template <typename T>
+template <typename T, bool kXi>
 __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T>& g_d, T& g_thr, T& g_alive,
                                                const V3<T>& g_acc, const T* geom, const T* cst,
                                                const Scal<T>& sc, const Partials<T>& part) {
@@ -438,8 +542,10 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
   const T g_coverage = g_alive_o + g_w * f.thr;
   const T g_thr_in = g_w * f.coverage;
 
-  // continuation: dout = refl = u / |u|
-  const V3<T>& g_refl = g_d;
+  // continuation: dout = refl = u / |u|, or pert ? r_pert : refl (kXi)
+  V3<T> g_refl = g_d;
+  V3<T> g_d_p = {T(0), T(0), T(0)}, g_n_p = {T(0), T(0), T(0)};
+  const T g_A_pert = kXi ? ggx_adjoint(f, g_refl, g_d_p, g_n_p) : T(0);
   const T rdot = dot3(f.refl, g_refl);
   const T inv_umag = T(1) / vmax(f.u_mag, T(kEpsDen));
   V3<T> g_u;
@@ -451,6 +557,12 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
   for (int i = 0; i < 3; ++i) {
     g_d_acc[i] = g_d_acc[i] + T(2) * f.normal[i] * g_ddn;
     g_n_acc[i] = g_n_acc[i] + T(2) * d[i] * g_ddn;
+  }
+  if (kXi) {
+    for (int i = 0; i < 3; ++i) {
+      g_d_acc[i] = g_d_acc[i] + g_d_p[i];
+      g_n_acc[i] = g_n_acc[i] + g_n_p[i];
+    }
   }
 
   V3<T> g_tex;
@@ -511,7 +623,7 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
   }
   g_nlc = g_nlc + gx_l;
   g_ndv = g_ndv + gx_v;
-  T g_A = T(0) + gA_l + gA_v;
+  T g_A = g_A_pert + gA_l + gA_v;
   const T Dq = f.ggx_den;
   const T denD = T(kPi) * (Dq * Dq + T(kEps));
   g_A = g_A + g_dist * T(2) * A / denD;
@@ -674,10 +786,18 @@ template <typename T> __device__ __forceinline__ Smem<T> smem_tables(int s_total
   return {base, base + 4 * s_total, base + (4 + kMatCols) * s_total};
 }
 
-template <typename T>
+// Bounce dep's uniforms from a (2 * depth, N) xi stack (zero when !kXi).
+template <typename T, bool kXi>
+__device__ __forceinline__ void load_xi(const T* xi, int dep, long long N, long long i, T& xi1, T& xi2) {
+  xi1 = kXi ? xi[2 * dep * N + i] : T(0);
+  xi2 = kXi ? xi[(2 * dep + 1) * N + i] : T(0);
+}
+
+template <typename T, bool kXi>
 __global__ void __launch_bounds__(kThreads)
     smooth_fwd_deep(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ geom,
-                    const T* __restrict__ mat, const T* __restrict__ cst, T* __restrict__ acc,
+                    const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
+                    T* __restrict__ acc,
                     T* __restrict__ osave, T* __restrict__ dsave, T* __restrict__ thrsave,
                     T* __restrict__ alivesave, int* __restrict__ idx_out, T* __restrict__ hit_out,
                     T* __restrict__ clear_out, int n, int depth, Scal<T> sc) {
@@ -700,13 +820,15 @@ __global__ void __launch_bounds__(kThreads)
       thrsave[(dep - 1) * N + i] = thr;
       alivesave[(dep - 1) * N + i] = alive;
     }
-    fwd_bounce(f, ro, rd, thr, alive, s.geom, s.mat, s.cst, sc, false);
+    T xi1, xi2;
+    load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
+    fwd_bounce<T, kXi>(f, ro, rd, thr, alive, s.geom, s.mat, s.cst, sc, false, xi1, xi2);
     for (int c = 0; c < 3; ++c) a[c] = a[c] + f.color[c] * f.w;
     idx_out[dep * N + i] = f.idx;
     hit_out[dep * N + i] = f.hit ? T(1) : T(0);
     clear_out[dep * N + i] = f.clear;
     ro = f.p_n;
-    rd = f.refl;
+    rd = f.dout;
     thr = f.thr_out;
     alive = f.coverage;
   }
@@ -726,13 +848,14 @@ template <typename T> __device__ __forceinline__ Partials<T> make_partials(T* pa
 // Reverse adjoint chain from the residuals.  Lanes past the ragged edge
 // stay (on a copy of the last ray, contributing zero) so every warp
 // reduction has all 32 lanes.
-template <typename T>
+template <typename T, bool kXi>
 __global__ void __launch_bounds__(kThreads)
     smooth_bwd_deep(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ osave,
                     const T* __restrict__ dsave, const T* __restrict__ thrsave,
                     const T* __restrict__ alivesave, const int* __restrict__ idx_in,
                     const T* __restrict__ hit_in, const T* __restrict__ clear_in, const T* __restrict__ geom,
-                    const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ g_acc_in,
+                    const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
+                    const T* __restrict__ g_acc_in,
                     T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ parts, int n, int depth,
                     Scal<T> sc) {
   const Smem<T> s = smem_tables<T>(sc.s_total);
@@ -764,8 +887,10 @@ __global__ void __launch_bounds__(kThreads)
     f.idx = idx_in[dep * N + i];
     f.hit = hit_in[dep * N + i] != T(0);
     f.clear = clear_in[dep * N + i];
-    fwd_bounce(f, ro, rd, thr, alive, s.geom, s.mat, s.cst, sc, true);
-    adjoint_bounce(f, g_o, g_d, g_thr, g_alive, g_acc, s.geom, s.cst, sc, part);
+    T xi1, xi2;
+    load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
+    fwd_bounce<T, kXi>(f, ro, rd, thr, alive, s.geom, s.mat, s.cst, sc, true, xi1, xi2);
+    adjoint_bounce<T, kXi>(f, g_o, g_d, g_thr, g_alive, g_acc, s.geom, s.cst, sc, part);
   }
   if (part.valid) {
     for (int c = 0; c < 3; ++c) {
@@ -783,11 +908,11 @@ template <typename T> struct Replay {
   bool hit;
 };
 
-template <typename T>
+template <typename T, bool kXi>
 __global__ void __launch_bounds__(kThreads)
     train_deep(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ tgt,
                const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst,
-               T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ parts, int n, int depth,
+               const T* __restrict__ xi, T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ parts, int n, int depth,
                Scal<T> sc) {
   const Smem<T> s = smem_tables<T>(sc.s_total);
   stage_tables(s.geom, s.mat, s.cst, geom, mat, cst, sc.s_total);
@@ -802,11 +927,13 @@ __global__ void __launch_bounds__(kThreads)
   V3<T> a = {T(0), T(0), T(0)};
   Fwd<T> f;
   for (int dep = 0; dep < depth; ++dep) {
-    fwd_bounce(f, ro, rd, thr, alive, s.geom, s.mat, s.cst, sc, false);
+    T xi1, xi2;
+    load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
+    fwd_bounce<T, kXi>(f, ro, rd, thr, alive, s.geom, s.mat, s.cst, sc, false, xi1, xi2);
     for (int c = 0; c < 3; ++c) a[c] = a[c] + f.color[c] * f.w;
     saved[dep] = {ro, rd, thr, alive, f.clear, f.idx, f.hit};
     ro = f.p_n;
-    rd = f.refl;
+    rd = f.dout;
     thr = f.thr_out;
     alive = f.coverage;
   }
@@ -832,14 +959,95 @@ __global__ void __launch_bounds__(kThreads)
     f.idx = r.idx;
     f.hit = r.hit;
     f.clear = r.clear;
-    fwd_bounce(f, r.o, r.d, r.thr, r.alive, s.geom, s.mat, s.cst, sc, true);
-    adjoint_bounce(f, g_o, g_d, g_thr, g_alive, g_acc, s.geom, s.cst, sc, part);
+    T xi1, xi2;  // read again: the replay keeps no xi
+    load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
+    fwd_bounce<T, kXi>(f, r.o, r.d, r.thr, r.alive, s.geom, s.mat, s.cst, sc, true, xi1, xi2);
+    adjoint_bounce<T, kXi>(f, g_o, g_d, g_thr, g_alive, g_acc, s.geom, s.cst, sc, part);
   }
   if (part.valid) {
     for (int c = 0; c < 3; ++c) {
       g_o_out[c * N + i] = g_o[c];
       g_d_out[c * N + i] = g_d[c];
     }
+  }
+}
+
+// One smooth bounce per launch (_fwd_kernel_sub): the state (o, d, thr,
+// alive, acc) in, the next state and the bounce's residuals (idx, hit,
+// clear) out.
+template <typename T, bool kXi>
+__global__ void __launch_bounds__(kThreads)
+    smooth_fwd_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
+                    const T* __restrict__ alive, const T* __restrict__ acc, const T* __restrict__ geom,
+                    const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
+                    T* __restrict__ o_out, T* __restrict__ d_out, T* __restrict__ thr_out,
+                    T* __restrict__ alive_out, T* __restrict__ acc_out, int* __restrict__ idx_out,
+                    T* __restrict__ hit_out, T* __restrict__ clear_out, int n, Scal<T> sc) {
+  const Smem<T> s = smem_tables<T>(sc.s_total);
+  stage_tables(s.geom, s.mat, s.cst, geom, mat, cst, sc.s_total);
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long N = n;
+  const V3<T> ro = {o[i], o[N + i], o[2 * N + i]};
+  const V3<T> rd = {d[i], d[N + i], d[2 * N + i]};
+  T xi1, xi2;
+  load_xi<T, kXi>(xi, 0, N, i, xi1, xi2);
+  Fwd<T> f;
+  fwd_bounce<T, kXi>(f, ro, rd, thr[i], alive[i], s.geom, s.mat, s.cst, sc, false, xi1, xi2);
+  for (int c = 0; c < 3; ++c) {
+    acc_out[c * N + i] = acc[c * N + i] + f.color[c] * f.w;
+    o_out[c * N + i] = f.p_n[c];
+    d_out[c * N + i] = f.dout[c];
+  }
+  thr_out[i] = f.thr_out;
+  alive_out[i] = f.coverage;
+  idx_out[i] = f.idx;
+  hit_out[i] = f.hit ? T(1) : T(0);
+  clear_out[i] = f.clear;
+}
+
+// Its adjoint (_bwd_kernel_sub): replays the bounce from its inputs and
+// residuals, takes the cotangents of all five outputs and writes those of
+// (o, d, thr, alive); acc's passes through and is the caller's.  Lanes past
+// the ragged edge stay (on a copy of the last ray, contributing zero) so
+// every warp reduction has all 32 lanes.
+template <typename T, bool kXi>
+__global__ void __launch_bounds__(kThreads)
+    smooth_bwd_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
+                    const T* __restrict__ alive, const int* __restrict__ idx, const T* __restrict__ hit,
+                    const T* __restrict__ clear, const T* __restrict__ geom, const T* __restrict__ mat,
+                    const T* __restrict__ cst, const T* __restrict__ xi, const T* __restrict__ g_o_in,
+                    const T* __restrict__ g_d_in, const T* __restrict__ g_thr_in,
+                    const T* __restrict__ g_alive_in, const T* __restrict__ g_acc_in, T* __restrict__ g_o_out,
+                    T* __restrict__ g_d_out, T* __restrict__ g_thr_out, T* __restrict__ g_alive_out,
+                    T* __restrict__ parts, int n, Scal<T> sc) {
+  const Smem<T> s = smem_tables<T>(sc.s_total);
+  stage_tables(s.geom, s.mat, s.cst, geom, mat, cst, sc.s_total);
+  const long long gi = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const Partials<T> part = make_partials(parts, gi, n);
+  const long long i = part.valid ? gi : n - 1;
+  const long long N = n;
+  const V3<T> ro = {o[i], o[N + i], o[2 * N + i]};
+  const V3<T> rd = {d[i], d[N + i], d[2 * N + i]};
+  T xi1, xi2;
+  load_xi<T, kXi>(xi, 0, N, i, xi1, xi2);
+  Fwd<T> f;
+  f.idx = idx[i];
+  f.hit = hit[i] != T(0);
+  f.clear = clear[i];
+  fwd_bounce<T, kXi>(f, ro, rd, thr[i], alive[i], s.geom, s.mat, s.cst, sc, true, xi1, xi2);
+  V3<T> g_o = {g_o_in[i], g_o_in[N + i], g_o_in[2 * N + i]};
+  V3<T> g_d = {g_d_in[i], g_d_in[N + i], g_d_in[2 * N + i]};
+  T g_thr = g_thr_in[i], g_alive = g_alive_in[i];
+  const V3<T> g_acc = {g_acc_in[i], g_acc_in[N + i], g_acc_in[2 * N + i]};
+  adjoint_bounce<T, kXi>(f, g_o, g_d, g_thr, g_alive, g_acc, s.geom, s.cst, sc, part);
+  if (part.valid) {
+    for (int c = 0; c < 3; ++c) {
+      g_o_out[c * N + i] = g_o[c];
+      g_d_out[c * N + i] = g_d[c];
+    }
+    g_thr_out[i] = g_thr;
+    g_alive_out[i] = g_alive;
   }
 }
 
@@ -881,44 +1089,84 @@ int launch_reduce(const T* parts, T* flat, int n, int s_total, cudaStream_t stre
   return static_cast<int>(cudaGetLastError());
 }
 
+// Each launcher takes xi as a pointer that may be null: null launches the
+// deterministic instantiation of the kernel, non-null the glossy one.
+#define PRT_DISPATCH_XI(KERNEL, T, GRID, SMEM, STREAM, ...)                    \
+  do {                                                                        \
+    if (xi) {                                                                 \
+      KERNEL<T, true><<<GRID, kThreads, SMEM, STREAM>>>(__VA_ARGS__);         \
+    } else {                                                                  \
+      KERNEL<T, false><<<GRID, kThreads, SMEM, STREAM>>>(__VA_ARGS__);        \
+    }                                                                         \
+  } while (0)
+
 template <typename T>
-int launch_fwd(const T* o, const T* d, const T* geom, const T* mat, const T* cst, T* acc, T* osave, T* dsave,
-               T* thrsave, T* alivesave, int* idx, T* hit, T* clear, int n, int s_cheap, int s_total, int depth,
-               T faraway, T sharp_e, T sharp_s, void* stream) {
+int launch_fwd(const T* o, const T* d, const T* geom, const T* mat, const T* cst, const T* xi, T* acc, T* osave,
+               T* dsave, T* thrsave, T* alivesave, int* idx, T* hit, T* clear, int n, int s_cheap, int s_total,
+               int depth, T faraway, T sharp_e, T sharp_s, void* stream) {
   if (bad_args(n, s_cheap, s_total, depth)) return static_cast<int>(cudaErrorInvalidValue);
   const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
-  smooth_fwd_deep<T><<<blocks_for(n), kThreads, smem_bytes<T>(s_total), static_cast<cudaStream_t>(stream)>>>(
-      o, d, geom, mat, cst, acc, osave, dsave, thrsave, alivesave, idx, hit, clear, n, depth, sc);
+  PRT_DISPATCH_XI(smooth_fwd_deep, T, blocks_for(n), smem_bytes<T>(s_total), static_cast<cudaStream_t>(stream),
+                  o, d, geom, mat, cst, xi, acc, osave, dsave, thrsave, alivesave, idx, hit, clear, n, depth, sc);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bwd(const T* o, const T* d, const T* osave, const T* dsave, const T* thrsave, const T* alivesave,
-               const int* idx, const T* hit, const T* clear, const T* geom, const T* mat, const T* cst,
+               const int* idx, const T* hit, const T* clear, const T* geom, const T* mat, const T* cst, const T* xi,
                const T* g_acc, T* g_o, T* g_d, T* parts, T* flat, int n, int s_cheap, int s_total, int depth,
                T faraway, T sharp_e, T sharp_s, void* stream) {
   if (bad_args(n, s_cheap, s_total, depth)) return static_cast<int>(cudaErrorInvalidValue);
   const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  smooth_bwd_deep<T><<<blocks_for(n), kThreads, smem_bytes<T>(s_total), st>>>(
-      o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, cst, g_acc, g_o, g_d, parts, n,
-      depth, sc);
+  PRT_DISPATCH_XI(smooth_bwd_deep, T, blocks_for(n), smem_bytes<T>(s_total), st, o, d, osave, dsave, thrsave,
+                  alivesave, idx, hit, clear, geom, mat, cst, xi, g_acc, g_o, g_d, parts, n, depth, sc);
   return launch_reduce(parts, flat, n, s_total, st);
 }
 
 template <typename T>
-int launch_train(const T* o, const T* d, const T* tgt, const T* geom, const T* mat, const T* cst, T* g_o, T* g_d,
-                 T* parts, T* flat, int n, int s_cheap, int s_total, int depth, T faraway, T sharp_e, T sharp_s,
-                 void* stream) {
+int launch_train(const T* o, const T* d, const T* tgt, const T* geom, const T* mat, const T* cst, const T* xi,
+                 T* g_o, T* g_d, T* parts, T* flat, int n, int s_cheap, int s_total, int depth, T faraway,
+                 T sharp_e, T sharp_s, void* stream) {
   if (bad_args(n, s_cheap, s_total, depth) || depth > kMaxTrainDepth) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  train_deep<T><<<blocks_for(n), kThreads, smem_bytes<T>(s_total), st>>>(o, d, tgt, geom, mat, cst, g_o, g_d,
-                                                                         parts, n, depth, sc);
+  PRT_DISPATCH_XI(train_deep, T, blocks_for(n), smem_bytes<T>(s_total), st, o, d, tgt, geom, mat, cst, xi, g_o,
+                  g_d, parts, n, depth, sc);
   return launch_reduce(parts, flat, n, s_total, st);
 }
+
+template <typename T>
+int launch_fwd_step(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const T* geom,
+                    const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, T* thr_out, T* alive_out,
+                    T* acc_out, int* idx, T* hit, T* clear, int n, int s_cheap, int s_total, T faraway, T sharp_e,
+                    T sharp_s, void* stream) {
+  if (bad_args(n, s_cheap, s_total, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
+  PRT_DISPATCH_XI(smooth_fwd_step, T, blocks_for(n), smem_bytes<T>(s_total), static_cast<cudaStream_t>(stream),
+                  o, d, thr, alive, acc, geom, mat, cst, xi, o_out, d_out, thr_out, alive_out, acc_out, idx, hit,
+                  clear, n, sc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_step(const T* o, const T* d, const T* thr, const T* alive, const int* idx, const T* hit,
+                    const T* clear, const T* geom, const T* mat, const T* cst, const T* xi, const T* g_o,
+                    const T* g_d, const T* g_thr, const T* g_alive, const T* g_acc, T* g_o_out, T* g_d_out,
+                    T* g_thr_out, T* g_alive_out, T* parts, T* flat, int n, int s_cheap, int s_total, T faraway,
+                    T sharp_e, T sharp_s, void* stream) {
+  if (bad_args(n, s_cheap, s_total, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PRT_DISPATCH_XI(smooth_bwd_step, T, blocks_for(n), smem_bytes<T>(s_total), st, o, d, thr, alive, idx, hit,
+                  clear, geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_o_out, g_d_out, g_thr_out,
+                  g_alive_out, parts, n, sc);
+  return launch_reduce(parts, flat, n, s_total, st);
+}
+
+#undef PRT_DISPATCH_XI
 
 }  // namespace
 
@@ -928,26 +1176,44 @@ int launch_train(const T* o, const T* d, const T* tgt, const T* geom, const T* m
 extern "C" {
 
 #define PRT_SMOOTH_ENTRIES(T, SUFFIX)                                                                          \
-  int prt_smooth_fwd_deep_##SUFFIX(const T* o, const T* d, const T* geom, const T* mat, const T* cst, T* acc,  \
-                                   T* osave, T* dsave, T* thrsave, T* alivesave, int* idx, T* hit, T* clear,   \
-                                   int n, int s_cheap, int s_total, int depth, T faraway, T sharp_e,           \
-                                   T sharp_s, void* stream) {                                                  \
-    return launch_fwd<T>(o, d, geom, mat, cst, acc, osave, dsave, thrsave, alivesave, idx, hit, clear, n,     \
+  int prt_smooth_fwd_deep_##SUFFIX(const T* o, const T* d, const T* geom, const T* mat, const T* cst,           \
+                                   const T* xi, T* acc, T* osave, T* dsave, T* thrsave, T* alivesave, int* idx, \
+                                   T* hit, T* clear, int n, int s_cheap, int s_total, int depth, T faraway,     \
+                                   T sharp_e, T sharp_s, void* stream) {                                       \
+    return launch_fwd<T>(o, d, geom, mat, cst, xi, acc, osave, dsave, thrsave, alivesave, idx, hit, clear, n, \
                          s_cheap, s_total, depth, faraway, sharp_e, sharp_s, stream);                          \
   }                                                                                                            \
   int prt_smooth_bwd_deep_##SUFFIX(const T* o, const T* d, const T* osave, const T* dsave, const T* thrsave,   \
                                    const T* alivesave, const int* idx, const T* hit, const T* clear,           \
-                                   const T* geom, const T* mat, const T* cst, const T* g_acc, T* g_o, T* g_d,  \
-                                   T* parts, T* flat, int n, int s_cheap, int s_total, int depth, T faraway,   \
-                                   T sharp_e, T sharp_s, void* stream) {                                       \
-    return launch_bwd<T>(o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, cst, g_acc, g_o, \
-                         g_d, parts, flat, n, s_cheap, s_total, depth, faraway, sharp_e, sharp_s, stream);     \
+                                   const T* geom, const T* mat, const T* cst, const T* xi, const T* g_acc,     \
+                                   T* g_o, T* g_d, T* parts, T* flat, int n, int s_cheap, int s_total,         \
+                                   int depth, T faraway, T sharp_e, T sharp_s, void* stream) {                 \
+    return launch_bwd<T>(o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, cst, xi, g_acc,  \
+                         g_o, g_d, parts, flat, n, s_cheap, s_total, depth, faraway, sharp_e, sharp_s, stream);\
   }                                                                                                            \
   int prt_train_deep_##SUFFIX(const T* o, const T* d, const T* tgt, const T* geom, const T* mat, const T* cst, \
-                              T* g_o, T* g_d, T* parts, T* flat, int n, int s_cheap, int s_total, int depth,   \
-                              T faraway, T sharp_e, T sharp_s, void* stream) {                                 \
-    return launch_train<T>(o, d, tgt, geom, mat, cst, g_o, g_d, parts, flat, n, s_cheap, s_total, depth,      \
+                              const T* xi, T* g_o, T* g_d, T* parts, T* flat, int n, int s_cheap, int s_total, \
+                              int depth, T faraway, T sharp_e, T sharp_s, void* stream) {                      \
+    return launch_train<T>(o, d, tgt, geom, mat, cst, xi, g_o, g_d, parts, flat, n, s_cheap, s_total, depth,  \
                            faraway, sharp_e, sharp_s, stream);                                                 \
+  }                                                                                                            \
+  int prt_smooth_fwd_step_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const T* acc,         \
+                                   const T* geom, const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, \
+                                   T* thr_out, T* alive_out, T* acc_out, int* idx, T* hit, T* clear, int n,    \
+                                   int s_cheap, int s_total, T faraway, T sharp_e, T sharp_s, void* stream) {  \
+    return launch_fwd_step<T>(o, d, thr, alive, acc, geom, mat, cst, xi, o_out, d_out, thr_out, alive_out,    \
+                              acc_out, idx, hit, clear, n, s_cheap, s_total, faraway, sharp_e, sharp_s,        \
+                              stream);                                                                         \
+  }                                                                                                            \
+  int prt_smooth_bwd_step_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const int* idx,       \
+                                   const T* hit, const T* clear, const T* geom, const T* mat, const T* cst,    \
+                                   const T* xi, const T* g_o, const T* g_d, const T* g_thr,                    \
+                                   const T* g_alive, const T* g_acc, T* g_o_out, T* g_d_out, T* g_thr_out,     \
+                                   T* g_alive_out, T* parts, T* flat, int n, int s_cheap, int s_total,         \
+                                   T faraway, T sharp_e, T sharp_s, void* stream) {                            \
+    return launch_bwd_step<T>(o, d, thr, alive, idx, hit, clear, geom, mat, cst, xi, g_o, g_d, g_thr,         \
+                              g_alive, g_acc, g_o_out, g_d_out, g_thr_out, g_alive_out, parts, flat, n,        \
+                              s_cheap, s_total, faraway, sharp_e, sharp_s, stream);                            \
   }
 
 PRT_SMOOTH_ENTRIES(float, f32)

@@ -7,8 +7,13 @@
 //   _bounce_kernel_sub     (:382, launched at :604) -> bounce_step
 //       one bounce per launch; state goes in and out.
 // Both run bounce(): the TPU kernel body _bounce_math (:179-379) with
-// parts="full", no texture atlas and no stochastic xi.  The plain PyTorch
-// versions sit in ops/bounce_sub.py (bounce_math).
+// parts="full" and no texture atlas, deterministic or with the stochastic
+// glossy continuation (:353-376): given xi, the kernel reflects about a
+// GGX-sampled microfacet instead of the normal.  xi comes from the wrapper
+// (ops/rng.py, the JAX package's seed schedule), (2 * depth, N) for
+// trace_deep and (2, N) for bounce_step; each kernel is instantiated with
+// and without it, so the deterministic build is unchanged.  The plain
+// PyTorch versions sit in ops/bounce_sub.py (bounce_math).
 //
 // What bounds it on this card: a ray reads 24 B (origin + direction, f32)
 // and writes 12 B (acc), against S * 2 * depth quadratic solves (nearest and
@@ -60,6 +65,8 @@ __device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float m_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double m_sin(double x) { return sin(x); }
+__device__ __forceinline__ float m_cos(float x) { return cosf(x); }
+__device__ __forceinline__ double m_cos(double x) { return cos(x); }
 __device__ __forceinline__ float m_pow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double m_pow(double x, double y) { return pow(x, y); }
 __device__ __forceinline__ float m_trunc(float x) { return truncf(x); }
@@ -174,12 +181,38 @@ __device__ __forceinline__ T sphere_t_tiered(int k, int s_cheap, const V3<T>& o,
   return k < s_cheap ? sphere_t(o, d, g, faraway) : sphere_t_exact(o, d, g, faraway);
 }
 
-// One hard bounce (_bounce_math, parts="full"): updates o, d, thr, alive in
-// place and returns the color it adds to acc.
+// Glossy continuation (:353-376, ops/vecmath.ggx_perturb_reflect term for
+// term): reflect d about a GGX-sampled half-vector around the unit normal n;
+// a sample that leaves below the surface keeps the mirror direction refl.
 template <typename T>
+__device__ __forceinline__ V3<T> ggx_continuation(const V3<T>& d, const V3<T>& n, const V3<T>& refl, T rough,
+                                                  T xi1, T xi2) {
+  const T alpha_s = pow2(rough);
+  const T tan2 = pow2(alpha_s) * xi1 / vmax(T(1) - xi1, T(1e-8));
+  const T cos_t = T(1) / m_sqrt(T(1) + tan2);  // a division, never rsqrt
+  const T sin_t = m_sqrt(vmax(T(1) - pow2(cos_t), T(0)));
+  const T phi = T(2.0 * kPi) * xi2;
+  const T s_sign = n.z >= T(0) ? T(1) : T(-1);
+  const T a_b = T(-1) / (s_sign + n.z);
+  const T b_b = n.x * n.y * a_b;
+  const V3<T> t1 = {T(1) + s_sign * n.x * n.x * a_b, s_sign * b_b, -s_sign * n.x};
+  const V3<T> t2 = {b_b, s_sign + n.y * n.y * a_b, -n.y};
+  const T sc = sin_t * m_cos(phi);
+  const T ss = sin_t * m_sin(phi);
+  const V3<T> h = normalize3(V3<T>{t1.x * sc + t2.x * ss + n.x * cos_t, t1.y * sc + t2.y * ss + n.y * cos_t,
+                                   t1.z * sc + t2.z * ss + n.z * cos_t});
+  const T dhn = T(2) * dot3(d, h);
+  const V3<T> r = normalize3(V3<T>{d.x - h.x * dhn, d.y - h.y * dhn, d.z - h.z * dhn});
+  return dot3(r, n) > T(0) ? r : refl;
+}
+
+// One hard bounce (_bounce_math, parts="full"): updates o, d, thr, alive in
+// place and returns the color it adds to acc.  kXi: glossy continuation
+// from (xi1, xi2).
+template <typename T, bool kXi>
 __device__ __forceinline__ V3<T> bounce(V3<T>& o, V3<T>& d, T& thr, T& alive, const T* geom,
                                         const T* mat, const T* cst, int s_cheap, int s_total,
-                                        T faraway) {
+                                        T faraway, T xi1, T xi2) {
   // Nearest-hit sweep: strict <, so the lowest index wins ties.
   T tmin = faraway;
   int idx = 0;
@@ -272,9 +305,10 @@ __device__ __forceinline__ V3<T> bounce(V3<T>& o, V3<T>& d, T& thr, T& alive, co
   thr = w * refl_coeff;
   alive = alive * hit;
 
-  // Mirror continuation, normalised.
+  // Mirror continuation, normalised; glossy with xi.
   const T ddn = T(2) * dot3(d, normal);
-  d = normalize3(V3<T>{d.x - normal.x * ddn, d.y - normal.y * ddn, d.z - normal.z * ddn});
+  const V3<T> refl = normalize3(V3<T>{d.x - normal.x * ddn, d.y - normal.y * ddn, d.z - normal.z * ddn});
+  d = kXi ? ggx_continuation(d, normal, refl, m[ROUGH], xi1, xi2) : refl;
   o = p_n;
   return {color.x * w, color.y * w, color.z * w};
 }
@@ -290,11 +324,11 @@ __device__ __forceinline__ void stage_tables(T* s_geom, T* s_mat, T* s_cst, cons
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool kXi>
 __global__ void __launch_bounds__(kThreads)
     trace_deep(const T* __restrict__ o, const T* __restrict__ d, T* __restrict__ acc, int n,
                const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst,
-               int s_cheap, int s_total, int depth, T faraway) {
+               const T* __restrict__ xi, int s_cheap, int s_total, int depth, T faraway) {
   __shared__ T s_geom[kMaxSpheres * 4];
   __shared__ T s_mat[kMaxSpheres * kMatCols];
   __shared__ T s_cst[kNConst];
@@ -309,7 +343,10 @@ __global__ void __launch_bounds__(kThreads)
   T alive = T(1);
   V3<T> a = {T(0), T(0), T(0)};
   for (int dep = 0; dep < depth; ++dep) {
-    const V3<T> add = bounce(ro, rd, thr, alive, s_geom, s_mat, s_cst, s_cheap, s_total, faraway);
+    const T xi1 = kXi ? xi[2 * dep * stride + i] : T(0);
+    const T xi2 = kXi ? xi[(2 * dep + 1) * stride + i] : T(0);
+    const V3<T> add =
+        bounce<T, kXi>(ro, rd, thr, alive, s_geom, s_mat, s_cst, s_cheap, s_total, faraway, xi1, xi2);
     a = {a.x + add.x, a.y + add.y, a.z + add.z};
   }
   acc[i] = a.x;
@@ -317,14 +354,14 @@ __global__ void __launch_bounds__(kThreads)
   acc[2 * stride + i] = a.z;
 }
 
-template <typename T>
+template <typename T, bool kXi>
 __global__ void __launch_bounds__(kThreads)
     bounce_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
                 const T* __restrict__ alive, const T* __restrict__ acc, T* __restrict__ o_out,
                 T* __restrict__ d_out, T* __restrict__ thr_out, T* __restrict__ alive_out,
                 T* __restrict__ acc_out, int n, const T* __restrict__ geom,
-                const T* __restrict__ mat, const T* __restrict__ cst, int s_cheap, int s_total,
-                T faraway) {
+                const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
+                int s_cheap, int s_total, T faraway) {
   __shared__ T s_geom[kMaxSpheres * 4];
   __shared__ T s_mat[kMaxSpheres * kMatCols];
   __shared__ T s_cst[kNConst];
@@ -337,7 +374,9 @@ __global__ void __launch_bounds__(kThreads)
   V3<T> rd = {d[i], d[stride + i], d[2 * stride + i]};
   T t = thr[i];
   T al = alive[i];
-  const V3<T> add = bounce(ro, rd, t, al, s_geom, s_mat, s_cst, s_cheap, s_total, faraway);
+  const T xi1 = kXi ? xi[i] : T(0);
+  const T xi2 = kXi ? xi[stride + i] : T(0);
+  const V3<T> add = bounce<T, kXi>(ro, rd, t, al, s_geom, s_mat, s_cst, s_cheap, s_total, faraway, xi1, xi2);
   o_out[i] = ro.x;
   o_out[stride + i] = ro.y;
   o_out[2 * stride + i] = ro.z;
@@ -357,24 +396,38 @@ bool bad_args(int n, int s_cheap, int s_total) {
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// xi == nullptr launches the deterministic instantiation.
 template <typename T>
 int launch_trace_deep(const T* o, const T* d, T* acc, const T* geom, const T* mat, const T* cst,
-                      int n, int s_cheap, int s_total, int depth, T faraway, void* stream) {
+                      const T* xi, int n, int s_cheap, int s_total, int depth, T faraway, void* stream) {
   if (bad_args(n, s_cheap, s_total) || depth < 1) return static_cast<int>(cudaErrorInvalidValue);
-  trace_deep<T><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, acc, n, geom, mat, cst, s_cheap, s_total, depth, faraway);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xi) {
+    trace_deep<T, true><<<blocks_for(n), kThreads, 0, st>>>(o, d, acc, n, geom, mat, cst, xi, s_cheap,
+                                                           s_total, depth, faraway);
+  } else {
+    trace_deep<T, false><<<blocks_for(n), kThreads, 0, st>>>(o, d, acc, n, geom, mat, cst, xi, s_cheap,
+                                                            s_total, depth, faraway);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bounce_step(const T* o, const T* d, const T* thr, const T* alive, const T* acc,
                        T* o_out, T* d_out, T* thr_out, T* alive_out, T* acc_out, const T* geom,
-                       const T* mat, const T* cst, int n, int s_cheap, int s_total, T faraway,
-                       void* stream) {
+                       const T* mat, const T* cst, const T* xi, int n, int s_cheap, int s_total,
+                       T faraway, void* stream) {
   if (bad_args(n, s_cheap, s_total)) return static_cast<int>(cudaErrorInvalidValue);
-  bounce_step<T><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, thr, alive, acc, o_out, d_out, thr_out, alive_out, acc_out, n, geom, mat, cst,
-      s_cheap, s_total, faraway);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xi) {
+    bounce_step<T, true><<<blocks_for(n), kThreads, 0, st>>>(o, d, thr, alive, acc, o_out, d_out, thr_out,
+                                                            alive_out, acc_out, n, geom, mat, cst, xi,
+                                                            s_cheap, s_total, faraway);
+  } else {
+    bounce_step<T, false><<<blocks_for(n), kThreads, 0, st>>>(o, d, thr, alive, acc, o_out, d_out, thr_out,
+                                                             alive_out, acc_out, n, geom, mat, cst, xi,
+                                                             s_cheap, s_total, faraway);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -386,33 +439,33 @@ int launch_bounce_step(const T* o, const T* d, const T* thr, const T* alive, con
 extern "C" {
 
 int prt_trace_deep_f32(const float* o, const float* d, float* acc, const float* geom,
-                       const float* mat, const float* cst, int n, int s_cheap, int s_total,
-                       int depth, float faraway, void* stream) {
-  return launch_trace_deep<float>(o, d, acc, geom, mat, cst, n, s_cheap, s_total, depth, faraway, stream);
+                       const float* mat, const float* cst, const float* xi, int n, int s_cheap,
+                       int s_total, int depth, float faraway, void* stream) {
+  return launch_trace_deep<float>(o, d, acc, geom, mat, cst, xi, n, s_cheap, s_total, depth, faraway, stream);
 }
 
 int prt_trace_deep_f64(const double* o, const double* d, double* acc, const double* geom,
-                       const double* mat, const double* cst, int n, int s_cheap, int s_total,
-                       int depth, double faraway, void* stream) {
-  return launch_trace_deep<double>(o, d, acc, geom, mat, cst, n, s_cheap, s_total, depth, faraway, stream);
+                       const double* mat, const double* cst, const double* xi, int n, int s_cheap,
+                       int s_total, int depth, double faraway, void* stream) {
+  return launch_trace_deep<double>(o, d, acc, geom, mat, cst, xi, n, s_cheap, s_total, depth, faraway, stream);
 }
 
 int prt_bounce_step_f32(const float* o, const float* d, const float* thr, const float* alive,
                         const float* acc, float* o_out, float* d_out, float* thr_out,
                         float* alive_out, float* acc_out, const float* geom, const float* mat,
-                        const float* cst, int n, int s_cheap, int s_total, float faraway,
-                        void* stream) {
+                        const float* cst, const float* xi, int n, int s_cheap, int s_total,
+                        float faraway, void* stream) {
   return launch_bounce_step<float>(o, d, thr, alive, acc, o_out, d_out, thr_out, alive_out, acc_out,
-                                   geom, mat, cst, n, s_cheap, s_total, faraway, stream);
+                                   geom, mat, cst, xi, n, s_cheap, s_total, faraway, stream);
 }
 
 int prt_bounce_step_f64(const double* o, const double* d, const double* thr, const double* alive,
                         const double* acc, double* o_out, double* d_out, double* thr_out,
                         double* alive_out, double* acc_out, const double* geom, const double* mat,
-                        const double* cst, int n, int s_cheap, int s_total, double faraway,
-                        void* stream) {
+                        const double* cst, const double* xi, int n, int s_cheap, int s_total,
+                        double faraway, void* stream) {
   return launch_bounce_step<double>(o, d, thr, alive, acc, o_out, d_out, thr_out, alive_out,
-                                    acc_out, geom, mat, cst, n, s_cheap, s_total, faraway, stream);
+                                    acc_out, geom, mat, cst, xi, n, s_cheap, s_total, faraway, stream);
 }
 
 const char* prt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

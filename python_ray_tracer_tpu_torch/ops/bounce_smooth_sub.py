@@ -1,9 +1,10 @@
 """Smooth-visibility bounce kernels: plain versions, wrappers and autograd.
 
-Port of the deterministic, no-atlas part of
-:mod:`python_ray_tracer_tpu.ops.pallas_bounce_smooth_sub`.  Three TPU
-kernels become CUDA kernels in ``csrc/bounce_smooth_sub.cu``, one thread
-per ray over the (3, N) layout of :func:`..camera.ray_directions_t`:
+Port of the no-atlas part of
+:mod:`python_ray_tracer_tpu.ops.pallas_bounce_smooth_sub`, mirror and
+stochastic glossy continuations.  Five TPU kernels become CUDA kernels in
+``csrc/bounce_smooth_sub.cu``, one thread per ray over the (3, N) layout
+of :func:`..camera.ray_directions_t`:
 
 * ``_fwd_kernel_sub_deep`` -> ``smooth_fwd_deep``: the whole smooth bounce
   chain, acc plus the per-depth residuals the adjoint replays from;
@@ -11,19 +12,27 @@ per ray over the (3, N) layout of :func:`..camera.ray_directions_t`:
   chain from those residuals: ray and table gradients;
 * ``_train_kernel_sub_deep`` -> ``train_deep``: forward chain, the L2
   loss's cotangent and the reverse adjoint in one launch; returns the SSE
-  and every gradient and writes no residuals.
+  and every gradient and writes no residuals;
+* ``_fwd_kernel_sub`` -> ``smooth_fwd_step``: one bounce, the state
+  ``(o, d, thr, alive, acc)`` in and out, plus its residuals;
+* ``_bwd_kernel_sub`` -> ``smooth_bwd_step``: that bounce's adjoint from
+  the cotangents of all five outputs.
 
-Beside them sit their plain PyTorch versions: :func:`fwd_sub_math` is the
-body of the JAX ``_FwdSub`` (unrolled mode) and :func:`adjoint_bounce` its
-handwritten adjoint (Phases A-G), term for term, over (N,) rows.  A wrapper
-given CPU tensors runs the plain version; given CUDA tensors it launches
-the kernel or raises.  Table gradients come back as ``geom`` (S, 4),
-``mat`` (S, 19) and ``consts`` (1, 16) tensors; autograd carries them
-through the table builders onto the scene's parameters, as JAX transposes
-them onto its scene arrays.
+Each takes an optional xi, (2 * depth, N) or (2, N) uniforms drawn on the
+JAX package's schedule (:func:`.rng.bounce_xi`), that makes the
+continuation reflect about a GGX-sampled microfacet.  Beside the kernels
+sit their plain PyTorch versions: :func:`fwd_sub_math` is the body of the
+JAX ``_FwdSub`` (unrolled mode) and :func:`adjoint_bounce` its handwritten
+adjoint (Phases A-G), term for term, over (N,) rows.  A wrapper given CPU
+tensors runs the plain version; given CUDA tensors it launches the kernel
+or raises.  Table gradients come back as ``geom`` (S, 4), ``mat`` (S, 19)
+and ``consts`` (1, 16) tensors; autograd carries them through the table
+builders onto the scene's parameters, as JAX transposes them onto its
+scene arrays.
 
 :class:`_TraceSubDeep` pairs ``smooth_fwd_deep`` with ``smooth_bwd_deep``
-(any loss through ``render()``); :class:`_TrainLossSubDeep` wraps
+and :class:`_BounceSub` ``smooth_fwd_step`` with ``smooth_bwd_step`` (any
+loss through ``render()``); :class:`_TrainLossSubDeep` wraps
 ``train_deep``, whose backward is a scalar multiply of the gradients its
 forward already computed.  :data:`LAUNCHES` counts kernel launches.
 """
@@ -41,12 +50,14 @@ from .bounce_smooth import (
     EPS_DEN, b_cterm_plain, compensated_b_cterm, dot3, norm3, quad_sol_disc, sig, sol_disc_adjoint,
     sol_disc_exact, sol_disc_plain,
 )
-from .shading import AMBIENT, GLINT_EXPONENT, NUDGE, SHADING_EPS, ipow
+from .bounce_sub import ggx_continuation
+from .rng import bounce_xi
+from .shading import AMBIENT, GLINT_EXPONENT, NUDGE, SHADING_EPS
 from .tables import (
     CX, CY, CZ, DCB, DCG, DCR, DG, IG, IOR, KIND, MAT_COLS, N_CONST, RAD, ROUGH, SG, TFI, TFT, TFW,
     consts_row, geometry_table, material_table,
 )
-from .vecmath import sqrt
+from .vecmath import ipow, sqrt
 
 # The kernels stage the side tables in shared memory, sized for this many
 # spheres (csrc/bounce_smooth_sub.cu kMaxSpheres: 23 values per sphere in
@@ -58,7 +69,7 @@ MAX_SMOOTH_SPHERES = 256
 # take the two-launch pair through render().
 MAX_TRAIN_DEPTH = 64
 
-LAUNCHES = {"smooth_fwd_deep": 0, "smooth_bwd_deep": 0, "train_deep": 0}
+LAUNCHES = {"smooth_fwd_deep": 0, "smooth_bwd_deep": 0, "train_deep": 0, "smooth_fwd_step": 0, "smooth_bwd_step": 0}
 
 _SOURCE = "bounce_smooth_sub.cu"
 
@@ -78,12 +89,14 @@ def _sphere_fn(k: int, s_cheap: int):
     return sol_disc_plain if k < s_cheap else sol_disc_exact
 
 
-def fwd_sub_math(o, d, thr, alive, geom, mat, consts, *, faraway, s_cheap, sharp_e, sharp_s, saved=None):
+def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, saved=None):
     """One smooth bounce (``_FwdSub``): every intermediate the adjoint reads.
 
     ``o``/``d`` are 3-tuples of (N,) rows, ``thr``/``alive`` (N,).  With
     ``saved = (idx, hit, clear)`` the winner and shadow sweeps are skipped
-    and their saved results used, as the backward kernels replay.
+    and their saved results used, as the backward kernels replay.  With
+    ``xi = (xi1, xi2)`` ((N,) uniforms) the continuation ``dout`` reflects
+    about a GGX-sampled microfacet; otherwise it is the mirror ``refl``.
     """
     f = SimpleNamespace()
     dtype = o[0].dtype
@@ -231,7 +244,62 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, *, faraway, s_cheap, sharp
 
     f.ddn = 2.0 * dot3(d, f.normal)
     f.refl, f.u_mag = norm3(tuple(d[i] - f.normal[i] * f.ddn for i in range(3)))
+
+    # Stochastic glossy continuation, every intermediate kept for the adjoint.
+    f.xi = xi
+    if xi is None:
+        f.dout = f.refl
+    else:
+        vars(f).update(vars(ggx_continuation(d, f.normal, f.refl, f.alpha, xi)))
     return f
+
+
+def _ggx_adjoint(f, d, g_dout):
+    """The glossy continuation's adjoint: splits ``g_dout`` by the ``pert``
+    gate and chains the microfacet branch back to ``d``, the normal and
+    alpha.  Returns ``(g_refl, g_d_p, g_n_p, g_A_pert)``, ``g_refl`` the
+    mirror branch's share."""
+    zero = torch.zeros_like(f.w)
+    g_refl = tuple(torch.where(f.pert, zero, g_dout[i]) for i in range(3))
+    g_r = tuple(torch.where(f.pert, g_dout[i], zero) for i in range(3))
+    # r_pert = ur/|ur|, ur = d - hvec dhn, dhn = 2 d.hvec
+    rdotp = dot3(f.r_pert, g_r)
+    inv_rmag = 1.0 / torch.clamp_min(f.r_mag, EPS_DEN)
+    g_ur = tuple((g_r[i] - f.r_pert[i] * rdotp) * inv_rmag for i in range(3))
+    g_d_p = list(g_ur)
+    g_dhn = -dot3(f.hvec, g_ur)
+    g_h = [-f.dhn * g_ur[i] for i in range(3)]
+    for i in range(3):
+        g_d_p[i] = g_d_p[i] + 2.0 * f.hvec[i] * g_dhn
+        g_h[i] = g_h[i] + 2.0 * d[i] * g_dhn
+    # hvec = hw/|hw|, hw = t1v sc + t2v ss + normal cos_t
+    hdotp = dot3(f.hvec, g_h)
+    inv_wmag = 1.0 / torch.clamp_min(f.hw_mag, EPS_DEN)
+    g_wv = tuple((g_h[i] - f.hvec[i] * hdotp) * inv_wmag for i in range(3))
+    g_sc = dot3(f.t1v, g_wv)
+    g_ss = dot3(f.t2v, g_wv)
+    g_cos = dot3(f.normal, g_wv)
+    g_t1 = tuple(f.sc * g_wv[i] for i in range(3))
+    g_t2 = tuple(f.ss * g_wv[i] for i in range(3))
+    g_n_p = [f.cos_t * g_wv[i] for i in range(3)]
+    # Branchless tangent frame: s piecewise constant, a = -1/(s+nz) with
+    # da/dnz = a^2, b = nx ny a.
+    sgn, ab, nrm = f.s_sign, f.a_b, f.normal
+    g_bb = sgn * g_t1[1] + g_t2[0]
+    g_ab = sgn * nrm[0] * nrm[0] * g_t1[0] + nrm[1] * nrm[1] * g_t2[1] + nrm[0] * nrm[1] * g_bb
+    g_n_p[0] = g_n_p[0] + 2.0 * sgn * nrm[0] * ab * g_t1[0] - sgn * g_t1[2] + nrm[1] * ab * g_bb
+    g_n_p[1] = g_n_p[1] + nrm[0] * ab * g_bb + 2.0 * nrm[1] * ab * g_t2[1] - g_t2[2]
+    g_n_p[2] = g_n_p[2] + ab * ab * g_ab
+    # sin_t = sqrt(max(0, 1 - cos^2)), gated at sin_t > 1e-6 (the sample is
+    # then the mirror, whose slope the mirror branch carries).
+    g_sin = f.cphi * g_sc + f.sphi * g_ss
+    slope = torch.where(f.sin_t > 1e-6, -f.cos_t / torch.clamp_min(f.sin_t, 1e-6), zero)
+    g_cos = g_cos + slope * g_sin
+    # cos_t = (1 + t2q)^(-1/2), t2q = alpha^2 xi1 / max(1 - xi1, 1e-8)
+    g_t2q = -0.5 * ipow(f.cos_t, 3) * g_cos
+    xi1 = f.xi[0]
+    g_A_pert = 2.0 * f.alpha * xi1 / torch.clamp_min(1.0 - xi1, 1e-8) * g_t2q
+    return g_refl, g_d_p, g_n_p, g_A_pert
 
 
 def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap):
@@ -258,8 +326,10 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
     g_coverage = g_alive_o + g_w * f.thr
     g_thr_in = g_w * f.coverage
 
-    # continuation direction: dout = refl = u / |u|
-    g_refl = g_dout
+    # continuation direction: dout = refl = u / |u|, or where(pert, r_pert, refl)
+    g_refl, g_A = g_dout, zero
+    if f.xi is not None:
+        g_refl, g_d_p, g_n_p, g_A = _ggx_adjoint(f, d, g_dout)
     rdot = dot3(f.refl, g_refl)
     inv_umag = 1.0 / torch.clamp_min(f.u_mag, EPS_DEN)
     g_u = tuple((g_refl[i] - f.refl[i] * rdot) * inv_umag for i in range(3))
@@ -269,6 +339,10 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
     for i in range(3):
         g_d_acc[i] = g_d_acc[i] + 2.0 * f.normal[i] * g_ddn
         g_n_acc[i] = g_n_acc[i] + 2.0 * d[i] * g_ddn
+    if f.xi is not None:
+        for i in range(3):
+            g_d_acc[i] = g_d_acc[i] + g_d_p[i]
+            g_n_acc[i] = g_n_acc[i] + g_n_p[i]
 
     g_tex = tuple(g_color[i] * f.dw for i in range(3))
     g_dw = g_color[0] * f.tex[0] + g_color[1] * f.tex[1] + g_color[2] * f.tex[2]
@@ -320,7 +394,7 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
     gx_v, gA_v = g1_adj(f.n_dot_v, f.g1v_root, g_g1v)
     g_nlc = g_nlc + gx_l
     g_ndv = g_ndv + gx_v
-    g_A = zero + gA_l + gA_v
+    g_A = g_A + gA_l + gA_v
     Dq = f.ggx_den
     denD = math.pi * (Dq * Dq + SHADING_EPS)
     g_A = g_A + g_dist * 2.0 * A / denD
@@ -444,10 +518,16 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
     return tuple(g_o_in), tuple(g_d_acc), g_thr_in, g_alive_in
 
 
-def smooth_fwd_deep_plain(o, d, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+def _xi_pair(xi, dep: int):
+    """Bounce ``dep``'s ``(xi1, xi2)`` rows of a (2 * depth, N) stack, or None."""
+    return None if xi is None else (xi[2 * dep], xi[2 * dep + 1])
+
+
+def smooth_fwd_deep_plain(o, d, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s):
     """Plain version of ``smooth_fwd_deep``: ``depth`` smooth bounces from
-    unit throughput.  Returns ``(acc, osave, dsave, thrsave, alivesave,
-    idx, hit, clear)``: acc (3, N); the state entering bounces 1..depth-1,
+    unit throughput, bounce ``k`` glossy with rows ``2k, 2k+1`` of ``xi``
+    when given.  Returns ``(acc, osave, dsave, thrsave, alivesave, idx,
+    hit, clear)``: acc (3, N); the state entering bounces 1..depth-1,
     (3*(depth-1), N) for o and d and (depth-1, N) for thr and alive; and
     per bounce (depth, N) the winner (int32), hit (0/1) and shadow clear."""
     kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
@@ -463,12 +543,12 @@ def smooth_fwd_deep_plain(o, d, geom, mat, consts, *, depth, faraway, s_cheap, s
             dsave += list(d3)
             thrsave.append(thr)
             alivesave.append(alive)
-        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, **kw)
+        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, _xi_pair(xi, dep), **kw)
         acc = [acc[i] + f.color[i] * f.w for i in range(3)]
         idx.append(f.idx)
         hit.append(f.hit.to(d.dtype))
         clear.append(f.clear)
-        o3, d3, thr, alive = f.p_n, f.refl, f.thr_out, f.coverage
+        o3, d3, thr, alive = f.p_n, f.dout, f.thr_out, f.coverage
 
     def stack(xs, dt=d.dtype):
         return torch.stack(xs) if xs else torch.empty((0, n), dtype=dt, device=d.device)
@@ -482,14 +562,14 @@ def smooth_fwd_deep_plain(o, d, geom, mat, consts, *, depth, faraway, s_cheap, s
 def _reverse_chain(states, g_acc, geom, mat, consts, kw):
     """The adjoint chain in reverse depth order over replayed bounces.
 
-    ``states[dep] = (o, d, thr, alive, saved)``.  The trace discards the
+    ``states[dep] = (o, d, thr, alive, saved, xi)``.  The trace discards the
     last bounce's ``(o, d, thr, alive)``, so their cotangents start at zero;
     ``g_acc`` is the same for every bounce (acc is a pure accumulator)."""
     ggeom, gmat, gconst = torch.zeros_like(geom), torch.zeros_like(mat), torch.zeros_like(consts)
     zero = torch.zeros_like(g_acc[0])
     g_o, g_d, g_thr, g_alive = (zero, zero, zero), (zero, zero, zero), zero, zero
-    for o3, d3, thr, alive, saved in reversed(states):
-        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, saved=saved, **kw)
+    for o3, d3, thr, alive, saved, xi in reversed(states):
+        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, xi, saved=saved, **kw)
         g_o, g_d, g_thr, g_alive = adjoint_bounce(
             f, o3, d3, (g_o, g_d, g_thr, g_alive, g_acc), geom, ggeom, gmat, gconst,
             faraway=kw["faraway"], s_cheap=kw["s_cheap"],
@@ -498,7 +578,7 @@ def _reverse_chain(states, g_acc, geom, mat, consts, kw):
 
 
 def smooth_bwd_deep_plain(
-    o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc,
+    o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc, xi=None,
     *, depth, faraway, s_cheap, sharp_e, sharp_s,
 ):
     """Plain version of ``smooth_bwd_deep``: from the forward's residuals
@@ -513,7 +593,7 @@ def smooth_bwd_deep_plain(
             j = 3 * (dep - 1)
             o3, d3 = tuple(osave[j : j + 3]), tuple(dsave[j : j + 3])
             thr, alive = thrsave[dep - 1], alivesave[dep - 1]
-        states.append((o3, d3, thr, alive, (idx[dep], hit[dep] != 0, clear[dep])))
+        states.append((o3, d3, thr, alive, (idx[dep], hit[dep] != 0, clear[dep]), _xi_pair(xi, dep)))
     return _reverse_chain(states, tuple(g_acc), geom, mat, consts, kw)
 
 
@@ -526,7 +606,7 @@ def clip_gate(x, lo: float, hi: float):
     return g_lo * g_hi
 
 
-def train_deep_plain(o, d, tgt, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+def train_deep_plain(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s):
     """Plain version of ``train_deep``: ``sum((clip(acc, 0, 1) - tgt)^2)``
     over all (3, N) values and its gradients.  Returns ``(sse, g_o, g_d,
     g_geom, g_mat, g_consts)``; the 1/(3N) of the mean is the caller's."""
@@ -536,11 +616,11 @@ def train_deep_plain(o, d, tgt, geom, mat, consts, *, depth, faraway, s_cheap, s
     alive = torch.ones_like(d[0])
     acc = [torch.zeros_like(d[0]) for _ in range(3)]
     states = []
-    for _ in range(depth):
-        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, **kw)
+    for dep in range(depth):
+        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, _xi_pair(xi, dep), **kw)
         acc = [acc[i] + f.color[i] * f.w for i in range(3)]
-        states.append((o3, d3, thr, alive, (f.idx, f.hit, f.clear)))
-        o3, d3, thr, alive = f.p_n, f.refl, f.thr_out, f.coverage
+        states.append((o3, d3, thr, alive, (f.idx, f.hit, f.clear), f.xi))
+        o3, d3, thr, alive = f.p_n, f.dout, f.thr_out, f.coverage
     sse = torch.zeros_like(d[0])
     g_acc = []
     for i in range(3):
@@ -550,15 +630,55 @@ def train_deep_plain(o, d, tgt, geom, mat, consts, *, depth, faraway, s_cheap, s
     return (torch.sum(sse), *_reverse_chain(states, tuple(g_acc), geom, mat, consts, kw))
 
 
+def smooth_fwd_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s):
+    """Plain version of ``smooth_fwd_step``: one smooth bounce from the state
+    ``(o, d, thr, alive, acc)``, glossy with ``xi`` (2, N) when given.
+    Returns the next state and the bounce's residuals: ``(o, d, thr, alive,
+    acc, idx, hit, clear)``, idx int32 and hit 0/1, each (N,)."""
+    f = fwd_sub_math(
+        tuple(o), tuple(d), thr, alive, geom, mat, consts, _xi_pair(xi, 0),
+        faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s,
+    )
+    acc_n = torch.stack([acc[i] + f.color[i] * f.w for i in range(3)])
+    return (
+        torch.stack(f.p_n), torch.stack(f.dout), f.thr_out, f.coverage, acc_n,
+        f.idx, f.hit.to(d.dtype), f.clear,
+    )
+
+
+def smooth_bwd_step_plain(
+    o, d, thr, alive, idx, hit, clear, geom, mat, consts, g_o, g_d, g_thr, g_alive, g_acc, xi=None,
+    *, faraway, s_cheap, sharp_e, sharp_s,
+):
+    """Plain version of ``smooth_bwd_step``: the adjoint of one bounce, from
+    its inputs, its residuals and the cotangents of its five outputs.
+    Returns ``(g_o, g_d, g_thr, g_alive, g_geom, g_mat, g_consts)``; acc's
+    cotangent passes through unchanged and is the caller's."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    o3, d3 = tuple(o), tuple(d)
+    f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, _xi_pair(xi, 0), saved=(idx, hit != 0, clear), **kw)
+    ggeom, gmat, gconst = torch.zeros_like(geom), torch.zeros_like(mat), torch.zeros_like(consts)
+    g_o3, g_d3, g_thr_in, g_alive_in = adjoint_bounce(
+        f, o3, d3, (tuple(g_o), tuple(g_d), g_thr, g_alive, tuple(g_acc)), geom, ggeom, gmat, gconst,
+        faraway=faraway, s_cheap=s_cheap,
+    )
+    return torch.stack(g_o3), torch.stack(g_d3), g_thr_in, g_alive_in, ggeom, gmat, gconst
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: plain version on CPU tensors, kernel launch on CUDA tensors.
 # ---------------------------------------------------------------------------
 
 
-def _check(rays: dict, geom, mat, consts, *, s_cheap: int, depth: int, stacks: dict | None = None) -> torch.device:
-    """Validate what the kernels take; returns the common device."""
-    stacks = stacks or {}
-    tensors = {**rays, **{k: v for k, (v, _) in stacks.items()}, "geom": geom, "mat": mat, "consts": consts}
+def _check(
+    rays: dict, geom, mat, consts, *, s_cheap: int, depth: int, stacks: dict | None = None, lanes: dict | None = None,
+) -> torch.device:
+    """Validate what the kernels take; returns the common device.  ``stacks``
+    maps a name to ``(tensor or None, rows)`` of a (rows, N) input; ``lanes``
+    to an (N,) input.  ``idx`` must be int32, the rest the rays' dtype."""
+    stacks = {k: v for k, v in (stacks or {}).items() if v[0] is not None}
+    lanes = lanes or {}
+    tensors = {**rays, **{k: v for k, (v, _) in stacks.items()}, **lanes, "geom": geom, "mat": mat, "consts": consts}
     ref = next(iter(rays.values()))
     n = ref.shape[-1]
     s = geom.shape[0]
@@ -567,7 +687,7 @@ def _check(rays: dict, geom, mat, consts, *, s_cheap: int, depth: int, stacks: d
         if torch.is_grad_enabled() and t.requires_grad:
             raise ValueError(
                 f"{name}: the kernels compute their own gradients; call them through "
-                "_TraceSubDeep/_TrainLossSubDeep or pass a detached tensor"
+                "_TraceSubDeep/_BounceSub/_TrainLossSubDeep or pass a detached tensor"
             )
         if t.device != ref.device or t.dtype != want_dt:
             raise ValueError(f"{name}: expected {want_dt} on {ref.device}, got {t.dtype} on {t.device}")
@@ -579,6 +699,9 @@ def _check(rays: dict, geom, mat, consts, *, s_cheap: int, depth: int, stacks: d
     for name, (t, rows) in stacks.items():
         if t.shape != (rows, n):
             raise ValueError(f"{name}: expected shape ({rows}, {n}), got {tuple(t.shape)}")
+    for name, t in lanes.items():
+        if t.shape != (n,):
+            raise ValueError(f"{name}: expected shape ({n},), got {tuple(t.shape)}")
     if geom.shape != (s, 4) or mat.shape != (s, MAT_COLS) or consts.shape != (1, N_CONST):
         raise ValueError("tables: expected geom (S, 4), mat (S, 19) and consts (1, 16)")
     if not 1 <= s <= MAX_SMOOTH_SPHERES:
@@ -597,18 +720,26 @@ def _check(rays: dict, geom, mat, consts, *, s_cheap: int, depth: int, stacks: d
 
 
 # C signatures of the entries in csrc/bounce_smooth_sub.cu, before the
-# trailing stream: p = pointer, i = int, r = the dtype's real.
+# trailing stream: p = pointer, i = int, r = the dtype's real.  Every entry
+# takes xi as a pointer that may be null (the deterministic kernel).
 _SIGNATURES = {
-    # o, d, geom, mat, consts, acc, osave, dsave, thrsave, alivesave, idx,
-    # hit, clear; n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
-    "smooth_fwd_deep": "ppppp" "pppppppp" "iiii" "rrr",
+    # o, d, geom, mat, consts, xi, acc, osave, dsave, thrsave, alivesave,
+    # idx, hit, clear; n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
+    "smooth_fwd_deep": "pppppp" "pppppppp" "iiii" "rrr",
     # o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat,
-    # consts, g_acc, g_o, g_d, partials, table grads; n, s_cheap, s_total,
-    # depth; faraway, sharp_e, sharp_s
-    "smooth_bwd_deep": "ppppppppp" "ppp" "p" "pppp" "iiii" "rrr",
-    # o, d, tgt, geom, mat, consts, g_o, g_d, partials, sse + table grads;
-    # n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
-    "train_deep": "ppp" "ppp" "pppp" "iiii" "rrr",
+    # consts, xi, g_acc, g_o, g_d, partials, table grads; n, s_cheap,
+    # s_total, depth; faraway, sharp_e, sharp_s
+    "smooth_bwd_deep": "ppppppppp" "pppp" "p" "pppp" "iiii" "rrr",
+    # o, d, tgt, geom, mat, consts, xi, g_o, g_d, partials, sse + table
+    # grads; n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
+    "train_deep": "ppp" "pppp" "pppp" "iiii" "rrr",
+    # o, d, thr, alive, acc, geom, mat, consts, xi, their five outputs, idx,
+    # hit, clear; n, s_cheap, s_total; faraway, sharp_e, sharp_s
+    "smooth_fwd_step": "ppppp" "pppp" "ppppp" "ppp" "iii" "rrr",
+    # o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi, cotangents
+    # g_o, g_d, g_thr, g_alive, g_acc, the four input cotangents, partials,
+    # table grads; n, s_cheap, s_total; faraway, sharp_e, sharp_s
+    "smooth_bwd_step": "ppppppp" "pppp" "ppppp" "pppp" "pp" "iii" "rrr",
 }
 
 # Per-warp partial sums of the table gradients: 4 + 19 values per sphere,
@@ -627,7 +758,14 @@ def _launch(name: str, dtype: torch.dtype, *args) -> None:
 
 
 def _scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s):
-    return (n, s_cheap, s, depth, float(faraway), float(sharp_e), float(sharp_s))
+    scalars = (n, s_cheap, s) + (() if depth is None else (depth,))
+    return scalars + (float(faraway), float(sharp_e), float(sharp_s))
+
+
+def _grad_buffers(n: int, s: int, like: torch.Tensor):
+    """The (values, warps) partials (zeroed) and the reduced flat values."""
+    partials = torch.zeros((_n_vals(s), (n + _WARP - 1) // _WARP), dtype=like.dtype, device=like.device)
+    return partials, torch.empty((_n_vals(s),), dtype=like.dtype, device=like.device)
 
 
 def _split_grads(flat, s: int):
@@ -638,12 +776,13 @@ def _split_grads(flat, s: int):
     return g_geom, g_mat, g_consts, flat[-1]
 
 
-def smooth_fwd_deep(o, d, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e, sharp_s):
-    """The smooth chain in one launch; outputs as :func:`smooth_fwd_deep_plain`."""
+def smooth_fwd_deep(o, d, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+    """The smooth chain in one launch, glossy with ``xi`` (2 * depth, N) when
+    given; outputs as :func:`smooth_fwd_deep_plain`."""
     kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
-    device = _check({"o": o, "d": d}, geom, mat, consts, s_cheap=s_cheap, depth=depth)
+    device = _check({"o": o, "d": d}, geom, mat, consts, s_cheap=s_cheap, depth=depth, stacks={"xi": (xi, 2 * depth)})
     if device.type == "cpu":
-        return smooth_fwd_deep_plain(o, d, geom, mat, consts, **kw)
+        return smooth_fwd_deep_plain(o, d, geom, mat, consts, xi, **kw)
     n, s = d.shape[1], geom.shape[0]
     with torch.cuda.device(device):
         e = functools.partial(torch.empty, dtype=d.dtype, device=device)
@@ -652,13 +791,13 @@ def smooth_fwd_deep(o, d, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e
             e((depth - 1, n)), torch.empty((depth, n), dtype=torch.int32, device=device),
             e((depth, n)), e((depth, n)),
         )
-        _launch("smooth_fwd_deep", d.dtype, o, d, geom, mat, consts, *outs,
+        _launch("smooth_fwd_deep", d.dtype, o, d, geom, mat, consts, xi, *outs,
                 *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
     return outs
 
 
 def smooth_bwd_deep(
-    o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc,
+    o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc, xi=None,
     *, depth, faraway, s_cheap, sharp_e, sharp_s,
 ):
     """The reverse adjoint chain in one launch (plus the fixed-order
@@ -667,45 +806,98 @@ def smooth_bwd_deep(
     stacks = {
         "osave": (osave, 3 * (depth - 1)), "dsave": (dsave, 3 * (depth - 1)),
         "thrsave": (thrsave, depth - 1), "alivesave": (alivesave, depth - 1),
-        "idx": (idx, depth), "hit": (hit, depth), "clear": (clear, depth),
+        "idx": (idx, depth), "hit": (hit, depth), "clear": (clear, depth), "xi": (xi, 2 * depth),
     }
     device = _check({"o": o, "d": d, "g_acc": g_acc}, geom, mat, consts, s_cheap=s_cheap, depth=depth, stacks=stacks)
     if device.type == "cpu":
-        return smooth_bwd_deep_plain(o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc, **kw)
+        return smooth_bwd_deep_plain(
+            o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc, xi, **kw
+        )
     n, s = d.shape[1], geom.shape[0]
     with torch.cuda.device(device):
         g_o, g_d = torch.empty_like(d), torch.empty_like(d)
-        partials = torch.zeros((_n_vals(s), (n + _WARP - 1) // _WARP), dtype=d.dtype, device=device)
-        flat = torch.empty((_n_vals(s),), dtype=d.dtype, device=device)
+        partials, flat = _grad_buffers(n, s, d)
         _launch("smooth_bwd_deep", d.dtype, o, d, osave, dsave, thrsave, alivesave, idx, hit, clear,
-                geom, mat, consts, g_acc, g_o, g_d, partials, flat,
+                geom, mat, consts, xi, g_acc, g_o, g_d, partials, flat,
                 *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
     g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
     return g_o, g_d, g_geom, g_mat, g_consts
 
 
-def train_deep(o, d, tgt, geom, mat, consts, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+def train_deep(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s):
     """Loss and every gradient in one launch (plus the fixed-order reduction
     of the table gradients and the SSE); outputs as :func:`train_deep_plain`."""
     kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
-    device = _check({"o": o, "d": d, "tgt": tgt}, geom, mat, consts, s_cheap=s_cheap, depth=depth)
+    device = _check(
+        {"o": o, "d": d, "tgt": tgt}, geom, mat, consts, s_cheap=s_cheap, depth=depth, stacks={"xi": (xi, 2 * depth)}
+    )
     if depth > MAX_TRAIN_DEPTH:
         raise ValueError(f"train_deep takes depth <= {MAX_TRAIN_DEPTH}, got {depth}")
     if device.type == "cpu":
-        return train_deep_plain(o, d, tgt, geom, mat, consts, **kw)
+        return train_deep_plain(o, d, tgt, geom, mat, consts, xi, **kw)
     n, s = d.shape[1], geom.shape[0]
     with torch.cuda.device(device):
         g_o, g_d = torch.empty_like(d), torch.empty_like(d)
-        partials = torch.zeros((_n_vals(s), (n + _WARP - 1) // _WARP), dtype=d.dtype, device=device)
-        flat = torch.empty((_n_vals(s),), dtype=d.dtype, device=device)
-        _launch("train_deep", d.dtype, o, d, tgt, geom, mat, consts, g_o, g_d, partials, flat,
+        partials, flat = _grad_buffers(n, s, d)
+        _launch("train_deep", d.dtype, o, d, tgt, geom, mat, consts, xi, g_o, g_d, partials, flat,
                 *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
     g_geom, g_mat, g_consts, sse = _split_grads(flat, s)
     return sse, g_o, g_d, g_geom, g_mat, g_consts
 
 
+def smooth_fwd_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s):
+    """One smooth bounce per launch, glossy with ``xi`` (2, N) when given;
+    outputs as :func:`smooth_fwd_step_plain`."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    device = _check(
+        {"o": o, "d": d, "acc": acc}, geom, mat, consts, s_cheap=s_cheap, depth=1,
+        stacks={"xi": (xi, 2)}, lanes={"thr": thr, "alive": alive},
+    )
+    if device.type == "cpu":
+        return smooth_fwd_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi, **kw)
+    n, s = d.shape[1], geom.shape[0]
+    with torch.cuda.device(device):
+        outs = (
+            torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr), torch.empty_like(alive),
+            torch.empty_like(acc), torch.empty((n,), dtype=torch.int32, device=device),
+            torch.empty_like(thr), torch.empty_like(thr),
+        )
+        _launch("smooth_fwd_step", d.dtype, o, d, thr, alive, acc, geom, mat, consts, xi, *outs,
+                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s))
+    return outs
+
+
+def smooth_bwd_step(
+    o, d, thr, alive, idx, hit, clear, geom, mat, consts, g_o, g_d, g_thr, g_alive, g_acc, xi=None,
+    *, faraway, s_cheap, sharp_e, sharp_s,
+):
+    """The adjoint of one bounce in one launch (plus the fixed-order
+    reduction of the table gradients); outputs as :func:`smooth_bwd_step_plain`."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    device = _check(
+        {"o": o, "d": d, "g_o": g_o, "g_d": g_d, "g_acc": g_acc}, geom, mat, consts, s_cheap=s_cheap, depth=1,
+        stacks={"xi": (xi, 2)},
+        lanes={"thr": thr, "alive": alive, "idx": idx, "hit": hit, "clear": clear, "g_thr": g_thr, "g_alive": g_alive},
+    )
+    if device.type == "cpu":
+        return smooth_bwd_step_plain(
+            o, d, thr, alive, idx, hit, clear, geom, mat, consts, g_o, g_d, g_thr, g_alive, g_acc, xi, **kw
+        )
+    n, s = d.shape[1], geom.shape[0]
+    with torch.cuda.device(device):
+        outs = (torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr), torch.empty_like(alive))
+        partials, flat = _grad_buffers(n, s, d)
+        _launch("smooth_bwd_step", d.dtype, o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi,
+                g_o, g_d, g_thr, g_alive, g_acc, *outs, partials, flat,
+                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s))
+    g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
+    return (*outs, g_geom, g_mat, g_consts)
+
+
 # ---------------------------------------------------------------------------
-# Autograd: the kernels' own adjoints stand in for torch's.
+# Autograd: the kernels' own adjoints stand in for torch's.  xi is a random
+# sample, a constant of the loss: its cotangent is None, as the JAX custom
+# VJPs give it zero.
 # ---------------------------------------------------------------------------
 
 
@@ -713,16 +905,36 @@ class _TraceSubDeep(torch.autograd.Function):
     """acc (3, N) of the smooth chain; backward launches ``smooth_bwd_deep``."""
 
     @staticmethod
-    def forward(ctx, o, d, geom, mat, consts, kw):
-        acc, *res = smooth_fwd_deep(o, d, geom, mat, consts, **kw)
+    def forward(ctx, o, d, geom, mat, consts, xi, kw):
+        acc, *res = smooth_fwd_deep(o, d, geom, mat, consts, xi, **kw)
         ctx.kw = kw
-        ctx.save_for_backward(o, d, *res, geom, mat, consts)
+        ctx.save_for_backward(o, d, *res, geom, mat, consts, xi)
         return acc
 
     @staticmethod
     def backward(ctx, g_acc):
-        g_o, g_d, g_geom, g_mat, g_consts = smooth_bwd_deep(*ctx.saved_tensors, g_acc.contiguous(), **ctx.kw)
-        return g_o, g_d, g_geom, g_mat, g_consts, None
+        *saved, xi = ctx.saved_tensors
+        g_o, g_d, g_geom, g_mat, g_consts = smooth_bwd_deep(*saved, g_acc.contiguous(), xi, **ctx.kw)
+        return g_o, g_d, g_geom, g_mat, g_consts, None, None
+
+
+class _BounceSub(torch.autograd.Function):
+    """One smooth bounce, ``(o, d, thr, alive, acc)`` in and out; backward
+    launches ``smooth_bwd_step``, and acc's cotangent passes through."""
+
+    @staticmethod
+    def forward(ctx, o, d, thr, alive, acc, geom, mat, consts, xi, kw):
+        *state, idx, hit, clear = smooth_fwd_step(o, d, thr, alive, acc, geom, mat, consts, xi, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi)
+        return tuple(state)
+
+    @staticmethod
+    def backward(ctx, g_o, g_d, g_thr, g_alive, g_acc):
+        *saved, xi = ctx.saved_tensors
+        cots = tuple(g.contiguous() for g in (g_o, g_d, g_thr, g_alive, g_acc))
+        g_o_in, g_d_in, g_thr_in, g_alive_in, g_geom, g_mat, g_consts = smooth_bwd_step(*saved, *cots, xi, **ctx.kw)
+        return g_o_in, g_d_in, g_thr_in, g_alive_in, cots[4], g_geom, g_mat, g_consts, None, None
 
 
 class _TrainLossSubDeep(torch.autograd.Function):
@@ -732,15 +944,15 @@ class _TrainLossSubDeep(torch.autograd.Function):
     zero by contract, as in the JAX custom VJP."""
 
     @staticmethod
-    def forward(ctx, o, d, tgt, geom, mat, consts, kw):
-        sse, *grads = train_deep(o, d, tgt, geom, mat, consts, **kw)
+    def forward(ctx, o, d, tgt, geom, mat, consts, xi, kw):
+        sse, *grads = train_deep(o, d, tgt, geom, mat, consts, xi, **kw)
         ctx.save_for_backward(*grads)
         return sse
 
     @staticmethod
     def backward(ctx, g):
         g_o, g_d, g_geom, g_mat, g_consts = ctx.saved_tensors
-        return g * g_o, g * g_d, None, g * g_geom, g * g_mat, g * g_consts, None
+        return g * g_o, g * g_d, None, g * g_geom, g * g_mat, g * g_consts, None, None
 
 
 def _kernel_inputs(origin, dirs_t, scene, cfg):
@@ -762,21 +974,49 @@ def _kernel_inputs(origin, dirs_t, scene, cfg):
     return o, d, tables, kw
 
 
-def trace_fused_smooth_sub(origin, dirs_t, scene, cfg) -> torch.Tensor:
-    """Smooth-visibility trace through the depth-fused kernel pair; (N, 3)."""
+def _xi_stack(key, n: int, cfg, device):
+    """Every bounce's xi stacked (2 * depth, N), or None off the stochastic path."""
+    if not cfg.stochastic_roughness or key is None:
+        return None
+    return torch.cat(bounce_xi(key, n, cfg.max_depth, cfg.dtype, device))
+
+
+def trace_fused_smooth_sub(origin, dirs_t, scene, cfg, *, route: str = "auto", key=None) -> torch.Tensor:
+    """Smooth-visibility trace through the kernels; (N, 3) colors.
+
+    ``route="auto"`` takes the depth-fused pair (``smooth_fwd_deep`` /
+    ``smooth_bwd_deep``) for depth >= 2 and the one-bounce pair
+    (``smooth_fwd_step`` / ``smooth_bwd_step``) once per bounce for depth
+    1, as the JAX package does; a caller may force ``"deep"`` or
+    ``"step"``.  With ``cfg.stochastic_roughness`` and a seed ``key`` the
+    bounces are glossy, xi drawn on the JAX package's schedule.
+    """
+    if route == "auto":
+        route = "deep" if cfg.max_depth >= 2 else "step"
+    if route not in ("deep", "step"):
+        raise ValueError(f"unknown route {route!r}")
     o, d, tables, kw = _kernel_inputs(origin, dirs_t, scene, cfg)
-    return _TraceSubDeep.apply(o, d, *tables, kw).T
+    xi = _xi_stack(key, d.shape[1], cfg, d.device)
+    if route == "deep":
+        return _TraceSubDeep.apply(o, d, *tables, xi, kw).T
+    step_kw = {k: v for k, v in kw.items() if k != "depth"}
+    thr, alive, acc = torch.ones_like(d[0]), torch.ones_like(d[0]), torch.zeros_like(d)
+    for dep in range(cfg.max_depth):
+        xi_k = None if xi is None else xi[2 * dep : 2 * dep + 2]
+        o, d, thr, alive, acc = _BounceSub.apply(o, d, thr, alive, acc, *tables, xi_k, step_kw)
+    return acc.T
 
 
-def fused_train_l2(origin, dirs_t, target, scene, cfg) -> torch.Tensor:
+def fused_train_l2(origin, dirs_t, target, scene, cfg, key=None) -> torch.Tensor:
     """L2 pixel loss (mean over N*3 values of the CLIPPED render against
-    ``target`` (N, 3)) through the single-launch train kernel.
+    ``target`` (N, 3)) through the single-launch train kernel, glossy with
+    xi from ``key`` on the stochastic path.
 
     The gradient flows to the scene (rays, sphere tables, lights, camera)
-    only: ``target`` is a constant of the loss, and its cotangent is zero
-    by contract.
+    only: ``target`` and xi are constants of the loss, and their
+    cotangents are zero by contract.
     """
     o, d, tables, kw = _kernel_inputs(origin, dirs_t, scene, cfg)
     n = d.shape[1]
     tgt = target.detach().to(cfg.dtype).reshape(n, 3).T.contiguous()
-    return _TrainLossSubDeep.apply(o, d, tgt, *tables, kw) / (n * 3)
+    return _TrainLossSubDeep.apply(o, d, tgt, *tables, _xi_stack(key, n, cfg, d.device), kw) / (n * 3)

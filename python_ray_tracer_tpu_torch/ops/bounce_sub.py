@@ -10,7 +10,7 @@ scene tables staged in shared memory.
 
 Beside each kernel sits its plain PyTorch version.  :func:`bounce_math` is
 the term-for-term mirror of the JAX kernel body ``_bounce_math`` (with
-``parts="full"``, no atlas, no xi).  A wrapper given CPU tensors runs the
+``parts="full"``, no atlas), the glossy xi continuation included.  A wrapper given CPU tensors runs the
 plain version; given CUDA tensors it launches the kernel or raises.  The
 hard path has no gradient in the JAX package either, so the wrappers
 refuse tensors that require grad.
@@ -22,16 +22,19 @@ path went through the kernels.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 
 from . import _build
-from .shading import AMBIENT, GLINT_EXPONENT, NUDGE, SHADING_EPS, ipow
-from .vecmath import sqrt
+from .bounce_smooth import norm3
+from .rng import bounce_xi
+from .shading import AMBIENT, GLINT_EXPONENT, NUDGE, SHADING_EPS
 from .tables import (
     CX, CY, CZ, DCB, DCG, DCR, DG, IG, IOR, KIND, MAT_COLS, N_CONST, RAD, ROUGH, SG, TFI, TFT, TFW,
     consts_row, geometry_table, material_table,
 )
+from .vecmath import ipow, sqrt
 
 # The kernels stage the side tables in fixed-size shared arrays of this many
 # rows (csrc/bounce_sub.cu kMaxSpheres); it is also the JAX package's
@@ -139,9 +142,42 @@ def _sweep(o, d, geom, s_cheap, faraway, update):
     return carry
 
 
-def bounce_math(o, d, thr, alive, geom, mat, consts, *, faraway: float, s_cheap: int):
+def ggx_continuation(d, normal, refl, alpha, xi) -> SimpleNamespace:
+    """The glossy continuation of the JAX kernel bodies: reflect ``d`` about
+    a GGX-sampled microfacet around ``normal`` (``ops.vecmath.
+    ggx_perturb_reflect`` term for term, ``alpha = roughness^2``) and keep
+    the mirror ``refl`` where the sample leaves below the surface.  Rows are
+    3-tuples of (N,); ``xi = (xi1, xi2)`` (N,) uniforms.  Returns ``dout``
+    and every intermediate the smooth adjoint reads."""
+    g = SimpleNamespace(xi=xi)
+    xi1, xi2 = xi
+    g.t2q = ipow(alpha, 2) * xi1 / torch.clamp_min(1.0 - xi1, 1e-8)
+    g.cos_t = 1.0 / sqrt(1.0 + g.t2q)
+    g.sin_t = sqrt(torch.clamp_min(1.0 - ipow(g.cos_t, 2), 0.0))
+    phi = (2.0 * math.pi) * xi2
+    g.cphi = torch.cos(phi)
+    g.sphi = torch.sin(phi)
+    one = torch.ones_like(normal[2])
+    g.s_sign = torch.where(normal[2] >= 0, one, -one)
+    g.a_b = -1.0 / (g.s_sign + normal[2])
+    b_b = normal[0] * normal[1] * g.a_b
+    g.t1v = (1.0 + g.s_sign * normal[0] * normal[0] * g.a_b, g.s_sign * b_b, -g.s_sign * normal[0])
+    g.t2v = (b_b, g.s_sign + normal[1] * normal[1] * g.a_b, -normal[1])
+    g.sc = g.sin_t * g.cphi
+    g.ss = g.sin_t * g.sphi
+    g.hvec, g.hw_mag = norm3(tuple(g.t1v[i] * g.sc + g.t2v[i] * g.ss + normal[i] * g.cos_t for i in range(3)))
+    g.dhn = 2.0 * _dot3(d, g.hvec)
+    g.r_pert, g.r_mag = norm3(tuple(d[i] - g.hvec[i] * g.dhn for i in range(3)))
+    # Below-surface samples keep the mirror; the gate is piecewise constant.
+    g.pert = _dot3(g.r_pert, normal) > 0
+    g.dout = tuple(torch.where(g.pert, g.r_pert[i], refl[i]) for i in range(3))
+    return g
+
+
+def bounce_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int):
     """One hard bounce on rows ``o``/``d`` (3-tuples of (N,)), ``thr`` and
-    ``alive`` (N,).  Returns ``(acc_add, o_next, d_next, thr_next, alive_next)``."""
+    ``alive`` (N,); ``xi`` (two (N,) rows) makes the continuation glossy.
+    Returns ``(acc_add, o_next, d_next, thr_next, alive_next)``."""
     dtype = o[0].dtype
     far = torch.tensor(faraway, dtype=dtype, device=o[0].device)
 
@@ -250,30 +286,35 @@ def bounce_math(o, d, thr, alive, geom, mat, consts, *, faraway: float, s_cheap:
 
     ddn = 2.0 * _dot3(d, normal)
     refl = _normalize3(tuple(d[i] - normal[i] * ddn for i in range(3)))
+    if xi is not None:
+        refl = ggx_continuation(d, normal, refl, ipow(m(ROUGH), 2), xi).dout
 
     acc_add = tuple(color[i] * w for i in range(3))
     return acc_add, p_n, refl, thr_next, alive_next
 
 
-def trace_deep_plain(o, d, geom, mat, consts, *, depth: int, faraway: float, s_cheap: int):
+def trace_deep_plain(o, d, geom, mat, consts, xi=None, *, depth: int, faraway: float, s_cheap: int):
     """Plain version of ``trace_deep``: ``depth`` bounces from unit
-    throughput; returns acc (3, N)."""
+    throughput, bounce ``k`` glossy with rows ``2k, 2k+1`` of ``xi`` when
+    given; returns acc (3, N)."""
     thr = torch.ones_like(d[0])
     alive = torch.ones_like(d[0])
     acc = [torch.zeros_like(d[0]) for _ in range(3)]
     o3, d3 = tuple(o), tuple(d)
-    for _ in range(depth):
+    for dep in range(depth):
+        xi_k = None if xi is None else (xi[2 * dep], xi[2 * dep + 1])
         acc_add, o3, d3, thr, alive = bounce_math(
-            o3, d3, thr, alive, geom, mat, consts, faraway=faraway, s_cheap=s_cheap
+            o3, d3, thr, alive, geom, mat, consts, xi_k, faraway=faraway, s_cheap=s_cheap
         )
         acc = [acc[i] + acc_add[i] for i in range(3)]
     return torch.stack(acc)
 
 
-def bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, *, faraway: float, s_cheap: int):
+def bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int):
     """Plain version of ``bounce_step``: returns ``(o, d, thr, alive, acc)``."""
     acc_add, o_n, d_n, thr_n, alive_n = bounce_math(
-        tuple(o), tuple(d), thr, alive, geom, mat, consts, faraway=faraway, s_cheap=s_cheap
+        tuple(o), tuple(d), thr, alive, geom, mat, consts, None if xi is None else (xi[0], xi[1]),
+        faraway=faraway, s_cheap=s_cheap,
     )
     acc_n = torch.stack([acc[i] + acc_add[i] for i in range(3)])
     return torch.stack(o_n), torch.stack(d_n), thr_n, alive_n, acc_n
@@ -284,9 +325,11 @@ def bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, *, faraway: floa
 # ---------------------------------------------------------------------------
 
 
-def _check(rays: dict, lanes: dict, geom, mat, consts, s_cheap: int) -> torch.device:
+def _check(rays: dict, lanes: dict, geom, mat, consts, s_cheap: int, xi=None, xi_rows: int = 2) -> torch.device:
     """Validate what the kernels take; returns the common device."""
     tensors = {**rays, **lanes, "geom": geom, "mat": mat, "consts": consts}
+    if xi is not None:
+        tensors["xi"] = xi
     ref = next(iter(rays.values()))
     n = ref.shape[-1]
     s = geom.shape[0]
@@ -303,6 +346,8 @@ def _check(rays: dict, lanes: dict, geom, mat, consts, s_cheap: int) -> torch.de
     for name, t in lanes.items():
         if t.shape != (n,):
             raise ValueError(f"{name}: expected shape ({n},), got {tuple(t.shape)}")
+    if xi is not None and xi.shape != (xi_rows, n):
+        raise ValueError(f"xi: expected shape ({xi_rows}, {n}), got {tuple(xi.shape)}")
     if geom.shape != (s, 4) or mat.shape != (s, MAT_COLS) or consts.shape != (1, N_CONST):
         raise ValueError("tables: expected geom (S, 4), mat (S, 19) and consts (1, 16)")
     if not 1 <= s <= MAX_SUB_SPHERES:
@@ -321,11 +366,12 @@ def _check(rays: dict, lanes: dict, geom, mat, consts, s_cheap: int) -> torch.de
 # C signatures of the entries in csrc/bounce_sub.cu, before the trailing
 # stream: p = pointer, i = int, r = the dtype's real.
 _SIGNATURES = {
-    # o, d, acc, geom, mat, consts; n, s_cheap, s_total, depth; faraway
-    "trace_deep": "pppppp" "iiii" "r",
-    # o, d, thr, alive, acc, their five outputs, geom, mat, consts;
-    # n, s_cheap, s_total; faraway
-    "bounce_step": "ppppp" "ppppp" "ppp" "iii" "r",
+    # o, d, acc, geom, mat, consts, xi (or null); n, s_cheap, s_total,
+    # depth; faraway
+    "trace_deep": "ppppppp" "iiii" "r",
+    # o, d, thr, alive, acc, their five outputs, geom, mat, consts, xi (or
+    # null); n, s_cheap, s_total; faraway
+    "bounce_step": "ppppp" "ppppp" "pppp" "iii" "r",
 }
 
 
@@ -335,34 +381,36 @@ def _launch(name: str, dtype: torch.dtype, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def trace_deep(o, d, geom, mat, consts, *, depth: int, faraway: float, s_cheap: int) -> torch.Tensor:
-    """The whole bounce chain in one launch: acc (3, N) of ``depth`` bounces."""
-    device = _check({"o": o, "d": d}, {}, geom, mat, consts, s_cheap)
+def trace_deep(o, d, geom, mat, consts, xi=None, *, depth: int, faraway: float, s_cheap: int) -> torch.Tensor:
+    """The whole bounce chain in one launch: acc (3, N) of ``depth`` bounces;
+    ``xi`` (2 * depth, N) makes every bounce glossy."""
+    device = _check({"o": o, "d": d}, {}, geom, mat, consts, s_cheap, xi, 2 * depth)
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     if device.type == "cpu":
-        return trace_deep_plain(o, d, geom, mat, consts, depth=depth, faraway=faraway, s_cheap=s_cheap)
+        return trace_deep_plain(o, d, geom, mat, consts, xi, depth=depth, faraway=faraway, s_cheap=s_cheap)
     with torch.cuda.device(device):
         acc = torch.empty_like(o)
         _launch(
-            "trace_deep", o.dtype, o, d, acc, geom, mat, consts,
+            "trace_deep", o.dtype, o, d, acc, geom, mat, consts, xi,
             o.shape[1], s_cheap, geom.shape[0], depth, float(faraway),
         )
     return acc
 
 
-def bounce_step(o, d, thr, alive, acc, geom, mat, consts, *, faraway: float, s_cheap: int):
-    """One bounce per launch: returns the next ``(o, d, thr, alive, acc)``."""
-    device = _check({"o": o, "d": d, "acc": acc}, {"thr": thr, "alive": alive}, geom, mat, consts, s_cheap)
+def bounce_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int):
+    """One bounce per launch: returns the next ``(o, d, thr, alive, acc)``;
+    ``xi`` (2, N) makes the bounce glossy."""
+    device = _check({"o": o, "d": d, "acc": acc}, {"thr": thr, "alive": alive}, geom, mat, consts, s_cheap, xi)
     if device.type == "cpu":
-        return bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, faraway=faraway, s_cheap=s_cheap)
+        return bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi, faraway=faraway, s_cheap=s_cheap)
     with torch.cuda.device(device):
         out = (
             torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr),
             torch.empty_like(alive), torch.empty_like(acc),
         )
         _launch(
-            "bounce_step", o.dtype, o, d, thr, alive, acc, *out, geom, mat, consts,
+            "bounce_step", o.dtype, o, d, thr, alive, acc, *out, geom, mat, consts, xi,
             o.shape[1], s_cheap, geom.shape[0], float(faraway),
         )
     return out
@@ -375,11 +423,15 @@ def trace_fused_sub(
     cfg,
     *,
     route: str = "auto",
+    key=None,
 ) -> torch.Tensor:
     """Hard-visibility trace through the bounce kernels; (N, 3) colors.
 
     ``route="auto"`` takes ``trace_deep`` for depth >= 2 and ``bounce_step``
-    per bounce for depth 1; a caller may force either.
+    per bounce for depth 1; a caller may force either.  With
+    ``cfg.stochastic_roughness`` and a seed ``key`` the bounces are glossy:
+    ``trace_deep`` takes every bounce's xi drawn up front, ``bounce_step``
+    one bounce's at a time, both over exactly N rays.
     """
     if scene.spheres.count > MAX_SUB_SPHERES:
         raise NotImplementedError(
@@ -398,14 +450,19 @@ def trace_fused_sub(
     mat = material_table(scene, dtype)
     consts = consts_row(scene, dtype)
     s_cheap = scene.spheres.count - scene.spheres.n_exact
+    n, depth = d.shape[1], cfg.max_depth
+    xis = [None] * depth
+    if cfg.stochastic_roughness and key is not None:
+        xis = bounce_xi(key, n, depth, dtype, d.device)
     if route == "trace_deep":
-        acc = trace_deep(o, d, geom, mat, consts, depth=cfg.max_depth, faraway=cfg.faraway, s_cheap=s_cheap)
+        xi = None if xis[0] is None else torch.cat(xis)
+        acc = trace_deep(o, d, geom, mat, consts, xi, depth=depth, faraway=cfg.faraway, s_cheap=s_cheap)
     else:
         thr = torch.ones_like(d[0])
         alive = torch.ones_like(d[0])
         acc = torch.zeros_like(d)
-        for _ in range(cfg.max_depth):
+        for xi in xis:
             o, d, thr, alive, acc = bounce_step(
-                o, d, thr, alive, acc, geom, mat, consts, faraway=cfg.faraway, s_cheap=s_cheap
+                o, d, thr, alive, acc, geom, mat, consts, xi, faraway=cfg.faraway, s_cheap=s_cheap
             )
     return acc.T

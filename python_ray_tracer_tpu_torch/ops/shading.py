@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..scene import TEXTURE_CHECKER, TEXTURE_IMAGE, Lights, Scene, Spheres
-from .vecmath import clip, dot, normalize, relu0, sqrt
+from .vecmath import clip, dot, ipow, normalize, relu0, sqrt
 
 AMBIENT = 0.004
 SHADING_EPS = 1e-8
@@ -47,19 +47,6 @@ def gather_material(spheres: Spheres, idx: torch.Tensor) -> LaneMaterial:
     """Per-lane material rows for each lane's nearest sphere (index gather)."""
     i = idx.long()
     return LaneMaterial(**{f: getattr(spheres, f)[i] for f in LaneMaterial._fields})
-
-
-def ipow(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``x ** n`` for a positive int ``n`` by the same binary exponentiation
-    (and so the same roundings) as JAX's ``integer_pow``."""
-    acc = None
-    while n > 0:
-        if n & 1:
-            acc = x if acc is None else acc * x
-        n >>= 1
-        if n > 0:
-            x = x * x
-    return acc
 
 
 def texture_color(point: torch.Tensor, normal: torch.Tensor, mat: LaneMaterial, scene: Scene) -> torch.Tensor:

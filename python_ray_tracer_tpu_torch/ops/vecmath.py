@@ -19,6 +19,8 @@ gradients are held against:
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -54,6 +56,19 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return _Sqrt.apply(x)
 
 
+def ipow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x ** n`` for a positive int ``n`` by the same binary exponentiation
+    (and so the same roundings) as JAX's ``integer_pow``."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
 def relu0(x: torch.Tensor) -> torch.Tensor:
     """``max(x, 0)`` with ``jnp.maximum``'s 0.5 gradient at ``x == 0``."""
     return torch.maximum(x, torch.zeros_like(x))
@@ -79,3 +94,45 @@ def normalize(a: torch.Tensor) -> torch.Tensor:
 def reflect(direction: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     """Mirror direction, normalized."""
     return normalize(direction - normal * (2.0 * dot(direction, normal))[..., None])
+
+
+def orthonormal_basis(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Branchless tangent frame around unit normals (Duff/Frisvad)."""
+    one = torch.ones_like(n[..., 2])
+    s = torch.where(n[..., 2] >= 0, one, -one)
+    a = -1.0 / (s + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t1 = torch.stack([1.0 + s * n[..., 0] * n[..., 0] * a, s * b, -s * n[..., 0]], dim=-1)
+    t2 = torch.stack([b, s + n[..., 1] * n[..., 1] * a, -n[..., 1]], dim=-1)
+    return t1, t2
+
+
+def ggx_perturb_reflect(
+    direction: torch.Tensor,  # (N, 3) incoming unit dirs
+    normal: torch.Tensor,  # (N, 3) unit normals
+    roughness: torch.Tensor,  # (N,)
+    xi: torch.Tensor,  # (N, 2) uniforms in [0, 1)
+) -> torch.Tensor:
+    """Reflect about a GGX-sampled microfacet half-vector.
+
+    ``tan^2(theta_h) = alpha^2 xi1 / (1 - xi1)`` with ``alpha =
+    roughness^2``; roughness 0 gives the exact mirror, and samples that
+    would leave below the surface fall back to the mirror.  The root of
+    ``sin^2`` sits in a double ``where``, so roughness -> 0 gives a zero
+    slope and not NaN, as in the JAX package.
+    """
+    alpha = ipow(roughness, 2)[..., None]
+    xi1 = xi[..., 0:1]
+    xi2 = xi[..., 1:2]
+    tan2 = ipow(alpha, 2) * xi1 / torch.clamp_min(1.0 - xi1, 1e-8)
+    cos_t = 1.0 / sqrt(1.0 + tan2)
+    sin2 = relu0(1.0 - ipow(cos_t, 2))
+    sin_pos = sin2 > 0
+    sin_t = torch.where(sin_pos, sqrt(torch.where(sin_pos, sin2, torch.ones_like(sin2))), torch.zeros_like(sin2))
+    phi = (2.0 * math.pi) * xi2
+    t1, t2 = orthonormal_basis(normal)
+    h = normalize(t1 * (sin_t * torch.cos(phi)) + t2 * (sin_t * torch.sin(phi)) + normal * cos_t)
+    r = reflect(direction, h)
+    mirror = reflect(direction, normal)
+    above = dot(r, normal) > 0
+    return torch.where(above[..., None], r, mirror)

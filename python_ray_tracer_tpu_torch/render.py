@@ -1,7 +1,8 @@
 """The renderer: ``render(scene, cfg) -> (H, W, 3)`` float image.
 
-Port of the single-shard, deterministic paths of
-:mod:`python_ray_tracer_tpu.render`, hard and smooth visibility.  The
+Port of the single-shard paths of :mod:`python_ray_tracer_tpu.render`, hard
+and smooth visibility, with jittered supersampling and stochastic glossy
+roughness on the JAX package's seed schedule (:mod:`.ops.rng`).  The
 reference's unbounded mirror recursion is a fixed-depth loop carrying
 ``(origin, direction, throughput, alive, accum)``; every lane computes
 every bounce and dead lanes are multiplied away.
@@ -11,7 +12,8 @@ Two routes, chosen as the JAX package chooses them:
 * ``cfg.use_pallas`` -> the hand-written CUDA kernels (their plain torch
   versions on a CPU tensor): :func:`.ops.bounce_sub.trace_fused_sub` for
   hard visibility, :func:`.ops.bounce_smooth_sub.trace_fused_smooth_sub`
-  (the depth-fused smooth pair, a ``torch.autograd.Function``) for smooth;
+  (the depth-fused smooth pair, or the one-bounce pair at depth 1, each a
+  ``torch.autograd.Function``) for smooth;
 * otherwise :func:`trace`, the pure-torch bounce loop that mirrors the JAX
   XLA path term for term.  Torch autograd through it is the oracle for the
   kernels' handwritten adjoints.
@@ -39,7 +41,8 @@ from .ops.intersect import (
 from .ops.bounce_smooth_sub import MAX_SMOOTH_SPHERES, MAX_TRAIN_DEPTH, fused_train_l2, trace_fused_smooth_sub
 from .ops.bounce_sub import trace_fused_sub
 from .ops.shading import NUDGE, gather_material, shade
-from .ops.vecmath import normalize, reflect
+from .ops.rng import bounce_xi, fold_seed, seed_root, uniform2
+from .ops.vecmath import ggx_perturb_reflect, normalize, reflect
 from .scene import Scene
 
 # Scope of the culled smooth route of the JAX package
@@ -121,62 +124,90 @@ def _coverage_at(res: IntersectResult, idx: torch.Tensor, sharpness: float) -> t
     return torch.gather(cover_all, 1, idx.long()[:, None])[:, 0]
 
 
+def bounce(
+    o: torch.Tensor,  # (N, 3)
+    d: torch.Tensor,  # (N, 3) unit
+    throughput: torch.Tensor,  # (N,)
+    alive: torch.Tensor,  # (N,)
+    accum: torch.Tensor,  # (N, 3)
+    scene: Scene,
+    cfg: RenderConfig,
+    xi: torch.Tensor | None = None,  # (N, 2) uniforms: GGX-sampled continuation
+) -> tuple[torch.Tensor, ...]:
+    """One bounce of :func:`trace`: returns the next ``(o, d, throughput,
+    alive, accum)``.
+
+    Misses contribute black; ``to_camera`` always points at the ORIGINAL
+    camera (reference quirk kept).  Smooth visibility relaxes coverage and
+    shadow with sigmoids, and the next ``alive`` is the coverage itself.
+    With ``xi`` the continuation reflects about a GGX-sampled microfacet
+    (stochastic glossy roughness) instead of the mirror normal.
+    """
+    smooth = cfg.visibility == VISIBILITY_SMOOTH
+    dtype = cfg.dtype
+    cam_pos = scene.camera.position.to(dtype)
+    light_pos = scene.lights.point_position.to(dtype)
+    res = _sweep(o, d, scene, cfg)
+    near = nearest_hit(res.t, cfg.faraway)
+    hit = near.hit.to(dtype)
+    if smooth:
+        idx = _smooth_winner_idx(res, near)
+        coverage = _coverage_at(res, idx, cfg.edge_sharpness) * alive
+    else:
+        idx = near.idx
+        coverage = hit * alive
+
+    t_safe = torch.where(near.hit, near.t, torch.ones_like(near.t))
+    mat = gather_material(scene.spheres, idx)
+
+    p = o + d * t_safe[:, None]
+    normal = (p - mat.center) * (1.0 / mat.radius)[:, None]
+    to_light = normalize(light_pos[None, :] - p)
+    to_camera = normalize(cam_pos[None, :] - p)
+    p_nudged = p + normal * NUDGE
+
+    shadow_res = _sweep(p_nudged, to_light, scene, cfg)
+    if smooth:
+        in_light = _shadow_smooth(shadow_res, idx, cfg)
+    else:
+        in_light = _shadow_hard(shadow_res, idx, dtype)
+    local = shade(p, normal, to_light, to_camera, in_light, mat, scene)
+
+    accum = accum + local.color * (throughput * coverage)[:, None]
+    throughput = throughput * coverage * local.refl_coeff
+    alive = coverage if smooth else alive * hit
+    if xi is None:
+        d_next = reflect(d, normal)
+    else:
+        d_next = ggx_perturb_reflect(d, normal, mat.specular_roughness, xi)
+    return p_nudged, d_next, throughput, alive, accum
+
+
 def trace(
     origin: torch.Tensor,  # (N, 3) or (3,)
     direction: torch.Tensor,  # (N, 3) unit
     scene: Scene,
     cfg: RenderConfig,
+    key=None,
 ) -> torch.Tensor:
     """Trace N rays to ``cfg.max_depth`` bounces; returns (N, 3) color.
 
-    Misses contribute black; ``to_camera`` always points at the ORIGINAL
-    camera, every bounce (reference quirk kept).  Smooth visibility relaxes
-    coverage and shadow with sigmoids, and the next bounce's ``alive`` is
-    the coverage itself.
+    With ``cfg.stochastic_roughness`` and a seed ``key``, each bounce takes
+    its xi on the JAX package's schedule (:func:`.ops.rng.bounce_xi`).
     """
-    smooth = cfg.visibility == VISIBILITY_SMOOTH
     dtype = cfg.dtype
     direction = direction.to(dtype)
     n = direction.shape[0]
     o = origin.to(dtype).expand(direction.shape)
     d = direction
-    cam_pos = scene.camera.position.to(dtype)
-    light_pos = scene.lights.point_position.to(dtype)
     throughput = torch.ones((n,), dtype=dtype, device=d.device)
     alive = torch.ones((n,), dtype=dtype, device=d.device)
     accum = torch.zeros((n, 3), dtype=dtype, device=d.device)
-    for _ in range(cfg.max_depth):
-        res = _sweep(o, d, scene, cfg)
-        near = nearest_hit(res.t, cfg.faraway)
-        hit = near.hit.to(dtype)
-        if smooth:
-            idx = _smooth_winner_idx(res, near)
-            coverage = _coverage_at(res, idx, cfg.edge_sharpness) * alive
-        else:
-            idx = near.idx
-            coverage = hit * alive
-
-        t_safe = torch.where(near.hit, near.t, torch.ones_like(near.t))
-        mat = gather_material(scene.spheres, idx)
-
-        p = o + d * t_safe[:, None]
-        normal = (p - mat.center) * (1.0 / mat.radius)[:, None]
-        to_light = normalize(light_pos[None, :] - p)
-        to_camera = normalize(cam_pos[None, :] - p)
-        p_nudged = p + normal * NUDGE
-
-        shadow_res = _sweep(p_nudged, to_light, scene, cfg)
-        if smooth:
-            in_light = _shadow_smooth(shadow_res, idx, cfg)
-        else:
-            in_light = _shadow_hard(shadow_res, idx, dtype)
-        local = shade(p, normal, to_light, to_camera, in_light, mat, scene)
-
-        accum = accum + local.color * (throughput * coverage)[:, None]
-        throughput = throughput * coverage * local.refl_coeff
-        alive = coverage if smooth else alive * hit
-        o = p_nudged
-        d = reflect(d, normal)
+    xis = [None] * cfg.max_depth
+    if cfg.stochastic_roughness and key is not None:
+        xis = [xi.T for xi in bounce_xi(key, n, cfg.max_depth, dtype, d.device)]
+    for xi in xis:
+        o, d, throughput, alive, accum = bounce(o, d, throughput, alive, accum, scene, cfg, xi)
     return accum
 
 
@@ -195,11 +226,7 @@ def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
     """Refuse every route of the JAX renderer this port does not have yet."""
     smooth_kernels = cfg.visibility == VISIBILITY_SMOOTH and cfg.use_pallas
     waits = None
-    if cfg.samples_per_pixel > 1:
-        waits = "supersampling (render.render's jittered sample scan, ops.rng)"
-    elif cfg.stochastic_roughness:
-        waits = "stochastic roughness (ops.vecmath.ggx_perturb_reflect, ops.rng)"
-    elif scene.has_atlas:
+    if scene.has_atlas:
         waits = "image-texture atlases (ops.shading.texture_color, the sublane kernels' texel gather)"
     elif cfg.tie_mode == "sum":
         waits = "tie_mode='sum' (render.trace's tie_sum branch)"
@@ -209,8 +236,6 @@ def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
         waits = "interpret mode (a CUDA kernel has none; pallas_interpret has no counterpart)"
     elif smooth_kernels and cull_smooth_ok(scene, cfg, scene.camera.width * scene.camera.height):
         waits = "the culled smooth route (ops.pallas_culled_smooth.trace_culled_smooth)"
-    elif smooth_kernels and cfg.max_depth == 1:
-        waits = "smooth depth 1 through the kernels (ops.pallas_bounce_smooth_sub._bounce_sub)"
     elif smooth_kernels and scene.spheres.count > MAX_SMOOTH_SPHERES:
         waits = (
             f"smooth kernels for more than {MAX_SMOOTH_SPHERES} spheres "
@@ -220,15 +245,16 @@ def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
         raise NotImplementedError(f"not ported yet: {waits} in python_ray_tracer_tpu")
 
 
-def _render_sample(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
-    """One center ray per pixel -> flat (H*W, 3) colors."""
+def _render_sample(scene: Scene, cfg: RenderConfig, jitter: torch.Tensor | None, key) -> torch.Tensor:
+    """One (optionally jittered) sample per pixel -> flat (H*W, 3) colors;
+    ``key`` seeds the stochastic continuation (None: mirror)."""
     if cfg.use_pallas:
-        dirs_t = ray_directions_t(scene.camera, cfg.dtype)
+        dirs_t = ray_directions_t(scene.camera, cfg.dtype, None if jitter is None else jitter.T)
         if cfg.visibility == VISIBILITY_SMOOTH:
-            return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg)
-        return trace_fused_sub(scene.camera.position, dirs_t, scene, cfg)
-    dirs = ray_directions(scene.camera, cfg.dtype)
-    return trace(scene.camera.position, dirs, scene, cfg)
+            return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
+        return trace_fused_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
+    dirs = ray_directions(scene.camera, cfg.dtype, jitter)
+    return trace(scene.camera.position, dirs, scene, cfg, key=key)
 
 
 def fused_train_l2_ok(scene: Scene, cfg: RenderConfig) -> bool:
@@ -257,11 +283,34 @@ def l2_loss_fused(scene: Scene, target: torch.Tensor, cfg: RenderConfig) -> torc
     launch.  Callers gate on :func:`fused_train_l2_ok`."""
     _check_scope(scene, cfg)
     dirs_t = ray_directions_t(scene.camera, cfg.dtype)
-    return fused_train_l2(scene.camera.position, dirs_t, target.reshape(-1, 3), scene, cfg)
+    key = None
+    if cfg.stochastic_roughness:
+        # The seed schedule of render()'s sample loop at spp 1, sample 0.
+        key = fold_seed(fold_seed(seed_root(cfg.rng_seed), 0), 4)
+    return fused_train_l2(scene.camera.position, dirs_t, target.reshape(-1, 3), scene, cfg, key=key)
 
 
 def render(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
-    """Render the scene to an (H, W, 3) float image (unclipped)."""
+    """Render the scene to an (H, W, 3) float image (unclipped).
+
+    ``cfg.samples_per_pixel > 1`` averages jittered subpixel samples, one
+    frame at a time; ``cfg.stochastic_roughness`` draws glossy reflection
+    directions.  Both follow the JAX package's seed schedule from
+    ``cfg.rng_seed``: sample ``i`` takes ``k = fold(root, i)``, its jitter
+    from ``fold(k, 3)`` and its trace key ``fold(k, 4)``.
+    """
     _check_scope(scene, cfg)
     h, w = scene.camera.height, scene.camera.width
-    return _render_sample(scene, cfg).reshape(h, w, 3)
+    spp = cfg.samples_per_pixel
+    if spp == 1 and not cfg.stochastic_roughness:
+        return _render_sample(scene, cfg, None, None).reshape(h, w, 3)
+    base = seed_root(cfg.rng_seed)
+    n = h * w
+    device = scene.camera.position.device
+    acc = torch.zeros((n, 3), dtype=cfg.dtype, device=device)
+    for i in range(spp):
+        k = fold_seed(base, i)
+        k_jit, k_trace = fold_seed(k, 3), fold_seed(k, 4)
+        jitter = uniform2(k_jit, n, cfg.dtype, device=device) - 0.5 if spp > 1 else None
+        acc = acc + _render_sample(scene, cfg, jitter, k_trace if cfg.stochastic_roughness else None)
+    return (acc / spp).reshape(h, w, 3)

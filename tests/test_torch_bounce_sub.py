@@ -9,7 +9,9 @@ The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
 
 Each JAX chain runs once per module, to the deepest depth any case needs;
-the accumulated color after bounce k is the depth-k render.
+the accumulated color after bounce k is the depth-k render.  The glossy
+cases feed both sides the same xi, drawn by the port on the JAX package's
+schedule (``tests/test_torch_sampling.py`` holds the draw bitwise).
 """
 
 import jax.numpy as jnp
@@ -28,10 +30,12 @@ from python_ray_tracer_tpu_torch import RenderConfig  # noqa: E402
 from python_ray_tracer_tpu_torch.camera import ray_directions_t  # noqa: E402
 from python_ray_tracer_tpu_torch.models import scenes as tscenes  # noqa: E402
 from python_ray_tracer_tpu_torch.ops import bounce_sub  # noqa: E402
+from python_ray_tracer_tpu_torch.ops.rng import bounce_xi  # noqa: E402
 from python_ray_tracer_tpu_torch.ops.tables import consts_row, geometry_table, material_table  # noqa: E402
 
 W, H = 64, 32
 DTYPES = {"float64": (jnp.float64, torch.float64), "float32": (jnp.float32, torch.float32)}
+GLOSSY_KEY = 99
 # Depth 12 (the reference scene's --depth auto) runs in float64 only: an
 # eager JAX bounce costs ~0.3 s here, and the CUDA kernels are held at
 # depth 12 in float32 against these plain versions by chip_smoke.py.
@@ -48,14 +52,23 @@ CASES = [
     ("reference", 1, "bounce_step", "float32"),
     ("all_effects", 3, "trace_deep", "float32"),
     ("all_effects", 3, "bounce_step", "float32"),
+    ("reference", 3, "trace_deep", "float64-glossy"),
+    ("reference", 3, "bounce_step", "float64-glossy"),
 ]
 # Deepest depth each (scene, dtype) chain needs.
 CHAIN_DEPTH = {(n, dt): max(c[1] for c in CASES if c[0] == n and c[3] == dt) for n, _, _, dt in CASES}
 
 
+def _xis(dt: str, n: int, depth: int) -> list:
+    """Each bounce's (2, N) xi for the glossy cases, else Nones."""
+    if not dt.endswith("-glossy"):
+        return [None] * depth
+    return bounce_xi(GLOSSY_KEY, n, depth, DTYPES[dt.split("-")[0]][1])
+
+
 def _jax_chain(name: str, dt: str) -> list[np.ndarray]:
     """(N, 3) accumulated color after each bounce of the eager JAX kernel body."""
-    jdt = DTYPES[dt][0]
+    jdt = DTYPES[dt.split("-")[0]][0]
     scene = getattr(jscenes, f"{name}_scene")(W, H, dtype=jdt)
     d_t = jax_rays_t(scene.camera, jdt)
     n = d_t.shape[1]
@@ -66,10 +79,10 @@ def _jax_chain(name: str, dt: str) -> list[np.ndarray]:
     thr = alive = jnp.ones((n,), jdt)
     acc = [jnp.zeros((n,), jdt)] * 3
     out = []
-    for _ in range(CHAIN_DEPTH[(name, dt)]):
+    for xi in _xis(dt, n, CHAIN_DEPTH[(name, dt)]):
         add, o, d, thr, alive, _, _ = _bounce_math(
             o, d, thr, alive, *tables, faraway=jax_faraway(jdt), s_cheap=s - scene.spheres.n_exact,
-            s_total=s, parts="full", tex_hw=None, xi=None,
+            s_total=s, parts="full", tex_hw=None, xi=None if xi is None else (jnp.asarray(xi[0].numpy()), jnp.asarray(xi[1].numpy())),
         )
         acc = [acc[i] + add[i] for i in range(3)]
         out.append(np.stack([np.asarray(a) for a in acc], axis=1))
@@ -92,16 +105,18 @@ def jax_chains():
 def test_plain_kernels_match_jax_body(jax_chains, name, depth, route, dt):
     """f64: within 1e-12.  f32: at least 99.9% of values within 1e-5 (eager
     and jitted JAX themselves part by up to 5.8e-4 on a few f32 values)."""
-    tdt = DTYPES[dt][1]
+    tdt = DTYPES[dt.split("-")[0]][1]
     want = jax_chains(name, dt)[depth - 1]
     scene = getattr(tscenes, f"{name}_scene")(W, H, dtype=tdt)
+    glossy = dt.endswith("-glossy")
     got = bounce_sub.trace_fused_sub(
         scene.camera.position, ray_directions_t(scene.camera, tdt), scene,
-        RenderConfig(max_depth=depth, dtype=tdt), route=route,
+        RenderConfig(max_depth=depth, dtype=tdt, stochastic_roughness=glossy), route=route,
+        key=GLOSSY_KEY if glossy else None,
     ).numpy()
     assert got.shape == want.shape == (W * H, 3)
     diff = np.abs(got - want)
-    if dt == "float64":
+    if dt.startswith("float64"):
         assert diff.max() <= 1e-12, diff.max()
     else:
         share = float((diff <= 1e-5).mean())

@@ -183,12 +183,11 @@ def _ninety_six_spheres():
 
 
 _UNPORTED = {
-    "smooth_depth1_kernels": dict(visibility="smooth", use_pallas=True, max_depth=1),
-    "spp2": dict(samples_per_pixel=2),
-    "stochastic": dict(stochastic_roughness=True),
     "tie_sum": dict(tie_mode="sum"),
     "ray_chunk": dict(ray_chunk=16),
+    "stochastic_ray_chunk": dict(stochastic_roughness=True, ray_chunk=16),
     "atlas": {},
+    "spp2_atlas": dict(samples_per_pixel=2),
     "96_spheres_kernels": dict(use_pallas=True),
 }
 
@@ -199,7 +198,7 @@ def test_unported_routes_raise(route):
     nothing launches a kernel on the CPU."""
     before = dict(bounce_sub.LAUNCHES)
     scene = tscenes.reference_scene(8, 4)
-    if route == "atlas":
+    if route in ("atlas", "spp2_atlas"):
         scene = dataclasses.replace(scene, texture_atlas=torch.rand((1, 4, 4, 3), generator=torch.Generator().manual_seed(0)))
     elif route == "96_spheres_kernels":
         scene = _ninety_six_spheres()

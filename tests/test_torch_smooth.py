@@ -67,6 +67,7 @@ GRAD_RTOL = {"torch_autograd": 1e-9, "train_deep_plain": 1e-7, "smooth_bwd_deep_
 # Frame tolerance (absolute, on colors up to ~2): the same two effects,
 # measured 1.2e-11 (pure torch) and 7.6e-10 (kernel plain versions).
 IMAGE_ATOL = {"pure": 1e-10, "kernels": 1e-8}
+SMOOTH_KERNELS = ("smooth_fwd_deep", "smooth_bwd_deep", "train_deep", "smooth_fwd_step", "smooth_bwd_step")
 
 
 def _port_scene(name):
@@ -334,23 +335,17 @@ def _many_spheres(n, width, height):
 @pytest.mark.parametrize(
     "route,match",
     [
-        ("depth1", "_bounce_sub"),
         ("culled", "pallas_culled_smooth"),
         ("too_many_spheres", "pallas_bounce_smooth.trace_fused_smooth"),
-        ("stochastic", "ops.rng"),
     ],
 )
 def test_unported_smooth_routes_raise(route, match):
     """render() and the training loss refuse them before any ray is made."""
     scene, cfg = tscenes.reference_scene(8, 4), dict(visibility="smooth", use_pallas=True)
-    if route == "depth1":
-        cfg["max_depth"] = 1
-    elif route == "culled":
+    if route == "culled":
         scene = _many_spheres(96, 960, 540)
-    elif route == "too_many_spheres":
-        scene = _many_spheres(bss.MAX_SMOOTH_SPHERES + 1, 8, 4)
     else:
-        cfg["stochastic_roughness"] = True
+        scene = _many_spheres(bss.MAX_SMOOTH_SPHERES + 1, 8, 4)
     cfg = T.RenderConfig(**cfg)
     target = torch.zeros((scene.camera.height, scene.camera.width, 3))
     with pytest.raises(NotImplementedError, match=match):
@@ -359,7 +354,7 @@ def test_unported_smooth_routes_raise(route, match):
         make_loss_fn(scene, target, cfg)(scene_to_params(scene))
     with pytest.raises(NotImplementedError, match="parallel"):
         make_loss_fn(scene, target, cfg, mesh=object())
-    assert bss.LAUNCHES == {"smooth_fwd_deep": 0, "smooth_bwd_deep": 0, "train_deep": 0}
+    assert bss.LAUNCHES == dict.fromkeys(SMOOTH_KERNELS, 0)
 
 
 def _kernel_args():
@@ -409,4 +404,4 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(fault, match):
         return
     with pytest.raises(ValueError, match=match):
         bss.smooth_fwd_deep(o, d, geom, mat, consts, **kw)
-    assert bss.LAUNCHES == {"smooth_fwd_deep": 0, "smooth_bwd_deep": 0, "train_deep": 0}
+    assert bss.LAUNCHES == dict.fromkeys(SMOOTH_KERNELS, 0)
