@@ -23,19 +23,29 @@ at 960x540:
   ``--spp 4``, the smooth stochastic and depth-1 renders, ``optimize
   --stochastic-roughness`` and its first step against a JAX golden;
 * the one-bounce smooth pair: a loss through ``render()`` at smooth depth
-  1 (``smooth_fwd_step``, ``smooth_bwd_step``) against torch autograd.
+  1 (``smooth_fwd_step``, ``smooth_bwd_step``) against torch autograd;
+* the big-scene hard render, BASELINE config 4 (``random1024``, 1920x1080,
+  depth 4): the mirror CLI frame through the culled pair (``near_culled``,
+  ``shade_culled``) against a JAX golden, and the ``--stochastic-roughness``
+  frame through the standalone sweeps (``nearest_sweep``, ``shadow_sweep``)
+  against the pure-torch route; each of the four kernels first against its
+  plain version on its main path's real inputs, f32 at 1920x1080 and f64 at
+  480x270.
 
 Then it times every kernel (and each one's glossy variant) beside its plain
-version and its bound, the benchmark's Adam step and the stochastic one.  Phases print on their own lines; any failure exits
-non-zero.  The line before the last lists the kernels as JSON; the last
-line is one JSON object:
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+version and its bound, the benchmark's Adam step and the stochastic one,
+and the config-4 frames with a ``torch.profiler`` split of the mirror one.
+Phases print on their own lines; any failure exits non-zero.  The line
+before the last lists the kernels as JSON; the last line is one JSON
+object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the package beside it, it fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
@@ -60,11 +70,28 @@ STOCH_TRAIN_GOLDEN = "python_ray_tracer_tpu_torch/testdata/reference_960x540_d3_
 SEED = 7
 HARD = ("trace_deep", "bounce_step")
 SMOOTH = ("smooth_fwd_deep", "smooth_bwd_deep", "train_deep", "smooth_fwd_step", "smooth_bwd_step")
+CULLED = ("near_culled", "shade_culled")
+SWEEPS = ("nearest_sweep", "shadow_sweep")
 SOURCE = {
     **{k: "python_ray_tracer_tpu_torch/csrc/bounce_sub.cu" for k in HARD},
     **{k: "python_ray_tracer_tpu_torch/csrc/bounce_smooth_sub.cu" for k in SMOOTH},
+    **{k: "python_ray_tracer_tpu_torch/csrc/culled.cu" for k in CULLED},
+    **{k: "python_ray_tracer_tpu_torch/csrc/intersect_fused.cu" for k in SWEEPS},
 }
+# BASELINE config 4: random_spheres_scene, 1024 spheres, 1920x1080, depth 4;
+# the f64 kernel checks at a quarter of the width and height.
+BIG_SPHERES, BIG_WIDTH, BIG_HEIGHT, BIG_DEPTH = 1024, 1920, 1080, 4
+BIG_F64_SIZE = (480, 270)
+BIG_GOLDEN = "python_ray_tracer_tpu_torch/testdata/random1024_1920x1080_d4_f32.npz"
+# Rays per chunk of the pure-torch reference of the glossy config-4 frame
+# (its (N, S) tables would not fit whole).
+PURE_CHUNK = 32768
+DEVICE = "cuda"
 REPLACES = {
+    "near_culled": "python_ray_tracer_tpu/ops/pallas_culled.py:609",
+    "shade_culled": "python_ray_tracer_tpu/ops/pallas_culled.py:691",
+    "nearest_sweep": "python_ray_tracer_tpu/ops/pallas_intersect.py:181",
+    "shadow_sweep": "python_ray_tracer_tpu/ops/pallas_intersect.py:384",
     "trace_deep": "python_ray_tracer_tpu/ops/pallas_bounce_sub.py:416",
     "bounce_step": "python_ray_tracer_tpu/ops/pallas_bounce_sub.py:382",
     "smooth_fwd_deep": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1329",
@@ -430,25 +457,33 @@ def phase_xi() -> None:
         fail("the card's xi draw differs from the CPU's or from JAX's")
 
 
-def _reset_launches() -> None:
-    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub
+def _launch_counts() -> tuple[dict[str, int], ...]:
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub, culled, intersect_fused
 
-    for counts in (bounce_sub.LAUNCHES, bounce_smooth_sub.LAUNCHES):
+    return bounce_sub.LAUNCHES, bounce_smooth_sub.LAUNCHES, culled.LAUNCHES, intersect_fused.LAUNCHES
+
+
+def _reset_launches() -> None:
+    for counts in _launch_counts():
         for k in counts:
             counts[k] = 0
 
 
 def _launches() -> dict[str, int]:
-    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub
-
-    return {**bounce_sub.LAUNCHES, **bounce_smooth_sub.LAUNCHES}
+    return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
 
-def _expect_launched(what: str, launches: dict[str, int], kernels: tuple[str, ...]) -> None:
+def _expect_launched(what: str, launches: dict[str, int], kernels: tuple[str, ...],
+                     exactly: int | None = None, absent: tuple[str, ...] = ()) -> None:
+    """Each of ``kernels`` launched (``exactly`` that many times, if given),
+    none of ``absent``."""
     print(f"[main] launches during {what}: {launches}", flush=True)
     for k in kernels:
-        if launches[k] == 0:
-            fail(f"{what} never launched kernel {k}")
+        if launches[k] == 0 or exactly is not None and launches[k] != exactly:
+            fail(f"{what} launched kernel {k} {launches[k]} times (expected {exactly or 'some'})")
+    for k in absent:
+        if launches[k]:
+            fail(f"{what} launched kernel {k}, which its path does not take")
 
 
 def phase_main_path(tmp: Path) -> dict[str, int]:
@@ -921,21 +956,319 @@ def _stochastic_step_ms(scene) -> float:
     return best * 1e3
 
 
+# --- BASELINE config 4: the culled pair and the standalone sweeps ---------------
+
+
+def _big_scene(dtype: torch.dtype, width: int = BIG_WIDTH, height: int = BIG_HEIGHT):
+    from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene
+
+    return random_spheres_scene(BIG_SPHERES, width, height, dtype=dtype, device=DEVICE)
+
+
+def _big_cfg(dtype: torch.dtype = torch.float32, **kw):
+    from python_ray_tracer_tpu_torch import RenderConfig
+
+    return RenderConfig(max_depth=BIG_DEPTH, dtype=dtype, **kw)
+
+
+def _culled_record(dtype: torch.dtype, width: int, height: int) -> list[dict]:
+    """Each bounce's inputs of the two culled kernels in the mirror config-4
+    frame (traced through the kernels on the card)."""
+    from python_ray_tracer_tpu_torch.camera import ray_directions_t
+    from python_ray_tracer_tpu_torch.ops import culled
+
+    scene = _big_scene(dtype, width, height)
+    near, shade = [], []
+    with _capture(culled, "near_culled", near), _capture(culled, "shade_culled", shade), torch.no_grad():
+        culled.trace_fused_culled(scene.camera.position, ray_directions_t(scene.camera, dtype), scene,
+                                  _big_cfg(dtype, use_pallas=True))
+    torch.cuda.synchronize()
+    return [dict(near=n[0], shade=s[0], kw=n[1]) for n, s in zip(near, shade)]
+
+
+@contextlib.contextmanager
+def _capture(module, name: str, calls: list):
+    """Record the arguments of every call of ``module.name`` (still called)."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _sweep_record(dtype: torch.dtype, width: int, height: int, depth: int = BIG_DEPTH):
+    """The inputs of each bounce's nearest_sweep and shadow_sweep call in the
+    stochastic config-4 frame (render() at seed SEED through the kernels)."""
+    from python_ray_tracer_tpu_torch import render
+
+    render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")
+    near, shadow = [], []
+    scene = _big_scene(dtype, width, height)
+    cfg = dataclasses.replace(_big_cfg(dtype, use_pallas=True, stochastic_roughness=True, rng_seed=SEED), max_depth=depth)
+    with _capture(render_mod, "nearest_sweep", near), _capture(render_mod, "shadow_sweep", shadow), torch.no_grad():
+        render(scene, cfg)
+    torch.cuda.synchronize()
+    return near, shadow
+
+
+def _exact_check(label: str, kernel: torch.Tensor, plain: torch.Tensor) -> None:
+    n_diff = int((kernel != plain).sum())
+    print(f"[kernels] {label}: {n_diff} of {kernel.numel()} differ (must be 0)")
+    if n_diff:
+        fail(f"{label}: {n_diff} values differ from the plain version")
+
+
+def phase_big_kernels() -> tuple[dict[str, float], dict]:
+    """The culled pair on the mirror config-4 frame's primary, first
+    re-sorted and first full-sweep bounce, the sweeps on the stochastic
+    frame's first two bounces, each against its plain version (idx exactly),
+    f32 at 1920x1080 and f64 at 480x270; the primary lists checked
+    conservative against the full sweep.  Returns the max abs error per
+    kernel over the f32 cases and the f32 inputs (for the timings)."""
+    from python_ray_tracer_tpu_torch.ops import culled, intersect_fused
+
+    errs = dict.fromkeys(CULLED + SWEEPS, 0.0)
+    inputs = {}
+    for dtype, (width, height) in ((torch.float32, (BIG_WIDTH, BIG_HEIGHT)), (torch.float64, BIG_F64_SIZE)):
+        tag = f"config 4 {str(dtype).split('.')[-1]} {width}x{height}"
+        err = dict.fromkeys(CULLED + SWEEPS, 0.0)
+        record = _culled_record(dtype, width, height)
+        for b, kind in enumerate(("primary culled", "re-sorted culled", "full-sweep")):
+            r = record[b]
+            counts = r["near"][3:5]
+            print(f"[kernels] {tag} bounce {b} ({kind}): nearest lists {int(counts[0].sum())} candidates + "
+                  f"{int(counts[1].sum())} full-sweep spheres over {counts[0].numel()} tiles; shadow lists "
+                  f"{int(r['shade'][12].sum())} + {int(r['shade'][13].sum())}", flush=True)
+            nk = culled.near_culled(*r["near"], **r["kw"])
+            torch.cuda.synchronize()
+            np_ = culled.near_culled_plain(*r["near"], **r["kw"])
+            for name, k, p in zip(("t", "idx", "p", "normal"), nk, np_):
+                if name == "idx":
+                    _exact_check(f"near_culled {tag} bounce {b} idx", k, p)
+                else:
+                    err["near_culled"] = max(err["near_culled"], _per_value_check(f"near_culled {tag} bounce {b} {name}", k, p, dtype))
+            sk = culled.shade_culled(*r["shade"], **r["kw"])
+            torch.cuda.synchronize()
+            sp = culled.shade_culled_plain(*r["shade"], **r["kw"])
+            for name, k, p in zip(("o", "d", "thr", "alive", "acc"), sk, sp):
+                err["shade_culled"] = max(err["shade_culled"], _per_value_check(f"shade_culled {tag} bounce {b} {name}", k, p, dtype))
+        # Conservative lists: at the primary bounce (every tile live) the
+        # candidate sweep finds what the full sweep finds.
+        o, d, cand, _, _, geom = record[0]["near"]
+        kw = record[0]["kw"]
+        full = culled.full_sweep_lists(torch.ones(cand.shape[0], dtype=torch.bool, device=DEVICE), kw["s_cheap"])
+        listed, swept = culled.near_culled(*record[0]["near"], **kw), culled.near_culled(o, d, *full, geom, **kw)
+        n_diff = int(((listed[0] != swept[0]) | (listed[1] != swept[1])).sum())
+        print(f"[kernels] {tag} primary bounce, candidate lists vs the full sweep: {n_diff} of {o.shape[1]} rays "
+              f"differ in t or idx (limit {MAX_BAD_SHARE:g} of them)", flush=True)
+        if n_diff > MAX_BAD_SHARE * o.shape[1]:
+            fail(f"{tag}: the candidate lists lose hits ({n_diff} rays differ from the full sweep)")
+        near, shadow = _sweep_record(dtype, width, height, depth=2)
+        for b in range(2):
+            (args, kw_n), (sargs, kw_s) = near[b], shadow[b]
+            nk = intersect_fused.nearest_sweep(*args, **kw_n)
+            torch.cuda.synchronize()
+            np_ = intersect_fused.nearest_sweep_plain(*args, **kw_n)
+            err["nearest_sweep"] = max(err["nearest_sweep"], _per_value_check(f"nearest_sweep {tag} glossy bounce {b} t", nk.t, np_[0], dtype))
+            _exact_check(f"nearest_sweep {tag} glossy bounce {b} idx", nk.idx, np_[1])
+            lit = intersect_fused.shadow_sweep(*sargs, **kw_s)
+            torch.cuda.synchronize()
+            lit_p = intersect_fused.shadow_sweep_plain(*sargs, **kw_s)
+            err["shadow_sweep"] = max(err["shadow_sweep"], _per_value_check(f"shadow_sweep {tag} glossy bounce {b} in_light", lit, lit_p, dtype))
+        if dtype == torch.float32:
+            errs = err
+            inputs = dict(record=record, near=near, shadow=shadow)
+        del record
+    return errs, inputs
+
+
+def _pure_frame(scene, cfg, key) -> torch.Tensor:
+    """The pure-torch route's frame, traced PURE_CHUNK rays at a time (each
+    chunk draws its lanes' xi from its global ray offset, so chunking is exact)."""
+    from python_ray_tracer_tpu_torch import trace
+    from python_ray_tracer_tpu_torch.camera import ray_directions
+
+    dirs = ray_directions(scene.camera, cfg.dtype)
+    with torch.no_grad():
+        out = [trace(scene.camera.position, dirs[a : a + PURE_CHUNK], scene, cfg, key=key, ray_offset=a)
+               for a in range(0, dirs.shape[0], PURE_CHUNK)]
+    return torch.cat(out).reshape(scene.camera.height, scene.camera.width, 3)
+
+
+def phase_big_main(tmp: Path) -> dict[str, int]:
+    """``render --builtin random1024 --width 1920 --height 1080 --depth 4``:
+    mirror through the culled pair (4 launches of each per frame) against
+    the JAX golden; ``--stochastic-roughness --seed 7`` through the sweeps
+    (4 of each per frame) against the pure-torch route on the card.  The
+    CLI renders each frame twice (a first call and a timed one)."""
+    from python_ray_tracer_tpu_torch.utils.image import to_uint8
+
+    size = ["--builtin", "random1024", "--width", str(BIG_WIDTH), "--height", str(BIG_HEIGHT), "--depth", str(BIG_DEPTH)]
+    launches = {}
+    _reset_launches()
+    img = _cli_render(tmp, "big.png", *size)
+    counts = _launches()
+    _expect_launched("the config-4 CLI render", counts, CULLED, exactly=2 * BIG_DEPTH, absent=HARD + SWEEPS)
+    launches.update({k: counts[k] for k in CULLED})
+    _compare_uint8("config 4 mirror", img, np.load(REPO / BIG_GOLDEN)["image"], "the JAX golden")
+
+    _reset_launches()
+    img = _cli_render(tmp, "big_glossy.png", *size, "--stochastic-roughness", "--seed", str(SEED))
+    counts = _launches()
+    _expect_launched("the config-4 glossy CLI render", counts, SWEEPS, exactly=2 * BIG_DEPTH, absent=HARD + CULLED)
+    launches.update({k: counts[k] for k in SWEEPS})
+    ref = to_uint8(_pure_frame(_big_scene(torch.float32), _big_cfg(stochastic_roughness=True, rng_seed=SEED), _trace_key()))
+    _compare_uint8("config 4 glossy", img, ref, "the pure-torch route")
+    return launches
+
+
+def _linear_ops(run, lanes: int) -> tuple[float, float]:
+    """(operations per lane, per lane and swept sphere) of a culled plain
+    version: ``run(k)`` runs it over ``lanes`` lanes with k spheres each."""
+    zero, one = count_ops(lambda: run(0)), count_ops(lambda: run(1))
+    return zero / lanes, (one - zero) / lanes
+
+
+def _culled_bound(name: str, r: dict) -> tuple[float, str]:
+    """The least time of one launch on these inputs: bytes in and out once,
+    and the operations of this run's lists (each lane's fixed work plus its
+    swept spheres: its tile's candidates and full-sweep spheres)."""
+    from python_ray_tracer_tpu_torch.ops import culled
+
+    kw = r["kw"]
+    args = r["near"] if name == "near_culled" else r["shade"]
+    ci = 2 if name == "near_culled" else 11  # where the lists sit in the arguments
+    tile = kw["tile_rays"]
+    n = args[0].shape[1]
+    fn = culled.near_culled_plain if name == "near_culled" else culled.shade_culled_plain
+
+    def one_tile(k: int):
+        sliced = [a[..., :tile] if a.dim() and a.shape[-1] == n else a for a in args]
+        sliced[ci] = args[ci][:1]
+        sliced[ci + 1] = torch.full((1,), k, dtype=torch.int32, device=DEVICE)
+        sliced[ci + 2] = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+        return fn(*sliced, **kw)
+
+    per_lane, per_sphere = _linear_ops(one_tile, tile)
+    swept = float((args[ci + 1].double().clamp(0, args[ci].shape[1]) + args[ci + 2].double().clamp(0, kw["s_cheap"])).sum()) * tile
+    out = culled.near_culled(*args, **kw) if name == "near_culled" else culled.shade_culled(*args, **kw)
+    n_bytes = _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out)
+    return _bound(int(per_lane * n + per_sphere * swept), n_bytes)
+
+
+def _sweep_bound(name: str, call) -> tuple[float, str]:
+    from python_ray_tracer_tpu_torch.ops import intersect_fused
+
+    args, kw = call
+    n, part = args[0].shape[0], 4096
+    plain = intersect_fused.nearest_sweep_plain if name == "nearest_sweep" else intersect_fused.shadow_sweep_plain
+    ops = count_ops(lambda: plain(*(a[:part] if a.shape[0] == n else a for a in args), **kw)) * n / part
+    out = intersect_fused.nearest_sweep(*args, **kw)[:2] if name == "nearest_sweep" else (intersect_fused.shadow_sweep(*args, **kw),)
+    return _bound(int(ops), _nbytes(*args, *out))
+
+
+def phase_big_timing(card: str, inputs: dict) -> dict[str, dict]:
+    """The four kernels on each of their main-path launches of a config-4
+    frame (CUDA events), beside their plain versions and bounds; the mirror
+    and glossy frames through render(); a torch.profiler split of one mirror
+    frame into the kernels and the glue."""
+    from python_ray_tracer_tpu_torch import render
+    from python_ray_tracer_tpu_torch.ops import culled, intersect_fused
+
+    launches = {
+        "near_culled": [(lambda r=r: culled.near_culled(*r["near"], **r["kw"]),
+                         lambda r=r: culled.near_culled_plain(*r["near"], **r["kw"]),
+                         lambda r=r: _culled_bound("near_culled", r)) for r in inputs["record"]],
+        "shade_culled": [(lambda r=r: culled.shade_culled(*r["shade"], **r["kw"]),
+                          lambda r=r: culled.shade_culled_plain(*r["shade"], **r["kw"]),
+                          lambda r=r: _culled_bound("shade_culled", r)) for r in inputs["record"]],
+        "nearest_sweep": [(lambda c=c: intersect_fused.nearest_sweep(*c[0], **c[1]),
+                           lambda c=c: intersect_fused.nearest_sweep_plain(*c[0], **c[1]),
+                           lambda c=c: _sweep_bound("nearest_sweep", c)) for c in inputs["near"]],
+        "shadow_sweep": [(lambda c=c: intersect_fused.shadow_sweep(*c[0], **c[1]),
+                          lambda c=c: intersect_fused.shadow_sweep_plain(*c[0], **c[1]),
+                          lambda c=c: _sweep_bound("shadow_sweep", c)) for c in inputs["shadow"]],
+    }
+    res = {}
+    for name, calls in launches.items():
+        rows = []
+        for b, (kernel, plain, bound) in enumerate(calls):
+            ms = time_ms(kernel, warmup=2, iters=10)
+            plain_ms = time_ms(plain, warmup=0, iters=1)
+            bound_ms, bound_by = bound()
+            rows.append((ms, plain_ms, bound_ms, bound_by))
+            print(f"[timing] {name} bounce {b}: kernel {ms:.4f} ms, plain version {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+                  f"by {bound_by}, kernel at {bound_ms / ms:.1%} of its bound (config 4, 1920x1080 f32; {card})", flush=True)
+        k = len(rows)
+        by_ops = sum(r[2] for r in rows if r[3] == "operations") >= sum(r[2] for r in rows if r[3] == "bytes")
+        res[name] = dict(ms=sum(r[0] for r in rows) / k, plain_ms=sum(r[1] for r in rows) / k,
+                         bound_ms=sum(r[2] for r in rows) / k, bound_by="operations" if by_ops else "bytes", library_ms=None)
+        what = f"the mirror frame's {k}" if name in CULLED else f"the glossy frame's first {k} (every bounce sweeps the table)"
+        print(f"[timing] {name}: mean per launch over {what}: kernel {res[name]['ms']:.4f} ms, plain "
+              f"{res[name]['plain_ms']:.2f} ms, bound {res[name]['bound_ms']:.4f} ms ({card})", flush=True)
+
+    scene = _big_scene(torch.float32)
+    mirror, glossy = _big_cfg(use_pallas=True), _big_cfg(use_pallas=True, stochastic_roughness=True, rng_seed=SEED)
+    with torch.no_grad():
+        for label, cfg in (("mirror, culled pair", mirror), ("glossy seed 7, sweeps", glossy)):
+            ms = time_ms(lambda cfg=cfg: render(scene, cfg), warmup=2, iters=5)
+            print(f"[timing] config-4 frame, {label}: {ms:.3f} ms/frame, {BIG_WIDTH * BIG_HEIGHT / (ms * 1e-3):.4e} "
+                  f"primary rays/s (render(), 1920x1080 depth 4, 1024 spheres, f32; {card})", flush=True)
+        _profile_frame(lambda: render(scene, mirror), card)
+    return res
+
+
+def _profile_frame(frame, card: str) -> None:
+    """Device time of one mirror config-4 frame by kernel under torch.profiler:
+    the two culled kernels against the glue (list building, sorts, gathers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    device_us = {e.key: getattr(e, "self_device_time_total", 0.0) for e in events}
+    kernels = {k: v for k, v in device_us.items() if "near_culled" in k or "shade_culled" in k}
+    total = sum(device_us.values())
+    glue = total - sum(kernels.values())
+    print(f"[timing] config-4 mirror frame under torch.profiler: wall {wall_ms:.3f} ms, device {total / 1e3:.3f} ms in "
+          f"{sum(e.count for e in events)} kernels and copies (busy {total / 1e3 / wall_ms:.1%}); the culled kernels "
+          f"{sum(kernels.values()) / 1e3:.3f} ms, the glue {glue / 1e3:.3f} ms ({card})", flush=True)
+    for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:16]:
+        print(f"[timing]   {us / 1e3:9.3f} ms  {name[:100]}")
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, str(REPO))
     t0 = time.perf_counter()
     phase_build()
-    errs = phase_kernels()
+    errs, launches, timings = {}, {}, {}
+    errs.update(phase_kernels())
     errs.update(phase_smooth_kernels())
     phase_xi()
+    big_errs, big_inputs = phase_big_kernels()
+    errs.update(big_errs)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(Path(tmp))
+        launches.update(phase_main_path(Path(tmp)))
         launches.update(phase_smooth_main(Path(tmp)))
         launches.update(phase_step_main())
         phase_sampled_main(Path(tmp))
         phase_stochastic_train(Path(tmp))
-    timings = phase_timing(card)
+        launches.update(phase_big_main(Path(tmp)))
+    timings.update(phase_timing(card))
+    timings.update(phase_big_timing(card, big_inputs))
     kernels = [
         {
             "name": name,
@@ -946,7 +1279,7 @@ def main() -> int:
             "max_abs_err": errs[name],
             **timings[name],
         }
-        for name in HARD + SMOOTH
+        for name in HARD + SMOOTH + CULLED + SWEEPS
     ]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

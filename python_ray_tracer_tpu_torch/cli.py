@@ -1,6 +1,7 @@
 """Command-line interface: ``render``, ``optimize`` and ``bench``.
 
     python -m python_ray_tracer_tpu_torch.cli render --builtin reference -o out.png
+    python -m python_ray_tracer_tpu_torch.cli render --builtin random1024 --width 1920 --height 1080 --depth 4
     python -m python_ray_tracer_tpu_torch.cli render --depth auto --device cpu -o out.png
     python -m python_ray_tracer_tpu_torch.cli render --spp 4 --stochastic-roughness --seed 7 -o out.png
     python -m python_ray_tracer_tpu_torch.cli optimize --visibility smooth --target ref.png --steps 200
@@ -26,8 +27,20 @@ import numpy as np
 import torch
 
 
+# The built-in scenes (the JAX CLI's names), and those that wait for a port.
+BUILTINS = {
+    "reference": "reference_scene",
+    "all_effects": "all_effects_scene",
+    "random1024": "random_spheres_scene",
+}
+_WAITING = {
+    "textured1024": "image-texture atlases (models.scenes.textured_spheres_scene, ops.shading.texture_color)",
+    "inverse64": "a later slice, BASELINE config 5's inverse-rendering task (models.scenes.inverse_task_scene)",
+}
+
+
 def _add_render_opts(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--builtin", type=str, default="reference", choices=["reference", "all_effects"])
+    p.add_argument("--builtin", type=str, default="reference", choices=sorted(BUILTINS) + sorted(_WAITING))
     p.add_argument("--width", type=int, default=960)
     p.add_argument("--height", type=int, default=540)
     p.add_argument(
@@ -68,8 +81,12 @@ def _build(args, device: torch.device):
         stochastic_roughness=args.stochastic_roughness,
         rng_seed=args.seed,
     )
-    make = builtin.reference_scene if args.builtin == "reference" else builtin.all_effects_scene
-    scene = make(args.width, args.height, dtype=dtype, device=device)
+    if args.builtin in _WAITING:
+        raise NotImplementedError(
+            f"--builtin {args.builtin}: not ported yet, waits for {_WAITING[args.builtin]} of python_ray_tracer_tpu"
+        )
+    make = getattr(builtin, BUILTINS[args.builtin])
+    scene = make(width=args.width, height=args.height, dtype=dtype, device=device)
     if depth_auto:
         cfg = dataclasses.replace(cfg, max_depth=auto_max_depth(scene))
         print(f"auto depth: {cfg.max_depth}", file=sys.stderr)

@@ -3,7 +3,8 @@
 ``nvcc`` compiles each ``csrc/*.cu`` source into its own shared library
 with a plain C interface, loaded with ``ctypes``; :func:`build_all` starts
 one ``nvcc`` per source, all at once.  A library's file name carries a hash
-of its source and the flags, so an edit rebuilds it; it lands in the
+of its source, the ``csrc/*.cuh`` headers and the flags, so an edit
+rebuilds it; it lands in the
 package's ``_build/`` directory at first use.  A missing ``nvcc`` or a
 failed build raises: there is no fallback.
 
@@ -28,7 +29,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bounce_sub.cu", "bounce_smooth_sub.cu")
+SOURCES = ("bounce_sub.cu", "bounce_smooth_sub.cu", "culled.cu", "intersect_fused.cu")
+# Shared memory one block may use on Hopper (227 KB; above 48 KB only as
+# dynamic shared memory, which the kernels opt in to).
+MAX_SHARED_BYTES = 232_448
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -49,9 +53,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library of ``source`` lives for its current text and the flags."""
+    """Where the library of ``source`` lives for its current text, the text
+    of every header under ``csrc/`` (a source may include any of them) and
+    the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    digest.update((CSRC / source).read_bytes())
+    for path in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"libprt_{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 

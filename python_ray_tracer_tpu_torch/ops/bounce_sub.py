@@ -174,6 +174,62 @@ def ggx_continuation(d, normal, refl, alpha, xi) -> SimpleNamespace:
     return g
 
 
+def shade_color(p, normal, to_light, to_cam, in_light, m, const):
+    """The local color of a hit, the JAX kernel bodies' shading
+    (``ops/shading.py`` term for term) on rows: ``p``, ``normal``,
+    ``to_light``, ``to_cam`` 3-tuples of (N,), ``in_light`` (N,), ``m(col)``
+    the winner's material column, ``const(i)`` a scene constant."""
+    n_dot_l = torch.clamp_min(_dot3(normal, to_light), 0.0)
+    cx_i = torch.trunc(p[0] * 2.0).to(torch.int32) % 2
+    cz_i = torch.trunc(p[2] * 2.0).to(torch.int32) % 2
+    checker = (cx_i == cz_i).to(p[0].dtype)
+    is_checker = m(KIND) == 1.0
+    tex = tuple(torch.where(is_checker, checker, m(c)) for c in (DCR, DCG, DCB))
+
+    diffuse_w = n_dot_l * in_light * m(DG)
+
+    dome_up = torch.clamp_min(normal[1], 0.0) * const(9)
+    dome = (const(6) * dome_up, const(7) * dome_up, const(8) * dome_up)
+
+    L = to_light
+    V = to_cam
+    H = _normalize3(tuple(L[i] + V[i] for i in range(3)))
+    n_dot_v = torch.clamp(_dot3(normal, V), 0.0, 1.0)
+    n_dot_h = torch.clamp(_dot3(normal, H), 0.0, 1.0)
+    v_dot_h = torch.clamp(_dot3(V, H), 0.0, 1.0)
+    n_dot_l_c = torch.clamp(_dot3(normal, L), 0.0, 1.0)
+    ior = m(IOR)
+    f0 = ipow((ior - 1.0) / (ior + 1.0), 2)
+    fresnel = f0 + (1.0 - f0) * ipow(1.0 - v_dot_h, 5)
+    alpha = ipow(m(ROUGH), 2)
+    alpha2 = ipow(alpha, 2)
+    denom = ipow(n_dot_h, 2) * (alpha2 - 1.0) + 1.0
+    dist = alpha2 / (math.pi * (ipow(denom, 2) + SHADING_EPS))
+
+    def g1(x):
+        return 2.0 * x / (x + sqrt(alpha2 + (1.0 - alpha2) * ipow(x, 2)) + SHADING_EPS)
+
+    geom_term = g1(n_dot_l_c) * g1(n_dot_v)
+    spec_base = (fresnel * dist * geom_term) / (4.0 * n_dot_v + SHADING_EPS)
+    glint = torch.pow(1.0 - n_dot_v, GLINT_EXPONENT) * n_dot_l_c
+    spec = torch.where(n_dot_v <= 0, 0.0, spec_base + m(SG) * glint)
+    spec_term = spec * m(SG) * in_light
+
+    view_angle = torch.clamp(_dot3(normal, to_cam), 0.0, 1.0)
+    angle_factor = torch.abs(view_angle - 0.5) * 2.0
+    phase = angle_factor * math.pi * m(TFT) * 10.0
+    ip = torch.sin(phase)
+    hue = (m(TFI) - 1.0) / 2.0
+    irid_w = m(TFW) * m(IG)
+    irid = (
+        (ip * hue + (1.0 - hue) * (1.0 - ip)) * irid_w,
+        (ip * (1.0 - hue) + hue * (1.0 - ip)) * irid_w,
+        (0.5 + 0.5 * ip) * irid_w,
+    )
+
+    return tuple(AMBIENT + tex[i] * diffuse_w + dome[i] + spec_term + irid[i] for i in range(3))
+
+
 def bounce_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int):
     """One hard bounce on rows ``o``/``d`` (3-tuples of (N,)), ``thr`` and
     ``alive`` (N,); ``xi`` (two (N,) rows) makes the continuation glossy.
@@ -229,55 +285,7 @@ def bounce_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway: float,
     t_others, t_self = _sweep(p_n, to_light, geom, s_cheap, far, shadow_update)
     in_light = (t_self <= t_others).to(dtype)
 
-    n_dot_l = torch.clamp_min(_dot3(normal, to_light), 0.0)
-    cx_i = torch.trunc(p[0] * 2.0).to(torch.int32) % 2
-    cz_i = torch.trunc(p[2] * 2.0).to(torch.int32) % 2
-    checker = (cx_i == cz_i).to(dtype)
-    is_checker = m(KIND) == 1.0
-    tex = tuple(torch.where(is_checker, checker, m(c)) for c in (DCR, DCG, DCB))
-
-    diffuse_w = n_dot_l * in_light * m(DG)
-
-    dome_up = torch.clamp_min(normal[1], 0.0) * const(9)
-    dome = (const(6) * dome_up, const(7) * dome_up, const(8) * dome_up)
-
-    L = to_light
-    V = to_cam
-    H = _normalize3(tuple(L[i] + V[i] for i in range(3)))
-    n_dot_v = torch.clamp(_dot3(normal, V), 0.0, 1.0)
-    n_dot_h = torch.clamp(_dot3(normal, H), 0.0, 1.0)
-    v_dot_h = torch.clamp(_dot3(V, H), 0.0, 1.0)
-    n_dot_l_c = torch.clamp(_dot3(normal, L), 0.0, 1.0)
-    ior = m(IOR)
-    f0 = ipow((ior - 1.0) / (ior + 1.0), 2)
-    fresnel = f0 + (1.0 - f0) * ipow(1.0 - v_dot_h, 5)
-    alpha = ipow(m(ROUGH), 2)
-    alpha2 = ipow(alpha, 2)
-    denom = ipow(n_dot_h, 2) * (alpha2 - 1.0) + 1.0
-    dist = alpha2 / (math.pi * (ipow(denom, 2) + SHADING_EPS))
-
-    def g1(x):
-        return 2.0 * x / (x + sqrt(alpha2 + (1.0 - alpha2) * ipow(x, 2)) + SHADING_EPS)
-
-    geom_term = g1(n_dot_l_c) * g1(n_dot_v)
-    spec_base = (fresnel * dist * geom_term) / (4.0 * n_dot_v + SHADING_EPS)
-    glint = torch.pow(1.0 - n_dot_v, GLINT_EXPONENT) * n_dot_l_c
-    spec = torch.where(n_dot_v <= 0, 0.0, spec_base + m(SG) * glint)
-    spec_term = spec * m(SG) * in_light
-
-    view_angle = torch.clamp(_dot3(normal, to_cam), 0.0, 1.0)
-    angle_factor = torch.abs(view_angle - 0.5) * 2.0
-    phase = angle_factor * math.pi * m(TFT) * 10.0
-    ip = torch.sin(phase)
-    hue = (m(TFI) - 1.0) / 2.0
-    irid_w = m(TFW) * m(IG)
-    irid = (
-        (ip * hue + (1.0 - hue) * (1.0 - ip)) * irid_w,
-        (ip * (1.0 - hue) + hue * (1.0 - ip)) * irid_w,
-        (0.5 + 0.5 * ip) * irid_w,
-    )
-
-    color = tuple(AMBIENT + tex[i] * diffuse_w + dome[i] + spec_term + irid[i] for i in range(3))
+    color = shade_color(p, normal, to_light, to_cam, in_light, m, const)
 
     w = thr * coverage
     refl_coeff = 0.5 * m(SG) * in_light
@@ -434,10 +442,9 @@ def trace_fused_sub(
     one bounce's at a time, both over exactly N rays.
     """
     if scene.spheres.count > MAX_SUB_SPHERES:
-        raise NotImplementedError(
-            f"{scene.spheres.count} spheres: scenes above {MAX_SUB_SPHERES} spheres wait for the ports of "
-            "python_ray_tracer_tpu.ops.pallas_bounce.trace_fused (65-95) and "
-            "ops.pallas_culled.trace_fused_culled (96 and more)"
+        raise ValueError(
+            f"{scene.spheres.count} spheres: the bounce kernels take at most {MAX_SUB_SPHERES}; render() sends "
+            "bigger scenes to ops.culled.trace_fused_culled or render.trace"
         )
     if route == "auto":
         route = "trace_deep" if cfg.max_depth >= 2 else "bounce_step"

@@ -70,12 +70,13 @@ def uniform2(seed, n: int, dtype: torch.dtype = torch.float32, offset: int = 0, 
     return torch.stack([u1, u2], dim=1)
 
 
-def bounce_xi(key, n: int, depth: int, dtype: torch.dtype, device=None) -> list[torch.Tensor]:
+def bounce_xi(key, n: int, depth: int, dtype: torch.dtype, device=None, offset: int = 0) -> list[torch.Tensor]:
     """Each bounce's (2, n) xi for the bounce kernels, on the schedule of the
     JAX package's ``render.trace``: ``key, k_bounce = fold(key, 1),
-    fold(key, 2)``, then ``uniform2(k_bounce, n)``, over exactly n rays."""
+    fold(key, 2)``, then ``uniform2(k_bounce, n, offset=offset)``, over
+    exactly n rays from global ray index ``offset`` on."""
     xis = []
     for _ in range(depth):
         key, k_bounce = fold_seed(key, 1), fold_seed(key, 2)
-        xis.append(uniform2(k_bounce, n, dtype, device=device).T.contiguous())
+        xis.append(uniform2(k_bounce, n, dtype, offset, device=device).T.contiguous())
     return xis

@@ -5,8 +5,9 @@ Every live term of the reference shader, per lane, with per-lane
 materials gathered by nearest-hit index: ambient, diffuse x texture, dome,
 GGX specular + glint, thin-film iridescence.  Term order and association
 follow the JAX package so float64 renders agree to roundoff, and the
-clamps are :func:`.vecmath.clip`/:func:`.vecmath.relu0` so their gradients
-at exact boundaries split as ``jax.grad``'s do.
+clamps are :func:`.vecmath.clip`/:func:`.vecmath.relu0` (and ``|x|`` is
+:func:`.vecmath.abs`) so their gradients at exact boundaries are
+``jax.grad``'s.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..scene import TEXTURE_CHECKER, TEXTURE_IMAGE, Lights, Scene, Spheres
+from .vecmath import abs as vabs
 from .vecmath import clip, dot, ipow, normalize, relu0, sqrt
 
 AMBIENT = 0.004
@@ -113,7 +115,7 @@ def ggx_specular(
 def iridescence(normal: torch.Tensor, to_camera: torch.Tensor, mat: LaneMaterial) -> torch.Tensor:
     """Thin-film interference tint."""
     view_angle = clip(dot(normal, to_camera), 0.0, 1.0)
-    angle_factor = torch.abs(view_angle - 0.5) * 2.0
+    angle_factor = vabs(view_angle - 0.5) * 2.0
     phase = angle_factor * math.pi * mat.thin_film_thickness * 10.0
     ip = torch.sin(phase)
     hue = (mat.thin_film_ior - 1.0) / 2.0

@@ -14,7 +14,9 @@ gradients are held against:
 * at an exact tie, ``jnp.maximum``/``jnp.minimum`` (and so ``jnp.clip``)
   split the gradient 0.5/0.5, where ``torch.clamp`` and
   ``torch.clamp_min`` pass all of it.  :func:`clip` and :func:`relu0`
-  build on ``torch.maximum``/``torch.minimum``, which split as JAX does.
+  build on ``torch.maximum``/``torch.minimum``, which split as JAX does;
+* ``jnp.abs``'s derivative at exactly 0 is 1, torch's is 0: :func:`abs`
+  takes JAX's.
 """
 
 from __future__ import annotations
@@ -54,6 +56,25 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     Differentiable, with JAX's derivative.
     """
     return _Sqrt.apply(x)
+
+
+class _Abs(torch.autograd.Function):
+    """``|x|`` with JAX's derivative ``g * where(x >= 0, 1, -1)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.where(x >= 0, 1.0, -1.0).to(g.dtype)
+
+
+def abs(x: torch.Tensor) -> torch.Tensor:  # noqa: A001 - the jnp.abs counterpart
+    """``jnp.abs``: at exactly 0 ``jax.grad`` gives 1, torch's ``abs`` 0."""
+    return _Abs.apply(x)
 
 
 def ipow(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -10,10 +10,14 @@ every bounce and dead lanes are multiplied away.
 Two routes, chosen as the JAX package chooses them:
 
 * ``cfg.use_pallas`` -> the hand-written CUDA kernels (their plain torch
-  versions on a CPU tensor): :func:`.ops.bounce_sub.trace_fused_sub` for
-  hard visibility, :func:`.ops.bounce_smooth_sub.trace_fused_smooth_sub`
-  (the depth-fused smooth pair, or the one-bounce pair at depth 1, each a
-  ``torch.autograd.Function``) for smooth;
+  versions on a CPU tensor).  Hard visibility (:func:`hard_route`):
+  :func:`.ops.bounce_sub.trace_fused_sub` up to 64 spheres,
+  :func:`.ops.culled.trace_fused_culled` for 96 and more, and with a
+  stochastic key above 64 spheres :func:`trace` with the standalone sweep
+  kernels (:mod:`.ops.intersect_fused`).  Smooth visibility:
+  :func:`.ops.bounce_smooth_sub.trace_fused_smooth_sub` (the depth-fused
+  smooth pair, or the one-bounce pair at depth 1, each a
+  ``torch.autograd.Function``);
 * otherwise :func:`trace`, the pure-torch bounce loop that mirrors the JAX
   XLA path term for term.  Torch autograd through it is the oracle for the
   kernels' handwritten adjoints.
@@ -39,18 +43,21 @@ from .ops.intersect import (
     nearest_hit,
 )
 from .ops.bounce_smooth_sub import MAX_SMOOTH_SPHERES, MAX_TRAIN_DEPTH, fused_train_l2, trace_fused_smooth_sub
-from .ops.bounce_sub import trace_fused_sub
+from .ops.bounce_sub import MAX_SUB_SPHERES, trace_fused_sub
+from .ops.culled import (
+    MAX_BLK_SPHERES_SMOOTH,
+    MAX_CULL_DEPTH,
+    MAX_CULL_EXACT,
+    MIN_CULL_SMOOTH_RAYS,
+    MIN_CULL_SPHERES,
+    trace_fused_culled,
+)
+from .ops.intersect_fused import nearest_sweep, shadow_sweep
 from .ops.shading import NUDGE, gather_material, shade
 from .ops.rng import bounce_xi, fold_seed, seed_root, uniform2
+from .ops.tables import geometry_table
 from .ops.vecmath import ggx_perturb_reflect, normalize, reflect
 from .scene import Scene
-
-# Scope of the culled smooth route of the JAX package
-# (ops/pallas_culled_smooth.cull_smooth_ok), which this port does not have.
-MIN_CULL_SPHERES = 96
-MAX_CULL_EXACT = 8
-MIN_CULL_SMOOTH_RAYS = 518_400
-MAX_BLK_SPHERES_SMOOTH = 4096
 
 
 def auto_max_depth(
@@ -141,14 +148,21 @@ def bounce(
     camera (reference quirk kept).  Smooth visibility relaxes coverage and
     shadow with sigmoids, and the next ``alive`` is the coverage itself.
     With ``xi`` the continuation reflects about a GGX-sampled microfacet
-    (stochastic glossy roughness) instead of the mirror normal.
+    (stochastic glossy roughness) instead of the mirror normal.  Hard
+    visibility with ``cfg.use_pallas`` sweeps through the ``nearest_sweep``
+    and ``shadow_sweep`` kernels, the JAX ``trace``'s fused branch.
     """
     smooth = cfg.visibility == VISIBILITY_SMOOTH
     dtype = cfg.dtype
     cam_pos = scene.camera.position.to(dtype)
     light_pos = scene.lights.point_position.to(dtype)
-    res = _sweep(o, d, scene, cfg)
-    near = nearest_hit(res.t, cfg.faraway)
+    if _sweep_kernels(cfg):
+        geom = geometry_table(scene, dtype)
+        sweep_kw = dict(faraway=cfg.faraway, s_cheap=scene.spheres.count - scene.spheres.n_exact)
+        near = nearest_sweep(o.contiguous(), d.contiguous(), geom, **sweep_kw)
+    else:
+        res = _sweep(o, d, scene, cfg)
+        near = nearest_hit(res.t, cfg.faraway)
     hit = near.hit.to(dtype)
     if smooth:
         idx = _smooth_winner_idx(res, near)
@@ -166,11 +180,12 @@ def bounce(
     to_camera = normalize(cam_pos[None, :] - p)
     p_nudged = p + normal * NUDGE
 
-    shadow_res = _sweep(p_nudged, to_light, scene, cfg)
-    if smooth:
-        in_light = _shadow_smooth(shadow_res, idx, cfg)
+    if _sweep_kernels(cfg):
+        in_light = shadow_sweep(p_nudged.contiguous(), to_light.contiguous(), geom, idx, **sweep_kw)
+    elif smooth:
+        in_light = _shadow_smooth(_sweep(p_nudged, to_light, scene, cfg), idx, cfg)
     else:
-        in_light = _shadow_hard(shadow_res, idx, dtype)
+        in_light = _shadow_hard(_sweep(p_nudged, to_light, scene, cfg), idx, dtype)
     local = shade(p, normal, to_light, to_camera, in_light, mat, scene)
 
     accum = accum + local.color * (throughput * coverage)[:, None]
@@ -183,19 +198,41 @@ def bounce(
     return p_nudged, d_next, throughput, alive, accum
 
 
+def _sweep_kernels(cfg: RenderConfig) -> bool:
+    """Does ``trace`` sweep through the kernels (the JAX ``fused`` branch)?"""
+    return cfg.use_pallas and cfg.visibility != VISIBILITY_SMOOTH and cfg.tie_mode == "first"
+
+
+def culled_ok(scene: Scene, cfg: RenderConfig) -> bool:
+    """Scope of the culled hard kernels, as the JAX renderer gates them."""
+    return (
+        scene.spheres.count >= MIN_CULL_SPHERES
+        and scene.spheres.n_exact <= MAX_CULL_EXACT
+        and cfg.max_depth <= MAX_CULL_DEPTH
+    )
+
+
 def trace(
     origin: torch.Tensor,  # (N, 3) or (3,)
     direction: torch.Tensor,  # (N, 3) unit
     scene: Scene,
     cfg: RenderConfig,
     key=None,
+    *,
+    ray_offset: int = 0,
 ) -> torch.Tensor:
     """Trace N rays to ``cfg.max_depth`` bounces; returns (N, 3) color.
 
     With ``cfg.stochastic_roughness`` and a seed ``key``, each bounce takes
-    its xi on the JAX package's schedule (:func:`.ops.rng.bounce_xi`).
+    its xi on the JAX package's schedule (:func:`.ops.rng.bounce_xi`), the
+    lanes' draws from global ray index ``ray_offset`` on, so a chunk of a
+    frame draws what the whole frame's draw has there.  Hard visibility
+    with ``cfg.use_pallas`` and no key takes the culled kernels where the
+    JAX ``trace`` does (:func:`culled_ok`).
     """
     dtype = cfg.dtype
+    if _sweep_kernels(cfg) and key is None and not cfg.ray_chunk and culled_ok(scene, cfg):
+        return trace_fused_culled(origin.expand(direction.shape).T, direction.T, scene, cfg)
     direction = direction.to(dtype)
     n = direction.shape[0]
     o = origin.to(dtype).expand(direction.shape)
@@ -205,7 +242,7 @@ def trace(
     accum = torch.zeros((n, 3), dtype=dtype, device=d.device)
     xis = [None] * cfg.max_depth
     if cfg.stochastic_roughness and key is not None:
-        xis = [xi.T for xi in bounce_xi(key, n, cfg.max_depth, dtype, d.device)]
+        xis = [xi.T for xi in bounce_xi(key, n, cfg.max_depth, dtype, d.device, offset=ray_offset)]
     for xi in xis:
         o, d, throughput, alive, accum = bounce(o, d, throughput, alive, accum, scene, cfg, xi)
     return accum
@@ -245,13 +282,39 @@ def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
         raise NotImplementedError(f"not ported yet: {waits} in python_ray_tracer_tpu")
 
 
+def hard_route(scene: Scene, cfg: RenderConfig, key) -> str:
+    """The kernels a hard frame with ``cfg.use_pallas`` takes, as the JAX
+    ``render._render_sample`` picks them: ``"sub"`` (``trace_deep`` or
+    ``bounce_step``, up to 64 spheres), ``"culled"`` (the culled pair, 96 and
+    more spheres with at most 8 in the exact tier, no key) or ``"sweeps"``
+    (``trace`` with ``nearest_sweep``/``shadow_sweep``: a key above 64
+    spheres).  Raises ``NotImplementedError`` for the lane kernel's scenes.
+    """
+    s = scene.spheres.count
+    if key is not None and s > MAX_SUB_SPHERES:
+        return "sweeps"
+    if key is None and culled_ok(scene, cfg):
+        return "culled"
+    if s <= MAX_SUB_SPHERES:
+        return "sub"
+    raise NotImplementedError(
+        f"not ported yet: a mirror scene of {s} spheres ({scene.spheres.n_exact} in the exact tier) takes "
+        "python_ray_tracer_tpu.ops.pallas_bounce._bounce_kernel (trace_fused) in python_ray_tracer_tpu"
+    )
+
+
 def _render_sample(scene: Scene, cfg: RenderConfig, jitter: torch.Tensor | None, key) -> torch.Tensor:
     """One (optionally jittered) sample per pixel -> flat (H*W, 3) colors;
     ``key`` seeds the stochastic continuation (None: mirror)."""
+    route = None
     if cfg.use_pallas:
+        route = "smooth" if cfg.visibility == VISIBILITY_SMOOTH else hard_route(scene, cfg, key)
+    if route in ("smooth", "culled", "sub"):
         dirs_t = ray_directions_t(scene.camera, cfg.dtype, None if jitter is None else jitter.T)
-        if cfg.visibility == VISIBILITY_SMOOTH:
+        if route == "smooth":
             return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
+        if route == "culled":
+            return trace_fused_culled(scene.camera.position, dirs_t, scene, cfg)
         return trace_fused_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
     dirs = ray_directions(scene.camera, cfg.dtype, jitter)
     return trace(scene.camera.position, dirs, scene, cfg, key=key)

@@ -176,7 +176,10 @@ def test_cli_refuses_missing_cuda(tmp_path):
 
 
 def _ninety_six_spheres():
-    rows = [T.make_sphere_row((float(i % 12) - 6.0, 0.0, 5.0 + i // 12), 0.3) for i in range(96)]
+    """96 spheres, 9 of them in the exact tier: the JAX renderer sends this
+    mirror scene to its lane kernel, which the port does not have."""
+    rows = [T.make_sphere_row((float(i % 12) - 6.0, 0.0, 5.0 + i // 12), 0.3) for i in range(87)]
+    rows += [T.make_sphere_row((0.0, -99999.5 - i, 0.0), 99999.0) for i in range(9)]
     spheres = T.build_spheres(rows, dtype=torch.float32)
     lights = T.build_lights((-2.0, 1.0, 2.0), dtype=torch.float32)
     return T.make_scene(spheres, lights, (0.0, 0.2, -2.0), 8, 4, dtype=torch.float32)

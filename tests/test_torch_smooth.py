@@ -182,6 +182,32 @@ def test_clip_and_max_ties_match_jax_grad():
     np.testing.assert_allclose(img.grad.numpy(), np.asarray(want), rtol=1e-15, atol=0)
 
 
+def test_abs_tie_matches_jax_grad():
+    """jax.grad of jnp.abs is 1 at exactly 0, torch's abs gives 0: the
+    iridescence term's |view_angle - 0.5| at a view angle of exactly 0.5."""
+    from python_ray_tracer_tpu.ops import shading as jshade
+    from python_ray_tracer_tpu_torch.ops import shading as tshade
+    from python_ray_tracer_tpu_torch.ops.vecmath import abs as vabs
+
+    xs = np.array([-0.5, 0.0, 0.25])
+    x = torch.tensor(xs, requires_grad=True)
+    vabs(x).sum().backward()
+    want = np.asarray(jax.grad(lambda v: jnp.sum(jnp.abs(v)))(jnp.asarray(xs)))
+    np.testing.assert_array_equal(x.grad.numpy(), want)
+    np.testing.assert_array_equal(want, [-1.0, 1.0, 1.0])
+
+    # normal . to_camera == 0.5 exactly, on the iridescent sphere of all_effects.
+    normal = np.array([[1.0, 0.0, 0.0]])
+    to_cam = np.array([[0.5, 0.75, 0.0]])
+    jmat = jshade.gather_material(jscenes.all_effects_scene(W, H, dtype=jnp.float64).spheres, jnp.array([2]))
+    want = jax.grad(lambda c: jnp.sum(jshade.iridescence(jnp.asarray(normal), c, jmat)))(jnp.asarray(to_cam))
+    tmat = tshade.gather_material(tscenes.all_effects_scene(W, H, dtype=torch.float64).spheres, torch.tensor([2]))
+    cam = torch.tensor(to_cam, requires_grad=True)
+    tshade.iridescence(torch.tensor(normal), cam, tmat).sum().backward()
+    assert float(np.abs(np.asarray(want)).max()) > 0
+    np.testing.assert_allclose(cam.grad.numpy(), np.asarray(want), rtol=1e-15, atol=0)
+
+
 # --- render, loss and gradients against the JAX XLA smooth path ----------------
 
 
