@@ -30,11 +30,19 @@ at 960x540:
   frame through the standalone sweeps (``nearest_sweep``, ``shadow_sweep``)
   against the pure-torch route; each of the four kernels first against its
   plain version on its main path's real inputs, f32 at 1920x1080 and f64 at
-  480x270.
+  480x270;
+* the culled smooth route, config 4's training step (1920x1080, depth 3):
+  ``near_cs``, ``fwd_cs`` and ``bwd_cs`` against their plain versions on
+  every bounce of a loss's forward and backward (mirror and glossy, f32 at
+  1920x1080, f64 at 480x270), the primary lists against the full sweep,
+  ``optimize --visibility smooth`` 3 steps with exact launch counts, the
+  smooth CLI frames against the chunked pure-torch route, and the first
+  step at 960x540 against a JAX golden.
 
 Then it times every kernel (and each one's glossy variant) beside its plain
 version and its bound, the benchmark's Adam step and the stochastic one,
-and the config-4 frames with a ``torch.profiler`` split of the mirror one.
+the config-4 frames with a ``torch.profiler`` split of the mirror one, and
+the config-4 culled smooth Adam step with a split into its kernels.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -72,11 +80,13 @@ HARD = ("trace_deep", "bounce_step")
 SMOOTH = ("smooth_fwd_deep", "smooth_bwd_deep", "train_deep", "smooth_fwd_step", "smooth_bwd_step")
 CULLED = ("near_culled", "shade_culled")
 SWEEPS = ("nearest_sweep", "shadow_sweep")
+CS = ("near_cs", "fwd_cs", "bwd_cs")
 SOURCE = {
     **{k: "python_ray_tracer_tpu_torch/csrc/bounce_sub.cu" for k in HARD},
     **{k: "python_ray_tracer_tpu_torch/csrc/bounce_smooth_sub.cu" for k in SMOOTH},
     **{k: "python_ray_tracer_tpu_torch/csrc/culled.cu" for k in CULLED},
     **{k: "python_ray_tracer_tpu_torch/csrc/intersect_fused.cu" for k in SWEEPS},
+    **{k: "python_ray_tracer_tpu_torch/csrc/culled_smooth.cu" for k in CS},
 }
 # BASELINE config 4: random_spheres_scene, 1024 spheres, 1920x1080, depth 4;
 # the f64 kernel checks at a quarter of the width and height.
@@ -86,8 +96,19 @@ BIG_GOLDEN = "python_ray_tracer_tpu_torch/testdata/random1024_1920x1080_d4_f32.n
 # Rays per chunk of the pure-torch reference of the glossy config-4 frame
 # (its (N, S) tables would not fit whole).
 PURE_CHUNK = 32768
+# The culled smooth route: BASELINE config 4's training step (random1024,
+# 1920x1080, depth 3); the f64 kernel checks at 480x270.  Its JAX golden:
+# the first Adam step's loss and every gradient of the XLA smooth path at
+# 960x540, the smallest frame the route takes (MIN_CULL_SMOOTH_RAYS), f32
+# and f64; the target is the hard render's uint8 image (stored) / 255.
+CS_DEPTH = 3
+CS_F64_SIZE = (480, 270)
+CS_GOLDEN = "python_ray_tracer_tpu_torch/testdata/random1024_960x540_d3_smooth_train_f32.npz"
 DEVICE = "cuda"
 REPLACES = {
+    "near_cs": "python_ray_tracer_tpu/ops/pallas_culled_smooth.py:154",
+    "fwd_cs": "python_ray_tracer_tpu/ops/pallas_culled_smooth.py:252",
+    "bwd_cs": "python_ray_tracer_tpu/ops/pallas_culled_smooth.py:284",
     "near_culled": "python_ray_tracer_tpu/ops/pallas_culled.py:609",
     "shade_culled": "python_ray_tracer_tpu/ops/pallas_culled.py:691",
     "nearest_sweep": "python_ray_tracer_tpu/ops/pallas_intersect.py:181",
@@ -137,6 +158,15 @@ NOISE_FLOOR = 1e-5
 # in another sphere's shadow.  The smooth depth-1 loss weighs those lanes
 # most and reads closest to this limit.
 F64_RTOL = 1e-6
+# The culled smooth route's f64 first step at 960x540 (1024 spheres) against
+# its golden, JAX's exact autograd of the XLA path: Phase C's max(1 -
+# occlusion, 1e-6) (the JAX kernels' form) weighs more with 1024 spheres,
+# whose shadows put many lanes deep in another sphere's shadow.  On the CPU
+# the port's culled route sits up to 7.7e-7 (light) off torch autograd of
+# its pure-torch route on random1024 at 32x32 (tests/test_torch_culled_smooth.py,
+# test_config4_scene_f64_gradients_match_torch_autograd), the leaves that
+# do not reach Phase C within 5e-10.
+CS_F64_RTOL = 1e-5
 # The published peaks of one H100 SXM (NVIDIA's datasheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -458,9 +488,10 @@ def phase_xi() -> None:
 
 
 def _launch_counts() -> tuple[dict[str, int], ...]:
-    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub, culled, intersect_fused
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub, culled, culled_smooth, intersect_fused
 
-    return bounce_sub.LAUNCHES, bounce_smooth_sub.LAUNCHES, culled.LAUNCHES, intersect_fused.LAUNCHES
+    return (bounce_sub.LAUNCHES, bounce_smooth_sub.LAUNCHES, culled.LAUNCHES, intersect_fused.LAUNCHES,
+            culled_smooth.LAUNCHES)
 
 
 def _reset_launches() -> None:
@@ -780,8 +811,8 @@ def count_ops(fn) -> int:
     elements.  Indexing, copies and casts count nothing.  The smooth plain
     versions do the kernels' work lane by lane: each lane's own tier of the
     winner's quadratic, and each sphere's material gradients summed over
-    the lanes it won; a few selects (the checker texture) still evaluate
-    both arms.
+    the lanes it won; a few selects (the checker texture, and near_cs's
+    winner quadratic, both tiers) still evaluate both arms.
     """
     from torch.overrides import TorchFunctionMode
 
@@ -935,25 +966,32 @@ def phase_timing(card: str) -> dict[str, dict]:
 
 def _stochastic_step_ms(scene) -> float:
     """ms/step of the stochastic smooth L2 Adam step, timed as bench.py times
-    the deterministic one: warm-up, then the best of three calls of 100
-    steps, each ending in a CUDA synchronise."""
-    from python_ray_tracer_tpu_torch.optim import adam, init_state, make_loss_fn, make_train_step_k, scene_to_params
+    the deterministic one (_best_step_ms: 20 warm-up steps, calls of 100)."""
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn
 
     target = torch.tensor(np.load(REPO / GOLDEN)["image"], dtype=torch.float32, device="cuda") / 255.0
     cfg = _smooth_cfg(use_pallas=True, stochastic_roughness=True, rng_seed=SEED)
-    step_k = make_train_step_k(make_loss_fn(scene, target, cfg))
-    state = init_state(scene_to_params(scene), adam(1e-3))
-    state, _ = step_k(state, 20)
+    return _best_step_ms(make_loss_fn(scene, target, cfg), scene, warmup=20, steps=100)[0]
+
+
+def _best_step_ms(loss_fn, scene, warmup: int, steps: int):
+    """(ms/step, the K-step trainer, its state) of Adam lr 1e-3 on ``loss_fn``:
+    ``warmup`` steps, then the best of three calls of ``steps`` steps, each
+    ending in a CUDA synchronise; fails on a non-finite loss."""
+    from python_ray_tracer_tpu_torch.optim import adam, init_state, make_train_step_k, scene_to_params
+
+    step_k = make_train_step_k(loss_fn)
+    state, _ = step_k(init_state(scene_to_params(scene), adam(1e-3)), warmup)
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
-        state, losses = step_k(state, 100)
+        state, losses = step_k(state, steps)
         torch.cuda.synchronize()
-        best = min(best, (time.perf_counter() - t0) / 100)
+        best = min(best, (time.perf_counter() - t0) / steps)
     if not bool(torch.isfinite(losses).all()):
-        fail("the stochastic Adam step gave a non-finite loss")
-    return best * 1e3
+        fail("an Adam step gave a non-finite loss")
+    return best * 1e3, step_k, state
 
 
 # --- BASELINE config 4: the culled pair and the standalone sweeps ---------------
@@ -1135,31 +1173,40 @@ def _linear_ops(run, lanes: int) -> tuple[float, float]:
     return zero / lanes, (one - zero) / lanes
 
 
-def _culled_bound(name: str, r: dict) -> tuple[float, str]:
-    """The least time of one launch on these inputs: bytes in and out once,
-    and the operations of this run's lists (each lane's fixed work plus its
-    swept spheres: its tile's candidates and full-sweep spheres)."""
-    from python_ray_tracer_tpu_torch.ops import culled
-
-    kw = r["kw"]
-    args = r["near"] if name == "near_culled" else r["shade"]
-    ci = 2 if name == "near_culled" else 11  # where the lists sit in the arguments
-    tile = kw["tile_rays"]
+def _list_bound(plain, kernel, args: tuple, kw: dict, ci: int) -> tuple[float, str]:
+    """The least time of one launch of a list-sweeping kernel on these
+    inputs: bytes in and out once, and the operations of this run's lists
+    (each lane's fixed work plus its tile's listed and full-tier spheres),
+    counted on the plain version over one tile.  ``args[ci:ci + 3]`` are the
+    swept lists (cand, cnt_cand, cnt_full)."""
+    tile, s_cheap = kw["tile_rays"], kw["s_cheap"]
     n = args[0].shape[1]
-    fn = culled.near_culled_plain if name == "near_culled" else culled.shade_culled_plain
 
     def one_tile(k: int):
-        sliced = [a[..., :tile] if a.dim() and a.shape[-1] == n else a for a in args]
-        sliced[ci] = args[ci][:1]
+        sliced = []
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.dim() and a.shape[-1] == n:
+                a = a[..., :tile]  # the first tile's lanes
+            elif isinstance(a, torch.Tensor) and a.dtype == torch.int32 and a.shape[0] == n // tile:
+                a = a[:1]  # its lists
+            sliced.append(a)
         sliced[ci + 1] = torch.full((1,), k, dtype=torch.int32, device=DEVICE)
         sliced[ci + 2] = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
-        return fn(*sliced, **kw)
+        return plain(*sliced, **kw)
 
     per_lane, per_sphere = _linear_ops(one_tile, tile)
-    swept = float((args[ci + 1].double().clamp(0, args[ci].shape[1]) + args[ci + 2].double().clamp(0, kw["s_cheap"])).sum()) * tile
-    out = culled.near_culled(*args, **kw) if name == "near_culled" else culled.shade_culled(*args, **kw)
+    swept = float((args[ci + 1].double().clamp(0, args[ci].shape[1]) + args[ci + 2].double().clamp(0, s_cheap)).sum()) * tile
+    with torch.no_grad():
+        out = kernel(*args, **kw)
     n_bytes = _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out)
     return _bound(int(per_lane * n + per_sphere * swept), n_bytes)
+
+
+def _culled_bound(name: str, r: dict) -> tuple[float, str]:
+    from python_ray_tracer_tpu_torch.ops import culled
+
+    args, ci = (r["near"], 2) if name == "near_culled" else (r["shade"], 11)
+    return _list_bound(getattr(culled, f"{name}_plain"), getattr(culled, name), args, r["kw"], ci)
 
 
 def _sweep_bound(name: str, call) -> tuple[float, str]:
@@ -1171,6 +1218,27 @@ def _sweep_bound(name: str, call) -> tuple[float, str]:
     ops = count_ops(lambda: plain(*(a[:part] if a.shape[0] == n else a for a in args), **kw)) * n / part
     out = intersect_fused.nearest_sweep(*args, **kw)[:2] if name == "nearest_sweep" else (intersect_fused.shadow_sweep(*args, **kw),)
     return _bound(int(ops), _nbytes(*args, *out))
+
+
+def _time_launches(name: str, calls: list, card: str, context: str, what: str) -> dict:
+    """Time each of a kernel's main-path launches, ``(kernel, plain, bound)``
+    callables, beside its plain version and bound; returns the means per
+    launch as the kernels line takes them."""
+    rows = []
+    for b, (kernel, plain, bound) in enumerate(calls):
+        ms = time_ms(kernel, warmup=2, iters=10)
+        plain_ms = time_ms(plain, warmup=0, iters=1)
+        bound_ms, bound_by = bound()
+        rows.append((ms, plain_ms, bound_ms, bound_by))
+        print(f"[timing] {name} bounce {b}: kernel {ms:.4f} ms, plain version {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+              f"by {bound_by}, kernel at {bound_ms / ms:.1%} of its bound ({context}; {card})", flush=True)
+    k = len(rows)
+    by_ops = sum(r[2] for r in rows if r[3] == "operations") >= sum(r[2] for r in rows if r[3] == "bytes")
+    res = dict(ms=sum(r[0] for r in rows) / k, plain_ms=sum(r[1] for r in rows) / k,
+               bound_ms=sum(r[2] for r in rows) / k, bound_by="operations" if by_ops else "bytes", library_ms=None)
+    print(f"[timing] {name}: mean per launch over {what}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms, "
+          f"bound {res['bound_ms']:.4f} ms ({card})", flush=True)
+    return res
 
 
 def phase_big_timing(card: str, inputs: dict) -> dict[str, dict]:
@@ -1195,23 +1263,10 @@ def phase_big_timing(card: str, inputs: dict) -> dict[str, dict]:
                           lambda c=c: intersect_fused.shadow_sweep_plain(*c[0], **c[1]),
                           lambda c=c: _sweep_bound("shadow_sweep", c)) for c in inputs["shadow"]],
     }
-    res = {}
-    for name, calls in launches.items():
-        rows = []
-        for b, (kernel, plain, bound) in enumerate(calls):
-            ms = time_ms(kernel, warmup=2, iters=10)
-            plain_ms = time_ms(plain, warmup=0, iters=1)
-            bound_ms, bound_by = bound()
-            rows.append((ms, plain_ms, bound_ms, bound_by))
-            print(f"[timing] {name} bounce {b}: kernel {ms:.4f} ms, plain version {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-                  f"by {bound_by}, kernel at {bound_ms / ms:.1%} of its bound (config 4, 1920x1080 f32; {card})", flush=True)
-        k = len(rows)
-        by_ops = sum(r[2] for r in rows if r[3] == "operations") >= sum(r[2] for r in rows if r[3] == "bytes")
-        res[name] = dict(ms=sum(r[0] for r in rows) / k, plain_ms=sum(r[1] for r in rows) / k,
-                         bound_ms=sum(r[2] for r in rows) / k, bound_by="operations" if by_ops else "bytes", library_ms=None)
-        what = f"the mirror frame's {k}" if name in CULLED else f"the glossy frame's first {k} (every bounce sweeps the table)"
-        print(f"[timing] {name}: mean per launch over {what}: kernel {res[name]['ms']:.4f} ms, plain "
-              f"{res[name]['plain_ms']:.2f} ms, bound {res[name]['bound_ms']:.4f} ms ({card})", flush=True)
+    res = {name: _time_launches(name, calls, card, "config 4, 1920x1080 f32",
+                                f"the mirror frame's {len(calls)}" if name in CULLED
+                                else f"the glossy frame's first {len(calls)} (every bounce sweeps the table)")
+           for name, calls in launches.items()}
 
     scene = _big_scene(torch.float32)
     mirror, glossy = _big_cfg(use_pallas=True), _big_cfg(use_pallas=True, stochastic_roughness=True, rng_seed=SEED)
@@ -1220,33 +1275,251 @@ def phase_big_timing(card: str, inputs: dict) -> dict[str, dict]:
             ms = time_ms(lambda cfg=cfg: render(scene, cfg), warmup=2, iters=5)
             print(f"[timing] config-4 frame, {label}: {ms:.3f} ms/frame, {BIG_WIDTH * BIG_HEIGHT / (ms * 1e-3):.4e} "
                   f"primary rays/s (render(), 1920x1080 depth 4, 1024 spheres, f32; {card})", flush=True)
-        _profile_frame(lambda: render(scene, mirror), card)
+        _device_profile(lambda: render(scene, mirror), "config-4 mirror frame", card, CULLED)
     return res
 
 
-def _profile_frame(frame, card: str) -> None:
-    """Device time of one mirror config-4 frame by kernel under torch.profiler:
-    the two culled kernels against the glue (list building, sorts, gathers)."""
+def _device_profile(fn, label: str, card: str, kernels: tuple[str, ...]) -> None:
+    """Device time of one call of ``fn`` (after a warm one) by kernel under
+    torch.profiler: each of ``kernels`` against the rest, the glue."""
     from torch.profiler import ProfilerActivity, profile
 
-    frame()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        frame()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     device_us = {e.key: getattr(e, "self_device_time_total", 0.0) for e in events}
-    kernels = {k: v for k, v in device_us.items() if "near_culled" in k or "shade_culled" in k}
+    split = {k: sum(v for key, v in device_us.items() if k in key) for k in kernels}
     total = sum(device_us.values())
-    glue = total - sum(kernels.values())
-    print(f"[timing] config-4 mirror frame under torch.profiler: wall {wall_ms:.3f} ms, device {total / 1e3:.3f} ms in "
-          f"{sum(e.count for e in events)} kernels and copies (busy {total / 1e3 / wall_ms:.1%}); the culled kernels "
-          f"{sum(kernels.values()) / 1e3:.3f} ms, the glue {glue / 1e3:.3f} ms ({card})", flush=True)
+    parts = ", ".join(f"{k} {us / 1e3:.3f} ms" for k, us in split.items())
+    print(f"[timing] {label} under torch.profiler: wall {wall_ms:.3f} ms, device {total / 1e3:.3f} ms in "
+          f"{sum(e.count for e in events)} kernels and copies (busy {total / 1e3 / wall_ms:.1%}); {parts}, the glue "
+          f"{(total - sum(split.values())) / 1e3:.3f} ms ({card})", flush=True)
     for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:16]:
         print(f"[timing]   {us / 1e3:9.3f} ms  {name[:100]}")
+
+
+# --- The culled smooth route: BASELINE config 4's training step ---------------
+
+
+def _cs_cfg(dtype: torch.dtype = torch.float32, **kw):
+    from python_ray_tracer_tpu_torch import RenderConfig
+
+    return RenderConfig(max_depth=CS_DEPTH, dtype=dtype, visibility="smooth", use_pallas=True, **kw)
+
+
+def _cs_record(dtype: torch.dtype, width: int, height: int, stochastic: bool) -> list[dict]:
+    """Each bounce's inputs of near_cs, fwd_cs and bwd_cs in a weighted-sum
+    loss's forward and backward through trace_culled_smooth on the card
+    (config-4 scene, depth 3; glossy at seed SEED)."""
+    from python_ray_tracer_tpu_torch.camera import ray_directions_t
+    from python_ray_tracer_tpu_torch.ops import culled_smooth
+    from python_ray_tracer_tpu_torch.optim import combine, scene_to_params
+
+    scene = _big_scene(dtype, width, height)
+    params = scene_to_params(scene)
+    sc = combine(params, scene)
+    cfg = _cs_cfg(dtype, stochastic_roughness=stochastic, rng_seed=SEED)
+    weight = torch.rand((width * height, 3), generator=torch.Generator(DEVICE).manual_seed(4), device=DEVICE, dtype=dtype)
+    near, fwd, bwd = [], [], []
+    with _capture(culled_smooth, "near_cs", near), _capture(culled_smooth, "fwd_cs", fwd), \
+            _capture(culled_smooth, "bwd_cs", bwd):
+        img = culled_smooth.trace_culled_smooth(sc.camera.position, ray_directions_t(sc.camera, dtype), sc, cfg,
+                                                key=_trace_key() if stochastic else None)
+        torch.sum(img * weight).backward()
+    torch.cuda.synchronize()
+    return [dict(near=n, fwd=f, bwd=b) for n, f, b in zip(near, fwd, bwd[::-1])]
+
+
+def phase_cs_kernels() -> tuple[dict[str, float], list[dict]]:
+    """near_cs, fwd_cs and bwd_cs against their plain versions on every
+    bounce of the config-4 step's forward and backward (primary, then two
+    re-sorted reflected bounces), mirror and glossy, f32 at 1920x1080 and f64
+    at 480x270: idx exactly, the rest under the per-value, per-ray and
+    per-column limits; bwd_cs twice, bitwise.  On the f32 primary bounce the
+    lists lose nothing: near_cs's (idx, hit) equal the plain full sweep's on
+    every lane.  Returns the max abs error per kernel over the f32 cases and
+    the f32 mirror record (for the timings)."""
+    from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs
+
+    errs = dict.fromkeys(CS, 0.0)
+    record_f32 = []
+    for dtype, (width, height) in ((torch.float32, (BIG_WIDTH, BIG_HEIGHT)), (torch.float64, CS_F64_SIZE)):
+        for stochastic in (False, True):
+            tag = f"config 4 smooth {str(dtype).split('.')[-1]} {width}x{height}{' glossy' if stochastic else ''}"
+            record = _cs_record(dtype, width, height, stochastic)
+            err = dict.fromkeys(CS, 0.0)
+            with torch.no_grad():
+                for b, r in enumerate(record):
+                    (na, nkw), (fa, fkw), (ba, bkw) = r["near"], r["fwd"], r["bwd"]
+                    print(f"[kernels] {tag} bounce {b}: nearest lists {int(na[5].sum())} candidates + {int(na[6].sum())} "
+                          f"full-tier spheres over {na[5].numel()} tiles; shadow lists {int(fa[8].sum())} + "
+                          f"{int(fa[9].sum())}", flush=True)
+                    nk = cs.near_cs(*na, **nkw)
+                    torch.cuda.synchronize()
+                    np_ = cs.near_cs_plain(*na, **nkw)
+                    for name, k, p in zip(("idx", "hit", "p", "normal", "sval"), nk, np_):
+                        if name in ("idx", "hit"):
+                            _exact_check(f"near_cs {tag} bounce {b} {name}", k, p)
+                        else:
+                            err["near_cs"] = max(err["near_cs"], _per_value_check(f"near_cs {tag} bounce {b} {name}", k, p, dtype))
+                    fk = cs.fwd_cs(*fa, **fkw)
+                    torch.cuda.synchronize()
+                    fp = cs.fwd_cs_plain(*fa, **fkw)
+                    for name, k, p in zip(("o", "d", "thr", "alive", "acc", "clear"), fk, fp):
+                        err["fwd_cs"] = max(err["fwd_cs"], _per_value_check(f"fwd_cs {tag} bounce {b} {name}", k, p, dtype))
+                    bk = cs.bwd_cs(*ba, **bkw)
+                    bk2 = cs.bwd_cs(*ba, **bkw)
+                    torch.cuda.synchronize()
+                    bp = cs.bwd_cs_plain(*ba, **bkw)
+                    for name, k, p in zip(("g_o", "g_d", "g_thr", "g_alive", "g_geom", "g_mat", "g_consts"), bk, bp):
+                        err["bwd_cs"] = max(err["bwd_cs"], _grad_check(f"bwd_cs {tag} bounce {b}", name, k, p, dtype))
+                    same = all(torch.equal(x, y) for x, y in zip(bk, bk2))
+                    print(f"[kernels] bwd_cs {tag} bounce {b}: two launches bitwise equal: {same}", flush=True)
+                    if not same:
+                        fail(f"bwd_cs {tag} bounce {b}: two launches on the same inputs differ")
+                if dtype == torch.float32 and not stochastic:
+                    # The culling loses nothing: the listed primary winners
+                    # against the plain sweep of the whole table.
+                    na, nkw = record[0]["near"]
+                    n = width * height
+                    full = culled.full_sweep_lists(torch.ones(na[4].shape[0], dtype=torch.bool, device=DEVICE), nkw["s_cheap"])
+                    listed = cs.near_cs(*na, **nkw)
+                    swept = cs.near_cs_plain(*na[:4], *full, na[7], **nkw)
+                    n_diff = int(((listed[0][:n] != swept[0][:n]) | (listed[1][:n] != swept[1][:n])).sum())
+                    print(f"[kernels] {tag} primary bounce, near_cs on the lists vs the plain full sweep: {n_diff} of {n} "
+                          f"rays differ in idx or hit (must be 0)", flush=True)
+                    if n_diff:
+                        fail(f"{tag}: the nearest lists change {n_diff} smooth winners")
+                    record_f32 = record
+            if dtype == torch.float32:
+                errs = {k: max(errs[k], err[k]) for k in CS}
+            del record
+    return errs, record_f32
+
+
+def phase_cs_main(tmp: Path) -> dict[str, int]:
+    """The slice's main path: ``render --builtin random1024`` (1920x1080,
+    depth 3) as the target, ``optimize --visibility smooth`` 3 Adam steps
+    (exactly 3 launches each of near_cs, fwd_cs and bwd_cs a step, none of
+    the unculled smooth kernels), and the smooth CLI frames, mirror and
+    glossy, against the chunked pure-torch smooth route on the card.
+    Returns the kernels' launches from the optimize run."""
+    from python_ray_tracer_tpu_torch.utils.image import to_uint8
+
+    size = ["--builtin", "random1024", "--width", str(BIG_WIDTH), "--height", str(BIG_HEIGHT), "--depth", str(CS_DEPTH)]
+    _cli_render(tmp, "cs_target.png", *size)
+    metrics = tmp / "cs_optimize.jsonl"
+    from python_ray_tracer_tpu_torch import cli
+
+    _reset_launches()
+    cli.main(["optimize", *size, "--visibility", "smooth", "--target", str(tmp / "cs_target.png"), "--steps", "3",
+              "--sync-every", "3", "--lr", "1e-3", "--metrics", str(metrics)])
+    counts = _launches()
+    _expect_launched("cli optimize, config 4 smooth, 3 steps", counts, CS, exactly=3 * CS_DEPTH, absent=SMOOTH)
+    launches = {k: counts[k] for k in CS}
+    losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
+    print(f"[main] cli optimize config 4 smooth: {len(losses)} steps, losses {losses}")
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        fail(f"cli optimize config 4 smooth logged {len(losses)} losses, finite: {all(np.isfinite(losses))}")
+
+    for label, extra, stochastic in (("mirror", (), False), ("glossy", ("--stochastic-roughness", "--seed", str(SEED)), True)):
+        _reset_launches()
+        img = _cli_render(tmp, f"cs_{label}.png", *size, "--visibility", "smooth", *extra)
+        counts = _launches()
+        _expect_launched(f"the config-4 smooth CLI render, {label}", counts, ("near_cs", "fwd_cs"),
+                         exactly=2 * CS_DEPTH, absent=SMOOTH + ("bwd_cs",))
+        cfg = dataclasses.replace(_cs_cfg(stochastic_roughness=stochastic, rng_seed=SEED), use_pallas=False)
+        ref = to_uint8(_pure_frame(_big_scene(torch.float32), cfg, _trace_key() if stochastic else None))
+        _compare_uint8(f"config 4 smooth {label}", img, ref, "the chunked pure-torch smooth route")
+    return launches
+
+
+def phase_cs_golden() -> None:
+    """The first Adam step's loss and every gradient leaf at 960x540 (the
+    route's smallest frame) through make_loss_fn, which takes the culled
+    route there (3 launches of each kernel), against the JAX golden: f32
+    under the noise rule, the f64 loss within F64_RTOL and its gradients
+    within CS_F64_RTOL."""
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
+
+    golden = np.load(REPO / CS_GOLDEN)
+    for dtype in (torch.float32, torch.float64):
+        scene = _big_scene(dtype, WIDTH, HEIGHT)
+        target = torch.tensor(golden["image"], dtype=dtype, device=DEVICE) / 255.0
+        params = scene_to_params(scene)
+        _reset_launches()
+        loss = make_loss_fn(scene, target, _cs_cfg(dtype))(params)
+        loss.backward()
+        torch.cuda.synchronize()
+        tag = str(dtype).split(".")[-1]
+        _expect_launched(f"the {tag} loss at 960x540", _launches(), CS, exactly=CS_DEPTH, absent=SMOOTH)
+        print(f"[main] config-4 smooth first step {tag} at {WIDTH}x{HEIGHT}: loss {float(loss.detach()):.8e}, the JAX "
+              f"golden f32 {float(golden['loss']):.8e}, f64 {float(golden['loss64']):.8e}")
+        if dtype == torch.float32:
+            _noise_check("config-4 smooth first-step loss (peer: the JAX f32 golden)", loss, golden["loss"], golden["loss64"])
+            for key, g in _leaf_grads(params).items():
+                _noise_check(f"config-4 smooth first step d/d{key} (peer: the JAX f32 golden)", g,
+                             golden[f"grad/{key}"], golden[f"grad64/{key}"])
+        else:
+            _relative_check("config-4 smooth first-step loss f64 vs the JAX f64 golden", loss.cpu(),
+                            torch.as_tensor(golden["loss64"]), F64_RTOL)
+            for key, g in _leaf_grads(params).items():
+                _relative_check(f"config-4 smooth first step d/d{key} f64 vs the JAX f64 golden", g.cpu(),
+                                torch.as_tensor(golden[f"grad64/{key}"]), CS_F64_RTOL)
+
+
+def _cs_bound(name: str, r: dict) -> tuple[float, str]:
+    from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
+
+    args, kw = r[{"near_cs": "near", "fwd_cs": "fwd", "bwd_cs": "bwd"}[name]]
+    ci = 4 if name == "near_cs" else 7  # the nearest lists, or the shadow lists
+    return _list_bound(getattr(cs, f"{name}_plain"), getattr(cs, name), args, kw, ci)
+
+
+def phase_cs_timing(card: str, record: list[dict]) -> dict[str, dict]:
+    """The three kernels on each bounce of the config-4 step (CUDA events),
+    beside their plain versions and bounds; the config-4 culled smooth Adam
+    step in ms/step with a torch.profiler split into the kernels and the
+    glue; the smooth frame in ms/frame."""
+    from python_ray_tracer_tpu_torch import render
+    from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn
+
+    parts = {"near_cs": "near", "fwd_cs": "fwd", "bwd_cs": "bwd"}
+    with torch.no_grad():
+        res = {
+            name: _time_launches(
+                name,
+                [(lambda r=r, f=getattr(cs, name): f(*r[parts[name]][0], **r[parts[name]][1]),
+                  lambda r=r, f=getattr(cs, f"{name}_plain"): f(*r[parts[name]][0], **r[parts[name]][1]),
+                  lambda r=r: _cs_bound(name, r)) for r in record],
+                card, "config 4 smooth step, 1920x1080 f32", f"the step's {len(record)}",
+            )
+            for name in CS
+        }
+    n, s = BIG_WIDTH * BIG_HEIGHT, BIG_SPHERES
+    n_pad = -(-n // 4096) * 4096
+    print(f"[timing] bwd_cs table-gradient rows per launch: {cs.grad_rows_bytes(n_pad, s, 4096, torch.float32)} bytes f32, "
+          f"{cs.grad_rows_bytes(n_pad, s, 4096, torch.float64)} f64 (config 4: {n_pad // 4096} tiles x 8 warps x "
+          f"(19 x {s} + 16) values)", flush=True)
+
+    scene = _big_scene(torch.float32)
+    with torch.no_grad():
+        target = torch.clamp(render(scene, dataclasses.replace(_big_cfg(use_pallas=True), max_depth=CS_DEPTH)), 0.0, 1.0)
+        ms = time_ms(lambda: render(scene, _cs_cfg()), warmup=1, iters=5)
+    print(f"[timing] config-4 smooth frame (render(), culled smooth route, 1920x1080 depth 3, f32): {ms:.3f} ms/frame, "
+          f"{n / (ms * 1e-3):.4e} primary rays/s ({card})", flush=True)
+    ms, step_k, state = _best_step_ms(make_loss_fn(scene, target, _cs_cfg()), scene, warmup=2, steps=3)
+    print(f"[timing] config-4 culled smooth Adam step: {ms:.3f} ms/step, {n / (ms * 1e-3):.4e} primary rays/s "
+          f"(1920x1080 depth 3, 1024 spheres, f32, best of 3 calls of 3 steps; {card})", flush=True)
+    _device_profile(lambda: step_k(state, 1), "config-4 culled smooth Adam step", card, CS + ("reduce_cs",))
+    return res
 
 
 def main() -> int:
@@ -1260,6 +1533,8 @@ def main() -> int:
     phase_xi()
     big_errs, big_inputs = phase_big_kernels()
     errs.update(big_errs)
+    cs_errs, cs_record = phase_cs_kernels()
+    errs.update(cs_errs)
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(phase_main_path(Path(tmp)))
         launches.update(phase_smooth_main(Path(tmp)))
@@ -1267,8 +1542,11 @@ def main() -> int:
         phase_sampled_main(Path(tmp))
         phase_stochastic_train(Path(tmp))
         launches.update(phase_big_main(Path(tmp)))
+        launches.update(phase_cs_main(Path(tmp)))
+    phase_cs_golden()
     timings.update(phase_timing(card))
     timings.update(phase_big_timing(card, big_inputs))
+    timings.update(phase_cs_timing(card, cs_record))
     kernels = [
         {
             "name": name,
@@ -1279,7 +1557,7 @@ def main() -> int:
             "max_abs_err": errs[name],
             **timings[name],
         }
-        for name in HARD + SMOOTH + CULLED + SWEEPS
+        for name in HARD + SMOOTH + CULLED + SWEEPS + CS
     ]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -2,6 +2,8 @@
 
     python -m python_ray_tracer_tpu_torch.cli render --builtin reference -o out.png
     python -m python_ray_tracer_tpu_torch.cli render --builtin random1024 --width 1920 --height 1080 --depth 4
+    python -m python_ray_tracer_tpu_torch.cli optimize --builtin random1024 --width 1920 --height 1080 --depth 3 \
+        --visibility smooth --target target.png --steps 3 --lr 1e-3
     python -m python_ray_tracer_tpu_torch.cli render --depth auto --device cpu -o out.png
     python -m python_ray_tracer_tpu_torch.cli render --spp 4 --stochastic-roughness --seed 7 -o out.png
     python -m python_ray_tracer_tpu_torch.cli optimize --visibility smooth --target ref.png --steps 200
@@ -32,10 +34,10 @@ BUILTINS = {
     "reference": "reference_scene",
     "all_effects": "all_effects_scene",
     "random1024": "random_spheres_scene",
+    "inverse64": "inverse_task_scene",
 }
 _WAITING = {
     "textured1024": "image-texture atlases (models.scenes.textured_spheres_scene, ops.shading.texture_color)",
-    "inverse64": "a later slice, BASELINE config 5's inverse-rendering task (models.scenes.inverse_task_scene)",
 }
 
 

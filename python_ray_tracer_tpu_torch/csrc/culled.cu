@@ -55,16 +55,6 @@ __device__ __forceinline__ bool sol_fast(const V3<T>& o, const V3<T>& d, const T
   return sol > T(0);
 }
 
-template <typename T> __device__ __forceinline__ V3<T> load3(const T* a, long long stride, long long i) {
-  return {a[i], a[stride + i], a[2 * stride + i]};
-}
-
-template <typename T> __device__ __forceinline__ void store3(T* a, long long stride, long long i, const V3<T>& v) {
-  a[i] = v.x;
-  a[stride + i] = v.y;
-  a[2 * stride + i] = v.z;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     near_culled(const T* __restrict__ o, const T* __restrict__ d, const int* __restrict__ cand,

@@ -62,7 +62,20 @@ __device__ __forceinline__ int mod2(int i) { return ((i % 2) + 2) % 2; }
 
 template <typename T> struct V3 {
   T x, y, z;
+  __device__ __forceinline__ T& operator[](int i) { return i == 0 ? x : (i == 1 ? y : z); }
+  __device__ __forceinline__ T operator[](int i) const { return i == 0 ? x : (i == 1 ? y : z); }
 };
+
+// Ray i of a (3, n) array: its three rows are n apart.
+template <typename T> __device__ __forceinline__ V3<T> load3(const T* a, long long n, long long i) {
+  return {a[i], a[n + i], a[2 * n + i]};
+}
+
+template <typename T> __device__ __forceinline__ void store3(T* a, long long n, long long i, const V3<T>& v) {
+  a[i] = v.x;
+  a[n + i] = v.y;
+  a[2 * n + i] = v.z;
+}
 
 template <typename T> __device__ __forceinline__ T dot3(const V3<T>& a, const V3<T>& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z;

@@ -2,8 +2,9 @@
 
 ``reference_scene`` is the reference demo scene literal, the golden-image
 scene; ``all_effects_scene`` turns every shading feature on at once;
-``random_spheres_scene`` is BASELINE config 4's 1024 random spheres.  The
-JAX package's textured and inverse-task builders wait for image textures.
+``random_spheres_scene`` is BASELINE config 4's 1024 random spheres and
+``inverse_task_scene`` BASELINE config 5's inverse-rendering scene.  The JAX
+package's textured builder waits for image textures.
 """
 
 from __future__ import annotations
@@ -147,3 +148,35 @@ def random_spheres_scene(
     spheres = build_spheres(rows, dtype=dtype, device=device)
     lights = build_lights((-8.0, 10.0, -2.0), domes=[(0.15, (1.0, 1.0, 1.0))], dtype=dtype, device=device)
     return make_scene(spheres, lights, (0.0, 1.0, -4.0), width, height, dtype=dtype, device=device)
+
+
+def inverse_task_scene(
+    n_spheres: int = 64,
+    width: int = 256,
+    height: int = 144,
+    seed: int = 7,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> Scene:
+    """BASELINE config 5: ``n_spheres`` random spheres and no ground, drawn
+    from ``np.random.default_rng(seed)`` in the JAX builder's order, so the
+    tables are the JAX package's bit for bit."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n_spheres):
+        center = rng.uniform([-3.0, -0.2, 1.0], [3.0, 2.0, 8.0])
+        radius = rng.uniform(0.15, 0.45)
+        color = rng.uniform(0.1, 1.0, size=3)
+        rows.append(
+            make_sphere_row(
+                center,
+                radius,
+                specular_gain=float(rng.uniform(0.0, 0.5)),
+                specular_roughness=float(rng.uniform(0.1, 0.6)),
+                diffuse_gain=float(rng.uniform(0.5, 1.0)),
+                diffuse_color=color,
+            )
+        )
+    spheres = build_spheres(rows, dtype=dtype, device=device)
+    lights = build_lights((-4.0, 6.0, -1.0), domes=[(0.1, (1.0, 1.0, 1.0))], dtype=dtype, device=device)
+    return make_scene(spheres, lights, (0.0, 0.6, -3.0), width, height, dtype=dtype, device=device)

@@ -61,7 +61,9 @@ from .vecmath import ipow, sqrt
 
 # The kernels stage the side tables in shared memory, sized for this many
 # spheres (csrc/bounce_smooth_sub.cu kMaxSpheres: 23 values per sphere in
-# f64 stay under the 48 KB a block may take without opting in).
+# f64 stay under the 48 KB a block may take without opting in).  Bigger
+# tables take the culled route where it applies; elsewhere the JAX
+# package's blocked mode (up to 4096 spheres) is not ported yet.
 MAX_SMOOTH_SPHERES = 256
 
 # train_deep keeps each bounce's replay state in a per-thread array of this
@@ -89,24 +91,61 @@ def _sphere_fn(k: int, s_cheap: int):
     return sol_disc_plain if k < s_cheap else sol_disc_exact
 
 
-def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, saved=None):
+def shadow_spheres(geom, s_cheap: int, cand_sh=None, n: int = 0):
+    """The spheres of a bounce's shadow loops, in the kernels' visiting
+    order: ``(sid, center, radius, sol_disc_fn, active)`` per slot.
+
+    Without ``cand_sh`` every sphere in index order (``active`` None).  With
+    ``cand_sh = (cand, cnt_cand, cnt_full, tile_rays)`` the culled kernels'
+    order: each lane's tile's candidates (per-lane ids, ``active`` the lanes
+    whose list is that long), then its full-tier fallback, then the exact
+    tier.  Each lane's counts are clamped as the kernels clamp them.
+    """
+    if cand_sh is None:
+        for k in range(geom.shape[0]):
+            c, r = _sphere(geom, k)
+            yield k, c, r, _sphere_fn(k, s_cheap), None
+        return
+    cand, cnt_cand, cnt_full, tile_rays = cand_sh
+    tile = torch.arange(n, device=geom.device) // tile_rays
+    cc = torch.clamp(cnt_cand.long()[tile], 0, cand.shape[1])
+    cf = torch.clamp(cnt_full.long()[tile], 0, s_cheap)
+    for j in range(int(cc.max())):
+        sid = cand[tile, j]
+        g = geom[sid.long()]
+        yield sid, (g[:, 0], g[:, 1], g[:, 2]), g[:, 3], sol_disc_plain, j < cc
+    for k in range(int(cf.max())):
+        c, r = _sphere(geom, k)
+        yield k, c, r, sol_disc_plain, k < cf
+    for k in range(s_cheap, geom.shape[0]):
+        c, r = _sphere(geom, k)
+        yield k, c, r, sol_disc_exact, None
+
+
+def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, saved=None,
+                 known=None, cand_sh=None):
     """One smooth bounce (``_FwdSub``): every intermediate the adjoint reads.
 
     ``o``/``d`` are 3-tuples of (N,) rows, ``thr``/``alive`` (N,).  With
     ``saved = (idx, hit, clear)`` the winner and shadow sweeps are skipped
-    and their saved results used, as the backward kernels replay.  With
-    ``xi = (xi1, xi2)`` ((N,) uniforms) the continuation ``dout`` reflects
-    about a GGX-sampled microfacet; otherwise it is the mirror ``refl``.
+    and their saved results used, as the backward kernels replay; with
+    ``known = (idx, hit)`` only the winner sweep is.  ``cand_sh`` gives the
+    shadow loops a tile's list (:func:`shadow_spheres`).  With ``xi = (xi1,
+    xi2)`` ((N,) uniforms) the continuation ``dout`` reflects about a
+    GGX-sampled microfacet; otherwise it is the mirror ``refl``.
     """
     f = SimpleNamespace()
     dtype = o[0].dtype
     s_total = geom.shape[0]
     f.dtype, f.thr, f.alive = dtype, thr, alive
     f.sharp_e, f.sharp_s = sharp_e, sharp_s
+    f.cand_sh = cand_sh
 
     saved_clear = None
     if saved is not None:
         f.idx, f.hit, saved_clear = saved
+    elif known is not None:
+        f.idx, f.hit = known
     else:
         far = torch.full_like(o[0], faraway)
         tmin = far
@@ -172,11 +211,11 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_che
         f.clear = saved_clear
     else:
         clear = torch.ones_like(o[0])
-        for k in range(s_total):
-            c, r = _sphere(geom, k)
-            sol, disc, _, _, _ = _sphere_fn(k, s_cheap)(f.p_n, f.L, c, r, faraway)
+        for k, c, r, fn, active in shadow_spheres(geom, s_cheap, cand_sh, o[0].shape[0]):
+            sol, disc, _, _, _ = fn(f.p_n, f.L, c, r, faraway)
             occl = sig(sharp_s * disc) * sig(sharp_s * sol)
-            clear = clear * torch.where(f.idx == k, torch.ones_like(occl), 1.0 - occl)
+            factor = clear * torch.where(f.idx == k, torch.ones_like(occl), 1.0 - occl)
+            clear = factor if active is None else torch.where(active, factor, clear)
         f.clear = clear
 
     f.n_dot_l = torch.clamp_min(dot3(f.normal, f.L), 0.0)
@@ -443,9 +482,8 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
 
     # --- Phase C: shadow-product adjoint, one sphere at a time ---
     g_pn_s = [zero, zero, zero]
-    for k in range(s_total):
-        c, r = _sphere(geom, k)
-        sol, disc, _, b, ct = _sphere_fn(k, s_cheap)(f.p_n, f.L, c, r, faraway)
+    for k, c, r, fn, active in shadow_spheres(geom, s_cheap, f.cand_sh, zero.shape[0]):
+        sol, disc, _, b, ct = fn(f.p_n, f.L, c, r, faraway)
         sd = sig(f.sharp_s * disc)
         ss = sig(f.sharp_s * sol)
         occl = sd * ss
@@ -456,12 +494,20 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
         g_disc_j = g_occl * ss * sd * (1.0 - sd) * f.sharp_s
         g_sol_j = g_occl * sd * ss * (1.0 - ss) * f.sharp_s
         g_b, g_ct = sol_disc_adjoint(b, ct, g_sol_j, g_disc_j)
+        if active is not None:  # a slot past the lane's list: no contribution
+            g_b, g_ct = torch.where(active, g_b, zero), torch.where(active, g_ct, zero)
         oc = tuple(f.p_n[i] - c[i] for i in range(3))
+        row = [-2.0 * f.L[i] * g_b - 2.0 * oc[i] * g_ct for i in range(3)] + [-2.0 * r * g_ct]
         for i in range(3):
             g_pn_s[i] = g_pn_s[i] + 2.0 * f.L[i] * g_b + 2.0 * oc[i] * g_ct
             g_L_acc[i] = g_L_acc[i] + 2.0 * oc[i] * g_b
-            ggeom[k, i] += torch.sum(-2.0 * f.L[i] * g_b - 2.0 * oc[i] * g_ct)
-        ggeom[k, 3] += torch.sum(-2.0 * r * g_ct)
+        if isinstance(k, int):
+            for i in range(4):
+                ggeom[k, i] += torch.sum(row[i])
+        else:  # a tile's candidate: each tile's sum into its sphere's row
+            tile_rays = f.cand_sh[3]
+            per_tile = torch.stack(row, dim=1).reshape(-1, tile_rays, 4).sum(1)
+            ggeom.index_add_(0, k[::tile_rays].long(), per_tile)
 
     # --- Phase D: p_n, L, V unit-vector transposes ---
     g_pn = [g_o_out[i] + g_pn_s[i] for i in range(3)]
@@ -961,7 +1007,9 @@ def _kernel_inputs(origin, dirs_t, scene, cfg):
         raise NotImplementedError(
             f"{scene.spheres.count} spheres: the smooth kernels stage at most {MAX_SMOOTH_SPHERES} "
             "spheres in shared memory; bigger tables wait for the port of "
-            "python_ray_tracer_tpu.ops.pallas_bounce_smooth.trace_fused_smooth"
+            "python_ray_tracer_tpu.ops.pallas_bounce_smooth_sub.trace_fused_smooth_sub in blocked mode "
+            "(up to 4096 spheres) and of python_ray_tracer_tpu.ops.pallas_bounce_smooth.trace_fused_smooth "
+            "above that"
         )
     dtype = cfg.dtype
     d = dirs_t.to(dtype).contiguous()

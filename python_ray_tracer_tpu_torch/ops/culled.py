@@ -46,12 +46,10 @@ from .tables import MAT_COLS, N_CONST, SG, consts_row, geometry_table, material_
 from .vecmath import sqrt
 
 # Routing scope of the JAX package's culled routes (render._render_sample,
-# ops/pallas_culled.py, ops/pallas_culled_smooth.cull_smooth_ok).
+# ops/pallas_culled.py; the smooth route adds ops/culled_smooth.py's).
 MIN_CULL_SPHERES = 96
 MAX_CULL_EXACT = 8  # exact-tier spheres are swept unconditionally
 MAX_CULL_DEPTH = 4096
-MIN_CULL_SMOOTH_RAYS = 518_400
-MAX_BLK_SPHERES_SMOOTH = 4096
 
 CULL_BLOCK_RAYS = 4096  # rays per tile: one candidate list and one energy-cut decision
 _BOUND_G = 64  # rays per bound group of the candidate masks

@@ -15,6 +15,9 @@ Two routes, chosen as the JAX package chooses them:
   :func:`.ops.culled.trace_fused_culled` for 96 and more, and with a
   stochastic key above 64 spheres :func:`trace` with the standalone sweep
   kernels (:mod:`.ops.intersect_fused`).  Smooth visibility:
+  :func:`.ops.culled_smooth.trace_culled_smooth` (the culled smooth kernels,
+  one ``near_cs`` and one ``fwd_cs``/``bwd_cs`` pair per bounce) where
+  :func:`.ops.culled_smooth.cull_smooth_ok` holds, else
   :func:`.ops.bounce_smooth_sub.trace_fused_smooth_sub` (the depth-fused
   smooth pair, or the one-bounce pair at depth 1, each a
   ``torch.autograd.Function``);
@@ -44,14 +47,8 @@ from .ops.intersect import (
 )
 from .ops.bounce_smooth_sub import MAX_SMOOTH_SPHERES, MAX_TRAIN_DEPTH, fused_train_l2, trace_fused_smooth_sub
 from .ops.bounce_sub import MAX_SUB_SPHERES, trace_fused_sub
-from .ops.culled import (
-    MAX_BLK_SPHERES_SMOOTH,
-    MAX_CULL_DEPTH,
-    MAX_CULL_EXACT,
-    MIN_CULL_SMOOTH_RAYS,
-    MIN_CULL_SPHERES,
-    trace_fused_culled,
-)
+from .ops.culled import MAX_CULL_DEPTH, MAX_CULL_EXACT, MIN_CULL_SPHERES, trace_fused_culled
+from .ops.culled_smooth import MAX_BLK_SPHERES_SMOOTH, cull_smooth_ok, trace_culled_smooth
 from .ops.intersect_fused import nearest_sweep, shadow_sweep
 from .ops.shading import NUDGE, gather_material, shade
 from .ops.rng import bounce_xi, fold_seed, seed_root, uniform2
@@ -248,17 +245,6 @@ def trace(
     return accum
 
 
-def cull_smooth_ok(scene: Scene, cfg: RenderConfig, n_rays: int) -> bool:
-    """Would the JAX package take its culled smooth route here?"""
-    return (
-        cfg.use_pallas
-        and cfg.visibility == VISIBILITY_SMOOTH
-        and MIN_CULL_SPHERES <= scene.spheres.count <= MAX_BLK_SPHERES_SMOOTH
-        and scene.spheres.n_exact <= MAX_CULL_EXACT
-        and n_rays >= MIN_CULL_SMOOTH_RAYS
-    )
-
-
 def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
     """Refuse every route of the JAX renderer this port does not have yet."""
     smooth_kernels = cfg.visibility == VISIBILITY_SMOOTH and cfg.use_pallas
@@ -271,15 +257,28 @@ def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
         waits = "ray chunking (render._render_sample's lax.map over tiles)"
     elif cfg.pallas_interpret:
         waits = "interpret mode (a CUDA kernel has none; pallas_interpret has no counterpart)"
-    elif smooth_kernels and cull_smooth_ok(scene, cfg, scene.camera.width * scene.camera.height):
-        waits = "the culled smooth route (ops.pallas_culled_smooth.trace_culled_smooth)"
-    elif smooth_kernels and scene.spheres.count > MAX_SMOOTH_SPHERES:
-        waits = (
-            f"smooth kernels for more than {MAX_SMOOTH_SPHERES} spheres "
-            "(ops.pallas_bounce_smooth.trace_fused_smooth)"
-        )
+    elif (
+        smooth_kernels
+        and scene.spheres.count > MAX_SMOOTH_SPHERES
+        and not cull_smooth_ok(scene, cfg, scene.camera.width * scene.camera.height)
+    ):
+        waits = _smooth_table_waits(scene.spheres.count)
     if waits is not None:
         raise NotImplementedError(f"not ported yet: {waits} in python_ray_tracer_tpu")
+
+
+def _smooth_table_waits(n_spheres: int) -> str:
+    """The JAX route a smooth table of ``n_spheres`` > MAX_SMOOTH_SPHERES
+    takes off the culled route, which the port's smooth kernels wait for."""
+    if n_spheres <= MAX_BLK_SPHERES_SMOOTH:
+        return (
+            f"smooth kernels for {MAX_SMOOTH_SPHERES + 1}-{MAX_BLK_SPHERES_SMOOTH} spheres "
+            "(ops.pallas_bounce_smooth_sub.trace_fused_smooth_sub in blocked mode)"
+        )
+    return (
+        f"smooth kernels for more than {MAX_BLK_SPHERES_SMOOTH} spheres "
+        "(the lane kernels, ops.pallas_bounce_smooth.trace_fused_smooth)"
+    )
 
 
 def hard_route(scene: Scene, cfg: RenderConfig, key) -> str:
@@ -312,6 +311,8 @@ def _render_sample(scene: Scene, cfg: RenderConfig, jitter: torch.Tensor | None,
     if route in ("smooth", "culled", "sub"):
         dirs_t = ray_directions_t(scene.camera, cfg.dtype, None if jitter is None else jitter.T)
         if route == "smooth":
+            if cull_smooth_ok(scene, cfg, dirs_t.shape[1]):
+                return trace_culled_smooth(scene.camera.position, dirs_t, scene, cfg, key=key)
             return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
         if route == "culled":
             return trace_fused_culled(scene.camera.position, dirs_t, scene, cfg)

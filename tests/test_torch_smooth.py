@@ -13,6 +13,7 @@ The CUDA kernels are held against these plain versions on the card by
 """
 
 import functools
+import importlib
 import json
 
 import jax
@@ -358,25 +359,42 @@ def _many_spheres(n, width, height):
     return T.make_scene(spheres, lights, (0.0, 0.2, -2.0), width, height, dtype=torch.float32)
 
 
+class _Took(Exception):
+    pass
+
+
 @pytest.mark.parametrize(
     "route,match",
     [
-        ("culled", "pallas_culled_smooth"),
-        ("too_many_spheres", "pallas_bounce_smooth.trace_fused_smooth"),
+        ("culled", "trace_culled_smooth"),
+        ("too_many_spheres", "pallas_bounce_smooth_sub.trace_fused_smooth_sub in blocked mode"),
+        ("lane_kernels", "pallas_bounce_smooth.trace_fused_smooth"),
     ],
 )
-def test_unported_smooth_routes_raise(route, match):
-    """render() and the training loss refuse them before any ray is made."""
-    scene, cfg = tscenes.reference_scene(8, 4), dict(visibility="smooth", use_pallas=True)
+def test_unported_smooth_routes_raise(monkeypatch, route, match):
+    """render() and the training loss refuse the smooth routes the port does
+    not have before any ray is made, naming the JAX function each waits
+    for: 257-4096 spheres off the culled route (blocked mode) and more than
+    4096 (the lane kernels).  The culled route itself is ported: a
+    96-sphere 960x540 frame reaches ``trace_culled_smooth`` (caught there)."""
+    render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")  # the package exports a render function
     if route == "culled":
         scene = _many_spheres(96, 960, 540)
+
+        def took(*args, **kwargs):
+            raise _Took(match)
+
+        monkeypatch.setattr(render_mod, "trace_culled_smooth", took)
+        expect = _Took
     else:
-        scene = _many_spheres(bss.MAX_SMOOTH_SPHERES + 1, 8, 4)
-    cfg = T.RenderConfig(**cfg)
+        n = bss.MAX_SMOOTH_SPHERES + 1 if route == "too_many_spheres" else 4097
+        scene = _many_spheres(n, 8, 4)
+        expect = NotImplementedError
+    cfg = T.RenderConfig(visibility="smooth", use_pallas=True)
     target = torch.zeros((scene.camera.height, scene.camera.width, 3))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(expect, match=match):
         T.render(scene, cfg)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(expect, match=match):
         make_loss_fn(scene, target, cfg)(scene_to_params(scene))
     with pytest.raises(NotImplementedError, match="parallel"):
         make_loss_fn(scene, target, cfg, mesh=object())
