@@ -37,12 +37,26 @@ at 960x540:
   1920x1080, f64 at 480x270), the primary lists against the full sweep,
   ``optimize --visibility smooth`` 3 steps with exact launch counts, the
   smooth CLI frames against the chunked pure-torch route, and the first
-  step at 960x540 against a JAX golden.
+  step at 960x540 against a JAX golden;
+* the smooth kernels past 256 spheres: all five against their plain
+  versions at 1024 spheres (BASELINE config 5's inverse task, f32 at
+  256x144 mirror and glossy, f64 at 64x36; geometry staged in shared
+  memory) and at 4096 (f64, geometry from global memory), the one-bounce
+  pair at 8192 (from global memory; f32, and f64 on the same inputs
+  upcast); ``optimize --builtin random1024 --width 480 --height 270
+  --visibility smooth`` (one ``train_deep`` a step) and its smooth frame
+  against the pure-torch route; config 5's first Adam step against a JAX
+  golden; an Adam step at 8192 spheres (``depth`` launches each of
+  ``smooth_fwd_step`` and ``smooth_bwd_step``, the counterparts there of the
+  JAX lane pair).  On all_effects and config 4 it prints the worst f32
+  lanes of the smooth gradient kernels beside their f64 gaps.
 
 Then it times every kernel (and each one's glossy variant) beside its plain
 version and its bound, the benchmark's Adam step and the stochastic one,
-the config-4 frames with a ``torch.profiler`` split of the mirror one, and
-the config-4 culled smooth Adam step with a split into its kernels.
+the config-4 frames with a ``torch.profiler`` split of the mirror one, the
+config-4 culled smooth Adam step with a split into its kernels, the five
+smooth kernels at config 5 and the pair at 8192 spheres beside their bounds,
+and the config-5 and 8192-sphere Adam steps with profiler splits.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -81,12 +95,17 @@ SMOOTH = ("smooth_fwd_deep", "smooth_bwd_deep", "train_deep", "smooth_fwd_step",
 CULLED = ("near_culled", "shade_culled")
 SWEEPS = ("nearest_sweep", "shadow_sweep")
 CS = ("near_cs", "fwd_cs", "bwd_cs")
+STEP = ("smooth_fwd_step", "smooth_bwd_step")
+# The one-bounce pair's entries in the kernels line past 4096 spheres, where
+# it replaces the JAX lane pair (TPU rows 6-7).
+LANE = {k: f"{k} (> 4096 spheres)" for k in STEP}
 SOURCE = {
     **{k: "python_ray_tracer_tpu_torch/csrc/bounce_sub.cu" for k in HARD},
     **{k: "python_ray_tracer_tpu_torch/csrc/bounce_smooth_sub.cu" for k in SMOOTH},
     **{k: "python_ray_tracer_tpu_torch/csrc/culled.cu" for k in CULLED},
     **{k: "python_ray_tracer_tpu_torch/csrc/intersect_fused.cu" for k in SWEEPS},
     **{k: "python_ray_tracer_tpu_torch/csrc/culled_smooth.cu" for k in CS},
+    **{LANE[k]: "python_ray_tracer_tpu_torch/csrc/bounce_smooth_sub.cu" for k in STEP},
 }
 # BASELINE config 4: random_spheres_scene, 1024 spheres, 1920x1080, depth 4;
 # the f64 kernel checks at a quarter of the width and height.
@@ -104,8 +123,38 @@ PURE_CHUNK = 32768
 CS_DEPTH = 3
 CS_F64_SIZE = (480, 270)
 CS_GOLDEN = "python_ray_tracer_tpu_torch/testdata/random1024_960x540_d3_smooth_train_f32.npz"
+# BASELINE config 5 (the JAX package's benchmarks/config5_bench.py at 1024
+# spheres, its "production default for 17..4096 spheres"):
+# inverse_task_scene(1024), 256x144, depth 3, f32, L2 against the clipped
+# hard render, Adam lr 1e-3; 36,864 rays, off the culled route, so the
+# smooth kernels take the whole table.  Its JAX golden: the first Adam
+# step's loss and every gradient of the XLA smooth path, f32 and f64, target
+# the hard render's uint8 image (stored) / 255.
+C5_SPHERES, C5_WIDTH, C5_HEIGHT, C5_DEPTH = 1024, 256, 144, 3
+C5_GOLDEN = "python_ray_tracer_tpu_torch/testdata/inverse1024_256x144_d3_smooth_train_f32.npz"
+# Past 4096 spheres (the JAX lane pair's range): random_spheres_scene(8192)
+# at config 5's frame and depth, through the one-bounce pair.
+LANE_SPHERES = 8192
+# The smooth kernels against their plain versions at big tables: (scene,
+# spheres, width, height, depth, dtype, glossy, kernels, timed).  Geometry
+# is staged in shared memory up to 64 KB (1024 spheres: 16 KB f32, 32 KB
+# f64) and read from global memory past it (4096 spheres f64, 8192).  The
+# 8192-sphere pair is checked in float32 and again in float64 on the same
+# inputs upcast.  The plain versions loop spheres in Python, seconds a call
+# at 1024-8192 spheres whatever the frame, so the f64 cases take reduced
+# frames and a one-bounce pair's entering state comes from the kernel.
+BLOCKED_CASES = (
+    ("inverse_task", 1024, 256, 144, 3, torch.float32, False, SMOOTH, True),
+    ("inverse_task", 1024, 256, 144, 2, torch.float32, True, SMOOTH, False),
+    ("inverse_task", 1024, 64, 36, 2, torch.float64, False, SMOOTH, False),
+    ("inverse_task", 1024, 64, 36, 1, torch.float64, True, SMOOTH, False),
+    ("random_spheres", 4096, 32, 18, 1, torch.float64, False, SMOOTH, False),
+    ("random_spheres", 8192, 256, 144, 2, torch.float32, False, STEP, True),
+)
 DEVICE = "cuda"
 REPLACES = {
+    LANE["smooth_fwd_step"]: "python_ray_tracer_tpu/ops/pallas_bounce_smooth.py:346",
+    LANE["smooth_bwd_step"]: "python_ray_tracer_tpu/ops/pallas_bounce_smooth.py:420",
     "near_cs": "python_ray_tracer_tpu/ops/pallas_culled_smooth.py:154",
     "fwd_cs": "python_ray_tracer_tpu/ops/pallas_culled_smooth.py:252",
     "bwd_cs": "python_ray_tracer_tpu/ops/pallas_culled_smooth.py:284",
@@ -139,6 +188,15 @@ RAY_GRAD_TOL = {torch.float32: 1e-3, torch.float64: 1e-12}
 # parameter field; each scene constant) is held within COLUMN_RTOL of that
 # column's own largest value; readings reach 3.1e-6 (f32) and 2.6e-15 (f64).
 COLUMN_RTOL = {torch.float32: 3e-5, torch.float64: 1e-12}
+# Float32 table-gradient columns, by check label, that are sums of many
+# lanes' contributions of both signs: the float32 kernel and the float32
+# plain version both part from the float64 value by far more than from each
+# other (PERF.md, Findings).  Such a column alone may reach
+# ILL_CONDITIONED_FACTOR x COLUMN_RTOL, and only if the same kernel in
+# float64 on the same inputs is within COLUMN_RTOL of its plain version.
+# smooth_bwd_step's camera-z gradient at 8192 spheres reads 3.76e-5.
+ILL_CONDITIONED_COLUMNS = {"smooth_bwd_step random_spheres(8192) depth 2 float32 256x144 g_consts": (2,)}
+ILL_CONDITIONED_FACTOR = 2.0
 # Main path vs the JAX golden: share of uint8 values allowed to differ.
 MAX_GOLDEN_SHARE = 1e-3
 # A float32 gradient of this loss is only as exact as float32 allows: the
@@ -296,9 +354,15 @@ def _per_ray_check(label: str, kernel: torch.Tensor, plain: torch.Tensor, dtype:
     return float(diff.max())
 
 
-def _column_check(label: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype) -> float:
+def _column_check(label: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype, f64=None) -> float:
     """Each column's largest difference within COLUMN_RTOL of the column's
-    own largest |plain value| (a column that is 0 must be 0)."""
+    own largest |plain value| (a column that is 0 must be 0).
+
+    The one exception is a column named in ILL_CONDITIONED_COLUMNS under
+    ``label``: it may reach ILL_CONDITIONED_FACTOR x COLUMN_RTOL in float32
+    if ``f64`` (a callable giving the kernel's and the plain version's
+    outputs on the same inputs upcast to float64) shows the kernel's float64
+    column within COLUMN_RTOL[float64] of the plain version's."""
     if not bool(torch.isfinite(kernel).all()):
         fail(f"{label}: non-finite values")
     k, p = (t.double().reshape(-1, t.shape[-1] if t.dim() else 1) for t in (kernel, plain))
@@ -308,16 +372,60 @@ def _column_check(label: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: 
     print(f"[kernels] {label}: max_abs {float(err.max()):.3e}; worst column {worst} of {err.numel()}: "
           f"{float(err[worst]):.3e} of its largest value {float(scale[worst]):.3e} = {float(ratio[worst]):.3e} "
           f"(limit {COLUMN_RTOL[dtype]:g}); per column: {' '.join(f'{float(r):.1e}' for r in ratio)}")
-    if float(ratio[worst]) > COLUMN_RTOL[dtype]:
-        fail(f"{label}: column {worst} differs by {float(ratio[worst]):.3e} of its largest value (limit {COLUMN_RTOL[dtype]:g})")
+    named = ILL_CONDITIONED_COLUMNS.get(label, ()) if dtype == torch.float32 and f64 is not None else ()
+    for c in range(err.numel()):
+        r = float(ratio[c])
+        if r <= COLUMN_RTOL[dtype]:
+            continue
+        if c not in named:
+            fail(f"{label}: column {c} differs by {r:.3e} of its largest value (limit {COLUMN_RTOL[dtype]:g})")
+        limit = ILL_CONDITIONED_FACTOR * COLUMN_RTOL[dtype]
+        k64, p64 = (t.double().reshape(k.shape) for t in f64())
+        err64 = float((k64[:, c] - p64[:, c]).abs().max()) / float(p64[:, c].abs().max())
+        k_off, p_off = (float((t[:, c] - p64[:, c]).abs().max()) / float(p64[:, c].abs().max()) for t in (k, p))
+        print(f"[kernels] {label}: column {c} (named ill-conditioned) at {r:.3e} (limit {limit:g}); on the same inputs "
+              f"in float64 the kernel is {err64:.3e} of the column off the plain version (limit "
+              f"{COLUMN_RTOL[torch.float64]:g}); the float32 kernel is {k_off:.3e} and the float32 plain version "
+              f"{p_off:.3e} of it off the float64 value", flush=True)
+        if r > limit:
+            fail(f"{label}: column {c} differs by {r:.3e} of its largest value (limit {limit:g})")
+        if err64 > COLUMN_RTOL[torch.float64]:
+            fail(f"{label}: column {c} in float64 differs by {err64:.3e} of its largest value "
+                 f"(limit {COLUMN_RTOL[torch.float64]:g})")
     return float(err.max())
 
 
-def _grad_check(label: str, name: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype) -> float:
-    """Per-ray gradients value by value; sums (sse, table gradients) column by column."""
+def _grad_check(label: str, name: str, kernel: torch.Tensor, plain: torch.Tensor, dtype: torch.dtype,
+                f64=None) -> float:
+    """Per-ray gradients value by value; sums (sse, table gradients) column
+    by column (``f64``: see _column_check)."""
     if name in ("g_o", "g_d", "g_thr", "g_alive"):
         return _per_ray_check(f"{label} {name}", kernel, plain, dtype)
-    return _column_check(f"{label} {name}", kernel, plain, dtype)
+    return _column_check(f"{label} {name}", kernel, plain, dtype, f64)
+
+
+def _upcast(args) -> list:
+    return [a.double() if isinstance(a, torch.Tensor) and a.dtype.is_floating_point else a for a in args]
+
+
+def _f64_outputs(kernel_fn, plain_fn, args: tuple, kw: dict):
+    """Lazily, once: a gradient kernel and its plain version on ``args``
+    upcast to float64.  Returns ``both``, a callable giving (kernel outputs,
+    plain outputs); ``_nth(both, j)`` gives the j-th pair (for
+    _column_check)."""
+    cache: list = []
+
+    def both():
+        if not cache:
+            up = _upcast(args)
+            cache.append((kernel_fn(*up, **kw), plain_fn(*up, **kw)))
+        return cache[0]
+
+    return both
+
+
+def _nth(both, j: int):
+    return lambda: (both()[0][j], both()[1][j])
 
 
 def _relative_check(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float) -> None:
@@ -388,13 +496,16 @@ SMOOTH_CASES = (
 GRAD_NAMES = ("g_o", "g_d", "g_geom", "g_mat", "g_consts")
 
 
-def _step_state(o, d, tables, kw, xi):
+def _step_state(o, d, tables, kw, xi, kernel: bool = False):
     """The state after one bounce of the chain from the camera (thr and
-    alive other than 1), as the second bounce's smooth_fwd_step takes it."""
+    alive other than 1), as the second bounce's smooth_fwd_step takes it:
+    from the plain version, or (big tables, where the plain call costs
+    seconds) from the kernel."""
     from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
 
     ones = torch.ones_like(d[0])
-    return bss.smooth_fwd_step_plain(o, d, ones, ones, torch.zeros_like(d), *tables, xi, **kw)[:5]
+    step = bss.smooth_fwd_step if kernel else bss.smooth_fwd_step_plain
+    return tuple(t.contiguous() for t in step(o, d, ones, ones, torch.zeros_like(d), *tables, xi, **kw)[:5])
 
 
 def _step_cotangents(outs) -> list[torch.Tensor]:
@@ -403,69 +514,192 @@ def _step_cotangents(outs) -> list[torch.Tensor]:
     return [torch.rand(t.shape, generator=gen, device="cuda", dtype=t.dtype) - 0.5 for t in outs[:5]]
 
 
-def _check_step_pair(label: str, o, d, tables, kw, xis, dtype, err: dict) -> None:
+def _plain_call(name: str, fn, plain_ms: dict | None):
+    """``fn()`` (a plain version).  With ``plain_ms`` (a dict) the call runs
+    under count_ops, and its time in ms (CUDA events around the one call, the
+    counter's Python overhead included) and its operations are recorded as
+    ``plain_ms[name] = (ms, ops)``: the plain versions of big tables take
+    seconds, so one call serves the check, the time and the bound."""
+    if plain_ms is None:
+        return fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    result: list = []
+    start.record()
+    ops = count_ops(fn, result)
+    end.record()
+    end.synchronize()
+    plain_ms[name] = (start.elapsed_time(end), ops)
+    return result[0]
+
+
+def _twice_bitwise(name: str, label: str, fn):
+    """Two launches of a gradient kernel on the same inputs, bitwise equal."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"[kernels] {name} {label}: two launches bitwise equal: {same}", flush=True)
+    if not same:
+        fail(f"{name} {label}: two launches on the same inputs differ")
+    return first
+
+
+def _check_step_pair(label: str, o, d, tables, kw, xis, dtype, err: dict, state_by_kernel: bool = False,
+                     plain_ms: dict | None = None, also_f64: bool = False) -> dict:
     """smooth_fwd_step and smooth_bwd_step on the second bounce of the chain
-    against their plain versions; smooth_bwd_step twice, bitwise."""
+    against their plain versions; smooth_bwd_step twice, bitwise.  With
+    ``also_f64`` both again in float64 on the same inputs upcast, under the
+    float64 limits.  Returns the two calls (``{name: (kernel callable,
+    bytes it moves)}``)."""
     from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
 
     skw = {k: v for k, v in kw.items() if k != "depth"}
-    state = _step_state(o, d, tables, skw, xis[0])
+    state = _step_state(o, d, tables, skw, xis[0], kernel=state_by_kernel)
     fk = bss.smooth_fwd_step(*state, *tables, xis[1], **skw)
-    torch.cuda.synchronize()
-    fp = bss.smooth_fwd_step_plain(*state, *tables, xis[1], **skw)
+    fp = _plain_call("smooth_fwd_step", lambda: bss.smooth_fwd_step_plain(*state, *tables, xis[1], **skw), plain_ms)
     for out_name, k, p in zip(("o", "d", "thr", "alive", "acc", "idx", "hit", "clear"), fk, fp):
         err["smooth_fwd_step"] = max(err["smooth_fwd_step"], _per_value_check(f"smooth_fwd_step {label} {out_name}", k, p, dtype))
     args = (*state[:4], *fp[5:], *tables, *_step_cotangents(fp), xis[1])
-    bk = bss.smooth_bwd_step(*args, **skw)
-    bk2 = bss.smooth_bwd_step(*args, **skw)
-    torch.cuda.synchronize()
-    bp = bss.smooth_bwd_step_plain(*args, **skw)
-    for out_name, k, p in zip(("g_o", "g_d", "g_thr", "g_alive", "g_geom", "g_mat", "g_consts"), bk, bp):
-        err["smooth_bwd_step"] = max(err["smooth_bwd_step"], _grad_check(f"smooth_bwd_step {label}", out_name, k, p, dtype))
-    same = all(torch.equal(a, b) for a, b in zip(bk, bk2))
-    print(f"[kernels] smooth_bwd_step {label}: two launches bitwise equal: {same}", flush=True)
-    if not same:
-        fail(f"smooth_bwd_step {label}: two launches on the same inputs differ")
+    bk = _twice_bitwise("smooth_bwd_step", label, lambda: bss.smooth_bwd_step(*args, **skw))
+    bp = _plain_call("smooth_bwd_step", lambda: bss.smooth_bwd_step_plain(*args, **skw), plain_ms)
+    f64 = _f64_outputs(bss.smooth_bwd_step, bss.smooth_bwd_step_plain, args, skw)
+    bwd_names = ("g_o", "g_d", "g_thr", "g_alive", "g_geom", "g_mat", "g_consts")
+    for j, (out_name, k, p) in enumerate(zip(bwd_names, bk, bp)):
+        err["smooth_bwd_step"] = max(err["smooth_bwd_step"],
+                                     _grad_check(f"smooth_bwd_step {label}", out_name, k, p, dtype, _nth(f64, j)))
+    if also_f64:
+        label64 = f"{label}, upcast to float64"
+        up = _upcast((*state, *tables, xis[1]))
+        fk64 = bss.smooth_fwd_step(*up, **skw)
+        fp64 = bss.smooth_fwd_step_plain(*up, **skw)
+        for out_name, k, p in zip(("o", "d", "thr", "alive", "acc", "idx", "hit", "clear"), fk64, fp64):
+            _per_value_check(f"smooth_fwd_step {label64} {out_name}", k, p, torch.float64)
+        for out_name, k, p in zip(bwd_names, *f64()):
+            _grad_check(f"smooth_bwd_step {label64}", out_name, k, p, torch.float64)
+    return {
+        "smooth_fwd_step": (lambda: bss.smooth_fwd_step(*state, *tables, xis[1], **skw),
+                            _nbytes(*state, *tables, *[x for x in xis[1:2] if x is not None], *fk)),
+        "smooth_bwd_step": (lambda: bss.smooth_bwd_step(*args, **skw),
+                            _nbytes(*[a for a in args if a is not None], *bk)),
+    }
+
+
+def _check_smooth_case(label: str, o, d, tables, kw, xis, dtype, plain_ms: dict | None = None,
+                       state_by_kernel: bool = False) -> tuple[dict, dict]:
+    """The deep pair, train_deep and the one-bounce pair against their plain
+    versions on one case's inputs; the gradient kernels twice, bitwise.
+    Returns the max abs error per kernel and the gradient kernels' outputs
+    beside their plain versions' (``{name: (kernel, plain)}``), with the
+    inputs under ``"inputs"`` and each kernel's call and bytes under
+    ``"calls"``."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    xi = torch.cat(xis[: kw["depth"]]) if xis[0] is not None else None
+    fwd_names = ("acc", "osave", "dsave", "thrsave", "alivesave", "idx", "hit", "clear")
+    fk = bss.smooth_fwd_deep(o, d, *tables, xi, **kw)
+    fp = _plain_call("smooth_fwd_deep", lambda: bss.smooth_fwd_deep_plain(o, d, *tables, xi, **kw), plain_ms)
+    err = dict.fromkeys(SMOOTH, 0.0)
+    for out_name, k, p in zip(fwd_names, fk, fp):
+        if k.numel():
+            err["smooth_fwd_deep"] = max(err["smooth_fwd_deep"], _per_value_check(f"smooth_fwd_deep {label} {out_name}", k, p, dtype))
+    g_acc = _cotangent(d)
+    # Both replay the plain residuals.
+    bk = _twice_bitwise("smooth_bwd_deep", label, lambda: bss.smooth_bwd_deep(o, d, *fp[1:], *tables, g_acc, xi, **kw))
+    bp = _plain_call("smooth_bwd_deep", lambda: bss.smooth_bwd_deep_plain(o, d, *fp[1:], *tables, g_acc, xi, **kw), plain_ms)
+    f64 = _f64_outputs(bss.smooth_bwd_deep, bss.smooth_bwd_deep_plain, (o, d, *fp[1:], *tables, g_acc, xi), kw)
+    for j, (out_name, k, p) in enumerate(zip(GRAD_NAMES, bk, bp)):
+        err["smooth_bwd_deep"] = max(err["smooth_bwd_deep"],
+                                     _grad_check(f"smooth_bwd_deep {label}", out_name, k, p, dtype, _nth(f64, j)))
+    tgt = (torch.clamp(fp[0], 0.0, 1.0) * 0.9).contiguous()
+    tk = _twice_bitwise("train_deep", label, lambda: bss.train_deep(o, d, tgt, *tables, xi, **kw))
+    tp = _plain_call("train_deep", lambda: bss.train_deep_plain(o, d, tgt, *tables, xi, **kw), plain_ms)
+    f64 = _f64_outputs(bss.train_deep, bss.train_deep_plain, (o, d, tgt, *tables, xi), kw)
+    for j, (out_name, k, p) in enumerate(zip(("sse",) + GRAD_NAMES, tk, tp)):
+        err["train_deep"] = max(err["train_deep"], _grad_check(f"train_deep {label}", out_name, k, p, dtype, _nth(f64, j)))
+    calls = _check_step_pair(label, o, d, tables, kw, xis, dtype, err, state_by_kernel, plain_ms)
+    xi_in = [] if xi is None else [xi]
+    calls.update({
+        "smooth_fwd_deep": (lambda: bss.smooth_fwd_deep(o, d, *tables, xi, **kw), _nbytes(o, d, *tables, *xi_in, *fk)),
+        "smooth_bwd_deep": (lambda: bss.smooth_bwd_deep(o, d, *fp[1:], *tables, g_acc, xi, **kw),
+                            _nbytes(o, d, *fp[1:], *tables, g_acc, *xi_in, *bk)),
+        "train_deep": (lambda: bss.train_deep(o, d, tgt, *tables, xi, **kw), _nbytes(o, d, tgt, *tables, *xi_in, *tk)),
+    })
+    outs = {"smooth_bwd_deep": (bk, bp), "train_deep": (tk[1:], tp[1:]), "calls": calls,
+            "inputs": dict(fwd=fp, g_acc=g_acc, tgt=tgt, xi=xi)}
+    return err, outs
+
+
+def _sharp_disc(o, d, geom, idx, sharpness: float) -> torch.Tensor:
+    """sharpness x |disc| of each lane's winner (plain-tier quadratic): how
+    close the lane runs to the winner's silhouette, where the coverage
+    sigmoid's slope (and the gradient) peaks."""
+    g = geom[idx.long()].T.double()
+    oc = o.double() - g[:3]
+    b = 2.0 * (d.double() * oc).sum(0)
+    ct = (oc * oc).sum(0) - g[3] * g[3]
+    return sharpness * (b * b - 4.0 * ct).abs()
+
+
+def _worst_lanes(label: str, kernel, plain, kernel64, plain64, sdisc, count: int = 5) -> None:
+    """The ``count`` lanes (rays) where an f32 per-ray gradient parts most
+    from its plain version, relative to max(1, |value|): each lane's value
+    scale, sharpness x |disc| of its winner at every bounce, and the f64
+    kernel's gap from the f64 plain version on the same inputs."""
+    n = kernel.shape[-1]
+
+    def gap(k, p):
+        return ((k.double() - p.double()).abs() / p.double().abs().clamp_min(1.0)).reshape(-1, n).amax(dim=0)
+
+    gap32, gap64 = gap(kernel, plain), gap(kernel64, plain64)
+    scale = plain.double().abs().reshape(-1, n).amax(dim=0)
+    worst = torch.topk(gap32, count).indices
+    print(f"[lanes] {label}: worst {count} of {n} lanes; f64 gap over all lanes {float(gap64.max()):.3e}", flush=True)
+    for i in worst.tolist():
+        discs = " ".join(f"{float(x):.3e}" for x in sdisc[:, i])
+        print(f"[lanes]   lane {i}: f32 gap {float(gap32[i]):.3e}, |value| {float(scale[i]):.3e}, "
+              f"sharpness x |disc| per bounce {discs}, f64 gap {float(gap64[i]):.3e}")
+
+
+def _smooth_worst_lanes(label: str, o, d, tables, kw, outs: dict) -> None:
+    """Satellite of the smooth gradient check: the worst f32 lanes of
+    smooth_bwd_deep and train_deep, with the f64 kernels and plain versions
+    rerun on the same inputs in float64."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    up = lambda t: None if t is None else (t.double() if t.dtype.is_floating_point else t)  # noqa: E731
+    inp = outs["inputs"]
+    o64, d64, tables64, xi64, g_acc64, tgt64 = up(o), up(d), tuple(up(t) for t in tables), up(inp["xi"]), up(inp["g_acc"]), up(inp["tgt"])
+    fp64 = bss.smooth_fwd_deep_plain(o64, d64, *tables64, xi64, **kw)
+    fp = inp["fwd"]
+    depth = kw["depth"]
+    rays = [(o, d)] + [(fp[1][3 * k : 3 * k + 3], fp[2][3 * k : 3 * k + 3]) for k in range(depth - 1)]
+    sdisc = torch.stack([_sharp_disc(ro, rd, tables[0], fp[5][k], kw["sharp_e"]) for k, (ro, rd) in enumerate(rays)])
+    runs = {
+        "smooth_bwd_deep": (lambda: bss.smooth_bwd_deep(o64, d64, *fp64[1:], *tables64, g_acc64, xi64, **kw),
+                            lambda: bss.smooth_bwd_deep_plain(o64, d64, *fp64[1:], *tables64, g_acc64, xi64, **kw)),
+        "train_deep": (lambda: bss.train_deep(o64, d64, tgt64, *tables64, xi64, **kw)[1:],
+                       lambda: bss.train_deep_plain(o64, d64, tgt64, *tables64, xi64, **kw)[1:]),
+    }
+    for name, (kernel64, plain64) in runs.items():
+        k64, p64 = kernel64(), plain64()
+        k32, p32 = outs[name]
+        for j, grad in enumerate(("g_o", "g_d")):
+            _worst_lanes(f"{name} {label} {grad}", k32[j], p32[j], k64[j], p64[j], sdisc)
 
 
 def phase_smooth_kernels() -> dict[str, float]:
     """The five smooth kernels against their plain versions at 960x540,
-    mirror and glossy; returns the max abs error per kernel over the
-    float32 cases."""
-    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
-
+    mirror and glossy; on all_effects, the worst f32 lanes of the gradient
+    kernels beside their f64 gaps.  Returns the max abs error per kernel over
+    the float32 cases."""
     errs = dict.fromkeys(SMOOTH, 0.0)
-    fwd_names = ("acc", "osave", "dsave", "thrsave", "alivesave", "idx", "hit", "clear")
     for name, depth, dtype, stochastic in SMOOTH_CASES:
         o, d, tables, kw = _smooth_inputs(name, dtype, depth)
         xis = _xis(stochastic, d.shape[1], depth, dtype)
-        xi = torch.cat(xis) if stochastic else None
         label = f"{name} depth {depth} {str(dtype).split('.')[-1]} {WIDTH}x{HEIGHT}{' glossy' if stochastic else ''}"
-        fk = bss.smooth_fwd_deep(o, d, *tables, xi, **kw)
-        torch.cuda.synchronize()
-        fp = bss.smooth_fwd_deep_plain(o, d, *tables, xi, **kw)
-        err = dict.fromkeys(SMOOTH, 0.0)
-        for out_name, k, p in zip(fwd_names, fk, fp):
-            if k.numel():
-                err["smooth_fwd_deep"] = max(err["smooth_fwd_deep"], _per_value_check(f"smooth_fwd_deep {label} {out_name}", k, p, dtype))
-        g_acc = _cotangent(d)
-        bk = bss.smooth_bwd_deep(o, d, *fp[1:], *tables, g_acc, xi, **kw)  # both replay the plain residuals
-        torch.cuda.synchronize()
-        bp = bss.smooth_bwd_deep_plain(o, d, *fp[1:], *tables, g_acc, xi, **kw)
-        for out_name, k, p in zip(GRAD_NAMES, bk, bp):
-            err["smooth_bwd_deep"] = max(err["smooth_bwd_deep"], _grad_check(f"smooth_bwd_deep {label}", out_name, k, p, dtype))
-        tgt = (torch.clamp(fp[0], 0.0, 1.0) * 0.9).contiguous()
-        tk = bss.train_deep(o, d, tgt, *tables, xi, **kw)
-        tk2 = bss.train_deep(o, d, tgt, *tables, xi, **kw)
-        torch.cuda.synchronize()
-        tp = bss.train_deep_plain(o, d, tgt, *tables, xi, **kw)
-        for out_name, k, p in zip(("sse",) + GRAD_NAMES, tk, tp):
-            err["train_deep"] = max(err["train_deep"], _grad_check(f"train_deep {label}", out_name, k, p, dtype))
-        same = all(torch.equal(a, b) for a, b in zip(tk, tk2))
-        print(f"[kernels] train_deep {label}: two launches bitwise equal: {same}", flush=True)
-        if not same:
-            fail(f"train_deep {label}: two launches on the same inputs differ")
-        _check_step_pair(label, o, d, tables, kw, xis, dtype, err)
+        err, outs = _check_smooth_case(label, o, d, tables, kw, xis, dtype)
+        if name == "all_effects":
+            _smooth_worst_lanes(label, o, d, tables, kw, outs)
         if dtype == torch.float32:
             errs = {k: max(errs[k], err[k]) for k in SMOOTH}
     return errs
@@ -802,13 +1036,13 @@ def time_ms(fn, warmup: int = 5, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def count_ops(fn) -> int:
+def count_ops(fn, result: list | None = None) -> int:
     """Elementwise floating-point operations ``fn`` performs, counted on its torch calls.
 
     Every arithmetic, comparison, select, min/max and transcendental call
     counts one operation per element of its largest operand (a sigmoid
     three: negate-exp, add, divide); a reduction counts its input's
-    elements.  Indexing, copies and casts count nothing.  The smooth plain
+    elements.  ``result``, if given, receives ``fn()``'s return value.  Indexing, copies and casts count nothing.  The smooth plain
     versions do the kernels' work lane by lane: each lane's own tier of the
     winner's quadratic, and each sphere's material gradients summed over
     the lanes it won; a few selects (the checker texture, and near_cs's
@@ -836,7 +1070,9 @@ def count_ops(fn) -> int:
             return out
 
     with Counter():
-        fn()
+        out = fn()
+    if result is not None:
+        result.append(out)
     return total
 
 
@@ -1349,6 +1585,7 @@ def phase_cs_kernels() -> tuple[dict[str, float], list[dict]]:
 
     errs = dict.fromkeys(CS, 0.0)
     record_f32 = []
+    gaps = []  # (bounce, bwd_cs's (g_o, g_d), the plain version's) of the f32 mirror record
     for dtype, (width, height) in ((torch.float32, (BIG_WIDTH, BIG_HEIGHT)), (torch.float64, CS_F64_SIZE)):
         for stochastic in (False, True):
             tag = f"config 4 smooth {str(dtype).split('.')[-1]} {width}x{height}{' glossy' if stochastic else ''}"
@@ -1383,6 +1620,8 @@ def phase_cs_kernels() -> tuple[dict[str, float], list[dict]]:
                     print(f"[kernels] bwd_cs {tag} bounce {b}: two launches bitwise equal: {same}", flush=True)
                     if not same:
                         fail(f"bwd_cs {tag} bounce {b}: two launches on the same inputs differ")
+                    if dtype == torch.float32 and not stochastic:
+                        gaps.append((b, bk[:2], bp[:2]))
                 if dtype == torch.float32 and not stochastic:
                     # The culling loses nothing: the listed primary winners
                     # against the plain sweep of the whole table.
@@ -1396,6 +1635,8 @@ def phase_cs_kernels() -> tuple[dict[str, float], list[dict]]:
                           f"rays differ in idx or hit (must be 0)", flush=True)
                     if n_diff:
                         fail(f"{tag}: the nearest lists change {n_diff} smooth winners")
+                    _cs_worst_lanes(tag, record, gaps)
+                    gaps.clear()
                     record_f32 = record
             if dtype == torch.float32:
                 errs = {k: max(errs[k], err[k]) for k in CS}
@@ -1522,6 +1763,228 @@ def phase_cs_timing(card: str, record: list[dict]) -> dict[str, dict]:
     return res
 
 
+# --- The smooth kernels past 256 spheres: BASELINE config 5, and the lane range ---
+
+
+def _table_inputs(scene_name: str, n_spheres: int, width: int, height: int, depth: int, dtype: torch.dtype):
+    """Rays, tables and scalars of ``<scene_name>_scene(n_spheres)``, as the smooth route makes them."""
+    from python_ray_tracer_tpu_torch.camera import ray_directions_t
+    from python_ray_tracer_tpu_torch.models import scenes
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth_sub import _kernel_inputs
+
+    scene = getattr(scenes, f"{scene_name}_scene")(n_spheres, width, height, dtype=dtype, device=DEVICE)
+    cfg = _smooth_cfg(dtype, use_pallas=True)
+    cfg = dataclasses.replace(cfg, max_depth=depth)
+    return _kernel_inputs(scene.camera.position, ray_directions_t(scene.camera, dtype), scene, cfg)
+
+
+def phase_blocked_kernels(card: str) -> tuple[dict[str, float], dict[str, dict]]:
+    """The five smooth kernels against their plain versions at 1024 spheres
+    (staged geometry) and 4096 (f64, geometry from global memory), and the
+    one-bounce pair at 8192 (from global memory; f32, and f64 on the same
+    inputs upcast), under the existing limits, the gradient kernels twice
+    and bitwise; each kernel's resident blocks per SM and the partials'
+    bytes.  The timed cases (config 5's f32 frame at depth 3, and the 8192
+    pair at 256x144) count their plain version's operations in the same call
+    and time each kernel there.  Returns the max abs error per kernel of the
+    8192 f32 pair, and the timings ``{case: {kernel: dict}}``."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    lane_errs: dict[str, float] = {}
+    timings: dict[str, dict] = {}
+    for scene_name, s, width, height, depth, dtype, glossy, kernels, timed in BLOCKED_CASES:
+        o, d, tables, kw = _table_inputs(scene_name, s, width, height, depth, dtype)
+        n = d.shape[1]
+        xis = _xis(glossy, n, max(depth, 2), dtype)
+        tag = str(dtype).split(".")[-1]
+        label = f"{scene_name}({s}) depth {depth} {tag} {width}x{height}{' glossy' if glossy else ''}"
+        smem = bss.shared_bytes(dtype, s)
+        occupancy = {k: bss.blocks_per_sm(k, dtype, glossy, s) for k in kernels}
+        print(f"[blocked] {label}: geometry {'staged in shared memory' if smem > 16 * dtype.itemsize else 'read from global memory'} "
+              f"({smem} B of shared memory a block); "
+              f"resident 128-thread blocks per SM {occupancy}; partials {bss.partials_bytes(n, s, dtype)} B "
+              f"= (23 x {s} + 17) x {min(-(-n // 32), bss.PARTIAL_COLS)} columns x {dtype.itemsize} B", flush=True)
+        plain_ms: dict | None = {} if timed else None
+        t0 = time.perf_counter()
+        if kernels == SMOOTH:
+            err, outs = _check_smooth_case(label, o, d, tables, kw, xis, dtype, plain_ms, state_by_kernel=True)
+            calls = outs["calls"]
+        else:
+            err = dict.fromkeys(SMOOTH, 0.0)
+            calls = _check_step_pair(label, o, d, tables, kw, xis, dtype, err, state_by_kernel=True, plain_ms=plain_ms,
+                                     also_f64=True)
+        print(f"[blocked] {label}: checked in {time.perf_counter() - t0:.1f} s", flush=True)
+        if kernels == STEP and dtype == torch.float32:
+            lane_errs = {k: err[k] for k in STEP}
+        if timed:
+            res = {}
+            for name in kernels:
+                call, n_bytes = calls[name]
+                ms = time_ms(call, warmup=2, iters=10)
+                p_ms, ops = plain_ms[name]
+                bound_ms, bound_by = _bound(ops, n_bytes)
+                res[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                print(f"[timing] {name} at {label}: kernel {ms:.4f} ms, plain version {p_ms:.1f} ms (one call, under "
+                      f"the op counter), bound {bound_ms:.4f} ms by {bound_by} ({ops / n:.0f} operations per ray, "
+                      f"{n_bytes} bytes), kernel at {bound_ms / ms:.1%} of its bound; {occupancy[name]} blocks per SM "
+                      f"({card})", flush=True)
+            timings[label] = res
+        else:
+            for name in kernels:
+                ms = time_ms(calls[name][0], warmup=1, iters=5)
+                print(f"[timing] {name} at {label}: kernel {ms:.4f} ms ({card})", flush=True)
+    return lane_errs, timings
+
+
+def _c5_scene(dtype: torch.dtype, n_spheres: int = C5_SPHERES):
+    from python_ray_tracer_tpu_torch.models.scenes import inverse_task_scene
+
+    return inverse_task_scene(n_spheres, C5_WIDTH, C5_HEIGHT, dtype=dtype, device=DEVICE)
+
+
+def _lane_scene(dtype: torch.dtype = torch.float32):
+    from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene
+
+    return random_spheres_scene(LANE_SPHERES, C5_WIDTH, C5_HEIGHT, dtype=dtype, device=DEVICE)
+
+
+def _c5_cfg(dtype: torch.dtype = torch.float32):
+    return dataclasses.replace(_smooth_cfg(dtype, use_pallas=True), max_depth=C5_DEPTH)
+
+
+def _c5_target(scene) -> torch.Tensor:
+    """The L2 target of a training step: config 5's clipped hard render
+    (the culled pair up to 4096 spheres), or past 4096 spheres 0.9 x the
+    clipped smooth frame (the one-bounce pair; no other kernel family)."""
+    from python_ray_tracer_tpu_torch import render
+
+    with torch.no_grad():
+        if scene.spheres.count <= 4096:
+            return torch.clamp(render(scene, dataclasses.replace(_c5_cfg(), visibility="hard")), 0.0, 1.0)
+        return torch.clamp(render(scene, _c5_cfg()), 0.0, 1.0) * 0.9
+
+
+def phase_c5_main(tmp: Path) -> dict[str, int]:
+    """The slice's main paths: ``optimize --builtin random1024 --width 480
+    --height 270 --visibility smooth`` 3 steps (exactly one train_deep a
+    step, nothing else smooth) and the smooth CLI frame at that size
+    (smooth_fwd_deep) against the chunked pure-torch route; config 5's first
+    Adam step (inverse_task_scene(1024), 256x144, depth 3) through
+    make_loss_fn, one train_deep, against the JAX golden (f32 under the noise
+    rule, f64 within F64_RTOL); and an Adam step past 4096 spheres
+    (random_spheres_scene(8192), 256x144, depth 3): exactly depth launches
+    each of smooth_fwd_step and smooth_bwd_step.  Returns the launches of
+    train_deep (config 5's first step) and of the pair past 4096 spheres."""
+    from python_ray_tracer_tpu_torch import cli
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
+    from python_ray_tracer_tpu_torch.utils.image import to_uint8
+
+    others = SMOOTH + CS
+    size = ["--builtin", "random1024", "--width", "480", "--height", "270", "--depth", str(C5_DEPTH)]
+    _cli_render(tmp, "c5_target.png", *size)
+    metrics = tmp / "c5_optimize.jsonl"
+    _reset_launches()
+    cli.main(["optimize", *size, "--visibility", "smooth", "--target", str(tmp / "c5_target.png"), "--steps", "3",
+              "--sync-every", "3", "--lr", "1e-3", "--metrics", str(metrics)])
+    counts = _launches()
+    _expect_launched("cli optimize --builtin random1024 480x270 smooth, 3 steps", counts, ("train_deep",), exactly=3,
+                     absent=tuple(k for k in others if k != "train_deep"))
+    losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
+    print(f"[main] cli optimize random1024 480x270 smooth: {len(losses)} steps, losses {losses}")
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        fail(f"cli optimize random1024 480x270 logged {len(losses)} losses, finite: {all(np.isfinite(losses))}")
+    _reset_launches()
+    img = _cli_render(tmp, "c5_smooth.png", *size, "--visibility", "smooth")
+    # The CLI renders twice: a first call, then the timed one.
+    _expect_launched("the smooth CLI render, random1024 480x270", _launches(), ("smooth_fwd_deep",), exactly=2,
+                     absent=tuple(k for k in others if k != "smooth_fwd_deep"))
+    scene = _big_scene(torch.float32, 480, 270)
+    ref = to_uint8(_pure_frame(scene, dataclasses.replace(_c5_cfg(), use_pallas=False), None))
+    _compare_uint8("random1024 480x270 smooth", img, ref, "the chunked pure-torch smooth route")
+
+    launches: dict[str, int] = {}
+    golden = np.load(REPO / C5_GOLDEN)
+    for dtype in (torch.float32, torch.float64):
+        scene = _c5_scene(dtype)
+        target = torch.tensor(golden["image"], dtype=dtype, device=DEVICE) / 255.0
+        params = scene_to_params(scene)
+        _reset_launches()
+        loss = make_loss_fn(scene, target, _c5_cfg(dtype))(params)
+        loss.backward()
+        torch.cuda.synchronize()
+        tag = str(dtype).split(".")[-1]
+        counts = _launches()
+        _expect_launched(f"config 5's first step, {tag}", counts, ("train_deep",), exactly=1,
+                         absent=tuple(k for k in others if k != "train_deep"))
+        if dtype == torch.float32:
+            launches["train_deep"] = counts["train_deep"]
+        print(f"[main] config-5 first step {tag}: loss {float(loss.detach()):.8e}, the JAX golden f32 "
+              f"{float(golden['loss']):.8e}, f64 {float(golden['loss64']):.8e}")
+        if dtype == torch.float32:
+            _noise_check("config-5 first-step loss (peer: the JAX f32 golden)", loss, golden["loss"], golden["loss64"])
+            for key, g in _leaf_grads(params).items():
+                _noise_check(f"config-5 first step d/d{key} (peer: the JAX f32 golden)", g,
+                             golden[f"grad/{key}"], golden[f"grad64/{key}"])
+        else:
+            _relative_check("config-5 first-step loss f64 vs the JAX f64 golden", loss.cpu(),
+                            torch.as_tensor(golden["loss64"]), F64_RTOL)
+            for key, g in _leaf_grads(params).items():
+                _relative_check(f"config-5 first step d/d{key} f64 vs the JAX f64 golden", g.cpu(),
+                                torch.as_tensor(golden[f"grad64/{key}"]), F64_RTOL)
+
+    scene = _lane_scene()
+    target = _c5_target(scene)
+    params = scene_to_params(scene)
+    _reset_launches()
+    loss = make_loss_fn(scene, target, _c5_cfg())(params)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = _launches()
+    _expect_launched(f"an L2 step at {LANE_SPHERES} spheres", counts, STEP, exactly=C5_DEPTH,
+                     absent=tuple(k for k in others if k not in STEP))
+    grads = _leaf_grads(params)
+    if not (np.isfinite(float(loss.detach())) and all(bool(torch.isfinite(g).all()) for g in grads.values())):
+        fail(f"the L2 step at {LANE_SPHERES} spheres gave a non-finite loss or gradient")
+    print(f"[main] L2 step at {LANE_SPHERES} spheres: loss {float(loss.detach()):.8e}", flush=True)
+    launches.update({LANE[k]: counts[k] for k in STEP})
+    return launches
+
+
+def phase_c5_timing(card: str) -> None:
+    """Config 5's Adam step (ms/step, rays/s) with a torch.profiler split and
+    the busy share, and the Adam step at 8192 spheres (one-bounce pair)."""
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn
+
+    n = C5_WIDTH * C5_HEIGHT
+    for label, scene, kernels in (
+        (f"config 5 ({C5_SPHERES} spheres, train_deep)", _c5_scene(torch.float32), ("train_deep", "reduce_partials")),
+        (f"{LANE_SPHERES} spheres (one-bounce pair)", _lane_scene(), STEP + ("reduce_partials",)),
+    ):
+        ms, step_k, state = _best_step_ms(make_loss_fn(scene, _c5_target(scene), _c5_cfg()), scene, warmup=3, steps=10)
+        print(f"[timing] Adam step, {label}: {ms:.3f} ms/step, {n / (ms * 1e-3):.4e} primary rays/s "
+              f"({C5_WIDTH}x{C5_HEIGHT} depth {C5_DEPTH}, f32, best of 3 calls of 10 steps; {card})", flush=True)
+        _device_profile(lambda: step_k(state, 1), f"Adam step, {label}", card, kernels)
+
+
+def _cs_worst_lanes(tag: str, record: list[dict], gaps: list) -> None:
+    """Satellite of the bwd_cs check: on the bounce whose f32 ray gradients
+    part most from the plain version, the worst lanes with their value
+    scale, sharpness x |disc| and the f64 gap on the same inputs in float64."""
+    from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
+
+    def worst(k, p):
+        return float(((k.double() - p.double()).abs() / p.double().abs().clamp_min(1.0)).max())
+
+    b, k32, p32 = max(gaps, key=lambda g: max(worst(k, p) for k, p in zip(g[1], g[2])))
+    args, kw = record[b]["bwd"]
+    up = [a.double() if isinstance(a, torch.Tensor) and a.dtype.is_floating_point else a for a in args]
+    k64 = cs.bwd_cs(*up, **kw)
+    p64 = cs.bwd_cs_plain(*up, **kw)
+    sdisc = _sharp_disc(args[0], args[1], args[13], args[4], kw["sharp_e"])[None]
+    for j, grad in enumerate(("g_o", "g_d")):
+        _worst_lanes(f"bwd_cs {tag} bounce {b} {grad}", k32[j], p32[j], k64[j], p64[j], sdisc)
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, str(REPO))
@@ -1535,6 +1998,8 @@ def main() -> int:
     errs.update(big_errs)
     cs_errs, cs_record = phase_cs_kernels()
     errs.update(cs_errs)
+    lane_errs, blocked_timings = phase_blocked_kernels(card)
+    errs.update({LANE[k]: v for k, v in lane_errs.items()})
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(phase_main_path(Path(tmp)))
         launches.update(phase_smooth_main(Path(tmp)))
@@ -1543,10 +2008,15 @@ def main() -> int:
         phase_stochastic_train(Path(tmp))
         launches.update(phase_big_main(Path(tmp)))
         launches.update(phase_cs_main(Path(tmp)))
+        c5_launches = phase_c5_main(Path(tmp))
+    launches.update({k: v for k, v in c5_launches.items() if k in LANE.values()})
     phase_cs_golden()
     timings.update(phase_timing(card))
     timings.update(phase_big_timing(card, big_inputs))
     timings.update(phase_cs_timing(card, cs_record))
+    phase_c5_timing(card)
+    lane_timing = next(t for label, t in blocked_timings.items() if label.startswith(f"random_spheres({LANE_SPHERES})"))
+    timings.update({LANE[k]: lane_timing[k] for k in STEP})
     kernels = [
         {
             "name": name,
@@ -1557,7 +2027,7 @@ def main() -> int:
             "max_abs_err": errs[name],
             **timings[name],
         }
-        for name in HARD + SMOOTH + CULLED + SWEEPS + CS
+        for name in HARD + SMOOTH + CULLED + SWEEPS + CS + tuple(LANE.values())
     ]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -126,16 +126,26 @@ __device__ __forceinline__ void b_cterm_exact(const V3<T>& o, const V3<T>& d, co
   ct = s3 + corr;
 }
 
-// Sphere k's (sol, disc, t, b, c_term), tier by index.
-template <typename T>
+// The (S, 4) geometry table read from global memory through the read-only
+// path: a sweep's lanes all read the same sphere, so each load is one
+// broadcast.  The kernels take it where the table does not fit in shared
+// memory; elsewhere they index a staged copy (const T*).
+template <typename T> struct LdgGeom {
+  const T* p;
+  __device__ __forceinline__ T operator[](int i) const { return __ldg(p + i); }
+};
+
+// Sphere k's (sol, disc, t, b, c_term), tier by index.  G indexes the
+// geometry table: a pointer, or an LdgGeom.
+template <typename T, typename G>
 __device__ __forceinline__ void sphere_quad(int k, const Scal<T>& sc, const V3<T>& o, const V3<T>& d,
-                                            const T* geom, T& sol, T& disc, T& t, T& b, T& ct) {
-  const T* g = geom + 4 * k;
-  const V3<T> c = {g[0], g[1], g[2]};
+                                            const G& geom, T& sol, T& disc, T& t, T& b, T& ct) {
+  const V3<T> c = {geom[4 * k], geom[4 * k + 1], geom[4 * k + 2]};
+  const T r = geom[4 * k + 3];
   if (k < sc.s_cheap) {
-    b_cterm_plain(o, d, c, g[3], b, ct);
+    b_cterm_plain(o, d, c, r, b, ct);
   } else {
-    b_cterm_exact(o, d, c, g[3], b, ct);
+    b_cterm_exact(o, d, c, r, b, ct);
   }
   quad_sol_disc(b, ct, sc.faraway, sol, disc, t);
 }
@@ -180,10 +190,11 @@ struct AllSpheres {
 };
 
 // One smooth bounce.  kXi: the continuation is glossy, from the uniforms
-// (xi1, xi2); otherwise the mirror.  mat may lie in shared or global memory.
-template <typename T, bool kXi, Winner kWin, typename Shadow>
+// (xi1, xi2); otherwise the mirror.  mat may lie in shared or global memory;
+// geom is anything sphere_quad indexes.
+template <typename T, bool kXi, Winner kWin, typename Shadow, typename G>
 __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T>& d, T thr, T alive,
-                                           const T* geom, const T* mat, const T* cst, const Scal<T>& sc,
+                                           const G& geom, const T* mat, const T* cst, const Scal<T>& sc,
                                            const Shadow& shadow, T xi1, T xi2) {
   f.o = o;
   f.d = d;
@@ -435,9 +446,9 @@ __device__ __forceinline__ T ggx_adjoint(const Fwd<T>& f, V3<T>& g_refl, V3<T>& 
 // bounce's outputs; out (in place): those of its inputs.  g_acc passes
 // through (acc is a pure accumulator).  Phase C visits the shadow set of
 // the forward; table gradients go to the sink.
-template <typename T, bool kXi, typename Shadow, typename Sink>
+template <typename T, bool kXi, typename Shadow, typename Sink, typename G>
 __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T>& g_d, T& g_thr, T& g_alive,
-                                               const V3<T>& g_acc, const T* geom, const T* cst,
+                                               const V3<T>& g_acc, const G& geom, const T* cst,
                                                const Scal<T>& sc, const Shadow& shadow, const Sink& sink) {
   const T* m = f.m;
   const V3<T>& o = f.o;
@@ -603,14 +614,13 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
     const T g_sol_j = g_occl * sd * ss * (T(1) - ss) * sc.sharp_s;
     T g_b, g_ct;
     sol_disc_adjoint(b, ct, g_sol_j, g_disc_j, g_b, g_ct);
-    const T* g = geom + 4 * k;
     for (int i = 0; i < 3; ++i) {
-      const T oc = f.p_n[i] - g[i];
+      const T oc = f.p_n[i] - geom[4 * k + i];
       g_pn_s[i] = g_pn_s[i] + T(2) * f.L[i] * g_b + T(2) * oc * g_ct;
       g_L_acc[i] = g_L_acc[i] + T(2) * oc * g_b;
       sink.geom(slot, k, i, T(-2) * f.L[i] * g_b - T(2) * oc * g_ct);
     }
-    sink.geom(slot, k, 3, T(-2) * g[3] * g_ct);
+    sink.geom(slot, k, 3, T(-2) * geom[4 * k + 3] * g_ct);
   });
 
   // --- Phase D: p_n, L, V unit-vector transposes ---

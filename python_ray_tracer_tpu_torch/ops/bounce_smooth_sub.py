@@ -18,6 +18,16 @@ of :func:`..camera.ray_directions_t`:
 * ``_bwd_kernel_sub`` -> ``smooth_bwd_step``: that bounce's adjoint from
   the cotangents of all five outputs.
 
+None has a sphere cap: the geometry table sits in shared memory up to
+64 KB (4096 spheres in f32, 2048 in f64) and is read from global memory
+past that, the winner's material row is read from global memory, and the
+table-gradient partials of the three gradient kernels take ``(23 S + 17)
+* min(ceil(N / 32), PARTIAL_COLS)`` values (:func:`partials_bytes`)
+whatever the frame.  Above
+4096 spheres, where the JAX package runs its lane pair
+(:func:`python_ray_tracer_tpu.ops.pallas_bounce_smooth.trace_fused_smooth`),
+the renderer takes ``smooth_fwd_step``/``smooth_bwd_step`` once per bounce.
+
 Each takes an optional xi, (2 * depth, N) or (2, N) uniforms drawn on the
 JAX package's schedule (:func:`.rng.bounce_xi`), that makes the
 continuation reflect about a GGX-sampled microfacet.  Beside the kernels
@@ -59,12 +69,12 @@ from .tables import (
 )
 from .vecmath import ipow, sqrt
 
-# The kernels stage the side tables in shared memory, sized for this many
-# spheres (csrc/bounce_smooth_sub.cu kMaxSpheres: 23 values per sphere in
-# f64 stay under the 48 KB a block may take without opting in).  Bigger
-# tables take the culled route where it applies; elsewhere the JAX
-# package's blocked mode (up to 4096 spheres) is not ported yet.
-MAX_SMOOTH_SPHERES = 256
+# Columns of the table-gradient partials at most: a gradient kernel is
+# given the partials' column count and runs that many warps, warp c walking
+# the groups of 32 rays c, c + cols, ... in order and summing into column
+# c.  A constant, not the card's occupancy: 2048 left 960x540 frames 512
+# blocks, 1.3 waves on an H100 (PERF.md, Findings).
+PARTIAL_COLS = 4096
 
 # train_deep keeps each bounce's replay state in a per-thread array of this
 # many entries (csrc/bounce_smooth_sub.cu kMaxTrainDepth); deeper L2 losses
@@ -750,8 +760,8 @@ def _check(
             raise ValueError(f"{name}: expected shape ({n},), got {tuple(t.shape)}")
     if geom.shape != (s, 4) or mat.shape != (s, MAT_COLS) or consts.shape != (1, N_CONST):
         raise ValueError("tables: expected geom (S, 4), mat (S, 19) and consts (1, 16)")
-    if not 1 <= s <= MAX_SMOOTH_SPHERES:
-        raise ValueError(f"the smooth kernels take 1..{MAX_SMOOTH_SPHERES} spheres, got {s}")
+    if s < 1:
+        raise ValueError("the smooth kernels need at least one sphere")
     if not 0 <= s_cheap <= s:
         raise ValueError(f"s_cheap must lie in 0..{s}, got {s_cheap}")
     if depth < 1:
@@ -773,28 +783,58 @@ _SIGNATURES = {
     # idx, hit, clear; n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
     "smooth_fwd_deep": "pppppp" "pppppppp" "iiii" "rrr",
     # o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat,
-    # consts, xi, g_acc, g_o, g_d, partials, table grads; n, s_cheap,
-    # s_total, depth; faraway, sharp_e, sharp_s
-    "smooth_bwd_deep": "ppppppppp" "pppp" "p" "pppp" "iiii" "rrr",
+    # consts, xi, g_acc, g_o, g_d, partials, table grads; n, n_cols,
+    # s_cheap, s_total, depth; faraway, sharp_e, sharp_s
+    "smooth_bwd_deep": "ppppppppp" "pppp" "p" "pppp" "iiiii" "rrr",
     # o, d, tgt, geom, mat, consts, xi, g_o, g_d, partials, sse + table
-    # grads; n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
-    "train_deep": "ppp" "pppp" "pppp" "iiii" "rrr",
+    # grads; n, n_cols, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
+    "train_deep": "ppp" "pppp" "pppp" "iiiii" "rrr",
     # o, d, thr, alive, acc, geom, mat, consts, xi, their five outputs, idx,
     # hit, clear; n, s_cheap, s_total; faraway, sharp_e, sharp_s
     "smooth_fwd_step": "ppppp" "pppp" "ppppp" "ppp" "iii" "rrr",
     # o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi, cotangents
     # g_o, g_d, g_thr, g_alive, g_acc, the four input cotangents, partials,
-    # table grads; n, s_cheap, s_total; faraway, sharp_e, sharp_s
-    "smooth_bwd_step": "ppppppp" "pppp" "ppppp" "pppp" "pp" "iii" "rrr",
+    # table grads; n, n_cols, s_cheap, s_total; faraway, sharp_e, sharp_s
+    "smooth_bwd_step": "ppppppp" "pppp" "ppppp" "pppp" "pp" "iiii" "rrr",
 }
 
-# Per-warp partial sums of the table gradients: 4 + 19 values per sphere,
-# 16 scene constants, and the SSE (train_deep only).
+# Per-column partial sums of the table gradients: 4 + 19 values per
+# sphere, 16 scene constants, and the SSE (train_deep only).
 _WARP = 32
 
 
 def _n_vals(s: int) -> int:
     return (4 + MAT_COLS) * s + N_CONST + 1
+
+
+def _n_cols(n: int) -> int:
+    return min((n + _WARP - 1) // _WARP, PARTIAL_COLS)
+
+
+def partials_bytes(n: int, s: int, dtype: torch.dtype) -> int:
+    """Bytes of the partials a gradient kernel takes for ``n`` rays and ``s``
+    spheres: ``(23 s + 17) * min(ceil(n / 32), PARTIAL_COLS)`` values."""
+    return _n_vals(s) * _n_cols(n) * torch.empty((), dtype=dtype).element_size()
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+def blocks_per_sm(name: str, dtype: torch.dtype, glossy: bool, s: int) -> int:
+    """Resident blocks per SM of kernel ``name``'s instantiation for ``s``
+    spheres on the current card (staged or global geometry as it launches)."""
+    which = tuple(LAUNCHES).index(name)
+    blocks = getattr(_build.load_library(_SOURCE), f"prt_smooth_blocks_per_sm_{_suffix(dtype)}")(which, int(glossy), s)
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query of {name} failed: CUDA error {-blocks}")
+    return blocks
+
+
+def shared_bytes(dtype: torch.dtype, s: int) -> int:
+    """Shared memory a block of any of the five kernels takes for ``s``
+    spheres: the consts row, plus the geometry where it is staged."""
+    return getattr(_build.load_library(_SOURCE), f"prt_smooth_shared_bytes_{_suffix(dtype)}")(s)
 
 
 def _launch(name: str, dtype: torch.dtype, *args) -> None:
@@ -803,14 +843,16 @@ def _launch(name: str, dtype: torch.dtype, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s):
-    scalars = (n, s_cheap, s) + (() if depth is None else (depth,))
-    return scalars + (float(faraway), float(sharp_e), float(sharp_s))
+def _scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials=None):
+    """The trailing scalars of an entry: n, the partials' columns (gradient
+    kernels), s_cheap, s_total, depth (the deep kernels), the reals."""
+    scalars = (n,) + (() if partials is None else (partials.shape[1],)) + (s_cheap, s)
+    return scalars + (() if depth is None else (depth,)) + (float(faraway), float(sharp_e), float(sharp_s))
 
 
 def _grad_buffers(n: int, s: int, like: torch.Tensor):
-    """The (values, warps) partials (zeroed) and the reduced flat values."""
-    partials = torch.zeros((_n_vals(s), (n + _WARP - 1) // _WARP), dtype=like.dtype, device=like.device)
+    """The (values, columns) partials (zeroed) and the reduced flat values."""
+    partials = torch.zeros((_n_vals(s), _n_cols(n)), dtype=like.dtype, device=like.device)
     return partials, torch.empty((_n_vals(s),), dtype=like.dtype, device=like.device)
 
 
@@ -865,7 +907,7 @@ def smooth_bwd_deep(
         partials, flat = _grad_buffers(n, s, d)
         _launch("smooth_bwd_deep", d.dtype, o, d, osave, dsave, thrsave, alivesave, idx, hit, clear,
                 geom, mat, consts, xi, g_acc, g_o, g_d, partials, flat,
-                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials))
     g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
     return g_o, g_d, g_geom, g_mat, g_consts
 
@@ -886,7 +928,7 @@ def train_deep(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap
         g_o, g_d = torch.empty_like(d), torch.empty_like(d)
         partials, flat = _grad_buffers(n, s, d)
         _launch("train_deep", d.dtype, o, d, tgt, geom, mat, consts, xi, g_o, g_d, partials, flat,
-                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials))
     g_geom, g_mat, g_consts, sse = _split_grads(flat, s)
     return sse, g_o, g_d, g_geom, g_mat, g_consts
 
@@ -935,7 +977,7 @@ def smooth_bwd_step(
         partials, flat = _grad_buffers(n, s, d)
         _launch("smooth_bwd_step", d.dtype, o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi,
                 g_o, g_d, g_thr, g_alive, g_acc, *outs, partials, flat,
-                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s))
+                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s, partials))
     g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
     return (*outs, g_geom, g_mat, g_consts)
 
@@ -1003,14 +1045,6 @@ class _TrainLossSubDeep(torch.autograd.Function):
 
 def _kernel_inputs(origin, dirs_t, scene, cfg):
     """(o, d) (3, N), the three tables and the scalar parameters."""
-    if scene.spheres.count > MAX_SMOOTH_SPHERES:
-        raise NotImplementedError(
-            f"{scene.spheres.count} spheres: the smooth kernels stage at most {MAX_SMOOTH_SPHERES} "
-            "spheres in shared memory; bigger tables wait for the port of "
-            "python_ray_tracer_tpu.ops.pallas_bounce_smooth_sub.trace_fused_smooth_sub in blocked mode "
-            "(up to 4096 spheres) and of python_ray_tracer_tpu.ops.pallas_bounce_smooth.trace_fused_smooth "
-            "above that"
-        )
     dtype = cfg.dtype
     d = dirs_t.to(dtype).contiguous()
     o = origin.to(dtype).reshape(3, 1).expand(d.shape).contiguous()

@@ -14,13 +14,15 @@ Two routes, chosen as the JAX package chooses them:
   :func:`.ops.bounce_sub.trace_fused_sub` up to 64 spheres,
   :func:`.ops.culled.trace_fused_culled` for 96 and more, and with a
   stochastic key above 64 spheres :func:`trace` with the standalone sweep
-  kernels (:mod:`.ops.intersect_fused`).  Smooth visibility:
-  :func:`.ops.culled_smooth.trace_culled_smooth` (the culled smooth kernels,
-  one ``near_cs`` and one ``fwd_cs``/``bwd_cs`` pair per bounce) where
-  :func:`.ops.culled_smooth.cull_smooth_ok` holds, else
-  :func:`.ops.bounce_smooth_sub.trace_fused_smooth_sub` (the depth-fused
-  smooth pair, or the one-bounce pair at depth 1, each a
-  ``torch.autograd.Function``);
+  kernels (:mod:`.ops.intersect_fused`).  Smooth visibility
+  (:func:`smooth_route`): :func:`.ops.culled_smooth.trace_culled_smooth`
+  (the culled smooth kernels, one ``near_cs`` and one ``fwd_cs``/``bwd_cs``
+  pair per bounce) where :func:`.ops.culled_smooth.cull_smooth_ok` holds,
+  else :func:`.ops.bounce_smooth_sub.trace_fused_smooth_sub`: up to 4096
+  spheres the depth-fused smooth pair (the one-bounce pair at depth 1),
+  above that the one-bounce pair once per bounce, each a
+  ``torch.autograd.Function``; a stochastic key above 4096 spheres takes
+  :func:`trace`, as the JAX package takes its XLA path there;
 * otherwise :func:`trace`, the pure-torch bounce loop that mirrors the JAX
   XLA path term for term.  Torch autograd through it is the oracle for the
   kernels' handwritten adjoints.
@@ -45,7 +47,7 @@ from .ops.intersect import (
     intersect_two_tier,
     nearest_hit,
 )
-from .ops.bounce_smooth_sub import MAX_SMOOTH_SPHERES, MAX_TRAIN_DEPTH, fused_train_l2, trace_fused_smooth_sub
+from .ops.bounce_smooth_sub import MAX_TRAIN_DEPTH, fused_train_l2, trace_fused_smooth_sub
 from .ops.bounce_sub import MAX_SUB_SPHERES, trace_fused_sub
 from .ops.culled import MAX_CULL_DEPTH, MAX_CULL_EXACT, MIN_CULL_SPHERES, trace_fused_culled
 from .ops.culled_smooth import MAX_BLK_SPHERES_SMOOTH, cull_smooth_ok, trace_culled_smooth
@@ -247,7 +249,6 @@ def trace(
 
 def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
     """Refuse every route of the JAX renderer this port does not have yet."""
-    smooth_kernels = cfg.visibility == VISIBILITY_SMOOTH and cfg.use_pallas
     waits = None
     if scene.has_atlas:
         waits = "image-texture atlases (ops.shading.texture_color, the sublane kernels' texel gather)"
@@ -255,30 +256,29 @@ def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
         waits = "tie_mode='sum' (render.trace's tie_sum branch)"
     elif cfg.ray_chunk:
         waits = "ray chunking (render._render_sample's lax.map over tiles)"
+    elif cfg.remat:
+        waits = "remat (render.trace's jax.checkpoint around each bounce)"
     elif cfg.pallas_interpret:
         waits = "interpret mode (a CUDA kernel has none; pallas_interpret has no counterpart)"
-    elif (
-        smooth_kernels
-        and scene.spheres.count > MAX_SMOOTH_SPHERES
-        and not cull_smooth_ok(scene, cfg, scene.camera.width * scene.camera.height)
-    ):
-        waits = _smooth_table_waits(scene.spheres.count)
     if waits is not None:
         raise NotImplementedError(f"not ported yet: {waits} in python_ray_tracer_tpu")
 
 
-def _smooth_table_waits(n_spheres: int) -> str:
-    """The JAX route a smooth table of ``n_spheres`` > MAX_SMOOTH_SPHERES
-    takes off the culled route, which the port's smooth kernels wait for."""
-    if n_spheres <= MAX_BLK_SPHERES_SMOOTH:
-        return (
-            f"smooth kernels for {MAX_SMOOTH_SPHERES + 1}-{MAX_BLK_SPHERES_SMOOTH} spheres "
-            "(ops.pallas_bounce_smooth_sub.trace_fused_smooth_sub in blocked mode)"
-        )
-    return (
-        f"smooth kernels for more than {MAX_BLK_SPHERES_SMOOTH} spheres "
-        "(the lane kernels, ops.pallas_bounce_smooth.trace_fused_smooth)"
-    )
+def smooth_route(scene: Scene, cfg: RenderConfig, n_rays: int, key) -> str:
+    """The kernels a smooth frame with ``cfg.use_pallas`` takes, as the JAX
+    ``render._render_sample`` and ``_trace_smooth_fused`` pick them:
+    ``"culled"`` (:func:`.ops.culled_smooth.cull_smooth_ok`), ``"sub"`` (the
+    depth-fused pair, or the one-bounce pair at depth 1: up to
+    MAX_BLK_SPHERES_SMOOTH spheres, JAX's sublane kernels), ``"step"`` (the
+    one-bounce pair once per bounce: more spheres and no key, JAX's lane
+    kernels) or ``"pure"`` (:func:`trace`: more spheres with a stochastic
+    key, which the JAX package sends down its XLA path)."""
+    big = scene.spheres.count > MAX_BLK_SPHERES_SMOOTH
+    if big and key is not None:
+        return "pure"
+    if cull_smooth_ok(scene, cfg, n_rays):
+        return "culled"
+    return "step" if big else "sub"
 
 
 def hard_route(scene: Scene, cfg: RenderConfig, key) -> str:
@@ -306,14 +306,18 @@ def _render_sample(scene: Scene, cfg: RenderConfig, jitter: torch.Tensor | None,
     """One (optionally jittered) sample per pixel -> flat (H*W, 3) colors;
     ``key`` seeds the stochastic continuation (None: mirror)."""
     route = None
-    if cfg.use_pallas:
-        route = "smooth" if cfg.visibility == VISIBILITY_SMOOTH else hard_route(scene, cfg, key)
-    if route in ("smooth", "culled", "sub"):
+    if cfg.use_pallas and cfg.visibility == VISIBILITY_SMOOTH:
+        route = "smooth_" + smooth_route(scene, cfg, scene.camera.width * scene.camera.height, key)
+    elif cfg.use_pallas:
+        route = hard_route(scene, cfg, key)
+    if route in ("smooth_culled", "smooth_sub", "smooth_step", "culled", "sub"):
         dirs_t = ray_directions_t(scene.camera, cfg.dtype, None if jitter is None else jitter.T)
-        if route == "smooth":
-            if cull_smooth_ok(scene, cfg, dirs_t.shape[1]):
-                return trace_culled_smooth(scene.camera.position, dirs_t, scene, cfg, key=key)
+        if route == "smooth_culled":
+            return trace_culled_smooth(scene.camera.position, dirs_t, scene, cfg, key=key)
+        if route == "smooth_sub":
             return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
+        if route == "smooth_step":
+            return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg, route="step")
         if route == "culled":
             return trace_fused_culled(scene.camera.position, dirs_t, scene, cfg)
         return trace_fused_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
@@ -326,8 +330,15 @@ def fused_train_l2_ok(scene: Scene, cfg: RenderConfig) -> bool:
 
     Scope of :func:`l2_loss_fused`: smooth visibility through the kernels,
     one center ray per pixel, no atlas, depth 2 and up (depth 1 is the JAX
-    package's scan route), tables within the kernels' shared memory, and
-    not a scene the JAX package would send down its culled route.
+    package's scan route), up to MAX_BLK_SPHERES_SMOOTH (4096) spheres, and
+    not a scene the JAX package would send down its culled route.  The JAX
+    package caps its train kernel at MAX_FUSED_TRAIN_SPHERES = 2048, a VMEM
+    limit of the whole chain in one TPU kernel, and sends 2049-4096 spheres
+    through its blocked two-launch pair; ``train_deep`` has no such limit
+    (its table gradients take memory bounded in N), so the port keeps it up
+    to 4096, the edge of the JAX sublane kernels.  Past that the JAX package
+    has no fused kernel (its lane pair runs once per bounce), and the port
+    takes the one-bounce pair through :func:`render`.
     """
     n_rays = scene.camera.width * scene.camera.height
     return (
@@ -336,7 +347,7 @@ def fused_train_l2_ok(scene: Scene, cfg: RenderConfig) -> bool:
         and 2 <= cfg.max_depth <= MAX_TRAIN_DEPTH
         and cfg.samples_per_pixel == 1
         and not scene.has_atlas
-        and scene.spheres.count <= MAX_SMOOTH_SPHERES
+        and scene.spheres.count <= MAX_BLK_SPHERES_SMOOTH
         and not cfg.ray_chunk
         and not cull_smooth_ok(scene, cfg, n_rays)
     )

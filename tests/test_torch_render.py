@@ -189,6 +189,7 @@ _UNPORTED = {
     "tie_sum": dict(tie_mode="sum"),
     "ray_chunk": dict(ray_chunk=16),
     "stochastic_ray_chunk": dict(stochastic_roughness=True, ray_chunk=16),
+    "remat": dict(remat=True),
     "atlas": {},
     "spp2_atlas": dict(samples_per_pixel=2),
     "96_spheres_kernels": dict(use_pallas=True),

@@ -372,29 +372,37 @@ class _Took(Exception):
     ],
 )
 def test_unported_smooth_routes_raise(monkeypatch, route, match):
-    """render() and the training loss refuse the smooth routes the port does
-    not have before any ray is made, naming the JAX function each waits
-    for: 257-4096 spheres off the culled route (blocked mode) and more than
-    4096 (the lane kernels).  The culled route itself is ported: a
-    96-sphere 960x540 frame reaches ``trace_culled_smooth`` (caught there)."""
+    """render() and the training loss take the counterpart of each JAX smooth
+    route off the sublane kernels' first range, caught at the port function
+    before any ray is traced (the name is kept from when these routes were
+    refused): a 96-sphere 960x540 frame reaches ``trace_culled_smooth``;
+    257-4096 spheres (JAX's blocked mode) reach ``trace_fused_smooth_sub``'s
+    depth-fused pair and the loss ``fused_train_l2`` (``train_deep``); more
+    than 4096 (JAX's lane kernels, ``pallas_bounce_smooth.trace_fused_smooth``)
+    reach its one-bounce pair, the loss through render().  The sharded loss
+    still waits for ``parallel``."""
     render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")  # the package exports a render function
+    lane = "pallas_bounce_smooth.trace_fused_smooth"
+    blocked = "pallas_bounce_smooth_sub.trace_fused_smooth_sub in blocked mode"
+
+    def took(label):
+        def fn(*args, route="auto", **kwargs):
+            raise _Took(lane if route == "step" else label)
+
+        return fn
+
+    monkeypatch.setattr(render_mod, "trace_culled_smooth", took("trace_culled_smooth"))
+    monkeypatch.setattr(render_mod, "trace_fused_smooth_sub", took(blocked))
+    monkeypatch.setattr(render_mod, "fused_train_l2", took(f"{blocked} (train_deep)"))
     if route == "culled":
         scene = _many_spheres(96, 960, 540)
-
-        def took(*args, **kwargs):
-            raise _Took(match)
-
-        monkeypatch.setattr(render_mod, "trace_culled_smooth", took)
-        expect = _Took
     else:
-        n = bss.MAX_SMOOTH_SPHERES + 1 if route == "too_many_spheres" else 4097
-        scene = _many_spheres(n, 8, 4)
-        expect = NotImplementedError
+        scene = _many_spheres(257 if route == "too_many_spheres" else 4097, 8, 4)
     cfg = T.RenderConfig(visibility="smooth", use_pallas=True)
     target = torch.zeros((scene.camera.height, scene.camera.width, 3))
-    with pytest.raises(expect, match=match):
+    with pytest.raises(_Took, match=match):
         T.render(scene, cfg)
-    with pytest.raises(expect, match=match):
+    with pytest.raises(_Took, match=match):
         make_loss_fn(scene, target, cfg)(scene_to_params(scene))
     with pytest.raises(NotImplementedError, match="parallel"):
         make_loss_fn(scene, target, cfg, mesh=object())
