@@ -49,14 +49,27 @@ at 960x540:
   golden; an Adam step at 8192 spheres (``depth`` launches each of
   ``smooth_fwd_step`` and ``smooth_bwd_step``, the counterparts there of the
   JAX lane pair).  On all_effects and config 4 it prints the worst f32
-  lanes of the smooth gradient kernels beside their f64 gaps.
+  lanes of the smooth gradient kernels beside their f64 gaps;
+* image textures: the atlas mode of the nine kernels that take an atlas
+  against their plain versions (texel ids exactly; the backward kernels
+  with nonzero dww cotangents, twice, bitwise) on the texture-recovery
+  task (320x180), the textured1024 frame's culled pair and a textured1024
+  smooth loss (960x540); ``render --builtin textured1024`` (1920x1080,
+  depth 4) against a JAX golden; the texture task's hard frames against the
+  pure-torch route; its first step against a JAX golden (bitwise across two
+  runs), 40 Adam steps of the atlas through ``fit``, a depth-1 step;
+  ``optimize --builtin textured1024 --visibility smooth`` at 960x540, 3
+  steps, each with exact launch counts.
 
 Then it times every kernel (and each one's glossy variant) beside its plain
 version and its bound, the benchmark's Adam step and the stochastic one,
 the config-4 frames with a ``torch.profiler`` split of the mirror one, the
 config-4 culled smooth Adam step with a split into its kernels, the five
 smooth kernels at config 5 and the pair at 8192 spheres beside their bounds,
-and the config-5 and 8192-sphere Adam steps with profiler splits.
+the config-5 and 8192-sphere Adam steps with profiler splits, and each atlas
+variant beside its no-atlas kernel on the same inputs, the textured1024
+frame (with the texel composition's share), the texture task's Adam step
+and the textured1024 culled smooth step.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -151,6 +164,23 @@ BLOCKED_CASES = (
     ("random_spheres", 4096, 32, 18, 1, torch.float64, False, SMOOTH, False),
     ("random_spheres", 8192, 256, 144, 2, torch.float32, False, STEP, True),
 )
+# Image textures.  The texture-recovery task (the JAX package's
+# benchmarks/texture_recovery_demo.py settings): texture_task_scene with a
+# 64x64 texture at 320x180, depth 2, smooth, f32, the atlas leaf alone from
+# 0.5, Adam lr 0.03.  Its JAX golden: the first step's loss and atlas
+# gradient of the XLA smooth path, f32 and f64, the target the XLA smooth
+# frame's uint8 image (stored) / 255.  The textured config-4 frame
+# (textured_spheres_scene: 1024 spheres, every 4th sampling one of two
+# 512x512 textures) at 1920x1080, depth 4, against a JAX golden; its culled
+# smooth step at 960x540 (the route's smallest frame).
+TEX_SIDE, TEX_WIDTH, TEX_HEIGHT, TEX_DEPTH = 64, 320, 180, 2
+TEX_STEPS, TEX_LR = 40, 0.03
+TEX_GOLDEN = "python_ray_tracer_tpu_torch/testdata/texture64_320x180_d2_smooth_train_f32.npz"
+TEXTURED_GOLDEN = "python_ray_tracer_tpu_torch/testdata/textured1024_1920x1080_d4_f32.npz"
+TEX_CS_SIZE = (960, 540)
+# The kernels that take an atlas, and their atlas mode's entries in the
+# kernels line (TPU rows 1, 2, 8-11, 14, 16, 17).
+ATLAS = {k: f"{k} (atlas)" for k in HARD + ("smooth_fwd_deep", "smooth_bwd_deep") + STEP + ("shade_culled", "fwd_cs", "bwd_cs")}
 DEVICE = "cuda"
 REPLACES = {
     LANE["smooth_fwd_step"]: "python_ray_tracer_tpu/ops/pallas_bounce_smooth.py:346",
@@ -170,6 +200,8 @@ REPLACES = {
     "smooth_fwd_step": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:544",
     "smooth_bwd_step": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1040",
 }
+REPLACES.update({v: REPLACES[k] for k, v in ATLAS.items()})
+SOURCE.update({v: SOURCE[k] for k, v in ATLAS.items()})
 # Kernel vs plain version: at most this share of values may differ by more
 # than the dtype's threshold.  The two evaluate the same IEEE operations in
 # the same order (no FMA contraction on either side), so they part only
@@ -721,21 +753,27 @@ def phase_xi() -> None:
         fail("the card's xi draw differs from the CPU's or from JAX's")
 
 
-def _launch_counts() -> tuple[dict[str, int], ...]:
+def _launch_counts() -> tuple[tuple[dict[str, int], ...], tuple[dict[str, int], ...]]:
+    """The wrappers' launch counters: the kernels', and their atlas modes'."""
     from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub, culled, culled_smooth, intersect_fused
 
-    return (bounce_sub.LAUNCHES, bounce_smooth_sub.LAUNCHES, culled.LAUNCHES, intersect_fused.LAUNCHES,
-            culled_smooth.LAUNCHES)
+    atlas_modules = (bounce_sub, bounce_smooth_sub, culled, culled_smooth)
+    return (tuple(m.LAUNCHES for m in (*atlas_modules, intersect_fused)), tuple(m.ATLAS_LAUNCHES for m in atlas_modules))
 
 
 def _reset_launches() -> None:
-    for counts in _launch_counts():
-        for k in counts:
-            counts[k] = 0
+    for group in _launch_counts():
+        for counts in group:
+            for k in counts:
+                counts[k] = 0
 
 
 def _launches() -> dict[str, int]:
-    return {k: v for counts in _launch_counts() for k, v in counts.items()}
+    """Every counter, an atlas mode's under its ATLAS name."""
+    plain, atlas = _launch_counts()
+    out = {k: v for counts in plain for k, v in counts.items()}
+    out.update({ATLAS[k]: v for counts in atlas for k, v in counts.items()})
+    return out
 
 
 def _expect_launched(what: str, launches: dict[str, int], kernels: tuple[str, ...],
@@ -1210,14 +1248,15 @@ def _stochastic_step_ms(scene) -> float:
     return _best_step_ms(make_loss_fn(scene, target, cfg), scene, warmup=20, steps=100)[0]
 
 
-def _best_step_ms(loss_fn, scene, warmup: int, steps: int):
-    """(ms/step, the K-step trainer, its state) of Adam lr 1e-3 on ``loss_fn``:
-    ``warmup`` steps, then the best of three calls of ``steps`` steps, each
-    ending in a CUDA synchronise; fails on a non-finite loss."""
+def _best_step_ms(loss_fn, scene, warmup: int, steps: int, params=None, lr: float = 1e-3):
+    """(ms/step, the K-step trainer, its state) of Adam (lr ``lr``) on
+    ``loss_fn`` over ``params`` (default every leaf of ``scene``): ``warmup``
+    steps, then the best of three calls of ``steps`` steps, each ending in a
+    CUDA synchronise; fails on a non-finite loss."""
     from python_ray_tracer_tpu_torch.optim import adam, init_state, make_train_step_k, scene_to_params
 
     step_k = make_train_step_k(loss_fn)
-    state, _ = step_k(init_state(scene_to_params(scene), adam(1e-3)), warmup)
+    state, _ = step_k(init_state(scene_to_params(scene) if params is None else params, adam(lr)), warmup)
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(3):
@@ -1245,19 +1284,22 @@ def _big_cfg(dtype: torch.dtype = torch.float32, **kw):
     return RenderConfig(max_depth=BIG_DEPTH, dtype=dtype, **kw)
 
 
-def _culled_record(dtype: torch.dtype, width: int, height: int) -> list[dict]:
+def _culled_record(dtype: torch.dtype, width: int, height: int, scene=None) -> list[dict]:
     """Each bounce's inputs of the two culled kernels in the mirror config-4
-    frame (traced through the kernels on the card)."""
+    frame, or ``scene``'s (traced through the kernels on the card):
+    ``near`` and ``shade`` the arguments, ``kw`` near_culled's keywords and
+    ``shade_kw`` shade_culled's (with the atlas's slot extents on an atlas
+    scene)."""
     from python_ray_tracer_tpu_torch.camera import ray_directions_t
     from python_ray_tracer_tpu_torch.ops import culled
 
-    scene = _big_scene(dtype, width, height)
+    scene = _big_scene(dtype, width, height) if scene is None else scene
     near, shade = [], []
     with _capture(culled, "near_culled", near), _capture(culled, "shade_culled", shade), torch.no_grad():
         culled.trace_fused_culled(scene.camera.position, ray_directions_t(scene.camera, dtype), scene,
                                   _big_cfg(dtype, use_pallas=True))
     torch.cuda.synchronize()
-    return [dict(near=n[0], shade=s[0], kw=n[1]) for n, s in zip(near, shade)]
+    return [dict(near=n[0], shade=s[0], kw=n[1], shade_kw=s[1]) for n, s in zip(near, shade)]
 
 
 @contextlib.contextmanager
@@ -1549,15 +1591,15 @@ def _cs_cfg(dtype: torch.dtype = torch.float32, **kw):
     return RenderConfig(max_depth=CS_DEPTH, dtype=dtype, visibility="smooth", use_pallas=True, **kw)
 
 
-def _cs_record(dtype: torch.dtype, width: int, height: int, stochastic: bool) -> list[dict]:
+def _cs_record(dtype: torch.dtype, width: int, height: int, stochastic: bool, scene=None) -> list[dict]:
     """Each bounce's inputs of near_cs, fwd_cs and bwd_cs in a weighted-sum
     loss's forward and backward through trace_culled_smooth on the card
-    (config-4 scene, depth 3; glossy at seed SEED)."""
+    (config-4 scene, or ``scene``; depth 3; glossy at seed SEED)."""
     from python_ray_tracer_tpu_torch.camera import ray_directions_t
     from python_ray_tracer_tpu_torch.ops import culled_smooth
     from python_ray_tracer_tpu_torch.optim import combine, scene_to_params
 
-    scene = _big_scene(dtype, width, height)
+    scene = _big_scene(dtype, width, height) if scene is None else scene
     params = scene_to_params(scene)
     sc = combine(params, scene)
     cfg = _cs_cfg(dtype, stochastic_roughness=stochastic, rng_seed=SEED)
@@ -1985,6 +2027,526 @@ def _cs_worst_lanes(tag: str, record: list[dict], gaps: list) -> None:
         _worst_lanes(f"bwd_cs {tag} bounce {b} {grad}", k32[j], p32[j], k64[j], p64[j], sdisc)
 
 
+# --- Image textures: the atlas mode of the nine kernels that take an atlas ------
+
+
+def make_texture(side: int = TEX_SIDE) -> np.ndarray:
+    """The texture-recovery task's test pattern (the JAX package's
+    benchmarks/texture_recovery_demo.py make_texture): hue gradient, rings
+    and a checker quadrant, in [0.15, 0.85]."""
+    y, x = np.mgrid[0:side, 0:side] / side
+    r = np.hypot(x - 0.5, y - 0.5)
+    tex = np.stack(
+        [
+            0.5 + 0.5 * np.sin(2 * np.pi * (x * 3 + r * 4)),
+            0.5 + 0.5 * np.cos(2 * np.pi * (y * 2 - r * 6)),
+            ((x * 8).astype(int) % 2 == (y * 8).astype(int) % 2).astype(float),
+        ],
+        axis=-1,
+    )
+    return (0.15 + 0.7 * tex).astype(np.float32)
+
+
+def _tex_scene(dtype: torch.dtype):
+    from python_ray_tracer_tpu_torch.models.scenes import texture_task_scene
+
+    return texture_task_scene(make_texture(), TEX_WIDTH, TEX_HEIGHT, dtype=dtype, device=DEVICE)
+
+
+def _textured_scene(dtype: torch.dtype, width: int = BIG_WIDTH, height: int = BIG_HEIGHT):
+    from python_ray_tracer_tpu_torch.models.scenes import textured_spheres_scene
+
+    return textured_spheres_scene(BIG_SPHERES, width, height, dtype=dtype, device=DEVICE)
+
+
+def _tex_cfg(dtype: torch.dtype = torch.float32, depth: int = TEX_DEPTH, **kw):
+    from python_ray_tracer_tpu_torch import RenderConfig
+
+    return RenderConfig(max_depth=depth, dtype=dtype, visibility="smooth", use_pallas=True, **kw)
+
+
+def _tex_kernel_inputs(dtype: torch.dtype, depth: int):
+    """Rays, tables, scalars and the atlas's slot extents of the texture task,
+    as the sub routes make them."""
+    from python_ray_tracer_tpu_torch.camera import ray_directions_t
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth_sub import _kernel_inputs
+
+    scene = _tex_scene(dtype)
+    o, d, tables, kw = _kernel_inputs(scene.camera.position, ray_directions_t(scene.camera, dtype), scene,
+                                      _tex_cfg(dtype, depth))
+    return o, d, tables, kw, (TEX_SIDE, TEX_SIDE)
+
+
+def _seeded(shape, like: torch.Tensor, seed: int) -> torch.Tensor:
+    """Seeded cotangents in [-0.5, 0.5) on the card."""
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=DEVICE, dtype=like.dtype) - 0.5
+
+
+def _check_texels(label: str, name: str, kernel: tuple, plain: tuple, dtype: torch.dtype, err: dict,
+                  image_lanes: bool = True) -> int:
+    """The atlas outputs of a forward kernel: the flat texel ids exactly and
+    dww under the per-value limit.  Returns the lanes with a texel weight,
+    of which there must be some unless ``image_lanes`` is false (a bounce of
+    a multi-bounce path, whose caller checks the path's sum)."""
+    (kflat, kdww), (pflat, pdww) = kernel, plain
+    _exact_check(f"{name} (atlas) {label} flat", kflat, pflat)
+    err[name] = max(err[name], _per_value_check(f"{name} (atlas) {label} dww", kdww, pdww, dtype))
+    n_image = int((kdww != 0).sum())
+    print(f"[kernels] {name} (atlas) {label}: {n_image} lanes carry a texel weight, {int(kflat.unique().numel())} "
+          f"distinct texel ids", flush=True)
+    if image_lanes and n_image == 0:
+        fail(f"{name} (atlas) {label}: no image lane")
+    return n_image
+
+
+def _check_sub_atlas(dtype: torch.dtype, err: dict) -> dict:
+    """The four unculled kernels of the texture task at 320x180 (two hard,
+    four smooth) in their atlas mode against their plain versions: the deep
+    kernels at depth 2, the one-bounce ones on the bounce from the camera;
+    the smooth backward kernels with nonzero acc and dww cotangents, twice,
+    bitwise.  Returns the calls for the timings (f32)."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+    from python_ray_tracer_tpu_torch.ops import bounce_sub as bs
+
+    tag = f"texture task {str(dtype).split('.')[-1]} {TEX_WIDTH}x{TEX_HEIGHT}"
+    o, d, tables, kw, tex_hw = _tex_kernel_inputs(dtype, TEX_DEPTH)
+    hkw = dict(faraway=kw["faraway"], s_cheap=kw["s_cheap"], tex_hw=tex_hw)
+    ones, zeros = torch.ones_like(d[0]), torch.zeros_like(d)
+    calls = {}
+
+    k = bs.trace_deep(o, d, *tables, depth=TEX_DEPTH, **hkw)
+    p = bs.trace_deep_plain(o, d, *tables, depth=TEX_DEPTH, **hkw)
+    torch.cuda.synchronize()
+    err["trace_deep"] = max(err["trace_deep"], _per_value_check(f"trace_deep (atlas) {tag} depth 2 acc", k[0], p[0], dtype))
+    _check_texels(f"{tag} depth 2", "trace_deep", k[1:], p[1:], dtype, err)
+    calls["trace_deep"] = (lambda: bs.trace_deep(o, d, *tables, depth=TEX_DEPTH, **hkw),
+                           lambda: bs.trace_deep(o, d, *tables, depth=TEX_DEPTH, **{**hkw, "tex_hw": None}),
+                           lambda: bs.trace_deep_plain(o, d, *tables, depth=TEX_DEPTH, **hkw), _nbytes(o, d, *k))
+
+    state = (o, d, ones, ones, zeros)
+    k = bs.bounce_step(*state, *tables, **hkw)
+    p = bs.bounce_step_plain(*state, *tables, **hkw)
+    torch.cuda.synchronize()
+    for out_name, a, b in zip(("o", "d", "thr", "alive", "acc"), k, p):
+        err["bounce_step"] = max(err["bounce_step"], _per_value_check(f"bounce_step (atlas) {tag} {out_name}", a, b, dtype))
+    _check_texels(tag, "bounce_step", k[5:], p[5:], dtype, err)
+    calls["bounce_step"] = (lambda: bs.bounce_step(*state, *tables, **hkw),
+                            lambda: bs.bounce_step(*state, *tables, **{**hkw, "tex_hw": None}),
+                            lambda: bs.bounce_step_plain(*state, *tables, **hkw), _nbytes(*state, *k))
+
+    akw = dict(kw, tex_hw=tex_hw)
+    fk = bss.smooth_fwd_deep(o, d, *tables, **akw)
+    fp = bss.smooth_fwd_deep_plain(o, d, *tables, **akw)
+    torch.cuda.synchronize()
+    for out_name, a, b in zip(("acc", "osave", "dsave", "thrsave", "alivesave", "idx", "hit", "clear"), fk, fp):
+        err["smooth_fwd_deep"] = max(err["smooth_fwd_deep"],
+                                     _per_value_check(f"smooth_fwd_deep (atlas) {tag} {out_name}", a, b, dtype))
+    _check_texels(tag, "smooth_fwd_deep", fk[8:], fp[8:], dtype, err)
+    g_acc, g_dww = _cotangent(d), _seeded((TEX_DEPTH, d.shape[1]), d, 5)
+    res = fp[1:8]
+    bkw = dict(akw, g_dww=g_dww)
+    bk = _twice_bitwise("smooth_bwd_deep (atlas)", tag, lambda: bss.smooth_bwd_deep(o, d, *res, *tables, g_acc, **bkw))
+    bp = bss.smooth_bwd_deep_plain(o, d, *res, *tables, g_acc, **bkw)
+    f64 = _f64_outputs(
+        lambda *a, **k_: bss.smooth_bwd_deep(*a[:-1], g_dww=a[-1], **k_),
+        lambda *a, **k_: bss.smooth_bwd_deep_plain(*a[:-1], g_dww=a[-1], **k_),
+        (o, d, *res, *tables, g_acc, None, g_dww), akw,
+    )
+    for j, (out_name, a, b) in enumerate(zip(GRAD_NAMES, bk, bp)):
+        err["smooth_bwd_deep"] = max(err["smooth_bwd_deep"],
+                                     _grad_check(f"smooth_bwd_deep (atlas) {tag}", out_name, a, b, dtype, _nth(f64, j)))
+    calls["smooth_fwd_deep"] = (lambda: bss.smooth_fwd_deep(o, d, *tables, **akw),
+                                lambda: bss.smooth_fwd_deep(o, d, *tables, **kw),
+                                lambda: bss.smooth_fwd_deep_plain(o, d, *tables, **akw), _nbytes(o, d, *fk))
+    calls["smooth_bwd_deep"] = (lambda: bss.smooth_bwd_deep(o, d, *res, *tables, g_acc, **bkw),
+                                lambda: bss.smooth_bwd_deep(o, d, *res, *tables, g_acc, **kw),
+                                lambda: bss.smooth_bwd_deep_plain(o, d, *res, *tables, g_acc, **bkw),
+                                _nbytes(o, d, *res, g_acc, g_dww, *bk))
+
+    skw = {k_: v for k_, v in akw.items() if k_ != "depth"}
+    fk = bss.smooth_fwd_step(*state, *tables, **skw)
+    fp = bss.smooth_fwd_step_plain(*state, *tables, **skw)
+    torch.cuda.synchronize()
+    for out_name, a, b in zip(("o", "d", "thr", "alive", "acc", "idx", "hit", "clear"), fk, fp):
+        err["smooth_fwd_step"] = max(err["smooth_fwd_step"],
+                                     _per_value_check(f"smooth_fwd_step (atlas) {tag} {out_name}", a, b, dtype))
+    _check_texels(tag, "smooth_fwd_step", fk[8:], fp[8:], dtype, err)
+    cots = _step_cotangents(fp)
+    g_dww1 = _seeded((d.shape[1],), d, 6)
+    sargs = (*state[:4], *fp[5:8], *tables, *cots)
+    sbkw = dict(skw, g_dww=g_dww1)
+    bk = _twice_bitwise("smooth_bwd_step (atlas)", tag, lambda: bss.smooth_bwd_step(*sargs, **sbkw))
+    bp = bss.smooth_bwd_step_plain(*sargs, **sbkw)
+    f64 = _f64_outputs(
+        lambda *a, **k_: bss.smooth_bwd_step(*a[:-1], g_dww=a[-1], **k_),
+        lambda *a, **k_: bss.smooth_bwd_step_plain(*a[:-1], g_dww=a[-1], **k_),
+        (*sargs, None, g_dww1), skw,
+    )
+    bwd_names = ("g_o", "g_d", "g_thr", "g_alive", "g_geom", "g_mat", "g_consts")
+    for j, (out_name, a, b) in enumerate(zip(bwd_names, bk, bp)):
+        err["smooth_bwd_step"] = max(err["smooth_bwd_step"],
+                                     _grad_check(f"smooth_bwd_step (atlas) {tag}", out_name, a, b, dtype, _nth(f64, j)))
+    nkw = {k_: v for k_, v in kw.items() if k_ != "depth"}
+    calls["smooth_fwd_step"] = (lambda: bss.smooth_fwd_step(*state, *tables, **skw),
+                                lambda: bss.smooth_fwd_step(*state, *tables, **nkw),
+                                lambda: bss.smooth_fwd_step_plain(*state, *tables, **skw), _nbytes(*state, *fk))
+    calls["smooth_bwd_step"] = (lambda: bss.smooth_bwd_step(*sargs, **sbkw),
+                                lambda: bss.smooth_bwd_step(*sargs, **nkw),
+                                lambda: bss.smooth_bwd_step_plain(*sargs, **sbkw), _nbytes(*sargs, g_dww1, *bk))
+    return calls
+
+
+def _bwd_cs_g_dww(args, kw):
+    """bwd_cs's recorded call with its dww cotangent moved to the end of the
+    arguments (so that the bound's one-tile slice cuts it too)."""
+    kw = dict(kw)
+    return (*args, kw.pop("g_dww")), kw
+
+
+def _bwd_cs_last(fn):
+    return lambda *a, **kw: fn(*a[:-1], g_dww=a[-1], **kw)
+
+
+def phase_atlas_kernels() -> tuple[dict[str, float], dict]:
+    """The nine kernels' atlas mode against their plain versions on their
+    paths' inputs: the texture task (320x180) for the four unculled kernels,
+    f32 and f64; shade_culled on every bounce of the textured1024 mirror
+    frame (f32 1920x1080, f64 480x270); fwd_cs and bwd_cs on every bounce of
+    a textured1024 smooth loss (f32 960x540, f64 480x270).  Texel ids
+    exactly, the rest under the per-value, per-ray and per-column limits;
+    the gradient kernels twice, bitwise.  Returns the max abs error per
+    kernel (f32) and the f32 calls and records for the timings."""
+    from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs
+
+    errs = dict.fromkeys(ATLAS, 0.0)
+    inputs = {}
+    for dtype in (torch.float32, torch.float64):
+        err = dict.fromkeys(ATLAS, 0.0)
+        calls = _check_sub_atlas(dtype, err)
+        size = (BIG_WIDTH, BIG_HEIGHT) if dtype == torch.float32 else BIG_F64_SIZE
+        record = _culled_record(dtype, *size, scene=_textured_scene(dtype, *size))
+        tag = f"textured1024 {str(dtype).split('.')[-1]} {size[0]}x{size[1]}"
+        n_image = 0
+        with torch.no_grad():
+            for b, r in enumerate(record):
+                sk = culled.shade_culled(*r["shade"], **r["shade_kw"])
+                torch.cuda.synchronize()
+                sp = culled.shade_culled_plain(*r["shade"], **r["shade_kw"])
+                for name, k, p in zip(("o", "d", "thr", "alive", "acc"), sk, sp):
+                    err["shade_culled"] = max(err["shade_culled"],
+                                              _per_value_check(f"shade_culled (atlas) {tag} bounce {b} {name}", k, p, dtype))
+                n_image += _check_texels(f"{tag} bounce {b}", "shade_culled", sk[5:], sp[5:], dtype, err, False)
+        if n_image == 0:
+            fail(f"shade_culled (atlas) {tag}: no image lane on any bounce")
+        cs_size = TEX_CS_SIZE if dtype == torch.float32 else CS_F64_SIZE
+        cs_record = _cs_record(dtype, *cs_size, False, scene=_textured_scene(dtype, *cs_size))
+        tag = f"textured1024 smooth {str(dtype).split('.')[-1]} {cs_size[0]}x{cs_size[1]}"
+        n_image = 0
+        with torch.no_grad():
+            for b, r in enumerate(cs_record):
+                (fa, fkw), (ba, bkw) = r["fwd"], r["bwd"]
+                fk = cs.fwd_cs(*fa, **fkw)
+                torch.cuda.synchronize()
+                fp = cs.fwd_cs_plain(*fa, **fkw)
+                for name, k, p in zip(("o", "d", "thr", "alive", "acc", "clear"), fk, fp):
+                    err["fwd_cs"] = max(err["fwd_cs"], _per_value_check(f"fwd_cs (atlas) {tag} bounce {b} {name}", k, p, dtype))
+                n_image += _check_texels(f"{tag} bounce {b}", "fwd_cs", fk[6:], fp[6:], dtype, err, False)
+                bk = _twice_bitwise("bwd_cs (atlas)", f"{tag} bounce {b}", lambda: cs.bwd_cs(*ba, **bkw))
+                bp = cs.bwd_cs_plain(*ba, **bkw)
+                for name, k, p in zip(("g_o", "g_d", "g_thr", "g_alive", "g_geom", "g_mat", "g_consts"), bk, bp):
+                    err["bwd_cs"] = max(err["bwd_cs"], _grad_check(f"bwd_cs (atlas) {tag} bounce {b}", name, k, p, dtype))
+        if n_image == 0 or not any(bool((r["bwd"][1]["g_dww"] != 0).any()) for r in cs_record):
+            fail(f"fwd_cs/bwd_cs (atlas) {tag}: no image lane, or no dww cotangent, on any bounce")
+        if dtype == torch.float32:
+            errs = err
+            inputs = dict(calls=calls, culled=record, cs=cs_record)
+    return errs, inputs
+
+
+def _atlas_launched(what: str, launches: dict[str, int], atlas: tuple[str, ...], exactly: int,
+                    plain_kernels: tuple[str, ...] = (), plain_exactly: int | None = None) -> None:
+    """The atlas mode of ``atlas`` launched exactly ``exactly`` times each,
+    ``plain_kernels`` (no atlas) ``plain_exactly`` times, nothing else."""
+    want = {ATLAS[k]: exactly for k in atlas}
+    want.update({k: plain_exactly for k in plain_kernels})
+    print(f"[main] launches during {what}: {launches}", flush=True)
+    for k, v in launches.items():
+        if v != want.get(k, 0):
+            fail(f"{what} launched kernel {k} {v} times (expected {want.get(k, 0)})")
+
+
+def _atlas_grad_check(label: str, got: torch.Tensor, want: np.ndarray) -> None:
+    """The JAX package's rule for kernel-versus-XLA atlas gradients
+    (tests/test_fused_smooth.py): at most 2% of the texels off by more than
+    5e-3 of the largest |value|, and more than 10 texels nonzero."""
+    got = got.detach().double().cpu().numpy()
+    scale = max(float(np.abs(want).max()), 1e-6)
+    off = float((np.abs(got - want) > 5e-3 * scale).mean())
+    nonzero = int((got != 0).sum())
+    print(f"[main] {label}: {off:.4%} of texels off by more than 5e-3 of the largest |value| {scale:.3e} "
+          f"(limit 2%), max_abs {float(np.abs(got - want).max()):.3e}, {nonzero} texels nonzero (limit > 10)", flush=True)
+    if off >= 0.02 or nonzero <= 10:
+        fail(f"{label}: {off:.4%} of texels off, {nonzero} nonzero")
+
+
+def _tex_params(scene, every_leaf: bool = False):
+    """The texture task's parameters, the atlas set to 0.5: the atlas alone
+    (the recovery task), or beside every other leaf."""
+    from python_ray_tracer_tpu_torch.optim import scene_to_params
+
+    if every_leaf:
+        params = scene_to_params(scene, atlas=True)
+    else:
+        params = scene_to_params(scene, sphere_fields=(), light_fields=(), camera=False, atlas=True)
+    with torch.no_grad():
+        params["textures.atlas"].fill_(0.5)
+    return params
+
+
+def phase_tex_main(tmp: Path) -> dict[str, int]:
+    """The slice's main paths.  (a) ``render --builtin textured1024 --depth
+    4`` at 1920x1080: the culled pair, shade_culled in its atlas mode,
+    against the JAX golden.  (d) The texture task's hard frame at 320x180:
+    one trace_deep (atlas) at depth 2, one bounce_step (atlas) at depth 1,
+    against the pure-torch route.  (b) Training the atlas: the first step
+    with every leaf trained beside the atlas, one smooth_fwd_deep and one
+    smooth_bwd_deep (atlas), against the JAX golden (loss by the first-step
+    rules, the atlas gradient by JAX's fraction rule; the atlas leaf's
+    gradient does not depend on which other leaves are trained), bitwise
+    across two runs, f64 too; 40 Adam steps (lr 0.03) of the atlas alone
+    through optim.fit, the loss below 0.05x its start (with the atlas the
+    only leaf nothing the kernel takes needs a gradient, so autograd, like
+    JAX's, runs no backward kernel: one smooth_fwd_deep (atlas) a step); a
+    depth-1 step with every leaf through the atlas step pair.  (c) ``optimize --builtin textured1024
+    --visibility smooth`` at 960x540, 3 steps: exactly 3 near_cs and 3
+    fwd_cs and bwd_cs (atlas) a step, the loss finite and falling.  Returns
+    the launches of each path's kernels."""
+    from python_ray_tracer_tpu_torch import cli, render
+    from python_ray_tracer_tpu_torch.optim import fit, make_loss_fn
+    from python_ray_tracer_tpu_torch.utils.image import save_png, to_uint8
+
+    launches: dict[str, int] = {}
+    size = ["--builtin", "textured1024", "--width", str(BIG_WIDTH), "--height", str(BIG_HEIGHT), "--depth", str(BIG_DEPTH)]
+    _reset_launches()
+    img = _cli_render(tmp, "textured.png", *size)
+    counts = _launches()
+    # The CLI renders each frame twice (a first call and a timed one).
+    _atlas_launched("the textured1024 CLI render", counts, ("shade_culled",), 2 * BIG_DEPTH, ("near_culled",),
+                    2 * BIG_DEPTH)
+    launches.update({ATLAS["shade_culled"]: counts[ATLAS["shade_culled"]]})
+    golden = np.load(REPO / TEXTURED_GOLDEN)["image"]
+    seam = int((np.abs(img.astype(np.int32) - golden.astype(np.int32)) > 0).any(-1).sum())
+    print(f"[main] textured1024: {seam} of {BIG_WIDTH * BIG_HEIGHT} pixels differ from the JAX golden (its libm UV "
+          f"against the kernels' polynomial on seam lanes, and float order)", flush=True)
+    _compare_uint8("textured1024 mirror", img, golden, "the JAX golden")
+
+    scene = _tex_scene(torch.float32)
+    for depth, name in ((TEX_DEPTH, "trace_deep"), (1, "bounce_step")):
+        cfg = dataclasses.replace(_tex_cfg(depth=depth), visibility="hard")
+        _reset_launches()
+        with torch.no_grad():
+            frame = render(scene, cfg)
+        torch.cuda.synchronize()
+        counts = _launches()
+        _atlas_launched(f"the texture task's hard frame, depth {depth}", counts, (name,), 1)
+        launches[ATLAS[name]] = counts[ATLAS[name]]
+        with torch.no_grad():
+            ref = render(scene, dataclasses.replace(cfg, use_pallas=False))
+        _compare_uint8(f"texture task hard depth {depth}", to_uint8(frame), to_uint8(ref), "the pure-torch route")
+
+    tex_golden = np.load(REPO / TEX_GOLDEN)
+    grads = {}
+    for dtype, run in ((torch.float32, 0), (torch.float32, 1), (torch.float64, 0)):
+        scene = _tex_scene(dtype)
+        target = torch.tensor(tex_golden["image"], dtype=dtype, device=DEVICE) / 255.0
+        params = _tex_params(scene, every_leaf=True)
+        _reset_launches()
+        loss = make_loss_fn(scene, target, _tex_cfg(dtype))(params)
+        loss.backward()
+        torch.cuda.synchronize()
+        tag = str(dtype).split(".")[-1]
+        counts = _launches()
+        _atlas_launched(f"the texture task's first step, every leaf, {tag}", counts,
+                        ("smooth_fwd_deep", "smooth_bwd_deep"), 1)
+        if not all(bool(torch.isfinite(g).all()) for g in _leaf_grads(params).values()):
+            fail(f"the texture task's first step, {tag}: a non-finite gradient")
+        if dtype == torch.float32 and run == 0:
+            launches[ATLAS["smooth_bwd_deep"]] = counts[ATLAS["smooth_bwd_deep"]]
+        grad = params["textures.atlas"].grad
+        if run == 1:
+            same = torch.equal(grad, grads[tag]) and torch.equal(loss.detach(), grads[f"{tag} loss"])
+            print(f"[main] texture task first step f32, two runs: loss and atlas gradient bitwise equal: {same}", flush=True)
+            if not same:
+                fail("the texture task's atlas gradient differs between two runs")
+            continue
+        grads[tag], grads[f"{tag} loss"] = grad.clone(), loss.detach().clone()
+        print(f"[main] texture task first step {tag}: loss {float(loss.detach()):.8e}, the JAX golden f32 "
+              f"{float(tex_golden['loss']):.8e}, f64 {float(tex_golden['loss64']):.8e}")
+        if dtype == torch.float32:
+            _noise_check("texture task first-step loss (peer: the JAX f32 golden)", loss, tex_golden["loss"],
+                         tex_golden["loss64"])
+            _atlas_grad_check("texture task first step d/dtextures.atlas f32 vs the JAX f32 golden", grad,
+                              tex_golden["grad/textures.atlas"])
+        else:
+            _relative_check("texture task first-step loss f64 vs the JAX f64 golden", loss.detach().cpu(),
+                            torch.as_tensor(tex_golden["loss64"]), F64_RTOL)
+            _atlas_grad_check("texture task first step d/dtextures.atlas f64 vs the JAX f64 golden", grad,
+                              tex_golden["grad64/textures.atlas"])
+
+    scene = _tex_scene(torch.float32)
+    target = torch.tensor(tex_golden["image"], dtype=torch.float32, device=DEVICE) / 255.0
+    _reset_launches()
+    final, history = fit(scene, target, _tex_cfg(), _tex_params(scene), steps=TEX_STEPS + 1, learning_rate=TEX_LR)
+    counts = _launches()
+    _atlas_launched(f"fit, {TEX_STEPS + 1} Adam steps on the texture task's atlas", counts, ("smooth_fwd_deep",),
+                    TEX_STEPS + 1)
+    launches[ATLAS["smooth_fwd_deep"]] = counts[ATLAS["smooth_fwd_deep"]]
+    print(f"[main] texture task, Adam lr {TEX_LR}: loss {history[0]:.6e} at step 0, {history[TEX_STEPS]:.6e} at step "
+          f"{TEX_STEPS} ({history[TEX_STEPS] / history[0]:.4f}x; limit 0.05x)", flush=True)
+    if not (np.isfinite(history).all() and history[TEX_STEPS] < 0.05 * history[0]):
+        fail(f"the texture task's loss went {history[0]:.3e} -> {history[TEX_STEPS]:.3e} in {TEX_STEPS} steps")
+    rec = np.clip(final["textures.atlas"].detach().cpu().numpy()[0], 0.0, 1.0)
+    save_png(rec, tmp / "texture_recovered.png")
+
+    params = _tex_params(scene, every_leaf=True)
+    _reset_launches()
+    loss = make_loss_fn(scene, target, _tex_cfg(depth=1))(params)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = _launches()
+    _atlas_launched("the texture task's step at depth 1, every leaf", counts, ("smooth_fwd_step", "smooth_bwd_step"), 1)
+    launches.update({ATLAS[k]: counts[ATLAS[k]] for k in ("smooth_fwd_step", "smooth_bwd_step")})
+    grads = _leaf_grads(params)
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()) or not np.isfinite(float(loss.detach())):
+        fail("the texture task's depth-1 step gave a non-finite loss or gradient")
+    if not bool((grads["textures.atlas"] != 0).any()):
+        fail("the texture task's depth-1 step gave no atlas gradient")
+
+    gray = np.full((TEX_CS_SIZE[1], TEX_CS_SIZE[0], 3), 0.5, np.float32)
+    save_png(gray, tmp / "gray.png")
+    metrics = tmp / "tex_optimize.jsonl"
+    size = ["--builtin", "textured1024", "--width", str(TEX_CS_SIZE[0]), "--height", str(TEX_CS_SIZE[1]),
+            "--depth", str(CS_DEPTH)]
+    _reset_launches()
+    cli.main(["optimize", *size, "--visibility", "smooth", "--target", str(tmp / "gray.png"), "--steps", "3",
+              "--sync-every", "3", "--lr", "1e-3", "--metrics", str(metrics)])
+    counts = _launches()
+    _atlas_launched("cli optimize textured1024 960x540 smooth, 3 steps", counts, ("fwd_cs", "bwd_cs"), 3 * CS_DEPTH,
+                    ("near_cs",), 3 * CS_DEPTH)
+    launches.update({ATLAS[k]: counts[ATLAS[k]] for k in ("fwd_cs", "bwd_cs")})
+    losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
+    print(f"[main] cli optimize textured1024 960x540 smooth (target: mid gray): losses {losses}", flush=True)
+    if len(losses) != 3 or not all(np.isfinite(losses)) or not losses[2] < losses[0]:
+        fail(f"cli optimize textured1024 960x540: losses {losses} (finite and falling expected)")
+    return launches
+
+
+def phase_atlas_timing(card: str, inputs: dict) -> dict[str, dict]:
+    """Each atlas variant beside its no-atlas kernel on the same inputs, in
+    turn (CUDA events), with its plain version and bound: the texture task's
+    four unculled kernels at 320x180, shade_culled on the textured1024
+    frame's 4 bounces, fwd_cs and bwd_cs on the 960x540 smooth loss's 3;
+    then ms/frame of (a) with a torch.profiler split showing compose_texels,
+    ms/step of (b) and of (c)."""
+    from python_ray_tracer_tpu_torch import render
+    from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn
+
+    res: dict[str, dict] = {}
+    for name, (kernel, no_atlas, plain, n_bytes) in inputs["calls"].items():
+        ms, base_ms = time_ms(kernel), time_ms(no_atlas)
+        ms2 = time_ms(kernel)
+        plain_ms = time_ms(plain, warmup=1, iters=3)
+        bound_ms, bound_by = _bound(count_ops(plain), n_bytes)
+        res[ATLAS[name]] = dict(ms=min(ms, ms2), plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=None)
+        print(f"[timing] {name} (atlas): kernel {ms:.4f} / {ms2:.4f} ms beside the no-atlas kernel's {base_ms:.4f} ms "
+              f"on the same inputs in turn, plain version {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"(texture task {TEX_WIDTH}x{TEX_HEIGHT} f32; {card})", flush=True)
+
+    def no_atlas(fn, args, kw):
+        kw = {k: v for k, v in kw.items() if k not in ("tex_hw", "g_dww")}
+        return lambda: fn(*args, **kw)
+
+    with torch.no_grad():
+        rows = [(lambda r=r: culled.shade_culled(*r["shade"], **r["shade_kw"]),
+                 lambda r=r: culled.shade_culled_plain(*r["shade"], **r["shade_kw"]),
+                 lambda r=r: _list_bound(culled.shade_culled_plain, culled.shade_culled, r["shade"], r["shade_kw"], 11))
+                for r in inputs["culled"]]
+        res[ATLAS["shade_culled"]] = _time_launches("shade_culled (atlas)", rows, card, "textured1024, 1920x1080 f32",
+                                                    f"the mirror frame's {len(rows)}")
+        for b, r in enumerate(inputs["culled"]):
+            a_ms = time_ms(rows[b][0], warmup=2, iters=10)
+            n_ms = time_ms(no_atlas(culled.shade_culled, r["shade"], r["shade_kw"]), warmup=2, iters=10)
+            print(f"[timing] shade_culled bounce {b}: atlas {a_ms:.4f} ms, no atlas {n_ms:.4f} ms on the same inputs "
+                  f"({a_ms / n_ms:.3f}x; {card})", flush=True)
+        for name, part, ci in (("fwd_cs", "fwd", 7), ("bwd_cs", "bwd", 7)):
+            rows = []
+            for r in inputs["cs"]:
+                args, kw = r[part]
+                kernel, plain = getattr(cs, name), getattr(cs, f"{name}_plain")
+                if name == "bwd_cs":
+                    args, kw = _bwd_cs_g_dww(args, kw)
+                    kernel, plain = _bwd_cs_last(kernel), _bwd_cs_last(plain)
+                rows.append((lambda k=kernel, a=args, w=kw: k(*a, **w), lambda p=plain, a=args, w=kw: p(*a, **w),
+                             lambda k=kernel, p=plain, a=args, w=kw: _list_bound(p, k, a, w, ci)))
+            res[ATLAS[name]] = _time_launches(f"{name} (atlas)", rows, card, "textured1024 smooth, 960x540 f32",
+                                              f"the loss's {len(rows)}")
+            for b, r in enumerate(inputs["cs"]):
+                args, kw = r[part]
+                a_ms = time_ms(lambda: getattr(cs, name)(*args, **kw), warmup=2, iters=10)
+                n_ms = time_ms(no_atlas(getattr(cs, name), args, kw), warmup=2, iters=10)
+                print(f"[timing] {name} bounce {b}: atlas {a_ms:.4f} ms, no atlas {n_ms:.4f} ms on the same inputs "
+                      f"({a_ms / n_ms:.3f}x; {card})", flush=True)
+
+    scene = _textured_scene(torch.float32)
+    cfg = _big_cfg(use_pallas=True)
+    with torch.no_grad():
+        ms = time_ms(lambda: render(scene, cfg), warmup=2, iters=5)
+        print(f"[timing] textured1024 frame (render(), culled pair, atlas): {ms:.3f} ms/frame, "
+              f"{BIG_WIDTH * BIG_HEIGHT / (ms * 1e-3):.4e} primary rays/s (1920x1080 depth 4, f32; {card})", flush=True)
+        _device_profile(lambda: render(scene, cfg), "textured1024 frame", card, CULLED + ("index",))
+        _range_profile(lambda: render(scene, cfg), "textured1024 frame", card, "compose_texels")
+
+    scene = _tex_scene(torch.float32)
+    target = torch.tensor(np.load(REPO / TEX_GOLDEN)["image"], dtype=torch.float32, device=DEVICE) / 255.0
+    best, step_k, state = _best_step_ms(make_loss_fn(scene, target, _tex_cfg()), scene, warmup=5, steps=20,
+                                        params=_tex_params(scene), lr=TEX_LR)
+    print(f"[timing] texture task Adam step (the atlas leaf alone: one smooth_fwd_deep (atlas) and the texel "
+          f"scatter a step): {best:.4f} ms/step "
+          f"({TEX_WIDTH}x{TEX_HEIGHT} depth {TEX_DEPTH}, f32, best of 3 calls of 20 steps; {card})", flush=True)
+    _device_profile(lambda: step_k(state, 1), "texture task Adam step", card,
+                    ("smooth_fwd_deep", "smooth_bwd_deep", "reduce_partials"))
+    _range_profile(lambda: step_k(state, 1), "texture task Adam step", card, "compose_texels")
+
+    scene = _textured_scene(torch.float32, *TEX_CS_SIZE)
+    target = torch.full((TEX_CS_SIZE[1], TEX_CS_SIZE[0], 3), 0.5, device=DEVICE)
+    best, step_k, state = _best_step_ms(make_loss_fn(scene, target, _cs_cfg()), scene, warmup=2, steps=2)
+    print(f"[timing] textured1024 culled smooth Adam step (960x540 depth {CS_DEPTH}, f32, fwd_cs + bwd_cs atlas): "
+          f"{best:.3f} ms/step (best of 3 calls of 2 steps; {card})", flush=True)
+    _device_profile(lambda: step_k(state, 1), "textured1024 960x540 culled smooth Adam step", card,
+                    CS + ("reduce_cs",))
+    return res
+
+
+def _range_profile(fn, label: str, card: str, name: str) -> None:
+    """The device time of the kernels launched inside the named ranges
+    ``name`` (and its backward) in one call of ``fn``, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.key.startswith(name) and e.device_type == torch.autograd.DeviceType.CPU:
+            device_us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+            print(f"[timing] {label}: range {e.key!r}, {e.count} calls, its kernels {device_us / 1e3:.3f} ms of device "
+                  f"time, host {e.cpu_time_total / 1e3:.3f} ms ({card})", flush=True)
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, str(REPO))
@@ -2000,6 +2562,8 @@ def main() -> int:
     errs.update(cs_errs)
     lane_errs, blocked_timings = phase_blocked_kernels(card)
     errs.update({LANE[k]: v for k, v in lane_errs.items()})
+    atlas_errs, atlas_inputs = phase_atlas_kernels()
+    errs.update({ATLAS[k]: v for k, v in atlas_errs.items()})
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(phase_main_path(Path(tmp)))
         launches.update(phase_smooth_main(Path(tmp)))
@@ -2009,12 +2573,14 @@ def main() -> int:
         launches.update(phase_big_main(Path(tmp)))
         launches.update(phase_cs_main(Path(tmp)))
         c5_launches = phase_c5_main(Path(tmp))
+        launches.update(phase_tex_main(Path(tmp)))
     launches.update({k: v for k, v in c5_launches.items() if k in LANE.values()})
     phase_cs_golden()
     timings.update(phase_timing(card))
     timings.update(phase_big_timing(card, big_inputs))
     timings.update(phase_cs_timing(card, cs_record))
     phase_c5_timing(card)
+    timings.update(phase_atlas_timing(card, atlas_inputs))
     lane_timing = next(t for label, t in blocked_timings.items() if label.startswith(f"random_spheres({LANE_SPHERES})"))
     timings.update({LANE[k]: lane_timing[k] for k in STEP})
     kernels = [
@@ -2027,7 +2593,7 @@ def main() -> int:
             "max_abs_err": errs[name],
             **timings[name],
         }
-        for name in HARD + SMOOTH + CULLED + SWEEPS + CS + tuple(LANE.values())
+        for name in HARD + SMOOTH + CULLED + SWEEPS + CS + tuple(LANE.values()) + tuple(ATLAS.values())
     ]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -29,20 +29,18 @@ import numpy as np
 import torch
 
 
-# The built-in scenes (the JAX CLI's names), and those that wait for a port.
+# The built-in scenes (the JAX CLI's names).
 BUILTINS = {
     "reference": "reference_scene",
     "all_effects": "all_effects_scene",
     "random1024": "random_spheres_scene",
+    "textured1024": "textured_spheres_scene",
     "inverse64": "inverse_task_scene",
-}
-_WAITING = {
-    "textured1024": "image-texture atlases (models.scenes.textured_spheres_scene, ops.shading.texture_color)",
 }
 
 
 def _add_render_opts(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--builtin", type=str, default="reference", choices=sorted(BUILTINS) + sorted(_WAITING))
+    p.add_argument("--builtin", type=str, default="reference", choices=sorted(BUILTINS))
     p.add_argument("--width", type=int, default=960)
     p.add_argument("--height", type=int, default=540)
     p.add_argument(
@@ -83,10 +81,6 @@ def _build(args, device: torch.device):
         stochastic_roughness=args.stochastic_roughness,
         rng_seed=args.seed,
     )
-    if args.builtin in _WAITING:
-        raise NotImplementedError(
-            f"--builtin {args.builtin}: not ported yet, waits for {_WAITING[args.builtin]} of python_ray_tracer_tpu"
-        )
     make = getattr(builtin, BUILTINS[args.builtin])
     scene = make(width=args.width, height=args.height, dtype=dtype, device=device)
     if depth_auto:

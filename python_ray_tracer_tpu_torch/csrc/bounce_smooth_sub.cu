@@ -24,13 +24,17 @@
 // bounce: the same bounce up to float order, which smooth_fwd_step and
 // smooth_bwd_step take over there.  None of the five has a sphere cap.
 // All five share fwd_bounce() (the TPU kernels' _FwdSub, :227, unrolled
-// mode) and adjoint_bounce() (_adjoint_bounce, :578), no atlas, from
-// smooth_math.cuh, with the winner swept or saved and every sphere in the
-// shadow loops; the warp partials below are their sink.  Each is
-// instantiated twice: with the mirror continuation, and with the stochastic
-// glossy one (kXi; :497-538 forward, :610-657 adjoint), whose uniforms xi
-// come from the wrapper on the JAX package's seed schedule.  The plain
-// PyTorch versions are in ops/bounce_smooth_sub.py (fwd_sub_math,
+// mode) and adjoint_bounce() (_adjoint_bounce, :578) from smooth_math.cuh,
+// with the winner swept or saved and every sphere in the shadow loops; the
+// warp partials below are their sink.  Each is instantiated with the mirror
+// continuation and with the stochastic glossy one (kXi; :497-538 forward,
+// :610-657 adjoint), whose uniforms xi come from the wrapper on the JAX
+// package's seed schedule.  All but train_deep (which the JAX package keeps
+// off atlas scenes) also have an atlas mode (kAtlas): the forward kernels
+// write each bounce's flat texel ids and dww weights, (depth, N) or (N,),
+// the backward ones take their cotangent g_dww, and the wrapper composes
+// the texels between the launches (ops/texture.py compose_texels).  The
+// plain PyTorch versions are in ops/bounce_smooth_sub.py (fwd_sub_math,
 // adjoint_bounce) and evaluate the same expressions in the same order.
 //
 // What bounds them on this card: per ray and bounce, S winner and S shadow
@@ -184,14 +188,15 @@ __device__ __forceinline__ void load_xi(const T* xi, int dep, long long N, long 
   xi2 = kXi ? xi[(2 * dep + 1) * N + i] : T(0);
 }
 
-template <typename T, bool kXi, bool kStaged>
+template <typename T, bool kXi, bool kStaged, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     smooth_fwd_deep(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ geom,
                     const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
                     T* __restrict__ acc,
                     T* __restrict__ osave, T* __restrict__ dsave, T* __restrict__ thrsave,
                     T* __restrict__ alivesave, int* __restrict__ idx_out, T* __restrict__ hit_out,
-                    T* __restrict__ clear_out, int n, int depth, Scal<T> sc) {
+                    T* __restrict__ clear_out, int* __restrict__ flat_out, T* __restrict__ dww_out, int n, int depth,
+                    Scal<T> sc) {
   const Tables<T, kStaged> tb = stage_tables<T, kStaged>(geom, cst, sc.s_total);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -212,8 +217,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     T xi1, xi2;
     load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
-    fwd_bounce<T, kXi, Winner::kSweep>(f, ro, rd, thr, alive, tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1, xi2);
+    fwd_bounce<T, kXi, Winner::kSweep, kAtlas>(f, ro, rd, thr, alive, tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1,
+                                               xi2);
     for (int c = 0; c < 3; ++c) a[c] = a[c] + f.color[c] * f.w;
+    if constexpr (kAtlas) {
+      flat_out[dep * N + i] = f.flat;
+      dww_out[dep * N + i] = f.dww;
+    }
     idx_out[dep * N + i] = f.idx;
     hit_out[dep * N + i] = f.hit ? T(1) : T(0);
     clear_out[dep * N + i] = f.clear;
@@ -227,14 +237,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // Reverse adjoint chain from the residuals, one ray-warp after another
 // (for_ray_warps).
-template <typename T, bool kXi, bool kStaged>
+template <typename T, bool kXi, bool kStaged, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     smooth_bwd_deep(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ osave,
                     const T* __restrict__ dsave, const T* __restrict__ thrsave,
                     const T* __restrict__ alivesave, const int* __restrict__ idx_in,
                     const T* __restrict__ hit_in, const T* __restrict__ clear_in, const T* __restrict__ geom,
                     const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
-                    const T* __restrict__ g_acc_in,
+                    const T* __restrict__ g_acc_in, const T* __restrict__ g_dww_in,
                     T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ parts, int n, int n_cols,
                     int depth, Scal<T> sc) {
   const Tables<T, kStaged> tb = stage_tables<T, kStaged>(geom, cst, sc.s_total);
@@ -265,8 +275,11 @@ __global__ void __launch_bounds__(kThreads)
       f.clear = clear_in[dep * N + i];
       T xi1, xi2;
       load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
-      fwd_bounce<T, kXi, Winner::kSaved>(f, ro, rd, thr, alive, tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1, xi2);
-      adjoint_bounce<T, kXi>(f, g_o, g_d, g_thr, g_alive, g_acc, tb.geom, tb.cst, sc, AllSpheres{}, part);
+      fwd_bounce<T, kXi, Winner::kSaved, kAtlas>(f, ro, rd, thr, alive, tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1,
+                                                 xi2);
+      const T g_dww = kAtlas ? g_dww_in[dep * N + i] : T(0);
+      adjoint_bounce<T, kXi, kAtlas>(f, g_o, g_d, g_thr, g_alive, g_acc, tb.geom, tb.cst, sc, AllSpheres{}, part,
+                                     g_dww);
     }
     if (part.valid) {
       for (int c = 0; c < 3; ++c) {
@@ -352,14 +365,15 @@ __global__ void __launch_bounds__(kThreads)
 // lane kernel _fwd_kernel of pallas_bounce_smooth.py): the state (o, d,
 // thr, alive, acc) in, the next state and the bounce's residuals (idx, hit,
 // clear) out.
-template <typename T, bool kXi, bool kStaged>
+template <typename T, bool kXi, bool kStaged, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     smooth_fwd_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
                     const T* __restrict__ alive, const T* __restrict__ acc, const T* __restrict__ geom,
                     const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
                     T* __restrict__ o_out, T* __restrict__ d_out, T* __restrict__ thr_out,
                     T* __restrict__ alive_out, T* __restrict__ acc_out, int* __restrict__ idx_out,
-                    T* __restrict__ hit_out, T* __restrict__ clear_out, int n, Scal<T> sc) {
+                    T* __restrict__ hit_out, T* __restrict__ clear_out, int* __restrict__ flat_out,
+                    T* __restrict__ dww_out, int n, Scal<T> sc) {
   const Tables<T, kStaged> tb = stage_tables<T, kStaged>(geom, cst, sc.s_total);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -369,7 +383,12 @@ __global__ void __launch_bounds__(kThreads)
   T xi1, xi2;
   load_xi<T, kXi>(xi, 0, N, i, xi1, xi2);
   Fwd<T> f;
-  fwd_bounce<T, kXi, Winner::kSweep>(f, ro, rd, thr[i], alive[i], tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1, xi2);
+  fwd_bounce<T, kXi, Winner::kSweep, kAtlas>(f, ro, rd, thr[i], alive[i], tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1,
+                                             xi2);
+  if constexpr (kAtlas) {
+    flat_out[i] = f.flat;
+    dww_out[i] = f.dww;
+  }
   for (int c = 0; c < 3; ++c) {
     acc_out[c * N + i] = acc[c * N + i] + f.color[c] * f.w;
     o_out[c * N + i] = f.p_n[c];
@@ -386,14 +405,15 @@ __global__ void __launch_bounds__(kThreads)
 // the bounce from its inputs and residuals, takes the cotangents of all
 // five outputs and writes those of (o, d, thr, alive); acc's passes through
 // and is the caller's.  One ray-warp after another (for_ray_warps).
-template <typename T, bool kXi, bool kStaged>
+template <typename T, bool kXi, bool kStaged, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     smooth_bwd_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
                     const T* __restrict__ alive, const int* __restrict__ idx, const T* __restrict__ hit,
                     const T* __restrict__ clear, const T* __restrict__ geom, const T* __restrict__ mat,
                     const T* __restrict__ cst, const T* __restrict__ xi, const T* __restrict__ g_o_in,
                     const T* __restrict__ g_d_in, const T* __restrict__ g_thr_in,
-                    const T* __restrict__ g_alive_in, const T* __restrict__ g_acc_in, T* __restrict__ g_o_out,
+                    const T* __restrict__ g_alive_in, const T* __restrict__ g_acc_in,
+                    const T* __restrict__ g_dww_in, T* __restrict__ g_o_out,
                     T* __restrict__ g_d_out, T* __restrict__ g_thr_out, T* __restrict__ g_alive_out,
                     T* __restrict__ parts, int n, int n_cols, Scal<T> sc) {
   const Tables<T, kStaged> tb = stage_tables<T, kStaged>(geom, cst, sc.s_total);
@@ -407,13 +427,14 @@ __global__ void __launch_bounds__(kThreads)
     f.idx = idx[i];
     f.hit = hit[i] != T(0);
     f.clear = clear[i];
-    fwd_bounce<T, kXi, Winner::kSaved>(f, ro, rd, thr[i], alive[i], tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1,
-                                       xi2);
+    fwd_bounce<T, kXi, Winner::kSaved, kAtlas>(f, ro, rd, thr[i], alive[i], tb.geom, mat, tb.cst, sc, AllSpheres{},
+                                               xi1, xi2);
     V3<T> g_o = {g_o_in[i], g_o_in[N + i], g_o_in[2 * N + i]};
     V3<T> g_d = {g_d_in[i], g_d_in[N + i], g_d_in[2 * N + i]};
     T g_thr = g_thr_in[i], g_alive = g_alive_in[i];
     const V3<T> g_acc = {g_acc_in[i], g_acc_in[N + i], g_acc_in[2 * N + i]};
-    adjoint_bounce<T, kXi>(f, g_o, g_d, g_thr, g_alive, g_acc, tb.geom, tb.cst, sc, AllSpheres{}, part);
+    const T g_dww = kAtlas ? g_dww_in[i] : T(0);
+    adjoint_bounce<T, kXi, kAtlas>(f, g_o, g_d, g_thr, g_alive, g_acc, tb.geom, tb.cst, sc, AllSpheres{}, part, g_dww);
     if (part.valid) {
       for (int c = 0; c < 3; ++c) {
         g_o_out[c * N + i] = g_o[c];
@@ -492,27 +513,51 @@ int launch_reduce(int err, const T* parts, T* flat, int n_cols, int s_total, cud
              ? launch_one<T, true>(KERNEL<T, false, true>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)    \
              : launch_one<T, false>(KERNEL<T, false, false>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)))
 
+// The same for a kernel with an atlas mode: ATLAS (the flat-id pointer, or
+// the g_dww one) non-null launches that instantiation.
+#define PRT_DISPATCH_ATLAS(KERNEL, T, ATLAS, BLOCKS, S_TOTAL, STREAM, ...)                                    \
+  (xi ? (staged<T>(S_TOTAL)                                                                                \
+             ? (ATLAS ? launch_one<T, true>(KERNEL<T, true, true, true>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)    \
+                      : launch_one<T, true>(KERNEL<T, true, true, false>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__))   \
+             : (ATLAS ? launch_one<T, false>(KERNEL<T, true, false, true>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)  \
+                      : launch_one<T, false>(KERNEL<T, true, false, false>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)))\
+      : (staged<T>(S_TOTAL)                                                                                \
+             ? (ATLAS ? launch_one<T, true>(KERNEL<T, false, true, true>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)   \
+                      : launch_one<T, true>(KERNEL<T, false, true, false>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__))  \
+             : (ATLAS ? launch_one<T, false>(KERNEL<T, false, false, true>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__) \
+                      : launch_one<T, false>(KERNEL<T, false, false, false>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__))))
+
+// An atlas-mode launch needs both its pointers and the slot extents.
+bool bad_atlas(const void* a, const void* b, int tex_h, int tex_w) {
+  return a && (!b || tex_h < 1 || tex_w < 1);
+}
+
 template <typename T>
 int launch_fwd(const T* o, const T* d, const T* geom, const T* mat, const T* cst, const T* xi, T* acc, T* osave,
-               T* dsave, T* thrsave, T* alivesave, int* idx, T* hit, T* clear, int n, int s_cheap, int s_total,
-               int depth, T faraway, T sharp_e, T sharp_s, void* stream) {
-  if (bad_args(n, s_cheap, s_total, depth)) return static_cast<int>(cudaErrorInvalidValue);
-  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
-  return PRT_DISPATCH(smooth_fwd_deep, T, ray_blocks(n), s_total, static_cast<cudaStream_t>(stream), o, d, geom,
-                      mat, cst, xi, acc, osave, dsave, thrsave, alivesave, idx, hit, clear, n, depth, sc);
+               T* dsave, T* thrsave, T* alivesave, int* idx, T* hit, T* clear, int* flat, T* dww, int n, int s_cheap,
+               int s_total, int depth, T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total, depth) || bad_atlas(flat, dww, tex_h, tex_w)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
+  return PRT_DISPATCH_ATLAS(smooth_fwd_deep, T, flat, ray_blocks(n), s_total, static_cast<cudaStream_t>(stream), o,
+                            d, geom, mat, cst, xi, acc, osave, dsave, thrsave, alivesave, idx, hit, clear, flat, dww,
+                            n, depth, sc);
 }
 
 template <typename T>
 int launch_bwd(const T* o, const T* d, const T* osave, const T* dsave, const T* thrsave, const T* alivesave,
                const int* idx, const T* hit, const T* clear, const T* geom, const T* mat, const T* cst, const T* xi,
-               const T* g_acc, T* g_o, T* g_d, T* parts, T* flat, int n, int n_cols, int s_cheap, int s_total,
-               int depth, T faraway, T sharp_e, T sharp_s, void* stream) {
-  if (bad_args(n, s_cheap, s_total, depth) || bad_cols(n, n_cols)) return static_cast<int>(cudaErrorInvalidValue);
-  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
+               const T* g_acc, const T* g_dww, T* g_o, T* g_d, T* parts, T* flat, int n, int n_cols, int s_cheap,
+               int s_total, int depth, T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total, depth) || bad_cols(n, n_cols) || bad_atlas(g_dww, g_dww, tex_h, tex_w)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = PRT_DISPATCH(smooth_bwd_deep, T, col_blocks(n_cols), s_total, st, o, d, osave, dsave, thrsave,
-                               alivesave, idx, hit, clear, geom, mat, cst, xi, g_acc, g_o, g_d, parts, n, n_cols,
-                               depth, sc);
+  const int err = PRT_DISPATCH_ATLAS(smooth_bwd_deep, T, g_dww, col_blocks(n_cols), s_total, st, o, d, osave, dsave,
+                                     thrsave, alivesave, idx, hit, clear, geom, mat, cst, xi, g_acc, g_dww, g_o, g_d,
+                                     parts, n, n_cols, depth, sc);
   return launch_reduce(err, parts, flat, n_cols, s_total, st);
 }
 
@@ -533,31 +578,36 @@ int launch_train(const T* o, const T* d, const T* tgt, const T* geom, const T* m
 template <typename T>
 int launch_fwd_step(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const T* geom,
                     const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, T* thr_out, T* alive_out,
-                    T* acc_out, int* idx, T* hit, T* clear, int n, int s_cheap, int s_total, T faraway, T sharp_e,
-                    T sharp_s, void* stream) {
-  if (bad_args(n, s_cheap, s_total, 1)) return static_cast<int>(cudaErrorInvalidValue);
-  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
-  return PRT_DISPATCH(smooth_fwd_step, T, ray_blocks(n), s_total, static_cast<cudaStream_t>(stream), o, d, thr,
-                      alive, acc, geom, mat, cst, xi, o_out, d_out, thr_out, alive_out, acc_out, idx, hit, clear, n,
-                      sc);
+                    T* acc_out, int* idx, T* hit, T* clear, int* flat, T* dww, int n, int s_cheap, int s_total,
+                    T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total, 1) || bad_atlas(flat, dww, tex_h, tex_w)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
+  return PRT_DISPATCH_ATLAS(smooth_fwd_step, T, flat, ray_blocks(n), s_total, static_cast<cudaStream_t>(stream), o,
+                            d, thr, alive, acc, geom, mat, cst, xi, o_out, d_out, thr_out, alive_out, acc_out, idx,
+                            hit, clear, flat, dww, n, sc);
 }
 
 template <typename T>
 int launch_bwd_step(const T* o, const T* d, const T* thr, const T* alive, const int* idx, const T* hit,
                     const T* clear, const T* geom, const T* mat, const T* cst, const T* xi, const T* g_o,
-                    const T* g_d, const T* g_thr, const T* g_alive, const T* g_acc, T* g_o_out, T* g_d_out,
-                    T* g_thr_out, T* g_alive_out, T* parts, T* flat, int n, int n_cols, int s_cheap, int s_total,
-                    T faraway, T sharp_e, T sharp_s, void* stream) {
-  if (bad_args(n, s_cheap, s_total, 1) || bad_cols(n, n_cols)) return static_cast<int>(cudaErrorInvalidValue);
-  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
+                    const T* g_d, const T* g_thr, const T* g_alive, const T* g_acc, const T* g_dww, T* g_o_out,
+                    T* g_d_out, T* g_thr_out, T* g_alive_out, T* parts, T* flat, int n, int n_cols, int s_cheap,
+                    int s_total, T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total, 1) || bad_cols(n, n_cols) || bad_atlas(g_dww, g_dww, tex_h, tex_w)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = PRT_DISPATCH(smooth_bwd_step, T, col_blocks(n_cols), s_total, st, o, d, thr, alive, idx, hit,
-                               clear, geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_o_out, g_d_out,
-                               g_thr_out, g_alive_out, parts, n, n_cols, sc);
+  const int err = PRT_DISPATCH_ATLAS(smooth_bwd_step, T, g_dww, col_blocks(n_cols), s_total, st, o, d, thr, alive,
+                                     idx, hit, clear, geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_dww,
+                                     g_o_out, g_d_out, g_thr_out, g_alive_out, parts, n, n_cols, sc);
   return launch_reduce(err, parts, flat, n_cols, s_total, st);
 }
 
 #undef PRT_DISPATCH
+#undef PRT_DISPATCH_ATLAS
 
 // Resident blocks per SM of a kernel's instantiation for a table size, or a
 // negative CUDA error.
@@ -573,15 +623,19 @@ template <typename T, bool kXi> int occupancy_xi(int which, int s_total) {
   const bool is_staged = staged<T>(s_total);
 #define PRT_OCC(KERNEL) \
   (is_staged ? blocks_per_sm<T, true>(KERNEL<T, kXi, true>, s_total) : blocks_per_sm<T, false>(KERNEL<T, kXi, false>, s_total))
+#define PRT_OCC4(KERNEL) \
+  (is_staged ? blocks_per_sm<T, true>(KERNEL<T, kXi, true, false>, s_total) \
+             : blocks_per_sm<T, false>(KERNEL<T, kXi, false, false>, s_total))
   switch (which) {
-    case 0: return PRT_OCC(smooth_fwd_deep);
-    case 1: return PRT_OCC(smooth_bwd_deep);
+    case 0: return PRT_OCC4(smooth_fwd_deep);
+    case 1: return PRT_OCC4(smooth_bwd_deep);
     case 2: return PRT_OCC(train_deep);
-    case 3: return PRT_OCC(smooth_fwd_step);
-    case 4: return PRT_OCC(smooth_bwd_step);
+    case 3: return PRT_OCC4(smooth_fwd_step);
+    case 4: return PRT_OCC4(smooth_bwd_step);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PRT_OCC
+#undef PRT_OCC4
 }
 
 }  // namespace
@@ -597,19 +651,22 @@ extern "C" {
 #define PRT_SMOOTH_ENTRIES(T, SUFFIX)                                                                          \
   int prt_smooth_fwd_deep_##SUFFIX(const T* o, const T* d, const T* geom, const T* mat, const T* cst,           \
                                    const T* xi, T* acc, T* osave, T* dsave, T* thrsave, T* alivesave, int* idx, \
-                                   T* hit, T* clear, int n, int s_cheap, int s_total, int depth, T faraway,     \
-                                   T sharp_e, T sharp_s, void* stream) {                                       \
-    return launch_fwd<T>(o, d, geom, mat, cst, xi, acc, osave, dsave, thrsave, alivesave, idx, hit, clear, n, \
-                         s_cheap, s_total, depth, faraway, sharp_e, sharp_s, stream);                          \
+                                   T* hit, T* clear, int* tflat, T* dww, int n, int s_cheap, int s_total,       \
+                                   int depth, T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w,           \
+                                   void* stream) {                                                             \
+    return launch_fwd<T>(o, d, geom, mat, cst, xi, acc, osave, dsave, thrsave, alivesave, idx, hit, clear,    \
+                         tflat, dww, n, s_cheap, s_total, depth, faraway, sharp_e, sharp_s, tex_h, tex_w,      \
+                         stream);                                                                              \
   }                                                                                                            \
   int prt_smooth_bwd_deep_##SUFFIX(const T* o, const T* d, const T* osave, const T* dsave, const T* thrsave,   \
                                    const T* alivesave, const int* idx, const T* hit, const T* clear,           \
                                    const T* geom, const T* mat, const T* cst, const T* xi, const T* g_acc,     \
-                                   T* g_o, T* g_d, T* parts, T* flat, int n, int n_cols, int s_cheap,          \
-                                   int s_total, int depth, T faraway, T sharp_e, T sharp_s, void* stream) {    \
+                                   const T* g_dww, T* g_o, T* g_d, T* parts, T* flat, int n, int n_cols,       \
+                                   int s_cheap, int s_total, int depth, T faraway, T sharp_e, T sharp_s,       \
+                                   int tex_h, int tex_w, void* stream) {                                       \
     return launch_bwd<T>(o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, cst, xi, g_acc,  \
-                         g_o, g_d, parts, flat, n, n_cols, s_cheap, s_total, depth, faraway, sharp_e, sharp_s, \
-                         stream);                                                                              \
+                         g_dww, g_o, g_d, parts, flat, n, n_cols, s_cheap, s_total, depth, faraway, sharp_e,   \
+                         sharp_s, tex_h, tex_w, stream);                                                       \
   }                                                                                                            \
   int prt_train_deep_##SUFFIX(const T* o, const T* d, const T* tgt, const T* geom, const T* mat, const T* cst, \
                               const T* xi, T* g_o, T* g_d, T* parts, T* flat, int n, int n_cols, int s_cheap,  \
@@ -619,21 +676,23 @@ extern "C" {
   }                                                                                                            \
   int prt_smooth_fwd_step_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const T* acc,         \
                                    const T* geom, const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, \
-                                   T* thr_out, T* alive_out, T* acc_out, int* idx, T* hit, T* clear, int n,    \
-                                   int s_cheap, int s_total, T faraway, T sharp_e, T sharp_s, void* stream) {  \
+                                   T* thr_out, T* alive_out, T* acc_out, int* idx, T* hit, T* clear,          \
+                                   int* tflat, T* dww, int n, int s_cheap, int s_total, T faraway, T sharp_e,  \
+                                   T sharp_s, int tex_h, int tex_w, void* stream) {                            \
     return launch_fwd_step<T>(o, d, thr, alive, acc, geom, mat, cst, xi, o_out, d_out, thr_out, alive_out,    \
-                              acc_out, idx, hit, clear, n, s_cheap, s_total, faraway, sharp_e, sharp_s,        \
-                              stream);                                                                         \
+                              acc_out, idx, hit, clear, tflat, dww, n, s_cheap, s_total, faraway, sharp_e,     \
+                              sharp_s, tex_h, tex_w, stream);                                                  \
   }                                                                                                            \
   int prt_smooth_bwd_step_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const int* idx,       \
                                    const T* hit, const T* clear, const T* geom, const T* mat, const T* cst,    \
                                    const T* xi, const T* g_o, const T* g_d, const T* g_thr,                    \
-                                   const T* g_alive, const T* g_acc, T* g_o_out, T* g_d_out, T* g_thr_out,     \
-                                   T* g_alive_out, T* parts, T* flat, int n, int n_cols, int s_cheap,          \
-                                   int s_total, T faraway, T sharp_e, T sharp_s, void* stream) {               \
+                                   const T* g_alive, const T* g_acc, const T* g_dww, T* g_o_out, T* g_d_out,   \
+                                   T* g_thr_out, T* g_alive_out, T* parts, T* flat, int n, int n_cols,         \
+                                   int s_cheap, int s_total, T faraway, T sharp_e, T sharp_s, int tex_h,       \
+                                   int tex_w, void* stream) {                                                  \
     return launch_bwd_step<T>(o, d, thr, alive, idx, hit, clear, geom, mat, cst, xi, g_o, g_d, g_thr,         \
-                              g_alive, g_acc, g_o_out, g_d_out, g_thr_out, g_alive_out, parts, flat, n,        \
-                              n_cols, s_cheap, s_total, faraway, sharp_e, sharp_s, stream);                    \
+                              g_alive, g_acc, g_dww, g_o_out, g_d_out, g_thr_out, g_alive_out, parts, flat, n, \
+                              n_cols, s_cheap, s_total, faraway, sharp_e, sharp_s, tex_h, tex_w, stream);      \
   }                                                                                                            \
   int prt_smooth_blocks_per_sm_##SUFFIX(int which, int glossy, int s_total) {                                  \
     return glossy ? occupancy_xi<T, true>(which, s_total) : occupancy_xi<T, false>(which, s_total);           \

@@ -7,13 +7,17 @@
 //   _bounce_kernel_sub     (:382, launched at :604) -> bounce_step
 //       one bounce per launch; state goes in and out.
 // Both run bounce(): the TPU kernel body _bounce_math (:179-379) with
-// parts="full" and no texture atlas, deterministic or with the stochastic
-// glossy continuation (:353-376): given xi, the kernel reflects about a
-// GGX-sampled microfacet instead of the normal.  xi comes from the wrapper
-// (ops/rng.py, the JAX package's seed schedule), (2 * depth, N) for
-// trace_deep and (2, N) for bounce_step; each kernel is instantiated with
-// and without it, so the deterministic build is unchanged.  The plain
-// PyTorch versions sit in ops/bounce_sub.py (bounce_math).
+// parts="full", deterministic or with the stochastic glossy continuation
+// (:353-376): given xi, the kernel reflects about a GGX-sampled microfacet
+// instead of the normal.  xi comes from the wrapper (ops/rng.py, the JAX
+// package's seed schedule), (2 * depth, N) for trace_deep and (2, N) for
+// bounce_step.  The atlas mode (kAtlas, :277-302) writes each bounce's flat
+// texel id and dww = diffuse weight x path weight of its image lanes,
+// (depth, N) for trace_deep and (N,) for bounce_step, and zeroes their
+// in-kernel diffuse texture; the wrapper composes the texels after the
+// launch (ops/texture.py compose_texels).  Each kernel is instantiated for
+// every (kXi, kAtlas), so the deterministic no-atlas build is unchanged.
+// The plain PyTorch versions sit in ops/bounce_sub.py (bounce_math).
 //
 // What bounds it on this card: a ray reads 24 B (origin + direction, f32)
 // and writes 12 B (acc), against S * 2 * depth quadratic solves (nearest and
@@ -70,11 +74,12 @@ __device__ __forceinline__ V3<T> ggx_continuation(const V3<T>& d, const V3<T>& n
 
 // One hard bounce (_bounce_math, parts="full"): updates o, d, thr, alive in
 // place and returns the color it adds to acc.  kXi: glossy continuation
-// from (xi1, xi2).
-template <typename T, bool kXi>
+// from (xi1, xi2).  kAtlas: flat and dww get the lane's texel id and weight
+// (atlas slots tex_h x tex_w).
+template <typename T, bool kXi, bool kAtlas>
 __device__ __forceinline__ V3<T> bounce(V3<T>& o, V3<T>& d, T& thr, T& alive, const T* geom,
                                         const T* mat, const T* cst, int s_cheap, int s_total,
-                                        T faraway, T xi1, T xi2) {
+                                        T faraway, T xi1, T xi2, int tex_h, int tex_w, int& flat, T& dww) {
   // Nearest-hit sweep: strict <, so the lowest index wins ties.
   T tmin = faraway;
   int idx = 0;
@@ -112,7 +117,12 @@ __device__ __forceinline__ V3<T> bounce(V3<T>& o, V3<T>& d, T& thr, T& alive, co
   }
   const T in_light = t_self <= t_others ? T(1) : T(0);
 
-  const V3<T> color = shade_color(p, normal, to_light, to_cam, in_light, m, cst);
+  TexHit<T> th;
+  const V3<T> color = shade_color_tex<T, kAtlas>(p, normal, to_light, to_cam, in_light, m, cst, tex_h, tex_w, th);
+  if constexpr (kAtlas) {
+    flat = th.flat;
+    dww = th.is_image ? th.diffuse_w * thr * coverage : T(0);
+  }
 
   const T w = thr * coverage;
   const T refl_coeff = T(0.5) * m[SG] * in_light;
@@ -138,11 +148,12 @@ __device__ __forceinline__ void stage_tables(T* s_geom, T* s_mat, T* s_cst, cons
   __syncthreads();
 }
 
-template <typename T, bool kXi>
+template <typename T, bool kXi, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     trace_deep(const T* __restrict__ o, const T* __restrict__ d, T* __restrict__ acc, int n,
                const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst,
-               const T* __restrict__ xi, int s_cheap, int s_total, int depth, T faraway) {
+               const T* __restrict__ xi, int* __restrict__ flat_out, T* __restrict__ dww_out, int s_cheap,
+               int s_total, int depth, T faraway, int tex_h, int tex_w) {
   __shared__ T s_geom[kMaxSpheres * 4];
   __shared__ T s_mat[kMaxSpheres * kMatCols];
   __shared__ T s_cst[kNConst];
@@ -159,23 +170,30 @@ __global__ void __launch_bounds__(kThreads)
   for (int dep = 0; dep < depth; ++dep) {
     const T xi1 = kXi ? xi[2 * dep * stride + i] : T(0);
     const T xi2 = kXi ? xi[(2 * dep + 1) * stride + i] : T(0);
-    const V3<T> add =
-        bounce<T, kXi>(ro, rd, thr, alive, s_geom, s_mat, s_cst, s_cheap, s_total, faraway, xi1, xi2);
+    int flat;
+    T dww;
+    const V3<T> add = bounce<T, kXi, kAtlas>(ro, rd, thr, alive, s_geom, s_mat, s_cst, s_cheap, s_total, faraway,
+                                             xi1, xi2, tex_h, tex_w, flat, dww);
     a = {a.x + add.x, a.y + add.y, a.z + add.z};
+    if constexpr (kAtlas) {
+      flat_out[dep * stride + i] = flat;
+      dww_out[dep * stride + i] = dww;
+    }
   }
   acc[i] = a.x;
   acc[stride + i] = a.y;
   acc[2 * stride + i] = a.z;
 }
 
-template <typename T, bool kXi>
+template <typename T, bool kXi, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     bounce_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
                 const T* __restrict__ alive, const T* __restrict__ acc, T* __restrict__ o_out,
                 T* __restrict__ d_out, T* __restrict__ thr_out, T* __restrict__ alive_out,
                 T* __restrict__ acc_out, int n, const T* __restrict__ geom,
                 const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
-                int s_cheap, int s_total, T faraway) {
+                int* __restrict__ flat_out, T* __restrict__ dww_out, int s_cheap, int s_total, T faraway,
+                int tex_h, int tex_w) {
   __shared__ T s_geom[kMaxSpheres * 4];
   __shared__ T s_mat[kMaxSpheres * kMatCols];
   __shared__ T s_cst[kNConst];
@@ -190,7 +208,14 @@ __global__ void __launch_bounds__(kThreads)
   T al = alive[i];
   const T xi1 = kXi ? xi[i] : T(0);
   const T xi2 = kXi ? xi[stride + i] : T(0);
-  const V3<T> add = bounce<T, kXi>(ro, rd, t, al, s_geom, s_mat, s_cst, s_cheap, s_total, faraway, xi1, xi2);
+  int flat;
+  T dww;
+  const V3<T> add = bounce<T, kXi, kAtlas>(ro, rd, t, al, s_geom, s_mat, s_cst, s_cheap, s_total, faraway, xi1, xi2,
+                                           tex_h, tex_w, flat, dww);
+  if constexpr (kAtlas) {
+    flat_out[i] = flat;
+    dww_out[i] = dww;
+  }
   o_out[i] = ro.x;
   o_out[stride + i] = ro.y;
   o_out[2 * stride + i] = ro.z;
@@ -210,40 +235,47 @@ bool bad_args(int n, int s_cheap, int s_total) {
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-// xi == nullptr launches the deterministic instantiation.
+// xi == nullptr launches the deterministic instantiation, flat_out ==
+// nullptr the one without an atlas.
+#define PRT_DISPATCH(KERNEL, T, ...)                                                  \
+  if (xi && flat_out) {                                                               \
+    KERNEL<T, true, true><<<blocks_for(n), kThreads, 0, st>>>(__VA_ARGS__);           \
+  } else if (xi) {                                                                    \
+    KERNEL<T, true, false><<<blocks_for(n), kThreads, 0, st>>>(__VA_ARGS__);          \
+  } else if (flat_out) {                                                              \
+    KERNEL<T, false, true><<<blocks_for(n), kThreads, 0, st>>>(__VA_ARGS__);          \
+  } else {                                                                            \
+    KERNEL<T, false, false><<<blocks_for(n), kThreads, 0, st>>>(__VA_ARGS__);         \
+  }
+
 template <typename T>
 int launch_trace_deep(const T* o, const T* d, T* acc, const T* geom, const T* mat, const T* cst,
-                      const T* xi, int n, int s_cheap, int s_total, int depth, T faraway, void* stream) {
-  if (bad_args(n, s_cheap, s_total) || depth < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (xi) {
-    trace_deep<T, true><<<blocks_for(n), kThreads, 0, st>>>(o, d, acc, n, geom, mat, cst, xi, s_cheap,
-                                                           s_total, depth, faraway);
-  } else {
-    trace_deep<T, false><<<blocks_for(n), kThreads, 0, st>>>(o, d, acc, n, geom, mat, cst, xi, s_cheap,
-                                                            s_total, depth, faraway);
+                      const T* xi, int* flat_out, T* dww_out, int n, int s_cheap, int s_total, int depth,
+                      T faraway, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total) || depth < 1 || (flat_out && (!dww_out || tex_h < 1 || tex_w < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PRT_DISPATCH(trace_deep, T, o, d, acc, n, geom, mat, cst, xi, flat_out, dww_out, s_cheap, s_total, depth, faraway,
+               tex_h, tex_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bounce_step(const T* o, const T* d, const T* thr, const T* alive, const T* acc,
                        T* o_out, T* d_out, T* thr_out, T* alive_out, T* acc_out, const T* geom,
-                       const T* mat, const T* cst, const T* xi, int n, int s_cheap, int s_total,
-                       T faraway, void* stream) {
-  if (bad_args(n, s_cheap, s_total)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (xi) {
-    bounce_step<T, true><<<blocks_for(n), kThreads, 0, st>>>(o, d, thr, alive, acc, o_out, d_out, thr_out,
-                                                            alive_out, acc_out, n, geom, mat, cst, xi,
-                                                            s_cheap, s_total, faraway);
-  } else {
-    bounce_step<T, false><<<blocks_for(n), kThreads, 0, st>>>(o, d, thr, alive, acc, o_out, d_out, thr_out,
-                                                             alive_out, acc_out, n, geom, mat, cst, xi,
-                                                             s_cheap, s_total, faraway);
+                       const T* mat, const T* cst, const T* xi, int* flat_out, T* dww_out, int n, int s_cheap,
+                       int s_total, T faraway, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total) || (flat_out && (!dww_out || tex_h < 1 || tex_w < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PRT_DISPATCH(bounce_step, T, o, d, thr, alive, acc, o_out, d_out, thr_out, alive_out, acc_out, n, geom, mat, cst,
+               xi, flat_out, dww_out, s_cheap, s_total, faraway, tex_h, tex_w);
   return static_cast<int>(cudaGetLastError());
 }
+
+#undef PRT_DISPATCH
 
 }  // namespace
 
@@ -252,35 +284,25 @@ int launch_bounce_step(const T* o, const T* d, const T* thr, const T* alive, con
 // cudaGetLastError() so the caller can raise on a refused launch.
 extern "C" {
 
-int prt_trace_deep_f32(const float* o, const float* d, float* acc, const float* geom,
-                       const float* mat, const float* cst, const float* xi, int n, int s_cheap,
-                       int s_total, int depth, float faraway, void* stream) {
-  return launch_trace_deep<float>(o, d, acc, geom, mat, cst, xi, n, s_cheap, s_total, depth, faraway, stream);
-}
+#define PRT_HARD_ENTRIES(T, SUFFIX)                                                                            \
+  int prt_trace_deep_##SUFFIX(const T* o, const T* d, T* acc, const T* geom, const T* mat, const T* cst,         \
+                              const T* xi, int* flat, T* dww, int n, int s_cheap, int s_total, int depth,       \
+                              T faraway, int tex_h, int tex_w, void* stream) {                                  \
+    return launch_trace_deep<T>(o, d, acc, geom, mat, cst, xi, flat, dww, n, s_cheap, s_total, depth, faraway,  \
+                                tex_h, tex_w, stream);                                                          \
+  }                                                                                                            \
+  int prt_bounce_step_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const T* acc, T* o_out,    \
+                               T* d_out, T* thr_out, T* alive_out, T* acc_out, const T* geom, const T* mat,     \
+                               const T* cst, const T* xi, int* flat, T* dww, int n, int s_cheap, int s_total,  \
+                               T faraway, int tex_h, int tex_w, void* stream) {                                \
+    return launch_bounce_step<T>(o, d, thr, alive, acc, o_out, d_out, thr_out, alive_out, acc_out, geom, mat,  \
+                                 cst, xi, flat, dww, n, s_cheap, s_total, faraway, tex_h, tex_w, stream);      \
+  }
 
-int prt_trace_deep_f64(const double* o, const double* d, double* acc, const double* geom,
-                       const double* mat, const double* cst, const double* xi, int n, int s_cheap,
-                       int s_total, int depth, double faraway, void* stream) {
-  return launch_trace_deep<double>(o, d, acc, geom, mat, cst, xi, n, s_cheap, s_total, depth, faraway, stream);
-}
+PRT_HARD_ENTRIES(float, f32)
+PRT_HARD_ENTRIES(double, f64)
 
-int prt_bounce_step_f32(const float* o, const float* d, const float* thr, const float* alive,
-                        const float* acc, float* o_out, float* d_out, float* thr_out,
-                        float* alive_out, float* acc_out, const float* geom, const float* mat,
-                        const float* cst, const float* xi, int n, int s_cheap, int s_total,
-                        float faraway, void* stream) {
-  return launch_bounce_step<float>(o, d, thr, alive, acc, o_out, d_out, thr_out, alive_out, acc_out,
-                                   geom, mat, cst, xi, n, s_cheap, s_total, faraway, stream);
-}
-
-int prt_bounce_step_f64(const double* o, const double* d, const double* thr, const double* alive,
-                        const double* acc, double* o_out, double* d_out, double* thr_out,
-                        double* alive_out, double* acc_out, const double* geom, const double* mat,
-                        const double* cst, const double* xi, int n, int s_cheap, int s_total,
-                        double faraway, void* stream) {
-  return launch_bounce_step<double>(o, d, thr, alive, acc, o_out, d_out, thr_out, alive_out,
-                                    acc_out, geom, mat, cst, xi, n, s_cheap, s_total, faraway, stream);
-}
+#undef PRT_HARD_ENTRIES
 
 const char* prt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 

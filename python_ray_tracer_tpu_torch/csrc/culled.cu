@@ -8,7 +8,11 @@
 //       the exact forms; writes t, idx, the hit point and the normal.
 //   _shade_kernel_culled (:691, launched at :1010) -> shade_culled
 //       the candidate shadow sweep, the shading (the winner's material row
-//       gathered by index) and the mirror continuation.
+//       gathered by index) and the mirror continuation.  Its atlas mode
+//       (kAtlas, :830-852) also writes each image lane's flat texel id and
+//       dww = diffuse weight x path weight and zeroes its in-kernel diffuse
+//       texture; the glue composes the texels after the launch, in the
+//       bounce's ray order (ops/texture.py compose_texels).
 // The plain PyTorch versions sit in ops/culled.py (near_culled_plain,
 // shade_culled_plain); so does the glue that builds the candidate lists.
 //
@@ -120,7 +124,7 @@ __device__ __forceinline__ void shadow_take(int sid, int idx, T tk, T& t_others,
   }
 }
 
-template <typename T>
+template <typename T, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     shade_culled(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
                  const T* __restrict__ alive, const T* __restrict__ acc, const T* __restrict__ t_in,
@@ -128,8 +132,9 @@ __global__ void __launch_bounds__(kThreads)
                  const T* __restrict__ tl_in, const T* __restrict__ mat, const int* __restrict__ cand,
                  const int* __restrict__ cnt_cand, const int* __restrict__ cnt_full, const T* __restrict__ geom,
                  const T* __restrict__ cst, T* __restrict__ o_out, T* __restrict__ d_out, T* __restrict__ thr_out,
-                 T* __restrict__ alive_out, T* __restrict__ acc_out, int n, int s_cheap, int s_total,
-                 int tile_rays, int cand_stride, T faraway) {
+                 T* __restrict__ alive_out, T* __restrict__ acc_out, int* __restrict__ flat_out,
+                 T* __restrict__ dww_out, int n, int s_cheap, int s_total, int tile_rays, int cand_stride, T faraway,
+                 int tex_h, int tex_w) {
   const T* s_geom = stage_geom(geom, s_total);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -172,7 +177,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   const T in_light = t_self <= t_others ? T(1) : T(0);
 
-  const V3<T> color = shade_color(p, normal, to_light, to_cam, in_light, m, cst);
+  TexHit<T> th;
+  const V3<T> color = shade_color_tex<T, kAtlas>(p, normal, to_light, to_cam, in_light, m, cst, tex_h, tex_w, th);
+  if constexpr (kAtlas) {
+    flat_out[i] = th.flat;
+    dww_out[i] = th.is_image ? th.diffuse_w * thr[i] * coverage : T(0);
+  }
   const T w = thr[i] * coverage;
   thr_out[i] = w * (T(0.5) * m[SG] * in_light);
   alive_out[i] = alive[i] * hit;
@@ -207,14 +217,18 @@ template <typename T>
 int launch_shade(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const T* t, const int* idx,
                  const T* p_n, const T* nrm, const T* tl, const T* mat, const int* cand, const int* cnt_cand,
                  const int* cnt_full, const T* geom, const T* cst, T* o_out, T* d_out, T* thr_out, T* alive_out,
-                 T* acc_out, int n, int s_cheap, int s_total, int tile_rays, int cand_stride, T faraway,
-                 void* stream) {
-  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride)) return static_cast<int>(cudaErrorInvalidValue);
+                 T* acc_out, int* flat_out, T* dww_out, int n, int s_cheap, int s_total, int tile_rays,
+                 int cand_stride, T faraway, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride) || (flat_out && (!dww_out || tex_h < 1 || tex_w < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int smem = geom_smem<T>(s_total);
-  if (const int err = allow_smem(shade_culled<T>, smem)) return err;
-  shade_culled<T><<<blocks_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = flat_out ? shade_culled<T, true> : shade_culled<T, false>;
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<blocks_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       o, d, thr, alive, acc, t, idx, p_n, nrm, tl, mat, cand, cnt_cand, cnt_full, geom, cst, o_out, d_out,
-      thr_out, alive_out, acc_out, n, s_cheap, s_total, tile_rays, cand_stride, faraway);
+      thr_out, alive_out, acc_out, flat_out, dww_out, n, s_cheap, s_total, tile_rays, cand_stride, faraway, tex_h,
+      tex_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -239,11 +253,11 @@ extern "C" {
                                 const T* t, const int* idx, const T* p_n, const T* nrm, const T* tl,          \
                                 const T* mat, const int* cand, const int* cnt_cand, const int* cnt_full,      \
                                 const T* geom, const T* cst, T* o_out, T* d_out, T* thr_out, T* alive_out,    \
-                                T* acc_out, int n, int s_cheap, int s_total, int tile_rays, int cand_stride,  \
-                                T faraway, void* stream) {                                                   \
+                                T* acc_out, int* flat, T* dww, int n, int s_cheap, int s_total, int tile_rays, \
+                                int cand_stride, T faraway, int tex_h, int tex_w, void* stream) {            \
     return launch_shade<T>(o, d, thr, alive, acc, t, idx, p_n, nrm, tl, mat, cand, cnt_cand, cnt_full, geom, \
-                           cst, o_out, d_out, thr_out, alive_out, acc_out, n, s_cheap, s_total, tile_rays,   \
-                           cand_stride, faraway, stream);                                                    \
+                           cst, o_out, d_out, thr_out, alive_out, acc_out, flat, dww, n, s_cheap, s_total,   \
+                           tile_rays, cand_stride, faraway, tex_h, tex_w, stream);                           \
   }
 
 PRT_NEAR_ENTRY(f32, float)

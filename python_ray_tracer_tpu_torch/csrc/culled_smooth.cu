@@ -16,9 +16,13 @@
 //       its adjoint, Phase C over the same shadow list; ray gradients and
 //       the table gradients (one deterministic second pass, reduce_cs).
 // All three evaluate fwd_bounce/adjoint_bounce of smooth_math.cuh, the
-// bounce of the unculled smooth kernels.  The plain PyTorch versions are in
-// ops/culled_smooth.py (near_cs_plain, fwd_cs_plain, bwd_cs_plain); so is
-// the glue that builds the lists (ops/culled.py candidate_lists).
+// bounce of the unculled smooth kernels.  fwd_cs and bwd_cs have an atlas
+// mode (kAtlas): fwd_cs also writes each image lane's flat texel id and dww,
+// bwd_cs takes their cotangent g_dww; the glue composes the texels right
+// after fwd_cs, in the bounce's ray order (ops/texture.py compose_texels).
+// The plain PyTorch versions are in ops/culled_smooth.py (near_cs_plain,
+// fwd_cs_plain, bwd_cs_plain); so is the glue that builds the lists
+// (ops/culled.py candidate_lists).
 //
 // Exactness (pallas_culled_smooth.py:12-25): a sphere outside a tile's list
 // has sig(sharp * x) == 0 in f32 on every lane of the tile (expf overflows,
@@ -156,14 +160,15 @@ __global__ void __launch_bounds__(kThreads)
   sval_out[i] = (cov_w > T(0) && thr[i] > T(0) && alive[i] > T(0)) ? T(1) : T(0);
 }
 
-template <typename T, bool kXi>
+template <typename T, bool kXi, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     fwd_cs(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr, const T* __restrict__ alive,
            const T* __restrict__ acc, const int* __restrict__ idx, const T* __restrict__ hit,
            const int* __restrict__ cand, const int* __restrict__ cnt, const int* __restrict__ cnt_full,
            const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
            T* __restrict__ o_out, T* __restrict__ d_out, T* __restrict__ thr_out, T* __restrict__ alive_out,
-           T* __restrict__ acc_out, T* __restrict__ clear_out, int n, int tile_rays, int cand_stride, Scal<T> sc) {
+           T* __restrict__ acc_out, T* __restrict__ clear_out, int* __restrict__ flat_out, T* __restrict__ dww_out,
+           int n, int tile_rays, int cand_stride, Scal<T> sc) {
   const T* s_geom = stage_geom_consts(geom, cst, sc.s_total);
   const T* s_cst = s_geom + 4 * sc.s_total;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -175,8 +180,12 @@ __global__ void __launch_bounds__(kThreads)
   f.hit = hit[i] != T(0);
   const T xi1 = kXi ? xi[i] : T(0);
   const T xi2 = kXi ? xi[N + i] : T(0);
-  fwd_bounce<T, kXi, Winner::kKnown>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat, s_cst, sc,
-                                     list, xi1, xi2);
+  fwd_bounce<T, kXi, Winner::kKnown, kAtlas>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat,
+                                             s_cst, sc, list, xi1, xi2);
+  if constexpr (kAtlas) {
+    flat_out[i] = f.flat;
+    dww_out[i] = f.dww;
+  }
   store3(acc_out, N, i, V3<T>{acc[i] + f.color.x * f.w, acc[N + i] + f.color.y * f.w, acc[2 * N + i] + f.color.z * f.w});
   store3(o_out, N, i, f.p_n);
   store3(d_out, N, i, f.dout);
@@ -221,7 +230,7 @@ template <typename T> struct TileSink {
 
 // One CTA per tile; thread t takes rays tile * tile_rays + r * 256 + t.
 // The rows (pg, pm, pc) come zeroed.
-template <typename T, bool kXi>
+template <typename T, bool kXi, bool kAtlas>
 __global__ void __launch_bounds__(kThreads)
     bwd_cs(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr, const T* __restrict__ alive,
            const int* __restrict__ idx, const T* __restrict__ hit, const T* __restrict__ clear,
@@ -229,9 +238,10 @@ __global__ void __launch_bounds__(kThreads)
            const int* __restrict__ cand_a, const int* __restrict__ cnt_a, const int* __restrict__ cnt_af,
            const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
            const T* __restrict__ g_o_in, const T* __restrict__ g_d_in, const T* __restrict__ g_thr_in,
-           const T* __restrict__ g_alive_in, const T* __restrict__ g_acc_in, T* __restrict__ g_o_out,
-           T* __restrict__ g_d_out, T* __restrict__ g_thr_out, T* __restrict__ g_alive_out, T* __restrict__ pg,
-           T* __restrict__ pm, T* __restrict__ pc, int n, int tile_rays, int cand_stride, Scal<T> sc) {
+           const T* __restrict__ g_alive_in, const T* __restrict__ g_acc_in, const T* __restrict__ g_dww_in,
+           T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ g_thr_out, T* __restrict__ g_alive_out,
+           T* __restrict__ pg, T* __restrict__ pm, T* __restrict__ pc, int n, int tile_rays, int cand_stride,
+           Scal<T> sc) {
   const T* s_geom = stage_geom_consts(geom, cst, sc.s_total);
   const T* s_cst = s_geom + 4 * sc.s_total;
   const int tile = blockIdx.x;
@@ -253,12 +263,14 @@ __global__ void __launch_bounds__(kThreads)
     f.clear = clear[i];
     const T xi1 = kXi ? xi[i] : T(0);
     const T xi2 = kXi ? xi[N + i] : T(0);
-    fwd_bounce<T, kXi, Winner::kSaved>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat, s_cst, sc,
-                                       shadow, xi1, xi2);
+    fwd_bounce<T, kXi, Winner::kSaved, kAtlas>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat,
+                                               s_cst, sc, shadow, xi1, xi2);
     V3<T> g_o = load3(g_o_in, N, i);
     V3<T> g_d = load3(g_d_in, N, i);
     T g_thr = g_thr_in[i], g_alive = g_alive_in[i];
-    adjoint_bounce<T, kXi>(f, g_o, g_d, g_thr, g_alive, load3(g_acc_in, N, i), s_geom, s_cst, sc, shadow, sink);
+    const T g_dww = kAtlas ? g_dww_in[i] : T(0);
+    adjoint_bounce<T, kXi, kAtlas>(f, g_o, g_d, g_thr, g_alive, load3(g_acc_in, N, i), s_geom, s_cst, sc, shadow, sink,
+                                   g_dww);
     store3(g_o_out, N, i, g_o);
     store3(g_d_out, N, i, g_d);
     g_thr_out[i] = g_thr;
@@ -369,62 +381,61 @@ int launch_near(const T* o, const T* d, const T* thr, const T* alive, const int*
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch KERNEL's instantiation for the xi pointer (null: the mirror) and
+// ATLAS (null: no atlas).
+#define PRT_CS_LAUNCH(KERNEL, ATLAS, GRID, ...)                                                      \
+  [&]() {                                                                                            \
+    const auto kernel = xi ? (ATLAS ? KERNEL<T, true, true> : KERNEL<T, true, false>)                \
+                           : (ATLAS ? KERNEL<T, false, true> : KERNEL<T, false, false>);             \
+    if (const int err = allow_smem(kernel, smem)) return err;                                        \
+    kernel<<<GRID, kThreads, smem, st>>>(__VA_ARGS__);                                               \
+    return static_cast<int>(cudaGetLastError());                                                     \
+  }()
+
 template <typename T>
 int launch_fwd(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const int* idx, const T* hit,
                const int* cand, const int* cnt, const int* cnt_full, const T* geom, const T* mat, const T* cst,
-               const T* xi, T* o_out, T* d_out, T* thr_out, T* alive_out, T* acc_out, T* clear_out, int n,
-               int s_cheap, int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s,
-               void* stream) {
-  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride)) return static_cast<int>(cudaErrorInvalidValue);
-  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
+               const T* xi, T* o_out, T* d_out, T* thr_out, T* alive_out, T* acc_out, T* clear_out, int* flat_out,
+               T* dww_out, int n, int s_cheap, int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e,
+               T sharp_s, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride) ||
+      (flat_out && (!dww_out || tex_h < 1 || tex_w < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
   const int smem = geom_consts_smem<T>(s_total);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (xi) {
-    if (const int err = allow_smem(fwd_cs<T, true>, smem)) return err;
-    fwd_cs<T, true><<<blocks_for(n), kThreads, smem, st>>>(o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full,
-                                                          geom, mat, cst, xi, o_out, d_out, thr_out, alive_out,
-                                                          acc_out, clear_out, n, tile_rays, cand_stride, sc);
-  } else {
-    if (const int err = allow_smem(fwd_cs<T, false>, smem)) return err;
-    fwd_cs<T, false><<<blocks_for(n), kThreads, smem, st>>>(o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full,
-                                                           geom, mat, cst, xi, o_out, d_out, thr_out, alive_out,
-                                                           acc_out, clear_out, n, tile_rays, cand_stride, sc);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return PRT_CS_LAUNCH(fwd_cs, flat_out, blocks_for(n), o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom,
+                       mat, cst, xi, o_out, d_out, thr_out, alive_out, acc_out, clear_out, flat_out, dww_out, n,
+                       tile_rays, cand_stride, sc);
 }
 
 template <typename T>
 int launch_bwd(const T* o, const T* d, const T* thr, const T* alive, const int* idx, const T* hit, const T* clear,
                const int* cand_b, const int* cnt_b, const int* cnt_bf, const int* cand_a, const int* cnt_a,
                const int* cnt_af, const T* geom, const T* mat, const T* cst, const T* xi, const T* g_o,
-               const T* g_d, const T* g_thr, const T* g_alive, const T* g_acc, T* g_o_out, T* g_d_out,
-               T* g_thr_out, T* g_alive_out, T* pg, T* pm, T* pc, T* flat, int n, int s_cheap, int s_total,
-               int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s, void* stream) {
-  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride) || n % tile_rays || tile_rays % kThreads) {
+               const T* g_d, const T* g_thr, const T* g_alive, const T* g_acc, const T* g_dww, T* g_o_out,
+               T* g_d_out, T* g_thr_out, T* g_alive_out, T* pg, T* pm, T* pc, T* flat, int n, int s_cheap,
+               int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w,
+               void* stream) {
+  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride) || n % tile_rays || tile_rays % kThreads ||
+      (g_dww && (tex_h < 1 || tex_w < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
   const int smem = geom_consts_smem<T>(s_total);
   const int n_tiles = n / tile_rays;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (xi) {
-    if (const int err = allow_smem(bwd_cs<T, true>, smem)) return err;
-    bwd_cs<T, true><<<n_tiles, kThreads, smem, st>>>(o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf,
-                                                    cand_a, cnt_a, cnt_af, geom, mat, cst, xi, g_o, g_d, g_thr,
-                                                    g_alive, g_acc, g_o_out, g_d_out, g_thr_out, g_alive_out, pg,
-                                                    pm, pc, n, tile_rays, cand_stride, sc);
-  } else {
-    if (const int err = allow_smem(bwd_cs<T, false>, smem)) return err;
-    bwd_cs<T, false><<<n_tiles, kThreads, smem, st>>>(o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf,
-                                                     cand_a, cnt_a, cnt_af, geom, mat, cst, xi, g_o, g_d, g_thr,
-                                                     g_alive, g_acc, g_o_out, g_d_out, g_thr_out, g_alive_out, pg,
-                                                     pm, pc, n, tile_rays, cand_stride, sc);
-  }
-  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  const int err = PRT_CS_LAUNCH(bwd_cs, g_dww, n_tiles, o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf,
+                                cand_a, cnt_a, cnt_af, geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_dww,
+                                g_o_out, g_d_out, g_thr_out, g_alive_out, pg, pm, pc, n, tile_rays, cand_stride, sc);
+  if (err) return err;
   reduce_cs<T><<<2 * s_total + 1, kReduceThreads, 0, st>>>(pg, pm, pc, cand_b, cnt_b, cnt_bf, cand_a, cnt_a, cnt_af,
                                                             flat, n_tiles, cand_stride, s_cheap, s_total);
   return static_cast<int>(cudaGetLastError());
 }
+
+#undef PRT_CS_LAUNCH
 
 }  // namespace
 
@@ -445,23 +456,25 @@ extern "C" {
   int prt_fwd_cs_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const int* idx,  \
                           const T* hit, const int* cand, const int* cnt, const int* cnt_full, const T* geom,    \
                           const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, T* thr_out,              \
-                          T* alive_out, T* acc_out, T* clear_out, int n, int s_cheap, int s_total,              \
-                          int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s, void* stream) {      \
+                          T* alive_out, T* acc_out, T* clear_out, int* tflat, T* dww, int n, int s_cheap,       \
+                          int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s,         \
+                          int tex_h, int tex_w, void* stream) {                                                 \
     return launch_fwd<T>(o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom, mat, cst, xi, o_out,      \
-                         d_out, thr_out, alive_out, acc_out, clear_out, n, s_cheap, s_total, tile_rays,         \
-                         cand_stride, faraway, sharp_e, sharp_s, stream);                                      \
+                         d_out, thr_out, alive_out, acc_out, clear_out, tflat, dww, n, s_cheap, s_total,        \
+                         tile_rays, cand_stride, faraway, sharp_e, sharp_s, tex_h, tex_w, stream);             \
   }                                                                                                            \
   int prt_bwd_cs_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const int* idx, const T* hit,   \
                           const T* clear, const int* cand_b, const int* cnt_b, const int* cnt_bf,               \
                           const int* cand_a, const int* cnt_a, const int* cnt_af, const T* geom, const T* mat,  \
                           const T* cst, const T* xi, const T* g_o, const T* g_d, const T* g_thr,                \
-                          const T* g_alive, const T* g_acc, T* g_o_out, T* g_d_out, T* g_thr_out,               \
-                          T* g_alive_out, T* pg, T* pm, T* pc, T* flat, int n, int s_cheap, int s_total,        \
-                          int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s, void* stream) {      \
+                          const T* g_alive, const T* g_acc, const T* g_dww, T* g_o_out, T* g_d_out,             \
+                          T* g_thr_out, T* g_alive_out, T* pg, T* pm, T* pc, T* flat, int n, int s_cheap,       \
+                          int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s,         \
+                          int tex_h, int tex_w, void* stream) {                                                 \
     return launch_bwd<T>(o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf, cand_a, cnt_a, cnt_af,      \
-                         geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_o_out, g_d_out, g_thr_out,      \
-                         g_alive_out, pg, pm, pc, flat, n, s_cheap, s_total, tile_rays, cand_stride, faraway,   \
-                         sharp_e, sharp_s, stream);                                                            \
+                         geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_dww, g_o_out, g_d_out,          \
+                         g_thr_out, g_alive_out, pg, pm, pc, flat, n, s_cheap, s_total, tile_rays, cand_stride, \
+                         faraway, sharp_e, sharp_s, tex_h, tex_w, stream);                                     \
   }
 
 PRT_CS_ENTRIES(float, f32)

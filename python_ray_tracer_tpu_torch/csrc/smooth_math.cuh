@@ -1,7 +1,13 @@
 // Device code of the smooth-visibility kernels, shared by
 // bounce_smooth_sub.cu and culled_smooth.cu: one smooth bounce (the TPU
 // kernels' _FwdSub, python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:227)
-// and its handwritten adjoint (_adjoint_bounce, :578), no atlas.
+// and its handwritten adjoint (_adjoint_bounce, :578).
+//
+// Atlas mode (kAtlas, :407-429 and :487-488): an image lane's in-kernel
+// diffuse texture is zero, the bounce exports its flat texel id and
+// dww = dw * w (diffuse weight x path weight), and the caller adds
+// texels[flat] * dww outside; the adjoint takes that term's cotangent
+// g_dww (:598-603, :676-677, :755).
 //
 // fwd_bounce and adjoint_bounce are templates over two choices:
 //   * where the winner comes from (Winner): a sweep of every sphere, the
@@ -63,6 +69,7 @@ template <typename T> __device__ __forceinline__ V3<T> norm3(const V3<T>& v, T& 
 template <typename T> struct Scal {
   T faraway, sharp_e, sharp_s;
   int s_cheap, s_total;
+  int tex_h, tex_w;  // the atlas's slot extents (atlas mode)
 };
 
 // Root selection and validity (_quad_sol_disc).
@@ -163,6 +170,10 @@ template <typename T> struct Fwd {
   T l_mag, v_mag, h_mag, u_mag;
   T n_dot_l, dw, relu_ny, dome_up;
   bool is_checker, spec_gate;
+  // Atlas mode: an image lane, its flat texel id (0 elsewhere), dw * w there.
+  bool is_image;
+  int flat;
+  T dww;
   T nv_raw, nh_raw, vh_raw, nl_raw, n_dot_v, n_dot_h, v_dot_h, n_dot_l_c;
   T f0, one_m_vdh5, fresnel, alpha, ggx_den, dist;
   T g1l, g1l_root, g1v, g1v_root, geom, spec_den, spec_base, one_m_ndv, glint, spec;
@@ -190,9 +201,10 @@ struct AllSpheres {
 };
 
 // One smooth bounce.  kXi: the continuation is glossy, from the uniforms
-// (xi1, xi2); otherwise the mirror.  mat may lie in shared or global memory;
-// geom is anything sphere_quad indexes.
-template <typename T, bool kXi, Winner kWin, typename Shadow, typename G>
+// (xi1, xi2); otherwise the mirror.  kAtlas: the atlas mode (sc.tex_h x
+// sc.tex_w slots).  mat may lie in shared or global memory; geom is anything
+// sphere_quad indexes.
+template <typename T, bool kXi, Winner kWin, bool kAtlas = false, typename Shadow, typename G>
 __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T>& d, T thr, T alive,
                                            const G& geom, const T* mat, const T* cst, const Scal<T>& sc,
                                            const Shadow& shadow, T xi1, T xi2) {
@@ -264,6 +276,12 @@ __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T
   const T checker = cx == cz ? T(1) : T(0);
   f.is_checker = m[KIND] == T(1);
   f.tex = {f.is_checker ? checker : m[DCR], f.is_checker ? checker : m[DCG], f.is_checker ? checker : m[DCB]};
+  f.is_image = false;
+  if constexpr (kAtlas) {
+    f.is_image = m[KIND] == T(2);
+    f.flat = f.is_image ? flat_texel(f.normal, m, sc.tex_h, sc.tex_w) : 0;
+    if (f.is_image) f.tex = {T(0), T(0), T(0)};
+  }
   f.dw = f.n_dot_l * f.clear * m[DG];
 
   f.relu_ny = vmax(f.normal.y, T(0));
@@ -314,6 +332,7 @@ __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T
   }
 
   f.w = thr * f.coverage;
+  if constexpr (kAtlas) f.dww = f.is_image ? f.dw * f.w : T(0);
   f.refl_coeff = T(0.5) * m[SG] * f.clear;
   f.thr_out = f.w * f.refl_coeff;
 
@@ -445,11 +464,13 @@ __device__ __forceinline__ T ggx_adjoint(const Fwd<T>& f, V3<T>& g_refl, V3<T>& 
 // One bounce's handwritten adjoint (Phases A-G).  In: the cotangents of the
 // bounce's outputs; out (in place): those of its inputs.  g_acc passes
 // through (acc is a pure accumulator).  Phase C visits the shadow set of
-// the forward; table gradients go to the sink.
-template <typename T, bool kXi, typename Shadow, typename Sink, typename G>
+// the forward; table gradients go to the sink.  kAtlas: g_dww_raw is the
+// cotangent of the bounce's dww (kept on image lanes only).
+template <typename T, bool kXi, bool kAtlas = false, typename Shadow, typename Sink, typename G>
 __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T>& g_d, T& g_thr, T& g_alive,
                                                const V3<T>& g_acc, const G& geom, const T* cst,
-                                               const Scal<T>& sc, const Shadow& shadow, const Sink& sink) {
+                                               const Scal<T>& sc, const Shadow& shadow, const Sink& sink,
+                                               T g_dww_raw = T(0)) {
   const T* m = f.m;
   const V3<T>& o = f.o;
   const V3<T>& d = f.d;
@@ -460,6 +481,9 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
   const V3<T> g_color = {g_acc.x * f.w, g_acc.y * f.w, g_acc.z * f.w};
   T g_w = g_acc.x * f.color.x + g_acc.y * f.color.y + g_acc.z * f.color.z;
   g_w = g_w + g_thr_o * f.refl_coeff;
+  // The external texel term acc += texel * dww, dww = dw * w on image lanes.
+  const T g_dww = kAtlas && f.is_image ? g_dww_raw : T(0);
+  if (kAtlas) g_w = g_w + g_dww * f.dw;
   const T g_rc = g_thr_o * f.w;
   T g_sg = T(0.5) * f.clear * g_rc;
   T g_clear = T(0.5) * m[SG] * g_rc;
@@ -491,7 +515,8 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
 
   V3<T> g_tex;
   for (int i = 0; i < 3; ++i) g_tex[i] = g_color[i] * f.dw;
-  const T g_dw = g_color.x * f.tex.x + g_color.y * f.tex.y + g_color.z * f.tex.z;
+  T g_dw = g_color.x * f.tex.x + g_color.y * f.tex.y + g_color.z * f.tex.z;
+  if (kAtlas) g_dw = g_dw + g_dww * f.w;
   const T g_spec_term = g_color.x + g_color.y + g_color.z;
   const T g_irid_w = g_color.x * f.irid_base.x + g_color.y * f.irid_base.y + g_color.z * f.irid_base.z;
   const T g_ip = f.irid_w * (g_color.x * (T(2) * f.hue - T(1)) + g_color.y * (T(1) - T(2) * f.hue)
@@ -573,7 +598,9 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
   g_clear = g_clear + g_dw * f.n_dot_l * m[DG];
   const T g_dg = g_dw * f.n_dot_l * f.clear;
   const T g_nl_relu = g_ndl * (f.nl_raw > T(0) ? T(1) : T(0));
-  const T is_const = f.is_checker ? T(0) : T(1);
+  // Constant-color lanes only: the checker is piecewise constant, and an
+  // image lane's diffuse texture is the external texel's.
+  const T is_const = f.is_checker || (kAtlas && f.is_image) ? T(0) : T(1);
   const T g_cov_w = g_coverage * f.alive;
   const T g_alive_in = g_coverage * f.cov_w;
   const T g_disc_w = g_cov_w * f.sig_se * f.sig_de * (T(1) - f.sig_de) * sc.sharp_e;

@@ -3,6 +3,8 @@
 // compute them (python_ray_tracer_tpu/ops/pallas_bounce_sub.py _roots,
 // _sphere_t, _sphere_t_exact; the shading of _bounce_math and
 // ops/pallas_culled.py _shade_kernel_culled, ops/shading.py term for term),
+// the polynomial equirectangular UV of image textures (ops/pallas_bounce.py
+// _atan2_poly, _asin_poly; the flat texel id of pallas_bounce_sub.py:277-302)
 // and the staging of the geometry table in shared memory.
 //
 // Numerics that must hold (see ops/_build.py for the flags):
@@ -12,19 +14,25 @@
 //     kernels' naive root relies on sqrt of a negative giving NaN;
 //   * x**2 and x**5 are JAX integer_pow (binary exponentiation), 2.5 is pow;
 //   * the checker's integer modulo floors (JAX), C++ % truncates;
-//   * normalisation multiplies by a guarded reciprocal, never divides.
+//   * normalisation multiplies by a guarded reciprocal, never divides;
+//   * the UV polynomial's coefficients round from double to the dtype, as
+//     JAX's Python constants do, and the UV divides by 2 pi and pi.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+// PRT_ATAN_C: generated by ops/_build.py from ops/texture.py ATAN_C.
+#include "texture_coeffs.cuh"
 
 namespace {
 
 constexpr int kMatCols = 19;  // ops/tables.py MAT_COLS
 constexpr int kNConst = 16;   // ops/tables.py N_CONST
 
-// Material columns in ops/tables.py order (texture id/extents unused here).
-enum MatCol { CX, CY, CZ, RAD, DG, DCR, DCG, DCB, SG, ROUGH, IG, IOR, TFW, TFT, TFI, KIND };
+// Material columns in ops/tables.py order; TID, TEXH, TEXW: the texture id
+// and the texture's native extents (image lanes of an atlas scene).
+enum MatCol { CX, CY, CZ, RAD, DG, DCR, DCG, DCB, SG, ROUGH, IG, IOR, TFW, TFT, TFI, KIND, TID, TEXH, TEXW };
 
 constexpr double kPi = 3.141592653589793;
 constexpr double kAmbient = 0.004;
@@ -45,6 +53,8 @@ __device__ __forceinline__ float m_trunc(float x) { return truncf(x); }
 __device__ __forceinline__ double m_trunc(double x) { return trunc(x); }
 __device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double m_abs(double x) { return fabs(x); }
+__device__ __forceinline__ float m_floor(float x) { return floorf(x); }
+__device__ __forceinline__ double m_floor(double x) { return floor(x); }
 
 template <typename T> __device__ __forceinline__ T vmin(T a, T b) { return b < a ? b : a; }
 template <typename T> __device__ __forceinline__ T vmax(T a, T b) { return a < b ? b : a; }
@@ -167,22 +177,84 @@ __device__ __forceinline__ T sphere_t_tiered(int k, int s_cheap, const V3<T>& o,
   return k < s_cheap ? sphere_t(o, d, g, faraway) : sphere_t_exact(o, d, g, faraway);
 }
 
+// Horner's rule over the coefficients, lowest order first, each rounded to T:
+// ((c10 x2 + c9) x2 + ...) x2 + c0.
+template <typename T> __device__ __forceinline__ T horner(T, double c) { return T(c); }
+template <typename T, typename... R> __device__ __forceinline__ T horner(T x2, double c, R... rest) {
+  return horner<T>(x2, rest...) * x2 + T(c);
+}
+
+// atan(x) for x in [0, 1] via the polynomial (_atan_unit).
+template <typename T> __device__ __forceinline__ T atan_unit(T x) { return x * horner<T>(x * x, PRT_ATAN_C); }
+
+// Full-quadrant atan2 from the [0, 1] polynomial, octant reduction (_atan2_poly).
+template <typename T> __device__ __forceinline__ T atan2_poly(T y, T x) {
+  const T ax = m_abs(x);
+  const T ay = m_abs(y);
+  const bool swap = ay > ax;
+  const T num = swap ? ax : ay;
+  const T den = vmax(swap ? ay : ax, T(1e-30));
+  T a = atan_unit(num / den);
+  a = swap ? T(kPi / 2) - a : a;
+  a = x < T(0) ? T(kPi) - a : a;
+  return y < T(0) ? -a : a;
+}
+
+// asin(y) = atan2(y, sqrt(1 - y^2)), y clipped to [-1, 1] (_asin_poly).
+template <typename T> __device__ __forceinline__ T asin_poly(T y) {
+  y = vmin(vmax(y, T(-1)), T(1));
+  return atan2_poly(y, m_sqrt(vmax(T(1) - y * y, T(0))));
+}
+
+// Flat id of the nearest texel of an image lane: equirectangular UV of the
+// unit normal over the texture's native extents (m[TEXH], m[TEXW]), in an
+// atlas of tex_h x tex_w slots: tid * (tex_h * tex_w) + tj * tex_w + ti.
+template <typename T>
+__device__ __forceinline__ int flat_texel(const V3<T>& normal, const T* m, int tex_h, int tex_w) {
+  T u = T(0.5) + atan2_poly(normal.z, normal.x) / T(2.0 * kPi);
+  T v = T(0.5) - asin_poly(normal.y) / T(kPi);
+  u = u - m_floor(u);
+  v = v - m_floor(v);
+  const T th = m[TEXH];
+  const T tw = m[TEXW];
+  const int ti = min(max(static_cast<int>(u * (tw - T(1))), 0), static_cast<int>(tw - T(1)));
+  const int tj = min(max(static_cast<int>(v * (th - T(1))), 0), static_cast<int>(th - T(1)));
+  return static_cast<int>(m[TID]) * (tex_h * tex_w) + tj * tex_w + ti;
+}
+
+// What the atlas mode of a hard kernel exports besides the color: the flat
+// texel id (0 off image lanes), whether the lane is an image lane, and the
+// diffuse weight n.l * in_light * diffuse_gain.
+template <typename T> struct TexHit {
+  int flat;
+  bool is_image;
+  T diffuse_w;
+};
+
 // The local color of one hit (ops/shading.py shade, term for term): the
 // reference shader's ambient + diffuse x texture + dome + GGX specular and
 // glint + thin-film iridescence.  p the hit point, normal its unit normal,
 // L and V the unit directions to the light and to the ORIGINAL camera,
 // m the winner's material row (kMatCols values), cst the consts row.
-template <typename T>
-__device__ __forceinline__ V3<T> shade_color(const V3<T>& p, const V3<T>& normal, const V3<T>& L,
-                                             const V3<T>& V, T in_light, const T* m, const T* cst) {
+// kAtlas: image lanes get a zero diffuse texture here and their texel id in
+// th (atlas slots tex_h x tex_w); the caller composes the texel outside.
+template <typename T, bool kAtlas>
+__device__ __forceinline__ V3<T> shade_color_tex(const V3<T>& p, const V3<T>& normal, const V3<T>& L,
+                                                 const V3<T>& V, T in_light, const T* m, const T* cst, int tex_h,
+                                                 int tex_w, TexHit<T>& th) {
   const T n_dot_l = vmax(dot3(normal, L), T(0));
   const int cx_i = mod2(static_cast<int>(m_trunc(p.x * T(2))));
   const int cz_i = mod2(static_cast<int>(m_trunc(p.z * T(2))));
   const T checker = cx_i == cz_i ? T(1) : T(0);
   const bool is_checker = m[KIND] == T(1);
-  const V3<T> tex = {is_checker ? checker : m[DCR], is_checker ? checker : m[DCG],
-                     is_checker ? checker : m[DCB]};
+  V3<T> tex = {is_checker ? checker : m[DCR], is_checker ? checker : m[DCG], is_checker ? checker : m[DCB]};
+  if constexpr (kAtlas) {
+    th.is_image = m[KIND] == T(2);
+    th.flat = th.is_image ? flat_texel(normal, m, tex_h, tex_w) : 0;
+    if (th.is_image) tex = {T(0), T(0), T(0)};
+  }
   const T diffuse_w = n_dot_l * in_light * m[DG];
+  th.diffuse_w = diffuse_w;
 
   const T dome_up = vmax(normal.y, T(0)) * cst[9];
   const V3<T> dome = {cst[6] * dome_up, cst[7] * dome_up, cst[8] * dome_up};
@@ -221,6 +293,13 @@ __device__ __forceinline__ V3<T> shade_color(const V3<T>& p, const V3<T>& normal
   return {amb + tex.x * diffuse_w + dome.x + spec_term + irid.x,
           amb + tex.y * diffuse_w + dome.y + spec_term + irid.y,
           amb + tex.z * diffuse_w + dome.z + spec_term + irid.z};
+}
+
+template <typename T>
+__device__ __forceinline__ V3<T> shade_color(const V3<T>& p, const V3<T>& normal, const V3<T>& L,
+                                             const V3<T>& V, T in_light, const T* m, const T* cst) {
+  TexHit<T> unused;
+  return shade_color_tex<T, false>(p, normal, L, V, in_light, m, cst, 0, 0, unused);
 }
 
 // Stage the (S, 4) geometry table in dynamic shared memory; every thread

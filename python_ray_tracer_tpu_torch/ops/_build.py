@@ -8,6 +8,11 @@ rebuilds it; it lands in the
 package's ``_build/`` directory at first use.  A missing ``nvcc`` or a
 failed build raises: there is no fallback.
 
+The sources include one generated header, ``texture_coeffs.cuh`` (the
+polynomial UV's coefficients, :func:`.texture.cuda_header`), written into
+``_build/include/`` before ``nvcc`` runs, so the coefficients have one
+source in the repository.
+
 ``--fmad=false`` is load-bearing: contracting ``a*b + c`` into an FMA
 destroys the Dekker/Knuth error terms of the exact intersection tier that
 the r = 99999 ground sphere depends on.  Fast math is never used.
@@ -26,9 +31,12 @@ from pathlib import Path
 
 import torch
 
+from . import texture
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+GENERATED = BUILD_DIR / "include"
 SOURCES = ("bounce_sub.cu", "bounce_smooth_sub.cu", "culled.cu", "culled_smooth.cu", "intersect_fused.cu")
 # Shared memory one block may use on Hopper (227 KB; above 48 KB only as
 # dynamic shared memory, which the kernels opt in to).
@@ -57,10 +65,24 @@ def library_path(source: str) -> Path:
     of every header under ``csrc/`` (a source may include any of them) and
     the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(texture.cuda_header().encode())
     for path in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     return BUILD_DIR / f"libprt_{Path(source).stem}_{digest.hexdigest()[:16]}.so"
+
+
+def write_generated_header() -> Path:
+    """Write ``texture_coeffs.cuh`` into :data:`GENERATED` (atomically: several
+    builds may run at once); returns the directory to pass as ``-I``."""
+    GENERATED.mkdir(parents=True, exist_ok=True)
+    target = GENERATED / "texture_coeffs.cuh"
+    text = texture.cuda_header()
+    if not target.exists() or target.read_text() != text:
+        tmp = target.with_name(f"texture_coeffs.{os.getpid()}.tmp")
+        tmp.write_text(text)
+        os.replace(tmp, target)
+    return GENERATED
 
 
 def build_all(sources: tuple[str, ...] = SOURCES) -> dict[str, tuple[Path, str, float]]:
@@ -73,6 +95,7 @@ def build_all(sources: tuple[str, ...] = SOURCES) -> dict[str, tuple[Path, str, 
     """
     results: dict[str, tuple[Path, str, float]] = {}
     running = []
+    include = write_generated_header()
     for source in sources:
         out = library_path(source)
         if out.exists():
@@ -80,7 +103,7 @@ def build_all(sources: tuple[str, ...] = SOURCES) -> dict[str, tuple[Path, str, 
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(include), "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((source, out, tmp, proc, time.perf_counter()))
     failures = []

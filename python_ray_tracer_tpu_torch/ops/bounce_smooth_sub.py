@@ -1,8 +1,7 @@
 """Smooth-visibility bounce kernels: plain versions, wrappers and autograd.
 
-Port of the no-atlas part of
-:mod:`python_ray_tracer_tpu.ops.pallas_bounce_smooth_sub`, mirror and
-stochastic glossy continuations.  Five TPU kernels become CUDA kernels in
+Port of :mod:`python_ray_tracer_tpu.ops.pallas_bounce_smooth_sub`, mirror
+and stochastic glossy continuations, with and without an image atlas.  Five TPU kernels become CUDA kernels in
 ``csrc/bounce_smooth_sub.cu``, one thread per ray over the (3, N) layout
 of :func:`..camera.ray_directions_t`:
 
@@ -30,7 +29,13 @@ the renderer takes ``smooth_fwd_step``/``smooth_bwd_step`` once per bounce.
 
 Each takes an optional xi, (2 * depth, N) or (2, N) uniforms drawn on the
 JAX package's schedule (:func:`.rng.bounce_xi`), that makes the
-continuation reflect about a GGX-sampled microfacet.  Beside the kernels
+continuation reflect about a GGX-sampled microfacet.  All but
+``train_deep`` (which the JAX package keeps off atlas scenes) have an atlas
+mode, given the atlas's slot extents ``tex_hw``: the forward kernels also
+return each bounce's flat texel ids and ``dww`` weights, the backward ones
+take ``g_dww``, the cotangent of the weights, and the trace composes the
+texels outside the kernels (:func:`.texture.compose_texels`), as the JAX
+package does.  Beside the kernels
 sit their plain PyTorch versions: :func:`fwd_sub_math` is the body of the
 JAX ``_FwdSub`` (unrolled mode) and :func:`adjoint_bounce` its handwritten
 adjoint (Phases A-G), term for term, over (N,) rows.  A wrapper given CPU
@@ -60,13 +65,14 @@ from .bounce_smooth import (
     EPS_DEN, b_cterm_plain, compensated_b_cterm, dot3, norm3, quad_sol_disc, sig, sol_disc_adjoint,
     sol_disc_exact, sol_disc_plain,
 )
-from .bounce_sub import ggx_continuation
+from .bounce_sub import ggx_continuation, image_texels
 from .rng import bounce_xi
 from .shading import AMBIENT, GLINT_EXPONENT, NUDGE, SHADING_EPS
 from .tables import (
     CX, CY, CZ, DCB, DCG, DCR, DG, IG, IOR, KIND, MAT_COLS, N_CONST, RAD, ROUGH, SG, TFI, TFT, TFW,
     consts_row, geometry_table, material_table,
 )
+from .texture import atlas_texels, compose_texels, slot_args
 from .vecmath import ipow, sqrt
 
 # Columns of the table-gradient partials at most: a gradient kernel is
@@ -82,6 +88,8 @@ PARTIAL_COLS = 4096
 MAX_TRAIN_DEPTH = 64
 
 LAUNCHES = {"smooth_fwd_deep": 0, "smooth_bwd_deep": 0, "train_deep": 0, "smooth_fwd_step": 0, "smooth_bwd_step": 0}
+# Launches of the atlas mode (train_deep has none).
+ATLAS_LAUNCHES = {"smooth_fwd_deep": 0, "smooth_bwd_deep": 0, "smooth_fwd_step": 0, "smooth_bwd_step": 0}
 
 _SOURCE = "bounce_smooth_sub.cu"
 
@@ -133,7 +141,7 @@ def shadow_spheres(geom, s_cheap: int, cand_sh=None, n: int = 0):
 
 
 def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, saved=None,
-                 known=None, cand_sh=None):
+                 known=None, cand_sh=None, tex_hw=None):
     """One smooth bounce (``_FwdSub``): every intermediate the adjoint reads.
 
     ``o``/``d`` are 3-tuples of (N,) rows, ``thr``/``alive`` (N,).  With
@@ -142,9 +150,13 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_che
     ``known = (idx, hit)`` only the winner sweep is.  ``cand_sh`` gives the
     shadow loops a tile's list (:func:`shadow_spheres`).  With ``xi = (xi1,
     xi2)`` ((N,) uniforms) the continuation ``dout`` reflects about a
-    GGX-sampled microfacet; otherwise it is the mirror ``refl``.
+    GGX-sampled microfacet; otherwise it is the mirror ``refl``.  With the
+    atlas's slot extents ``tex_hw`` (the atlas mode) image lanes' diffuse
+    texture is zero and ``f.flat``/``f.dww`` hold their texel ids and
+    ``dw * w`` weights.
     """
     f = SimpleNamespace()
+    f.tex_hw = tex_hw
     dtype = o[0].dtype
     s_total = geom.shape[0]
     f.dtype, f.thr, f.alive = dtype, thr, alive
@@ -234,6 +246,8 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_che
     f.checker = (cx == cz).to(dtype)
     f.is_checker = m(KIND) == 1.0
     f.tex = tuple(torch.where(f.is_checker, f.checker, m(c)) for c in (DCR, DCG, DCB))
+    if tex_hw is not None:
+        f.tex, f.flat, f.is_image = image_texels(f.normal, m, f.tex, tex_hw)
     f.dw = f.n_dot_l * f.clear * m(DG)
 
     f.relu_ny = torch.clamp_min(f.normal[1], 0.0)
@@ -288,6 +302,8 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_che
     f.color = tuple(AMBIENT + f.tex[i] * f.dw + f.dome[i] + f.spec_term + f.irid[i] for i in range(3))
 
     f.w = thr * f.coverage
+    if tex_hw is not None:
+        f.dww = torch.where(f.is_image, f.dw * f.w, torch.zeros_like(f.w))
     f.refl_coeff = 0.5 * m(SG) * f.clear
     f.thr_out = f.w * f.refl_coeff
 
@@ -355,11 +371,12 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
     """One bounce's handwritten adjoint (``_adjoint_bounce``, Phases A-G).
 
     ``cots = (g_o_out, g_dout, g_thr_out, g_alive_out, g_acc)``, the
-    cotangents of the bounce's outputs.  Returns those of its inputs
-    ``(g_o, g_d, g_thr, g_alive)``; the table gradients are added into
-    ``ggeom`` (S, 4), ``gmat`` (S, 19) and ``gconst`` (1, 16) in place.
+    cotangents of the bounce's outputs, and in the atlas mode ``g_dww`` after
+    them.  Returns those of its inputs ``(g_o, g_d, g_thr, g_alive)``; the
+    table gradients are added into ``ggeom`` (S, 4), ``gmat`` (S, 19) and
+    ``gconst`` (1, 16) in place.
     """
-    g_o_out, g_dout, g_thr_o, g_alive_o, g_acc = cots
+    g_o_out, g_dout, g_thr_o, g_alive_o, g_acc, *g_dww_raw = cots
     dtype = f.dtype
     m = f.m
     s_total = geom.shape[0]
@@ -369,6 +386,11 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
     g_color = tuple(g_acc[i] * f.w for i in range(3))
     g_w = g_acc[0] * f.color[0] + g_acc[1] * f.color[1] + g_acc[2] * f.color[2]
     g_w = g_w + g_thr_o * f.refl_coeff
+    atlas = f.tex_hw is not None
+    if atlas:
+        # The external texel term acc += texel * dww, dww = dw * w on image lanes.
+        g_dww = torch.where(f.is_image, g_dww_raw[0], zero)
+        g_w = g_w + g_dww * f.dw
     g_rc = g_thr_o * f.w
     g_sg = 0.5 * f.clear * g_rc
     g_clear = 0.5 * m(SG) * g_rc
@@ -395,6 +417,8 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
 
     g_tex = tuple(g_color[i] * f.dw for i in range(3))
     g_dw = g_color[0] * f.tex[0] + g_color[1] * f.tex[1] + g_color[2] * f.tex[2]
+    if atlas:
+        g_dw = g_dw + g_dww * f.w
     g_spec_term = g_color[0] + g_color[1] + g_color[2]
     g_irid_w = g_color[0] * f.irid_base[0] + g_color[1] * f.irid_base[1] + g_color[2] * f.irid_base[2]
     g_ip = f.irid_w * (
@@ -469,7 +493,9 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
     g_clear = g_clear + g_dw * f.n_dot_l * m(DG)
     g_dg = g_dw * f.n_dot_l * f.clear
     g_nl_relu = g_ndl * (f.nl_raw > 0).to(dtype)
-    is_const = (~f.is_checker).to(dtype)
+    # Constant-color lanes only: the checker is piecewise constant, and an
+    # image lane's diffuse texture is the external texel's.
+    is_const = (~f.is_checker & ~f.is_image if atlas else ~f.is_checker).to(dtype)
     g_dcc = tuple(g_tex[i] * is_const for i in range(3))
     g_cov_w = g_coverage * f.alive
     g_alive_in = g_coverage * f.cov_w
@@ -579,20 +605,23 @@ def _xi_pair(xi, dep: int):
     return None if xi is None else (xi[2 * dep], xi[2 * dep + 1])
 
 
-def smooth_fwd_deep_plain(o, d, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+def smooth_fwd_deep_plain(o, d, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s,
+                          tex_hw=None):
     """Plain version of ``smooth_fwd_deep``: ``depth`` smooth bounces from
     unit throughput, bounce ``k`` glossy with rows ``2k, 2k+1`` of ``xi``
     when given.  Returns ``(acc, osave, dsave, thrsave, alivesave, idx,
     hit, clear)``: acc (3, N); the state entering bounces 1..depth-1,
     (3*(depth-1), N) for o and d and (depth-1, N) for thr and alive; and
-    per bounce (depth, N) the winner (int32), hit (0/1) and shadow clear."""
-    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    per bounce (depth, N) the winner (int32), hit (0/1) and shadow clear.
+    With ``tex_hw`` (the atlas mode) also each bounce's flat texel ids
+    (depth, N) int32 and dww weights (depth, N)."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw)
     n = d.shape[1]
     o3, d3 = tuple(o), tuple(d)
     thr = torch.ones_like(d[0])
     alive = torch.ones_like(d[0])
     acc = [torch.zeros_like(d[0]) for _ in range(3)]
-    osave, dsave, thrsave, alivesave, idx, hit, clear = [], [], [], [], [], [], []
+    osave, dsave, thrsave, alivesave, idx, hit, clear, flat, dww = [], [], [], [], [], [], [], [], []
     for dep in range(depth):
         if dep > 0:
             osave += list(o3)
@@ -604,42 +633,49 @@ def smooth_fwd_deep_plain(o, d, geom, mat, consts, xi=None, *, depth, faraway, s
         idx.append(f.idx)
         hit.append(f.hit.to(d.dtype))
         clear.append(f.clear)
+        if tex_hw is not None:
+            flat.append(f.flat)
+            dww.append(f.dww)
         o3, d3, thr, alive = f.p_n, f.dout, f.thr_out, f.coverage
 
     def stack(xs, dt=d.dtype):
         return torch.stack(xs) if xs else torch.empty((0, n), dtype=dt, device=d.device)
 
-    return (
+    outs = (
         torch.stack(acc), stack(osave), stack(dsave), stack(thrsave), stack(alivesave),
         stack(idx, torch.int32), stack(hit), stack(clear),
     )
+    return outs if tex_hw is None else outs + (stack(flat, torch.int32), stack(dww))
 
 
 def _reverse_chain(states, g_acc, geom, mat, consts, kw):
     """The adjoint chain in reverse depth order over replayed bounces.
 
-    ``states[dep] = (o, d, thr, alive, saved, xi)``.  The trace discards the
-    last bounce's ``(o, d, thr, alive)``, so their cotangents start at zero;
-    ``g_acc`` is the same for every bounce (acc is a pure accumulator)."""
+    ``states[dep] = (o, d, thr, alive, saved, xi, g_dww)``, ``g_dww`` the
+    cotangent of the bounce's dww in the atlas mode (else None).  The trace
+    discards the last bounce's ``(o, d, thr, alive)``, so their cotangents
+    start at zero; ``g_acc`` is the same for every bounce (acc is a pure
+    accumulator)."""
     ggeom, gmat, gconst = torch.zeros_like(geom), torch.zeros_like(mat), torch.zeros_like(consts)
     zero = torch.zeros_like(g_acc[0])
     g_o, g_d, g_thr, g_alive = (zero, zero, zero), (zero, zero, zero), zero, zero
-    for o3, d3, thr, alive, saved, xi in reversed(states):
+    for o3, d3, thr, alive, saved, xi, g_dww in reversed(states):
         f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, xi, saved=saved, **kw)
         g_o, g_d, g_thr, g_alive = adjoint_bounce(
-            f, o3, d3, (g_o, g_d, g_thr, g_alive, g_acc), geom, ggeom, gmat, gconst,
-            faraway=kw["faraway"], s_cheap=kw["s_cheap"],
+            f, o3, d3, (g_o, g_d, g_thr, g_alive, g_acc) + (() if g_dww is None else (g_dww,)),
+            geom, ggeom, gmat, gconst, faraway=kw["faraway"], s_cheap=kw["s_cheap"],
         )
     return torch.stack(g_o), torch.stack(g_d), ggeom, gmat, gconst
 
 
 def smooth_bwd_deep_plain(
     o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc, xi=None,
-    *, depth, faraway, s_cheap, sharp_e, sharp_s,
+    *, depth, faraway, s_cheap, sharp_e, sharp_s, g_dww=None, tex_hw=None,
 ):
     """Plain version of ``smooth_bwd_deep``: from the forward's residuals
-    and acc's cotangent (3, N), returns ``(g_o, g_d, g_geom, g_mat, g_consts)``."""
-    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    and acc's cotangent (3, N) (and in the atlas mode the dww cotangents
+    ``g_dww`` (depth, N)), returns ``(g_o, g_d, g_geom, g_mat, g_consts)``."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw)
     ones = torch.ones_like(d[0])
     states = []
     for dep in range(depth):
@@ -649,7 +685,8 @@ def smooth_bwd_deep_plain(
             j = 3 * (dep - 1)
             o3, d3 = tuple(osave[j : j + 3]), tuple(dsave[j : j + 3])
             thr, alive = thrsave[dep - 1], alivesave[dep - 1]
-        states.append((o3, d3, thr, alive, (idx[dep], hit[dep] != 0, clear[dep]), _xi_pair(xi, dep)))
+        states.append((o3, d3, thr, alive, (idx[dep], hit[dep] != 0, clear[dep]), _xi_pair(xi, dep),
+                       None if g_dww is None else g_dww[dep]))
     return _reverse_chain(states, tuple(g_acc), geom, mat, consts, kw)
 
 
@@ -675,7 +712,7 @@ def train_deep_plain(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s
     for dep in range(depth):
         f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, _xi_pair(xi, dep), **kw)
         acc = [acc[i] + f.color[i] * f.w for i in range(3)]
-        states.append((o3, d3, thr, alive, (f.idx, f.hit, f.clear), f.xi))
+        states.append((o3, d3, thr, alive, (f.idx, f.hit, f.clear), f.xi, None))
         o3, d3, thr, alive = f.p_n, f.dout, f.thr_out, f.coverage
     sse = torch.zeros_like(d[0])
     g_acc = []
@@ -686,37 +723,41 @@ def train_deep_plain(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s
     return (torch.sum(sse), *_reverse_chain(states, tuple(g_acc), geom, mat, consts, kw))
 
 
-def smooth_fwd_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s):
+def smooth_fwd_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s,
+                          tex_hw=None):
     """Plain version of ``smooth_fwd_step``: one smooth bounce from the state
     ``(o, d, thr, alive, acc)``, glossy with ``xi`` (2, N) when given.
     Returns the next state and the bounce's residuals: ``(o, d, thr, alive,
-    acc, idx, hit, clear)``, idx int32 and hit 0/1, each (N,)."""
+    acc, idx, hit, clear)``, idx int32 and hit 0/1, each (N,); with
+    ``tex_hw`` (the atlas mode) also the flat texel ids and dww (N,)."""
     f = fwd_sub_math(
         tuple(o), tuple(d), thr, alive, geom, mat, consts, _xi_pair(xi, 0),
-        faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s,
+        faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw,
     )
     acc_n = torch.stack([acc[i] + f.color[i] * f.w for i in range(3)])
-    return (
+    outs = (
         torch.stack(f.p_n), torch.stack(f.dout), f.thr_out, f.coverage, acc_n,
         f.idx, f.hit.to(d.dtype), f.clear,
     )
+    return outs if tex_hw is None else outs + (f.flat, f.dww)
 
 
 def smooth_bwd_step_plain(
     o, d, thr, alive, idx, hit, clear, geom, mat, consts, g_o, g_d, g_thr, g_alive, g_acc, xi=None,
-    *, faraway, s_cheap, sharp_e, sharp_s,
+    *, faraway, s_cheap, sharp_e, sharp_s, g_dww=None, tex_hw=None,
 ):
     """Plain version of ``smooth_bwd_step``: the adjoint of one bounce, from
-    its inputs, its residuals and the cotangents of its five outputs.
-    Returns ``(g_o, g_d, g_thr, g_alive, g_geom, g_mat, g_consts)``; acc's
-    cotangent passes through unchanged and is the caller's."""
-    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    its inputs, its residuals and the cotangents of its five outputs (and in
+    the atlas mode of its dww, ``g_dww`` (N,)).  Returns ``(g_o, g_d, g_thr,
+    g_alive, g_geom, g_mat, g_consts)``; acc's cotangent passes through
+    unchanged and is the caller's."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw)
     o3, d3 = tuple(o), tuple(d)
     f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, _xi_pair(xi, 0), saved=(idx, hit != 0, clear), **kw)
     ggeom, gmat, gconst = torch.zeros_like(geom), torch.zeros_like(mat), torch.zeros_like(consts)
+    cots = (tuple(g_o), tuple(g_d), g_thr, g_alive, tuple(g_acc)) + (() if g_dww is None else (g_dww,))
     g_o3, g_d3, g_thr_in, g_alive_in = adjoint_bounce(
-        f, o3, d3, (tuple(g_o), tuple(g_d), g_thr, g_alive, tuple(g_acc)), geom, ggeom, gmat, gconst,
-        faraway=faraway, s_cheap=s_cheap,
+        f, o3, d3, cots, geom, ggeom, gmat, gconst, faraway=faraway, s_cheap=s_cheap,
     )
     return torch.stack(g_o3), torch.stack(g_d3), g_thr_in, g_alive_in, ggeom, gmat, gconst
 
@@ -777,25 +818,30 @@ def _check(
 
 # C signatures of the entries in csrc/bounce_smooth_sub.cu, before the
 # trailing stream: p = pointer, i = int, r = the dtype's real.  Every entry
-# takes xi as a pointer that may be null (the deterministic kernel).
+# takes xi as a pointer that may be null (the deterministic kernel); all
+# but train_deep take the atlas mode's flat and dww outputs (or g_dww) as
+# pointers that may be null (no atlas) and the atlas's slot extents last.
 _SIGNATURES = {
     # o, d, geom, mat, consts, xi, acc, osave, dsave, thrsave, alivesave,
-    # idx, hit, clear; n, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
-    "smooth_fwd_deep": "pppppp" "pppppppp" "iiii" "rrr",
+    # idx, hit, clear, flat, dww; n, s_cheap, s_total, depth; faraway,
+    # sharp_e, sharp_s; tex_h, tex_w
+    "smooth_fwd_deep": "pppppp" "pppppppp" "pp" "iiii" "rrr" "ii",
     # o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat,
-    # consts, xi, g_acc, g_o, g_d, partials, table grads; n, n_cols,
-    # s_cheap, s_total, depth; faraway, sharp_e, sharp_s
-    "smooth_bwd_deep": "ppppppppp" "pppp" "p" "pppp" "iiiii" "rrr",
+    # consts, xi, g_acc, g_dww, g_o, g_d, partials, table grads; n, n_cols,
+    # s_cheap, s_total, depth; faraway, sharp_e, sharp_s; tex_h, tex_w
+    "smooth_bwd_deep": "ppppppppp" "pppp" "pp" "pppp" "iiiii" "rrr" "ii",
     # o, d, tgt, geom, mat, consts, xi, g_o, g_d, partials, sse + table
     # grads; n, n_cols, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
     "train_deep": "ppp" "pppp" "pppp" "iiiii" "rrr",
     # o, d, thr, alive, acc, geom, mat, consts, xi, their five outputs, idx,
-    # hit, clear; n, s_cheap, s_total; faraway, sharp_e, sharp_s
-    "smooth_fwd_step": "ppppp" "pppp" "ppppp" "ppp" "iii" "rrr",
+    # hit, clear, flat, dww; n, s_cheap, s_total; faraway, sharp_e,
+    # sharp_s; tex_h, tex_w
+    "smooth_fwd_step": "ppppp" "pppp" "ppppp" "ppp" "pp" "iii" "rrr" "ii",
     # o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi, cotangents
-    # g_o, g_d, g_thr, g_alive, g_acc, the four input cotangents, partials,
-    # table grads; n, n_cols, s_cheap, s_total; faraway, sharp_e, sharp_s
-    "smooth_bwd_step": "ppppppp" "pppp" "ppppp" "pppp" "pp" "iiii" "rrr",
+    # g_o, g_d, g_thr, g_alive, g_acc, g_dww, the four input cotangents,
+    # partials, table grads; n, n_cols, s_cheap, s_total; faraway, sharp_e,
+    # sharp_s; tex_h, tex_w
+    "smooth_bwd_step": "ppppppp" "pppp" "pppppp" "pppp" "pp" "iiii" "rrr" "ii",
 }
 
 # Per-column partial sums of the table gradients: 4 + 19 values per
@@ -837,10 +883,11 @@ def shared_bytes(dtype: torch.dtype, s: int) -> int:
     return getattr(_build.load_library(_SOURCE), f"prt_smooth_shared_bytes_{_suffix(dtype)}")(s)
 
 
-def _launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Launch kernel ``name`` on the current stream and count it."""
+def _launch(name: str, dtype: torch.dtype, *args, atlas: bool = False) -> None:
+    """Launch kernel ``name`` on the current stream and count it (its atlas
+    mode in :data:`ATLAS_LAUNCHES`)."""
     _build.launch(_SOURCE, name, _SIGNATURES[name], dtype, *args)
-    LAUNCHES[name] += 1
+    (ATLAS_LAUNCHES if atlas else LAUNCHES)[name] += 1
 
 
 def _scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials=None):
@@ -864,37 +911,44 @@ def _split_grads(flat, s: int):
     return g_geom, g_mat, g_consts, flat[-1]
 
 
-def smooth_fwd_deep(o, d, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+def smooth_fwd_deep(o, d, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s, tex_hw=None):
     """The smooth chain in one launch, glossy with ``xi`` (2 * depth, N) when
-    given; outputs as :func:`smooth_fwd_deep_plain`."""
-    kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    given, in the atlas mode with ``tex_hw``; outputs as
+    :func:`smooth_fwd_deep_plain`."""
+    kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw)
     device = _check({"o": o, "d": d}, geom, mat, consts, s_cheap=s_cheap, depth=depth, stacks={"xi": (xi, 2 * depth)})
     if device.type == "cpu":
         return smooth_fwd_deep_plain(o, d, geom, mat, consts, xi, **kw)
     n, s = d.shape[1], geom.shape[0]
     with torch.cuda.device(device):
         e = functools.partial(torch.empty, dtype=d.dtype, device=device)
+        ids = functools.partial(torch.empty, dtype=torch.int32, device=device)
         outs = (
             e((3, n)), e((3 * (depth - 1), n)), e((3 * (depth - 1), n)), e((depth - 1, n)),
-            e((depth - 1, n)), torch.empty((depth, n), dtype=torch.int32, device=device),
-            e((depth, n)), e((depth, n)),
+            e((depth - 1, n)), ids((depth, n)), e((depth, n)), e((depth, n)),
         )
-        _launch("smooth_fwd_deep", d.dtype, o, d, geom, mat, consts, xi, *outs,
-                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s))
-    return outs
+        tex = () if tex_hw is None else (ids((depth, n)), e((depth, n)))
+        _launch("smooth_fwd_deep", d.dtype, o, d, geom, mat, consts, xi, *outs, *(tex or (None, None)),
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s), *slot_args(tex_hw), atlas=bool(tex))
+    return outs + tex
 
 
 def smooth_bwd_deep(
     o, d, osave, dsave, thrsave, alivesave, idx, hit, clear, geom, mat, consts, g_acc, xi=None,
-    *, depth, faraway, s_cheap, sharp_e, sharp_s,
+    *, depth, faraway, s_cheap, sharp_e, sharp_s, g_dww=None, tex_hw=None,
 ):
     """The reverse adjoint chain in one launch (plus the fixed-order
-    reduction of the table gradients); outputs as :func:`smooth_bwd_deep_plain`."""
-    kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    reduction of the table gradients), in the atlas mode with ``g_dww``
+    (depth, N) and ``tex_hw``; outputs as :func:`smooth_bwd_deep_plain`."""
+    kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, g_dww=g_dww,
+              tex_hw=tex_hw)
+    if (g_dww is None) != (tex_hw is None):
+        raise ValueError("the atlas mode takes both g_dww and tex_hw")
     stacks = {
         "osave": (osave, 3 * (depth - 1)), "dsave": (dsave, 3 * (depth - 1)),
         "thrsave": (thrsave, depth - 1), "alivesave": (alivesave, depth - 1),
         "idx": (idx, depth), "hit": (hit, depth), "clear": (clear, depth), "xi": (xi, 2 * depth),
+        "g_dww": (g_dww, depth),
     }
     device = _check({"o": o, "d": d, "g_acc": g_acc}, geom, mat, consts, s_cheap=s_cheap, depth=depth, stacks=stacks)
     if device.type == "cpu":
@@ -906,8 +960,9 @@ def smooth_bwd_deep(
         g_o, g_d = torch.empty_like(d), torch.empty_like(d)
         partials, flat = _grad_buffers(n, s, d)
         _launch("smooth_bwd_deep", d.dtype, o, d, osave, dsave, thrsave, alivesave, idx, hit, clear,
-                geom, mat, consts, xi, g_acc, g_o, g_d, partials, flat,
-                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials))
+                geom, mat, consts, xi, g_acc, g_dww, g_o, g_d, partials, flat,
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials), *slot_args(tex_hw),
+                atlas=g_dww is not None)
     g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
     return g_o, g_d, g_geom, g_mat, g_consts
 
@@ -933,10 +988,11 @@ def train_deep(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap
     return sse, g_o, g_d, g_geom, g_mat, g_consts
 
 
-def smooth_fwd_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s):
-    """One smooth bounce per launch, glossy with ``xi`` (2, N) when given;
-    outputs as :func:`smooth_fwd_step_plain`."""
-    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+def smooth_fwd_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s,
+                    tex_hw=None):
+    """One smooth bounce per launch, glossy with ``xi`` (2, N) when given, in
+    the atlas mode with ``tex_hw``; outputs as :func:`smooth_fwd_step_plain`."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw)
     device = _check(
         {"o": o, "d": d, "acc": acc}, geom, mat, consts, s_cheap=s_cheap, depth=1,
         stacks={"xi": (xi, 2)}, lanes={"thr": thr, "alive": alive},
@@ -950,22 +1006,28 @@ def smooth_fwd_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, farawa
             torch.empty_like(acc), torch.empty((n,), dtype=torch.int32, device=device),
             torch.empty_like(thr), torch.empty_like(thr),
         )
-        _launch("smooth_fwd_step", d.dtype, o, d, thr, alive, acc, geom, mat, consts, xi, *outs,
-                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s))
-    return outs
+        tex = () if tex_hw is None else (torch.empty((n,), dtype=torch.int32, device=device), torch.empty_like(thr))
+        _launch("smooth_fwd_step", d.dtype, o, d, thr, alive, acc, geom, mat, consts, xi, *outs, *(tex or (None, None)),
+                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s), *slot_args(tex_hw), atlas=bool(tex))
+    return outs + tex
 
 
 def smooth_bwd_step(
     o, d, thr, alive, idx, hit, clear, geom, mat, consts, g_o, g_d, g_thr, g_alive, g_acc, xi=None,
-    *, faraway, s_cheap, sharp_e, sharp_s,
+    *, faraway, s_cheap, sharp_e, sharp_s, g_dww=None, tex_hw=None,
 ):
     """The adjoint of one bounce in one launch (plus the fixed-order
-    reduction of the table gradients); outputs as :func:`smooth_bwd_step_plain`."""
-    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
+    reduction of the table gradients), in the atlas mode with ``g_dww`` (N,)
+    and ``tex_hw``; outputs as :func:`smooth_bwd_step_plain`."""
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, g_dww=g_dww, tex_hw=tex_hw)
+    if (g_dww is None) != (tex_hw is None):
+        raise ValueError("the atlas mode takes both g_dww and tex_hw")
+    lanes = {"thr": thr, "alive": alive, "idx": idx, "hit": hit, "clear": clear, "g_thr": g_thr, "g_alive": g_alive}
+    if g_dww is not None:
+        lanes["g_dww"] = g_dww
     device = _check(
         {"o": o, "d": d, "g_o": g_o, "g_d": g_d, "g_acc": g_acc}, geom, mat, consts, s_cheap=s_cheap, depth=1,
-        stacks={"xi": (xi, 2)},
-        lanes={"thr": thr, "alive": alive, "idx": idx, "hit": hit, "clear": clear, "g_thr": g_thr, "g_alive": g_alive},
+        stacks={"xi": (xi, 2)}, lanes=lanes,
     )
     if device.type == "cpu":
         return smooth_bwd_step_plain(
@@ -976,8 +1038,9 @@ def smooth_bwd_step(
         outs = (torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr), torch.empty_like(alive))
         partials, flat = _grad_buffers(n, s, d)
         _launch("smooth_bwd_step", d.dtype, o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi,
-                g_o, g_d, g_thr, g_alive, g_acc, *outs, partials, flat,
-                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s, partials))
+                g_o, g_d, g_thr, g_alive, g_acc, g_dww, *outs, partials, flat,
+                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s, partials), *slot_args(tex_hw),
+                atlas=g_dww is not None)
     g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
     return (*outs, g_geom, g_mat, g_consts)
 
@@ -990,38 +1053,55 @@ def smooth_bwd_step(
 
 
 class _TraceSubDeep(torch.autograd.Function):
-    """acc (3, N) of the smooth chain; backward launches ``smooth_bwd_deep``."""
+    """acc (3, N) of the smooth chain, and in the atlas mode (``kw["tex_hw"]``)
+    each bounce's flat texel ids and dww (depth, N); backward launches
+    ``smooth_bwd_deep`` with acc's cotangent and dww's.  The ids are
+    selectors: no cotangent."""
 
     @staticmethod
     def forward(ctx, o, d, geom, mat, consts, xi, kw):
         acc, *res = smooth_fwd_deep(o, d, geom, mat, consts, xi, **kw)
+        tex = tuple(res[7:])
         ctx.kw = kw
-        ctx.save_for_backward(o, d, *res, geom, mat, consts, xi)
-        return acc
+        ctx.save_for_backward(o, d, *res[:7], geom, mat, consts, xi)
+        if tex:
+            ctx.mark_non_differentiable(tex[0])
+        return (acc, *tex) if tex else acc
 
     @staticmethod
-    def backward(ctx, g_acc):
+    def backward(ctx, g_acc, *g_tex):
         *saved, xi = ctx.saved_tensors
-        g_o, g_d, g_geom, g_mat, g_consts = smooth_bwd_deep(*saved, g_acc.contiguous(), xi, **ctx.kw)
+        kw = dict(ctx.kw)
+        if g_tex:
+            kw["g_dww"] = g_tex[1].contiguous()
+        g_o, g_d, g_geom, g_mat, g_consts = smooth_bwd_deep(*saved, g_acc.contiguous(), xi, **kw)
         return g_o, g_d, g_geom, g_mat, g_consts, None, None
 
 
 class _BounceSub(torch.autograd.Function):
-    """One smooth bounce, ``(o, d, thr, alive, acc)`` in and out; backward
+    """One smooth bounce, ``(o, d, thr, alive, acc)`` in and out, and in the
+    atlas mode (``kw["tex_hw"]``) its flat texel ids and dww (N,); backward
     launches ``smooth_bwd_step``, and acc's cotangent passes through."""
 
     @staticmethod
     def forward(ctx, o, d, thr, alive, acc, geom, mat, consts, xi, kw):
-        *state, idx, hit, clear = smooth_fwd_step(o, d, thr, alive, acc, geom, mat, consts, xi, **kw)
+        o_n, d_n, thr_n, alive_n, acc_n, idx, hit, clear, *tex = smooth_fwd_step(
+            o, d, thr, alive, acc, geom, mat, consts, xi, **kw
+        )
         ctx.kw = kw
         ctx.save_for_backward(o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi)
-        return tuple(state)
+        if tex:
+            ctx.mark_non_differentiable(tex[0])
+        return (o_n, d_n, thr_n, alive_n, acc_n, *tex)
 
     @staticmethod
-    def backward(ctx, g_o, g_d, g_thr, g_alive, g_acc):
+    def backward(ctx, g_o, g_d, g_thr, g_alive, g_acc, *g_tex):
         *saved, xi = ctx.saved_tensors
         cots = tuple(g.contiguous() for g in (g_o, g_d, g_thr, g_alive, g_acc))
-        g_o_in, g_d_in, g_thr_in, g_alive_in, g_geom, g_mat, g_consts = smooth_bwd_step(*saved, *cots, xi, **ctx.kw)
+        kw = dict(ctx.kw)
+        if g_tex:
+            kw["g_dww"] = g_tex[1].contiguous()
+        g_o_in, g_d_in, g_thr_in, g_alive_in, g_geom, g_mat, g_consts = smooth_bwd_step(*saved, *cots, xi, **kw)
         return g_o_in, g_d_in, g_thr_in, g_alive_in, cots[4], g_geom, g_mat, g_consts, None, None
 
 
@@ -1071,7 +1151,9 @@ def trace_fused_smooth_sub(origin, dirs_t, scene, cfg, *, route: str = "auto", k
     (``smooth_fwd_step`` / ``smooth_bwd_step``) once per bounce for depth
     1, as the JAX package does; a caller may force ``"deep"`` or
     ``"step"``.  With ``cfg.stochastic_roughness`` and a seed ``key`` the
-    bounces are glossy, xi drawn on the JAX package's schedule.
+    bounces are glossy, xi drawn on the JAX package's schedule.  An atlas
+    scene takes the kernels' atlas mode and adds the texels in depth order:
+    every bounce's after the deep pair, each bounce's after its step.
     """
     if route == "auto":
         route = "deep" if cfg.max_depth >= 2 else "step"
@@ -1079,13 +1161,21 @@ def trace_fused_smooth_sub(origin, dirs_t, scene, cfg, *, route: str = "auto", k
         raise ValueError(f"unknown route {route!r}")
     o, d, tables, kw = _kernel_inputs(origin, dirs_t, scene, cfg)
     xi = _xi_stack(key, d.shape[1], cfg, d.device)
+    texels, kw["tex_hw"] = atlas_texels(scene, cfg.dtype)
     if route == "deep":
-        return _TraceSubDeep.apply(o, d, *tables, xi, kw).T
+        acc = _TraceSubDeep.apply(o, d, *tables, xi, kw)
+        if texels is not None:
+            acc, flats, dwws = acc
+            for dep in range(cfg.max_depth):
+                acc = compose_texels(acc, texels, flats[dep], dwws[dep])
+        return acc.T
     step_kw = {k: v for k, v in kw.items() if k != "depth"}
     thr, alive, acc = torch.ones_like(d[0]), torch.ones_like(d[0]), torch.zeros_like(d)
     for dep in range(cfg.max_depth):
         xi_k = None if xi is None else xi[2 * dep : 2 * dep + 2]
-        o, d, thr, alive, acc = _BounceSub.apply(o, d, thr, alive, acc, *tables, xi_k, step_kw)
+        o, d, thr, alive, acc, *tex = _BounceSub.apply(o, d, thr, alive, acc, *tables, xi_k, step_kw)
+        if tex:
+            acc = compose_texels(acc, texels, *tex)
     return acc.T
 
 

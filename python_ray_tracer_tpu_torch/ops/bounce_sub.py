@@ -10,10 +10,14 @@ scene tables staged in shared memory.
 
 Beside each kernel sits its plain PyTorch version.  :func:`bounce_math` is
 the term-for-term mirror of the JAX kernel body ``_bounce_math`` (with
-``parts="full"``, no atlas), the glossy xi continuation included.  A wrapper given CPU tensors runs the
-plain version; given CUDA tensors it launches the kernel or raises.  The
-hard path has no gradient in the JAX package either, so the wrappers
-refuse tensors that require grad.
+``parts="full"``), the glossy xi continuation and the atlas mode included:
+given the atlas's slot extents ``tex_hw``, each kernel also returns each
+bounce's flat texel ids and ``dww`` weights (:mod:`.texture`), and
+:func:`trace_fused_sub` composes the texels after the launch, as the JAX
+package does.  A wrapper given CPU tensors runs the plain version; given
+CUDA tensors it launches the kernel or raises.  The hard path has no
+gradient in the JAX package either, so the wrappers refuse tensors that
+require grad.
 
 :data:`LAUNCHES` counts kernel launches, so a run can show that its main
 path went through the kernels.
@@ -31,9 +35,10 @@ from .bounce_smooth import norm3
 from .rng import bounce_xi
 from .shading import AMBIENT, GLINT_EXPONENT, NUDGE, SHADING_EPS
 from .tables import (
-    CX, CY, CZ, DCB, DCG, DCR, DG, IG, IOR, KIND, MAT_COLS, N_CONST, RAD, ROUGH, SG, TFI, TFT, TFW,
+    CX, CY, CZ, DCB, DCG, DCR, DG, IG, IOR, KIND, MAT_COLS, N_CONST, RAD, ROUGH, SG, TEXH, TEXW, TFI, TFT, TFW, TID,
     consts_row, geometry_table, material_table,
 )
+from .texture import atlas_texels, compose_texels, flat_texel, slot_args
 from .vecmath import ipow, sqrt
 
 # The kernels stage the side tables in fixed-size shared arrays of this many
@@ -45,6 +50,8 @@ MAX_SUB_SPHERES = 64
 _BIG = 3.0e38
 
 LAUNCHES = {"trace_deep": 0, "bounce_step": 0}
+# Launches of the kernels' atlas mode.
+ATLAS_LAUNCHES = {"trace_deep": 0, "bounce_step": 0}
 
 _SOURCE = "bounce_sub.cu"
 
@@ -174,17 +181,31 @@ def ggx_continuation(d, normal, refl, alpha, xi) -> SimpleNamespace:
     return g
 
 
-def shade_color(p, normal, to_light, to_cam, in_light, m, const):
+def image_texels(normal, m, tex, tex_hw):
+    """The atlas mode's texture step of the JAX kernel bodies: ``(tex, flat,
+    is_image)``, the diffuse texture ``tex`` (3-tuple of (N,)) zeroed on
+    image lanes and their flat texel ids (0 elsewhere)."""
+    is_image = m(KIND) == 2.0
+    flat = torch.where(is_image, flat_texel(normal, m(TID), m(TEXH), m(TEXW), tex_hw), 0)
+    tex = tuple(torch.where(is_image, torch.zeros_like(t), t) for t in tex)
+    return tex, flat, is_image
+
+
+def shade_color(p, normal, to_light, to_cam, in_light, m, const, tex_hw=None):
     """The local color of a hit, the JAX kernel bodies' shading
     (``ops/shading.py`` term for term) on rows: ``p``, ``normal``,
     ``to_light``, ``to_cam`` 3-tuples of (N,), ``in_light`` (N,), ``m(col)``
-    the winner's material column, ``const(i)`` a scene constant."""
+    the winner's material column, ``const(i)`` a scene constant.  With the
+    atlas's slot extents ``tex_hw`` returns ``(color, flat, is_image,
+    diffuse_w)``: image lanes' diffuse texture is left to the caller."""
     n_dot_l = torch.clamp_min(_dot3(normal, to_light), 0.0)
     cx_i = torch.trunc(p[0] * 2.0).to(torch.int32) % 2
     cz_i = torch.trunc(p[2] * 2.0).to(torch.int32) % 2
     checker = (cx_i == cz_i).to(p[0].dtype)
     is_checker = m(KIND) == 1.0
     tex = tuple(torch.where(is_checker, checker, m(c)) for c in (DCR, DCG, DCB))
+    if tex_hw is not None:
+        tex, flat, is_image = image_texels(normal, m, tex, tex_hw)
 
     diffuse_w = n_dot_l * in_light * m(DG)
 
@@ -227,13 +248,16 @@ def shade_color(p, normal, to_light, to_cam, in_light, m, const):
         (0.5 + 0.5 * ip) * irid_w,
     )
 
-    return tuple(AMBIENT + tex[i] * diffuse_w + dome[i] + spec_term + irid[i] for i in range(3))
+    color = tuple(AMBIENT + tex[i] * diffuse_w + dome[i] + spec_term + irid[i] for i in range(3))
+    return color if tex_hw is None else (color, flat, is_image, diffuse_w)
 
 
-def bounce_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int):
+def bounce_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int, tex_hw=None):
     """One hard bounce on rows ``o``/``d`` (3-tuples of (N,)), ``thr`` and
     ``alive`` (N,); ``xi`` (two (N,) rows) makes the continuation glossy.
-    Returns ``(acc_add, o_next, d_next, thr_next, alive_next)``."""
+    Returns ``(acc_add, o_next, d_next, thr_next, alive_next, flat, dww)``;
+    ``flat`` and ``dww`` (the atlas mode's texel ids and weights, given the
+    atlas's slot extents ``tex_hw``) are None without an atlas."""
     dtype = o[0].dtype
     far = torch.tensor(faraway, dtype=dtype, device=o[0].device)
 
@@ -285,7 +309,11 @@ def bounce_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway: float,
     t_others, t_self = _sweep(p_n, to_light, geom, s_cheap, far, shadow_update)
     in_light = (t_self <= t_others).to(dtype)
 
-    color = shade_color(p, normal, to_light, to_cam, in_light, m, const)
+    flat = dww = None
+    color = shade_color(p, normal, to_light, to_cam, in_light, m, const, tex_hw)
+    if tex_hw is not None:
+        color, flat, is_image, diffuse_w = color
+        dww = torch.where(is_image, diffuse_w * thr * coverage, torch.zeros_like(thr))
 
     w = thr * coverage
     refl_coeff = 0.5 * m(SG) * in_light
@@ -298,34 +326,43 @@ def bounce_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway: float,
         refl = ggx_continuation(d, normal, refl, ipow(m(ROUGH), 2), xi).dout
 
     acc_add = tuple(color[i] * w for i in range(3))
-    return acc_add, p_n, refl, thr_next, alive_next
+    return acc_add, p_n, refl, thr_next, alive_next, flat, dww
 
 
-def trace_deep_plain(o, d, geom, mat, consts, xi=None, *, depth: int, faraway: float, s_cheap: int):
+def trace_deep_plain(o, d, geom, mat, consts, xi=None, *, depth: int, faraway: float, s_cheap: int, tex_hw=None):
     """Plain version of ``trace_deep``: ``depth`` bounces from unit
     throughput, bounce ``k`` glossy with rows ``2k, 2k+1`` of ``xi`` when
-    given; returns acc (3, N)."""
+    given; returns acc (3, N), and with ``tex_hw`` also every bounce's flat
+    texel ids (depth, N) int32 and dww weights (depth, N)."""
     thr = torch.ones_like(d[0])
     alive = torch.ones_like(d[0])
     acc = [torch.zeros_like(d[0]) for _ in range(3)]
     o3, d3 = tuple(o), tuple(d)
+    flats, dwws = [], []
     for dep in range(depth):
         xi_k = None if xi is None else (xi[2 * dep], xi[2 * dep + 1])
-        acc_add, o3, d3, thr, alive = bounce_math(
-            o3, d3, thr, alive, geom, mat, consts, xi_k, faraway=faraway, s_cheap=s_cheap
+        acc_add, o3, d3, thr, alive, flat, dww = bounce_math(
+            o3, d3, thr, alive, geom, mat, consts, xi_k, faraway=faraway, s_cheap=s_cheap, tex_hw=tex_hw
         )
         acc = [acc[i] + acc_add[i] for i in range(3)]
-    return torch.stack(acc)
+        flats.append(flat)
+        dwws.append(dww)
+    if tex_hw is None:
+        return torch.stack(acc)
+    return torch.stack(acc), torch.stack(flats), torch.stack(dwws)
 
 
-def bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int):
-    """Plain version of ``bounce_step``: returns ``(o, d, thr, alive, acc)``."""
-    acc_add, o_n, d_n, thr_n, alive_n = bounce_math(
+def bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int,
+                      tex_hw=None):
+    """Plain version of ``bounce_step``: returns ``(o, d, thr, alive, acc)``,
+    and with ``tex_hw`` also the bounce's flat texel ids and dww (N,)."""
+    acc_add, o_n, d_n, thr_n, alive_n, flat, dww = bounce_math(
         tuple(o), tuple(d), thr, alive, geom, mat, consts, None if xi is None else (xi[0], xi[1]),
-        faraway=faraway, s_cheap=s_cheap,
+        faraway=faraway, s_cheap=s_cheap, tex_hw=tex_hw,
     )
     acc_n = torch.stack([acc[i] + acc_add[i] for i in range(3)])
-    return torch.stack(o_n), torch.stack(d_n), thr_n, alive_n, acc_n
+    out = (torch.stack(o_n), torch.stack(d_n), thr_n, alive_n, acc_n)
+    return out if tex_hw is None else out + (flat, dww)
 
 
 # ---------------------------------------------------------------------------
@@ -374,54 +411,67 @@ def _check(rays: dict, lanes: dict, geom, mat, consts, s_cheap: int, xi=None, xi
 # C signatures of the entries in csrc/bounce_sub.cu, before the trailing
 # stream: p = pointer, i = int, r = the dtype's real.
 _SIGNATURES = {
-    # o, d, acc, geom, mat, consts, xi (or null); n, s_cheap, s_total,
-    # depth; faraway
-    "trace_deep": "ppppppp" "iiii" "r",
+    # o, d, acc, geom, mat, consts, xi (or null), flat and dww (or null);
+    # n, s_cheap, s_total, depth; faraway; the atlas's slot extents
+    "trace_deep": "ppppppp" "pp" "iiii" "r" "ii",
     # o, d, thr, alive, acc, their five outputs, geom, mat, consts, xi (or
-    # null); n, s_cheap, s_total; faraway
-    "bounce_step": "ppppp" "ppppp" "pppp" "iii" "r",
+    # null), flat and dww (or null); n, s_cheap, s_total; faraway; the
+    # atlas's slot extents
+    "bounce_step": "ppppp" "ppppp" "pppp" "pp" "iii" "r" "ii",
 }
 
 
-def _launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Launch kernel ``name`` on the current stream and count it."""
+def _launch(name: str, dtype: torch.dtype, *args, atlas: bool = False) -> None:
+    """Launch kernel ``name`` on the current stream and count it (its atlas
+    mode in :data:`ATLAS_LAUNCHES`)."""
     _build.launch(_SOURCE, name, _SIGNATURES[name], dtype, *args)
-    LAUNCHES[name] += 1
+    (ATLAS_LAUNCHES if atlas else LAUNCHES)[name] += 1
 
 
-def trace_deep(o, d, geom, mat, consts, xi=None, *, depth: int, faraway: float, s_cheap: int) -> torch.Tensor:
+def trace_deep(o, d, geom, mat, consts, xi=None, *, depth: int, faraway: float, s_cheap: int, tex_hw=None):
     """The whole bounce chain in one launch: acc (3, N) of ``depth`` bounces;
-    ``xi`` (2 * depth, N) makes every bounce glossy."""
+    ``xi`` (2 * depth, N) makes every bounce glossy.  With the atlas's slot
+    extents ``tex_hw`` (the atlas mode) returns ``(acc, flat, dww)``, each
+    bounce's texel ids and weights (depth, N)."""
     device = _check({"o": o, "d": d}, {}, geom, mat, consts, s_cheap, xi, 2 * depth)
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
+    kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, tex_hw=tex_hw)
     if device.type == "cpu":
-        return trace_deep_plain(o, d, geom, mat, consts, xi, depth=depth, faraway=faraway, s_cheap=s_cheap)
+        return trace_deep_plain(o, d, geom, mat, consts, xi, **kw)
+    n = o.shape[1]
     with torch.cuda.device(device):
         acc = torch.empty_like(o)
-        _launch(
-            "trace_deep", o.dtype, o, d, acc, geom, mat, consts, xi,
-            o.shape[1], s_cheap, geom.shape[0], depth, float(faraway),
+        tex = () if tex_hw is None else (
+            torch.empty((depth, n), dtype=torch.int32, device=device), torch.empty((depth, n), dtype=o.dtype, device=device)
         )
-    return acc
+        _launch(
+            "trace_deep", o.dtype, o, d, acc, geom, mat, consts, xi, *(tex or (None, None)),
+            n, s_cheap, geom.shape[0], depth, float(faraway), *slot_args(tex_hw), atlas=bool(tex),
+        )
+    return acc if tex_hw is None else (acc, *tex)
 
 
-def bounce_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int):
+def bounce_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway: float, s_cheap: int, tex_hw=None):
     """One bounce per launch: returns the next ``(o, d, thr, alive, acc)``;
-    ``xi`` (2, N) makes the bounce glossy."""
+    ``xi`` (2, N) makes the bounce glossy.  With the atlas's slot extents
+    ``tex_hw`` (the atlas mode) also the bounce's texel ids and dww (N,)."""
     device = _check({"o": o, "d": d, "acc": acc}, {"thr": thr, "alive": alive}, geom, mat, consts, s_cheap, xi)
+    kw = dict(faraway=faraway, s_cheap=s_cheap, tex_hw=tex_hw)
     if device.type == "cpu":
-        return bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi, faraway=faraway, s_cheap=s_cheap)
+        return bounce_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi, **kw)
+    n = o.shape[1]
     with torch.cuda.device(device):
         out = (
             torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr),
             torch.empty_like(alive), torch.empty_like(acc),
         )
+        tex = () if tex_hw is None else (torch.empty((n,), dtype=torch.int32, device=device), torch.empty_like(thr))
         _launch(
             "bounce_step", o.dtype, o, d, thr, alive, acc, *out, geom, mat, consts, xi,
-            o.shape[1], s_cheap, geom.shape[0], float(faraway),
+            *(tex or (None, None)), n, s_cheap, geom.shape[0], float(faraway), *slot_args(tex_hw), atlas=bool(tex),
         )
-    return out
+    return out + tex
 
 
 def trace_fused_sub(
@@ -439,7 +489,10 @@ def trace_fused_sub(
     per bounce for depth 1; a caller may force either.  With
     ``cfg.stochastic_roughness`` and a seed ``key`` the bounces are glossy:
     ``trace_deep`` takes every bounce's xi drawn up front, ``bounce_step``
-    one bounce's at a time, both over exactly N rays.
+    one bounce's at a time, both over exactly N rays.  An atlas scene takes
+    the kernels' atlas mode and composes the texels in depth order: after
+    ``trace_deep`` every bounce's at once, after each ``bounce_step`` that
+    bounce's, as the JAX package does.
     """
     if scene.spheres.count > MAX_SUB_SPHERES:
         raise ValueError(
@@ -461,15 +514,21 @@ def trace_fused_sub(
     xis = [None] * depth
     if cfg.stochastic_roughness and key is not None:
         xis = bounce_xi(key, n, depth, dtype, d.device)
+    texels, tex_hw = atlas_texels(scene, dtype)
+    kw = dict(faraway=cfg.faraway, s_cheap=s_cheap, tex_hw=tex_hw)
     if route == "trace_deep":
         xi = None if xis[0] is None else torch.cat(xis)
-        acc = trace_deep(o, d, geom, mat, consts, xi, depth=depth, faraway=cfg.faraway, s_cheap=s_cheap)
+        acc = trace_deep(o, d, geom, mat, consts, xi, depth=depth, **kw)
+        if tex_hw is not None:
+            acc, flats, dwws = acc
+            for dep in range(depth):
+                acc = compose_texels(acc, texels, flats[dep], dwws[dep])
     else:
         thr = torch.ones_like(d[0])
         alive = torch.ones_like(d[0])
         acc = torch.zeros_like(d)
         for xi in xis:
-            o, d, thr, alive, acc = bounce_step(
-                o, d, thr, alive, acc, geom, mat, consts, xi, faraway=cfg.faraway, s_cheap=s_cheap
-            )
+            o, d, thr, alive, acc, *tex = bounce_step(o, d, thr, alive, acc, geom, mat, consts, xi, **kw)
+            if tex:
+                acc = compose_texels(acc, texels, *tex)
     return acc.T

@@ -16,7 +16,10 @@ config 4: 1024 spheres, 1920x1080, depth 4).  Per bounce:
 * the glue between the kernels (nudged origin, direction to the light,
   shadow-list bounds over the live hit lanes);
 * ``shade_culled`` (CUDA): the candidate shadow sweep, the shading and the
-  mirror continuation.
+  mirror continuation; on an atlas scene its atlas mode also returns each
+  image lane's flat texel id and ``dww`` weight, and the glue adds the
+  texels (:func:`.texture.compose_texels`) right after it, in the bounce's
+  ray order, as the JAX package does.
 
 Reflected bounces first re-sort 32-ray groups (:data:`_SORT_G`) by the
 live-weighted centroid's (origin cell, direction bin) key
@@ -43,6 +46,7 @@ from . import _build
 from .bounce_sub import _dot3, _normalize3, _sphere_t, _sphere_t_exact, shade_color
 from .shading import NUDGE
 from .tables import MAT_COLS, N_CONST, SG, consts_row, geometry_table, material_table
+from .texture import atlas_texels, compose_texels, slot_args
 from .vecmath import sqrt
 
 # Routing scope of the JAX package's culled routes (render._render_sample,
@@ -61,6 +65,8 @@ _DEAD_KEY = 1 << 24  # sorts spent ray groups to the tail
 _BIG = 3.0e38  # shadow-sweep sentinel of the JAX kernel, in both dtypes
 
 LAUNCHES = {"near_culled": 0, "shade_culled": 0}
+# Launches of the atlas mode (shade_culled only: near_culled takes no atlas).
+ATLAS_LAUNCHES = {"shade_culled": 0}
 
 _SOURCE = "culled.cu"
 
@@ -348,10 +354,11 @@ def near_culled_plain(o, d, cand, cnt_cand, cnt_full, geom, *, faraway: float, s
 
 
 def shade_culled_plain(o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, cand, cnt_cand, cnt_full,
-                       geom, consts, *, faraway: float, s_cheap: int, tile_rays: int):
+                       geom, consts, *, faraway: float, s_cheap: int, tile_rays: int, tex_hw=None):
     """Plain version of ``shade_culled``: the candidate shadow sweep, the
     shading and the mirror continuation; returns the next ``(o, d, thr,
-    alive, acc)``."""
+    alive, acc)``, and with the atlas's slot extents ``tex_hw`` also each
+    lane's flat texel id and dww (N,)."""
     dtype = o.dtype
     n = o.shape[1]
     far = torch.tensor(faraway, dtype=dtype, device=o.device)
@@ -390,13 +397,17 @@ def shade_culled_plain(o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat
     t_others, t_self = carry
     in_light = (t_self <= t_others).to(dtype)
 
-    color = shade_color(p, n3, l3, to_cam, in_light, m, const)
+    color = shade_color(p, n3, l3, to_cam, in_light, m, const, tex_hw)
+    tex = ()
+    if tex_hw is not None:
+        color, flat, is_image, diffuse_w = color
+        tex = (flat, torch.where(is_image, diffuse_w * thr * coverage, torch.zeros_like(thr)))
     w = thr * coverage
     thr_next = w * (0.5 * m(SG) * in_light)
     ddn = 2.0 * _dot3(d3, n3)
     refl = _normalize3(tuple(d3[i] - n3[i] * ddn for i in range(3)))
     acc_next = torch.stack([acc[i] + color[i] * w for i in range(3)])
-    return p_n.clone(), torch.stack(refl), thr_next, alive * hit, acc_next
+    return (p_n.clone(), torch.stack(refl), thr_next, alive * hit, acc_next, *tex)
 
 
 # ---------------------------------------------------------------------------
@@ -456,16 +467,18 @@ _SIGNATURES = {
     # s_total, tile_rays, cand_stride; faraway
     "near_culled": "pppppp" "pppp" "iiiii" "r",
     # o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, cand,
-    # cnt_cand, cnt_full, geom, consts; their five outputs; n, s_cheap,
-    # s_total, tile_rays, cand_stride; faraway
-    "shade_culled": "pppppppppppppppp" "ppppp" "iiiii" "r",
+    # cnt_cand, cnt_full, geom, consts; their five outputs; flat and dww
+    # (or null); n, s_cheap, s_total, tile_rays, cand_stride; faraway; the
+    # atlas's slot extents
+    "shade_culled": "pppppppppppppppp" "ppppp" "pp" "iiiii" "r" "ii",
 }
 
 
-def _launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Launch kernel ``name`` on the current stream and count it."""
+def _launch(name: str, dtype: torch.dtype, *args, atlas: bool = False) -> None:
+    """Launch kernel ``name`` on the current stream and count it (its atlas
+    mode in :data:`ATLAS_LAUNCHES`)."""
     _build.launch(_SOURCE, name, _SIGNATURES[name], dtype, *args)
-    LAUNCHES[name] += 1
+    (ATLAS_LAUNCHES if atlas else LAUNCHES)[name] += 1
 
 
 def near_culled(o, d, cand, cnt_cand, cnt_full, geom, *, faraway: float, s_cheap: int, tile_rays: int):
@@ -490,26 +503,30 @@ def near_culled(o, d, cand, cnt_cand, cnt_full, geom, *, faraway: float, s_cheap
 
 
 def shade_culled(o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, cand, cnt_cand, cnt_full, geom,
-                 consts, *, faraway: float, s_cheap: int, tile_rays: int):
+                 consts, *, faraway: float, s_cheap: int, tile_rays: int, tex_hw=None):
     """The culled shadow sweep, shading and mirror continuation of the hits
-    ``near_culled`` found; returns the next ``(o, d, thr, alive, acc)``."""
+    ``near_culled`` found; returns the next ``(o, d, thr, alive, acc)``, and
+    with the atlas's slot extents ``tex_hw`` (the atlas mode) also each
+    lane's flat texel id and dww (N,)."""
     device = _check(
         o, {"o": o, "d": d, "acc": acc, "p_n": p_n, "normal": normal, "to_light": to_light},
         {"thr": thr, "alive": alive, "t": t}, {"idx": idx}, cand, cnt_cand, cnt_full, geom, tile_rays, s_cheap,
         {"mat": mat, "consts": consts},
     )
-    kw = dict(faraway=faraway, s_cheap=s_cheap, tile_rays=tile_rays)
+    kw = dict(faraway=faraway, s_cheap=s_cheap, tile_rays=tile_rays, tex_hw=tex_hw)
     args = (o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, cand, cnt_cand, cnt_full, geom, consts)
     if device.type == "cpu":
         return shade_culled_plain(*args, **kw)
     with torch.cuda.device(device):
         out = (torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr), torch.empty_like(alive),
                torch.empty_like(acc))
+        tex = () if tex_hw is None else (torch.empty_like(idx), torch.empty_like(thr))
         _launch(
-            "shade_culled", o.dtype, *args, *out,
+            "shade_culled", o.dtype, *args, *out, *(tex or (None, None)),
             o.shape[1], s_cheap, geom.shape[0], tile_rays, cand.shape[1], float(faraway),
+            *slot_args(tex_hw), atlas=bool(tex),
         )
-    return out
+    return out + tex
 
 
 # ---------------------------------------------------------------------------
@@ -525,7 +542,8 @@ def _group_take(x, perm):
 
 def trace_fused_culled(origin, dirs_t, scene, cfg) -> torch.Tensor:
     """Hard-visibility trace with per-tile candidate-list culling: (N, 3)
-    colors of the rays ``dirs_t`` (3, N) from ``origin`` (3,) or (3, N)."""
+    colors of the rays ``dirs_t`` (3, N) from ``origin`` (3,) or (3, N).
+    An atlas scene adds each bounce's texels right after its shade launch."""
     dtype = cfg.dtype
     block = max(cfg.block_rays, CULL_BLOCK_RAYS)
     if block % 8 or block % _SORT_G:
@@ -543,6 +561,7 @@ def trace_fused_culled(origin, dirs_t, scene, cfg) -> torch.Tensor:
     geom = geometry_table(scene, dtype)
     mat = material_table(scene, dtype)
     consts = consts_row(scene, dtype)
+    texels, tex_hw = atlas_texels(scene, dtype)
     light = scene.lights.point_position.to(dtype)
     s_cheap = scene.spheres.count - scene.spheres.n_exact
     center = scene.spheres.center[:s_cheap].to(dtype)
@@ -552,6 +571,7 @@ def trace_fused_culled(origin, dirs_t, scene, cfg) -> torch.Tensor:
     bb_hi = torch.amax(center + radius[:, None], dim=0)
     far = cfg.faraway
     kw = dict(faraway=far, s_cheap=s_cheap, tile_rays=block)
+    shade_kw = dict(kw, tex_hw=tex_hw)
     ng = n_pad // _SORT_G
 
     def bounce(state, primary: bool, full_sweep: bool = False):
@@ -585,8 +605,12 @@ def trace_fused_culled(origin, dirs_t, scene, cfg) -> torch.Tensor:
             shadow_valid = hit & ((thr * alive) > DEAD_THR)
             cand, cnt, cnt_full = candidate_lists(p_n, to_light, center, radius, block, valid=shadow_valid, light=light)
             lists_b = (cand, torch.where(live, cnt, 0).to(torch.int32), torch.where(live, cnt_full, 0).to(torch.int32))
-        out = shade_culled(o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, *lists_b, geom, consts, **kw)
-        return (*out, pix)
+        o, d, thr, alive, acc, *tex = shade_culled(
+            o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, *lists_b, geom, consts, **shade_kw
+        )
+        if tex:
+            acc = compose_texels(acc, texels, *tex)
+        return o, d, thr, alive, acc, pix
 
     ones = torch.ones((n_pad,), dtype=dtype, device=device)
     state = (o, d, ones, ones.clone(), torch.zeros_like(o), torch.arange(ng, device=device))

@@ -15,7 +15,9 @@ JAX renderer takes for smooth frames where :func:`cull_smooth_ok` holds
   (``light=`` double cone, ``m = 90 / shadow_sharpness``, ``sval`` lanes);
 * ``fwd_cs``/``bwd_cs`` (CUDA), paired by :class:`_BounceCS`: the smooth
   bounce with the winner known and the shadow product over the tile's list,
-  and its adjoint.
+  and its adjoint.  On an atlas scene they run in their atlas mode and the
+  bounce's texels are added right after ``fwd_cs``, in the bounce's ray
+  order (:func:`.texture.compose_texels`), as the JAX package does.
 
 The culling is exact in f32: ``sigmoid(x)`` is exactly 0 for ``x < -88.72``
 (``exp`` overflows), so a sphere outside the list has a shadow factor of
@@ -55,6 +57,7 @@ from .culled import (
 from .rng import fold_seed, uniform2
 from .shading import NUDGE
 from .tables import MAT_COLS, N_CONST, consts_row, geometry_table, material_table
+from .texture import atlas_texels, compose_texels, slot_args
 from .vecmath import sqrt
 
 # Routing scope of the JAX culled smooth route (pallas_culled_smooth.py
@@ -67,6 +70,8 @@ MAX_BLK_SPHERES_SMOOTH = 4096
 _SIG_UNDERFLOW = 90.0
 
 LAUNCHES = {"near_cs": 0, "fwd_cs": 0, "bwd_cs": 0}
+# Launches of the atlas mode (near_cs takes no atlas).
+ATLAS_LAUNCHES = {"fwd_cs": 0, "bwd_cs": 0}
 
 _SOURCE = "culled_smooth.cu"
 # Threads per block of bwd_cs, whose CTA is one tile: a tile of the main
@@ -152,35 +157,40 @@ def near_cs_plain(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, 
 
 
 def fwd_cs_plain(o, d, thr, alive, acc, idx, hit, cand, cnt_cand, cnt_full, geom, mat, consts, xi=None, *,
-                 faraway, s_cheap, sharp_e, sharp_s, tile_rays):
+                 faraway, s_cheap, sharp_e, sharp_s, tile_rays, tex_hw=None):
     """Plain version of ``fwd_cs``: the smooth bounce from the state ``(o, d,
     thr, alive, acc)`` with the winner ``(idx, hit)`` known and the shadow
     loops over the tile's list; glossy with ``xi`` (2, N).  Returns the next
-    ``(o, d, thr, alive, acc)`` and the shadow ``clear`` (N,)."""
+    ``(o, d, thr, alive, acc)`` and the shadow ``clear`` (N,), and with the
+    atlas's slot extents ``tex_hw`` also the flat texel ids and dww (N,)."""
     f = fwd_sub_math(
         tuple(o), tuple(d), thr, alive, geom, mat, consts, _xi_pair(xi, 0), faraway=faraway, s_cheap=s_cheap,
         sharp_e=sharp_e, sharp_s=sharp_s, known=(idx, hit != 0), cand_sh=(cand, cnt_cand, cnt_full, tile_rays),
+        tex_hw=tex_hw,
     )
     acc_n = torch.stack([acc[i] + f.color[i] * f.w for i in range(3)])
-    return torch.stack(f.p_n), torch.stack(f.dout), f.thr_out, f.coverage, acc_n, f.clear
+    outs = (torch.stack(f.p_n), torch.stack(f.dout), f.thr_out, f.coverage, acc_n, f.clear)
+    return outs if tex_hw is None else outs + (f.flat, f.dww)
 
 
 def bwd_cs_plain(o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf, cand_a, cnt_a, cnt_af, geom, mat,
-                 consts, g_o, g_d, g_thr, g_alive, g_acc, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, tile_rays):
+                 consts, g_o, g_d, g_thr, g_alive, g_acc, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, tile_rays,
+                 g_dww=None, tex_hw=None):
     """Plain version of ``bwd_cs``: the adjoint of one culled bounce, Phase C
-    over the tile's shadow list.  Returns ``(g_o, g_d, g_thr, g_alive,
-    g_geom, g_mat, g_consts)``; acc's cotangent passes through.  The nearest
-    lists (``cand_a``...) only bound the kernel's winner scatter: here each
+    over the tile's shadow list (in the atlas mode with dww's cotangent
+    ``g_dww`` (N,)).  Returns ``(g_o, g_d, g_thr, g_alive, g_geom, g_mat,
+    g_consts)``; acc's cotangent passes through.  The nearest lists
+    (``cand_a``...) only bound the kernel's winner scatter: here each
     sphere's material gradient sums the lanes it won."""
     o3, d3 = tuple(o), tuple(d)
     f = fwd_sub_math(
         o3, d3, thr, alive, geom, mat, consts, _xi_pair(xi, 0), faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e,
-        sharp_s=sharp_s, saved=(idx, hit != 0, clear), cand_sh=(cand_b, cnt_b, cnt_bf, tile_rays),
+        sharp_s=sharp_s, saved=(idx, hit != 0, clear), cand_sh=(cand_b, cnt_b, cnt_bf, tile_rays), tex_hw=tex_hw,
     )
     ggeom, gmat, gconst = torch.zeros_like(geom), torch.zeros_like(mat), torch.zeros_like(consts)
+    cots = (tuple(g_o), tuple(g_d), g_thr, g_alive, tuple(g_acc)) + (() if g_dww is None else (g_dww,))
     g_o3, g_d3, g_thr_in, g_alive_in = adjoint_bounce(
-        f, o3, d3, (tuple(g_o), tuple(g_d), g_thr, g_alive, tuple(g_acc)), geom, ggeom, gmat, gconst,
-        faraway=faraway, s_cheap=s_cheap,
+        f, o3, d3, cots, geom, ggeom, gmat, gconst, faraway=faraway, s_cheap=s_cheap,
     )
     return torch.stack(g_o3), torch.stack(g_d3), g_thr_in, g_alive_in, ggeom, gmat, gconst
 
@@ -252,21 +262,24 @@ _SIGNATURES = {
     # sval; n, s_cheap, s_total, tile_rays, cand_stride; faraway, sharp_e
     "near_cs": "pppppppp" "ppppp" "iiiii" "rr",
     # o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom, mat,
-    # consts, xi; o, d, thr, alive, acc, clear out; n, s_cheap, s_total,
-    # tile_rays, cand_stride; faraway, sharp_e, sharp_s
-    "fwd_cs": "pppppppppppppp" "pppppp" "iiiii" "rrr",
+    # consts, xi; o, d, thr, alive, acc, clear out; flat and dww (or null);
+    # n, s_cheap, s_total, tile_rays, cand_stride; faraway, sharp_e,
+    # sharp_s; the atlas's slot extents
+    "fwd_cs": "pppppppppppppp" "pppppp" "pp" "iiiii" "rrr" "ii",
     # o, d, thr, alive, idx, hit, clear, shadow lists, nearest lists, geom,
-    # mat, consts, xi, cotangents g_o, g_d, g_thr, g_alive, g_acc; the four
-    # input cotangents; the rows pg, pm, pc and the reduced values; n,
-    # s_cheap, s_total, tile_rays, cand_stride; faraway, sharp_e, sharp_s
-    "bwd_cs": "ppppppp" "ppp" "ppp" "pppp" "ppppp" "pppp" "pppp" "iiiii" "rrr",
+    # mat, consts, xi, cotangents g_o, g_d, g_thr, g_alive, g_acc, g_dww (or
+    # null); the four input cotangents; the rows pg, pm, pc and the reduced
+    # values; n, s_cheap, s_total, tile_rays, cand_stride; faraway,
+    # sharp_e, sharp_s; the atlas's slot extents
+    "bwd_cs": "ppppppp" "ppp" "ppp" "pppp" "pppppp" "pppp" "pppp" "iiiii" "rrr" "ii",
 }
 
 
-def _launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Launch kernel ``name`` on the current stream and count it."""
+def _launch(name: str, dtype: torch.dtype, *args, atlas: bool = False) -> None:
+    """Launch kernel ``name`` on the current stream and count it (its atlas
+    mode in :data:`ATLAS_LAUNCHES`)."""
     _build.launch(_SOURCE, name, _SIGNATURES[name], dtype, *args)
-    LAUNCHES[name] += 1
+    (ATLAS_LAUNCHES if atlas else LAUNCHES)[name] += 1
 
 
 def grad_rows_bytes(n_rays: int, s: int, tile_rays: int, dtype: torch.dtype) -> int:
@@ -296,11 +309,12 @@ def near_cs(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_chea
 
 
 def fwd_cs(o, d, thr, alive, acc, idx, hit, cand, cnt_cand, cnt_full, geom, mat, consts, xi=None, *,
-           faraway, s_cheap, sharp_e, sharp_s, tile_rays):
-    """One culled smooth bounce per launch; outputs as :func:`fwd_cs_plain`."""
+           faraway, s_cheap, sharp_e, sharp_s, tile_rays, tex_hw=None):
+    """One culled smooth bounce per launch, in the atlas mode with the
+    atlas's slot extents ``tex_hw``; outputs as :func:`fwd_cs_plain`."""
     device = _check({"o": o, "d": d, "acc": acc}, {"thr": thr, "alive": alive, "idx": idx, "hit": hit},
                     [(cand, cnt_cand, cnt_full)], geom, {"mat": mat, "consts": consts}, xi, s_cheap, tile_rays)
-    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tile_rays=tile_rays)
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tile_rays=tile_rays, tex_hw=tex_hw)
     args = (o, d, thr, alive, acc, idx, hit, cand, cnt_cand, cnt_full, geom, mat, consts)
     if device.type == "cpu":
         return fwd_cs_plain(*args, xi, **kw)
@@ -308,22 +322,30 @@ def fwd_cs(o, d, thr, alive, acc, idx, hit, cand, cnt_cand, cnt_full, geom, mat,
     with torch.cuda.device(device):
         outs = (torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr), torch.empty_like(alive),
                 torch.empty_like(acc), torch.empty_like(thr))
-        _launch("fwd_cs", o.dtype, *args, xi, *outs, n, s_cheap, geom.shape[0], tile_rays, cand.shape[1],
-                float(faraway), float(sharp_e), float(sharp_s))
-    return outs
+        tex = () if tex_hw is None else (torch.empty_like(idx), torch.empty_like(thr))
+        _launch("fwd_cs", o.dtype, *args, xi, *outs, *(tex or (None, None)), n, s_cheap, geom.shape[0], tile_rays,
+                cand.shape[1], float(faraway), float(sharp_e), float(sharp_s), *slot_args(tex_hw), atlas=bool(tex))
+    return outs + tex
 
 
 def bwd_cs(o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf, cand_a, cnt_a, cnt_af, geom, mat, consts,
-           g_o, g_d, g_thr, g_alive, g_acc, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, tile_rays):
+           g_o, g_d, g_thr, g_alive, g_acc, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, tile_rays, g_dww=None,
+           tex_hw=None):
     """The adjoint of one culled bounce in one launch (plus the fixed-order
-    reduction of the table gradients); outputs as :func:`bwd_cs_plain`."""
+    reduction of the table gradients), in the atlas mode with dww's
+    cotangent ``g_dww`` (N,) and ``tex_hw``; outputs as :func:`bwd_cs_plain`."""
+    if (g_dww is None) != (tex_hw is None):
+        raise ValueError("the atlas mode takes both g_dww and tex_hw")
+    lanes = {"thr": thr, "alive": alive, "idx": idx, "hit": hit, "clear": clear, "g_thr": g_thr, "g_alive": g_alive}
+    if g_dww is not None:
+        lanes["g_dww"] = g_dww
     device = _check(
-        {"o": o, "d": d, "g_o": g_o, "g_d": g_d, "g_acc": g_acc},
-        {"thr": thr, "alive": alive, "idx": idx, "hit": hit, "clear": clear, "g_thr": g_thr, "g_alive": g_alive},
+        {"o": o, "d": d, "g_o": g_o, "g_d": g_d, "g_acc": g_acc}, lanes,
         [(cand_b, cnt_b, cnt_bf), (cand_a, cnt_a, cnt_af)], geom, {"mat": mat, "consts": consts}, xi, s_cheap,
         tile_rays,
     )
-    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tile_rays=tile_rays)
+    kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tile_rays=tile_rays, g_dww=g_dww,
+              tex_hw=tex_hw)
     args = (o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf, cand_a, cnt_a, cnt_af, geom, mat, consts)
     cots = (g_o, g_d, g_thr, g_alive, g_acc)
     if device.type == "cpu":
@@ -339,8 +361,9 @@ def bwd_cs(o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf, cand_a, cnt
         pm = torch.zeros((rows, s, _MAT_GRADS), **like)  # its nearest-slot rows
         pc = torch.zeros((rows, N_CONST), **like)
         flat = torch.empty(((4 + MAT_COLS) * s + N_CONST,), **like)
-        _launch("bwd_cs", o.dtype, *args, xi, *cots, *outs, pg, pm, pc, flat, n, s_cheap, s, tile_rays,
-                cand_b.shape[1], float(faraway), float(sharp_e), float(sharp_s))
+        _launch("bwd_cs", o.dtype, *args, xi, *cots, g_dww, *outs, pg, pm, pc, flat, n, s_cheap, s, tile_rays,
+                cand_b.shape[1], float(faraway), float(sharp_e), float(sharp_s), *slot_args(tex_hw),
+                atlas=g_dww is not None)
     g_geom = flat[: 4 * s].reshape(s, 4)
     g_mat = flat[4 * s : (4 + MAT_COLS) * s].reshape(s, MAT_COLS)
     g_consts = flat[(4 + MAT_COLS) * s :].reshape(1, N_CONST)
@@ -353,23 +376,31 @@ def bwd_cs(o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf, cand_a, cnt
 
 
 class _BounceCS(torch.autograd.Function):
-    """One culled smooth bounce, ``(o, d, thr, alive, acc)`` in and out;
-    backward launches ``bwd_cs``.  The winner ``(idx, hit)`` is a selector
-    and the lists are conservative sets: their cotangents are zero, as are
-    xi's (a constant sample); acc's passes through."""
+    """One culled smooth bounce, ``(o, d, thr, alive, acc)`` in and out, and
+    in the atlas mode (``kw["tex_hw"]``) its flat texel ids and dww (N,);
+    backward launches ``bwd_cs``.  The winner ``(idx, hit)`` and the texel
+    ids are selectors and the lists are conservative sets: their cotangents
+    are zero, as are xi's (a constant sample); acc's passes through."""
 
     @staticmethod
     def forward(ctx, o, d, thr, alive, acc, idx, hit, lists_a, lists_b, geom, mat, consts, xi, kw):
-        *state, clear = fwd_cs(o, d, thr, alive, acc, idx, hit, *lists_b, geom, mat, consts, xi, **kw)
+        o_n, d_n, thr_n, alive_n, acc_n, clear, *tex = fwd_cs(
+            o, d, thr, alive, acc, idx, hit, *lists_b, geom, mat, consts, xi, **kw
+        )
         ctx.kw = kw
         ctx.save_for_backward(o, d, thr, alive, idx, hit, clear, *lists_b, *lists_a, geom, mat, consts, xi)
-        return tuple(state)
+        if tex:
+            ctx.mark_non_differentiable(tex[0])
+        return (o_n, d_n, thr_n, alive_n, acc_n, *tex)
 
     @staticmethod
-    def backward(ctx, g_o, g_d, g_thr, g_alive, g_acc):
+    def backward(ctx, g_o, g_d, g_thr, g_alive, g_acc, *g_tex):
         *saved, xi = ctx.saved_tensors
         cots = tuple(g.contiguous() for g in (g_o, g_d, g_thr, g_alive, g_acc))
-        g_o_in, g_d_in, g_thr_in, g_alive_in, g_geom, g_mat, g_consts = bwd_cs(*saved, *cots, xi, **ctx.kw)
+        kw = dict(ctx.kw)
+        if g_tex:
+            kw["g_dww"] = g_tex[1].contiguous()
+        g_o_in, g_d_in, g_thr_in, g_alive_in, g_geom, g_mat, g_consts = bwd_cs(*saved, *cots, xi, **kw)
         return (g_o_in, g_d_in, g_thr_in, g_alive_in, cots[4], None, None, None, None, g_geom, g_mat, g_consts,
                 None, None)
 
@@ -427,9 +458,11 @@ def trace_culled_smooth(origin, dirs_t, scene, cfg, key=None) -> torch.Tensor:
     m_s = _SIG_UNDERFLOW / float(cfg.shadow_sharpness)
     r_eff_e = sqrt(radius * radius + m_e / 4.0)
     r_eff_s = sqrt(radius * radius + m_s / 4.0)
+    texels, tex_hw = atlas_texels(scene, dtype)
     kw = dict(faraway=cfg.faraway, s_cheap=s_cheap, sharp_e=float(cfg.edge_sharpness),
               sharp_s=float(cfg.shadow_sharpness), tile_rays=block)
     near_kw = {k: v for k, v in kw.items() if k != "sharp_s"}
+    kw["tex_hw"] = tex_hw
     stochastic = key is not None and cfg.stochastic_roughness
 
     # Cheap-tier box for the re-sort keys (the exact tier would flatten it).
@@ -477,8 +510,10 @@ def trace_culled_smooth(origin, dirs_t, scene, cfg, key=None) -> torch.Tensor:
         lv = light[:, None] - p
         to_light = lv / sqrt(lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2])[None, :]
         lists_b = candidate_lists(p_n, to_light, center, r_eff_s, block, valid=sval > 0, light=light, t_margin=m_s)
-        o, d, thr, alive, acc = _BounceCS.apply(o, d, thr, alive, acc, idx, hit, lists_a, lists_b, geom, mat, consts,
-                                                xi, kw)
+        o, d, thr, alive, acc, *tex = _BounceCS.apply(o, d, thr, alive, acc, idx, hit, lists_a, lists_b, geom, mat,
+                                                      consts, xi, kw)
+        if tex:
+            acc = compose_texels(acc, texels, *tex)
     if cfg.max_depth > 1:  # undo the re-sorts, group by group
         order = torch.argsort(gid)
         acc = _PermuteGroups.apply(acc, order, gid)

@@ -2,7 +2,8 @@
 :mod:`python_ray_tracer_tpu.ops.shading`).
 
 Every live term of the reference shader, per lane, with per-lane
-materials gathered by nearest-hit index: ambient, diffuse x texture, dome,
+materials gathered by nearest-hit index: ambient, diffuse x texture
+(constant, checker or image), dome,
 GGX specular + glint, thin-film iridescence.  Term order and association
 follow the JAX package so float64 renders agree to roundoff, and the
 clamps are :func:`.vecmath.clip`/:func:`.vecmath.relu0` (and ``|x|`` is
@@ -52,18 +53,38 @@ def gather_material(spheres: Spheres, idx: torch.Tensor) -> LaneMaterial:
 
 
 def texture_color(point: torch.Tensor, normal: torch.Tensor, mat: LaneMaterial, scene: Scene) -> torch.Tensor:
-    """Per-lane diffuse texture: constant color or the reference checker
-    ``trunc(2x) mod 2 == trunc(2z) mod 2`` (torch's integer ``%`` floors,
-    as JAX's does).  Image textures are not ported yet."""
-    if bool((mat.texture_kind == TEXTURE_IMAGE).any()):
-        raise NotImplementedError(
-            "image textures wait for the port of python_ray_tracer_tpu.ops.shading.texture_color"
-        )
+    """Per-lane diffuse texture, selected by ``texture_kind``: constant
+    color, the reference checker ``trunc(2x) mod 2 == trunc(2z) mod 2``
+    (torch's integer ``%`` floors, as JAX's does), or the nearest texel of
+    an equirectangular image texture.
+
+    The image UV comes from the DETACHED unit normal, ``u = 0.5 +
+    atan2(nz, nx) / 2 pi``, ``v = 0.5 - asin(ny) / pi``, each mod 1, over
+    the texture's native extents (``scene.texture_hw``), so padded atlas
+    slots are never sampled.  The lookup is piecewise constant: UV carries
+    no gradient, and the atlas gets its gradient through the gather."""
+    dtype = point.dtype
     cx = torch.trunc(point[..., 0] * 2.0).to(torch.int32) % 2
     cz = torch.trunc(point[..., 2] * 2.0).to(torch.int32) % 2
-    checker_c = (cx == cz).to(point.dtype)[..., None]
+    checker_c = (cx == cz).to(dtype)[..., None]
+
+    n = normal.detach()
+    ny = torch.clamp(n[..., 1], -1.0, 1.0)  # guards asin on dead lanes
+    u = 0.5 + torch.atan2(n[..., 2], n[..., 0]) / (2.0 * math.pi)
+    v = 0.5 - torch.asin(ny) / math.pi
+    u = torch.remainder(u, 1.0)
+    v = torch.remainder(v, 1.0)
+    hw = scene.texture_hw[mat.texture_id.long()]  # (N, 2) int32
+    ti = torch.clamp((u * (hw[..., 1].to(dtype) - 1.0)).to(torch.int32), min=0)
+    ti = torch.minimum(ti, hw[..., 1] - 1)
+    tj = torch.clamp((v * (hw[..., 0].to(dtype) - 1.0)).to(torch.int32), min=0)
+    tj = torch.minimum(tj, hw[..., 0] - 1)
+    image_c = scene.texture_atlas[mat.texture_id.long(), tj.long(), ti.long()].to(dtype)
+
     kind = mat.texture_kind[..., None]
-    return torch.where(kind == TEXTURE_CHECKER, checker_c, mat.diffuse_color)
+    return torch.where(
+        kind == TEXTURE_CHECKER, checker_c, torch.where(kind == TEXTURE_IMAGE, image_c, mat.diffuse_color)
+    )
 
 
 def dome_light(normal: torch.Tensor, lights: Lights) -> torch.Tensor:

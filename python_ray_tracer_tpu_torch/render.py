@@ -14,15 +14,20 @@ Two routes, chosen as the JAX package chooses them:
   :func:`.ops.bounce_sub.trace_fused_sub` up to 64 spheres,
   :func:`.ops.culled.trace_fused_culled` for 96 and more, and with a
   stochastic key above 64 spheres :func:`trace` with the standalone sweep
-  kernels (:mod:`.ops.intersect_fused`).  Smooth visibility
+  kernels (:mod:`.ops.intersect_fused`), as with an image atlas of more
+  than MAX_FUSED_TEXELS texels on a scene neither of the others takes.
+  Smooth visibility
   (:func:`smooth_route`): :func:`.ops.culled_smooth.trace_culled_smooth`
   (the culled smooth kernels, one ``near_cs`` and one ``fwd_cs``/``bwd_cs``
   pair per bounce) where :func:`.ops.culled_smooth.cull_smooth_ok` holds,
   else :func:`.ops.bounce_smooth_sub.trace_fused_smooth_sub`: up to 4096
   spheres the depth-fused smooth pair (the one-bounce pair at depth 1),
   above that the one-bounce pair once per bounce, each a
-  ``torch.autograd.Function``; a stochastic key above 4096 spheres takes
-  :func:`trace`, as the JAX package takes its XLA path there;
+  ``torch.autograd.Function``; a stochastic key or an image atlas above
+  4096 spheres takes :func:`trace`, as the JAX package takes its XLA path
+  there.  Every kernel route samples image atlases in the kernels' atlas
+  mode: the kernels write flat texel ids and weights, and the route adds
+  the texels outside them (:func:`.ops.texture.compose_texels`);
 * otherwise :func:`trace`, the pure-torch bounce loop that mirrors the JAX
   XLA path term for term.  Torch autograd through it is the oracle for the
   kernels' handwritten adjoints.
@@ -49,6 +54,7 @@ from .ops.intersect import (
 )
 from .ops.bounce_smooth_sub import MAX_TRAIN_DEPTH, fused_train_l2, trace_fused_smooth_sub
 from .ops.bounce_sub import MAX_SUB_SPHERES, trace_fused_sub
+from .ops.texture import MAX_FUSED_TEXELS
 from .ops.culled import MAX_CULL_DEPTH, MAX_CULL_EXACT, MIN_CULL_SPHERES, trace_fused_culled
 from .ops.culled_smooth import MAX_BLK_SPHERES_SMOOTH, cull_smooth_ok, trace_culled_smooth
 from .ops.intersect_fused import nearest_sweep, shadow_sweep
@@ -250,9 +256,7 @@ def trace(
 def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
     """Refuse every route of the JAX renderer this port does not have yet."""
     waits = None
-    if scene.has_atlas:
-        waits = "image-texture atlases (ops.shading.texture_color, the sublane kernels' texel gather)"
-    elif cfg.tie_mode == "sum":
+    if cfg.tie_mode == "sum":
         waits = "tie_mode='sum' (render.trace's tie_sum branch)"
     elif cfg.ray_chunk:
         waits = "ray chunking (render._render_sample's lax.map over tiles)"
@@ -272,9 +276,9 @@ def smooth_route(scene: Scene, cfg: RenderConfig, n_rays: int, key) -> str:
     MAX_BLK_SPHERES_SMOOTH spheres, JAX's sublane kernels), ``"step"`` (the
     one-bounce pair once per bounce: more spheres and no key, JAX's lane
     kernels) or ``"pure"`` (:func:`trace`: more spheres with a stochastic
-    key, which the JAX package sends down its XLA path)."""
+    key or an image atlas, which the JAX package sends down its XLA path)."""
     big = scene.spheres.count > MAX_BLK_SPHERES_SMOOTH
-    if big and key is not None:
+    if big and (key is not None or scene.has_atlas):
         return "pure"
     if cull_smooth_ok(scene, cfg, n_rays):
         return "culled"
@@ -286,8 +290,10 @@ def hard_route(scene: Scene, cfg: RenderConfig, key) -> str:
     ``render._render_sample`` picks them: ``"sub"`` (``trace_deep`` or
     ``bounce_step``, up to 64 spheres), ``"culled"`` (the culled pair, 96 and
     more spheres with at most 8 in the exact tier, no key) or ``"sweeps"``
-    (``trace`` with ``nearest_sweep``/``shadow_sweep``: a key above 64
-    spheres).  Raises ``NotImplementedError`` for the lane kernel's scenes.
+    (``trace`` with ``nearest_sweep``/``shadow_sweep`` and the pure-torch
+    shading: a key above 64 spheres, or the rest with an image atlas of more
+    than MAX_FUSED_TEXELS texels, which the JAX package sends down its XLA
+    path).  Raises ``NotImplementedError`` for the lane kernel's scenes.
     """
     s = scene.spheres.count
     if key is not None and s > MAX_SUB_SPHERES:
@@ -296,6 +302,8 @@ def hard_route(scene: Scene, cfg: RenderConfig, key) -> str:
         return "culled"
     if s <= MAX_SUB_SPHERES:
         return "sub"
+    if scene.has_atlas and scene.texture_atlas[..., 0].numel() > MAX_FUSED_TEXELS:
+        return "sweeps"
     raise NotImplementedError(
         f"not ported yet: a mirror scene of {s} spheres ({scene.spheres.n_exact} in the exact tier) takes "
         "python_ray_tracer_tpu.ops.pallas_bounce._bounce_kernel (trace_fused) in python_ray_tracer_tpu"
@@ -329,7 +337,8 @@ def fused_train_l2_ok(scene: Scene, cfg: RenderConfig) -> bool:
     """Is the single-launch train kernel applicable?
 
     Scope of :func:`l2_loss_fused`: smooth visibility through the kernels,
-    one center ray per pixel, no atlas, depth 2 and up (depth 1 is the JAX
+    one center ray per pixel, no atlas (``train_deep`` has no atlas mode, as
+    the JAX train kernel has none), depth 2 and up (depth 1 is the JAX
     package's scan route), up to MAX_BLK_SPHERES_SMOOTH (4096) spheres, and
     not a scene the JAX package would send down its culled route.  The JAX
     package caps its train kernel at MAX_FUSED_TRAIN_SPHERES = 2048, a VMEM

@@ -325,17 +325,15 @@ def test_cli_renders_random1024(tmp_path):
     np.testing.assert_array_equal(load_png(out), to_uint8(want))
 
 
-@pytest.mark.parametrize("name,waits", [("textured1024", "atlases"), ("inverse64", None)])
-def test_cli_refuses_unported_builtins(tmp_path, name, waits):
-    """``textured1024`` waits for image atlases; ``inverse64`` is ported and
-    renders on the CPU: the pure-torch frame of ``inverse_task_scene(64)``."""
+@pytest.mark.parametrize("name,waited_for", [("textured1024", "atlases"), ("inverse64", None)])
+def test_cli_refuses_unported_builtins(tmp_path, name, waited_for):
+    """Both builtins that once waited for a port (``textured1024`` for image
+    atlases) now render on the CPU, bit for bit the pure-torch frames of
+    ``textured_spheres_scene`` and ``inverse_task_scene(64)``."""
     args = ["render", "--builtin", name, "--width", "8", "--height", "4", "--device", "cpu", "-o", str(tmp_path / "x.png")]
-    if waits is not None:
-        with pytest.raises(NotImplementedError, match=waits):
-            cli.main(args)
-        return
-    from python_ray_tracer_tpu_torch.models.scenes import inverse_task_scene
+    from python_ray_tracer_tpu_torch.models.scenes import inverse_task_scene, textured_spheres_scene
 
     assert cli.main(args) == 0
-    want = T.render(inverse_task_scene(64, 8, 4), T.RenderConfig(max_depth=3))
+    scene = textured_spheres_scene(width=8, height=4) if name == "textured1024" else inverse_task_scene(64, 8, 4)
+    want = T.render(scene, T.RenderConfig(max_depth=3))
     np.testing.assert_array_equal(load_png(tmp_path / "x.png"), to_uint8(want))

@@ -185,6 +185,18 @@ def _ninety_six_spheres():
     return T.make_scene(spheres, lights, (0.0, 0.2, -2.0), 8, 4, dtype=torch.float32)
 
 
+def _eighty_atlas_spheres():
+    """80 spheres with a 4,096-texel atlas: the JAX renderer sends this hard
+    scene to its lane kernel, which samples atlases of up to
+    MAX_FUSED_TEXELS texels in-kernel."""
+    rows = [T.make_sphere_row((float(i % 12) - 6.0, 0.0, 5.0 + i // 12), 0.3,
+                              texture_kind=T.TEXTURE_IMAGE if i % 4 == 0 else 0) for i in range(79)]
+    rows.append(T.make_sphere_row((0.0, -99999.5, 0.0), 99999.0))
+    atlas = np.full((1, 64, 64, 3), 0.5)
+    return T.make_scene(T.build_spheres(rows), T.build_lights((-2.0, 1.0, 2.0)), (0.0, 0.2, -2.0), 8, 4,
+                        texture_atlas=atlas)
+
+
 _UNPORTED = {
     "tie_sum": dict(tie_mode="sum"),
     "ray_chunk": dict(ray_chunk=16),
@@ -193,29 +205,66 @@ _UNPORTED = {
     "atlas": {},
     "spp2_atlas": dict(samples_per_pixel=2),
     "96_spheres_kernels": dict(use_pallas=True),
+    "80_spheres_atlas_kernels": dict(use_pallas=True),
 }
+# Routes of the table above that the port has since taken over: they render
+# the JAX package's frame (float64, every value within 1e-12).
+_PORTED = ("atlas", "spp2_atlas")
+
+
+def _atlas_reference_scenes():
+    """The reference scene at 8x4 with its red sphere image-textured from a
+    seeded 4x4 atlas: (JAX scene, port scene), the same arrays, float64."""
+    js = jscenes.reference_scene(8, 4, dtype=jnp.float64)
+    js = dataclasses.replace(
+        js,
+        spheres=dataclasses.replace(js.spheres, texture_kind=js.spheres.texture_kind.at[1].set(2)),
+        texture_atlas=jnp.asarray(np.random.default_rng(0).uniform(0.0, 1.0, (1, 4, 4, 3))),
+        texture_hw=jnp.asarray([[4, 4]], jnp.int32),
+    )
+    return js, scene_from_numpy(_jax_leaves(js), width=8, height=4, n_exact=js.spheres.n_exact, device="cpu",
+                                dtype=torch.float64)
 
 
 @pytest.mark.parametrize("route", _UNPORTED)
 def test_unported_routes_raise(route):
     """Each route the port does not have yet raises; none falls back, and
-    nothing launches a kernel on the CPU."""
+    nothing launches a kernel on the CPU.  The image-atlas routes, ported
+    since, render the JAX frame instead (one sample and two jittered ones)."""
     before = dict(bounce_sub.LAUNCHES)
     scene = tscenes.reference_scene(8, 4)
-    if route in ("atlas", "spp2_atlas"):
-        scene = dataclasses.replace(scene, texture_atlas=torch.rand((1, 4, 4, 3), generator=torch.Generator().manual_seed(0)))
-    elif route == "96_spheres_kernels":
+    if route in _PORTED:
+        js, ts = _atlas_reference_scenes()
+        kw = dict(_UNPORTED[route], max_depth=3)
+        want = np.asarray(jax.jit(lambda s: J.render(s, J.RenderConfig(dtype=jnp.float64, **kw)))(js))
+        got = T.render(ts, T.RenderConfig(dtype=torch.float64, **kw)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+        assert bounce_sub.LAUNCHES == before == {"trace_deep": 0, "bounce_step": 0}
+        return
+    if route == "96_spheres_kernels":
         scene = _ninety_six_spheres()
-    with pytest.raises(NotImplementedError, match="python_ray_tracer_tpu"):
+    elif route == "80_spheres_atlas_kernels":
+        scene = _eighty_atlas_spheres()
+    match = "_bounce_kernel" if route.endswith("_kernels") else "python_ray_tracer_tpu"
+    with pytest.raises(NotImplementedError, match=match):
         T.render(scene, T.RenderConfig(**_UNPORTED[route]))
     assert bounce_sub.LAUNCHES == before == {"trace_deep": 0, "bounce_step": 0}
 
 
 def test_image_texture_kind_raises():
-    rows = [T.make_sphere_row((0.0, 0.0, 3.0), 1.0, texture_kind=T.TEXTURE_IMAGE)]
-    scene = T.make_scene(T.build_spheres(rows), T.build_lights((0.0, 2.0, 0.0)), (0.0, 0.0, -2.0), 8, 4)
-    with pytest.raises(NotImplementedError, match="texture_color"):
-        T.render(scene, T.RenderConfig())
+    """Formerly refused: the image texture kind now renders, the JAX frame of
+    one image-textured sphere (float64, within 1e-12)."""
+    from python_ray_tracer_tpu.scene import build_lights, build_spheres, make_scene, make_sphere_row
+
+    atlas = np.random.default_rng(1).uniform(0.0, 1.0, (1, 8, 16, 3))
+    rows = [make_sphere_row((0.0, 0.0, 3.0), 1.0, diffuse_gain=1.0, texture_kind=2)]
+    js = make_scene(build_spheres(rows, dtype=jnp.float64), build_lights((0.0, 2.0, -1.0), dtype=jnp.float64),
+                    (0.0, 0.0, -2.0), 8, 4, texture_atlas=atlas, dtype=jnp.float64)
+    ts = scene_from_numpy(_jax_leaves(js), width=8, height=4, n_exact=0, device="cpu", dtype=torch.float64)
+    want = np.asarray(jax.jit(lambda s: J.render(s, J.RenderConfig(dtype=jnp.float64)))(js))
+    got = T.render(ts, T.RenderConfig(dtype=torch.float64)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    assert np.abs(got).max() > 0.1
 
 
 def test_port_never_imports_jax():
