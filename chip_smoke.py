@@ -59,7 +59,20 @@ at 960x540:
   pure-torch route; its first step against a JAX golden (bitwise across two
   runs), 40 Adam steps of the atlas through ``fit``, a depth-1 step;
   ``optimize --builtin textured1024 --visibility smooth`` at 960x540, 3
-  steps, each with exact launch counts.
+  steps, each with exact launch counts;
+* the lane-layout hard bounce (``bounce_lane``) and the JSON-scene render
+  path: the kernel against its plain version on every bounce of two scenes,
+  the 80-sphere atlas scene ``testdata/lane80.json`` (texels read in the
+  kernel; f32 1920x1080 and f64 480x270) and config 4's spheres with 9 in
+  the exact tier (f32 1920x1080, f64 240x135), twice bitwise, and with its
+  geometry forced into shared and into global memory, bitwise the same
+  (1032 and 4104 spheres, without and with an atlas, f32 480x270 and f64
+  240x135, and both 1920x1080 records; each launch's instantiation read
+  from the profiler); ``render
+  --scene lane80.json --settings lane80_settings.json`` (1920x1080, depth
+  4) against a JAX golden with exact launch counts, the 1032-sphere frame
+  through ``render()`` against the pure-torch route, ``--denoise`` against
+  the CPU's denoise of the card's frame, and ``--profile``.
 
 Then it times every kernel (and each one's glossy variant) beside its plain
 version and its bound, the benchmark's Adam step and the stochastic one,
@@ -69,7 +82,9 @@ smooth kernels at config 5 and the pair at 8192 spheres beside their bounds,
 the config-5 and 8192-sphere Adam steps with profiler splits, and each atlas
 variant beside its no-atlas kernel on the same inputs, the textured1024
 frame (with the texel composition's share), the texture task's Adam step
-and the textured1024 culled smooth step.
+and the textured1024 culled smooth step, and ``bounce_lane`` per launch on
+both lane scenes with each frame's ms and profiler split, and with its
+geometry in shared and in global memory.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -119,6 +134,7 @@ SOURCE = {
     **{k: "python_ray_tracer_tpu_torch/csrc/intersect_fused.cu" for k in SWEEPS},
     **{k: "python_ray_tracer_tpu_torch/csrc/culled_smooth.cu" for k in CS},
     **{LANE[k]: "python_ray_tracer_tpu_torch/csrc/bounce_smooth_sub.cu" for k in STEP},
+    "bounce_lane": "python_ray_tracer_tpu_torch/csrc/bounce_lane.cu",
 }
 # BASELINE config 4: random_spheres_scene, 1024 spheres, 1920x1080, depth 4;
 # the f64 kernel checks at a quarter of the width and height.
@@ -180,9 +196,36 @@ TEXTURED_GOLDEN = "python_ray_tracer_tpu_torch/testdata/textured1024_1920x1080_d
 TEX_CS_SIZE = (960, 540)
 # The kernels that take an atlas, and their atlas mode's entries in the
 # kernels line (TPU rows 1, 2, 8-11, 14, 16, 17).
-ATLAS = {k: f"{k} (atlas)" for k in HARD + ("smooth_fwd_deep", "smooth_bwd_deep") + STEP + ("shade_culled", "fwd_cs", "bwd_cs")}
+# The lane-layout hard bounce (TPU row 5) and its two scenes: (a) the JSON
+# scene testdata/lane80.json (80 spheres, every 4th image-textured from two
+# PNGs, one atlas slot each: 20 slots of 32x32, 20,480 texels) rendered by
+# the CLI with lane80_settings.json at 1920x1080, depth 4, against a JAX
+# golden (its lane route in interpret mode); (b) config 4's 1024 spheres
+# with 8 more r = 99999 spheres, 9 in the exact tier, which the culled route
+# refuses.  The f32 checks take the main path's 1920x1080 records and the
+# f64 checks a quarter of each frame's sides; the 1032-sphere frame is also
+# held against the pure-torch route at 480x270.
+BOUNCE_LANE = ("bounce_lane",)
+LANE_SCENE = "python_ray_tracer_tpu_torch/testdata/lane80.json"
+LANE_SETTINGS = "python_ray_tracer_tpu_torch/testdata/lane80_settings.json"
+LANE_GOLDEN = "python_ray_tracer_tpu_torch/testdata/lane80_1920x1080_d4_f32.npz"
+LANE_WIDTH, LANE_HEIGHT, LANE_DEPTH = 1920, 1080, 4
+LANE_F64_SIZE = (480, 270)
+LANE_BIG_CHECK_SIZE, LANE_BIG_F64_SIZE = (480, 270), (240, 135)
+# Where bounce_lane reads its geometry (csrc/bounce_lane.cu: staged in
+# shared memory while that keeps as many blocks resident as global reads):
+# both sides forced on the same inputs of the 1032-sphere scene (16.5 KB of
+# f32 geometry) and of the same scene from random_spheres_scene(4096), 4104
+# spheres (65.7 KB), each without and with lane80's first two textures on
+# every 4th random sphere, f32 480x270 and f64 240x135, and on both 1920x1080
+# main-path records.
+LANE_GEOMETRY_RANDOM = (BIG_SPHERES, 4096)
+LANE_GEOMETRY_SIZE, LANE_GEOMETRY_F64_SIZE = (480, 270), (240, 135)
+ATLAS = {k: f"{k} (atlas)" for k in HARD + ("smooth_fwd_deep", "smooth_bwd_deep") + STEP + ("shade_culled", "fwd_cs", "bwd_cs")
+         + BOUNCE_LANE}
 DEVICE = "cuda"
 REPLACES = {
+    "bounce_lane": "python_ray_tracer_tpu/ops/pallas_bounce.py:160",
     LANE["smooth_fwd_step"]: "python_ray_tracer_tpu/ops/pallas_bounce_smooth.py:346",
     LANE["smooth_bwd_step"]: "python_ray_tracer_tpu/ops/pallas_bounce_smooth.py:420",
     "near_cs": "python_ray_tracer_tpu/ops/pallas_culled_smooth.py:154",
@@ -755,9 +798,11 @@ def phase_xi() -> None:
 
 def _launch_counts() -> tuple[tuple[dict[str, int], ...], tuple[dict[str, int], ...]]:
     """The wrappers' launch counters: the kernels', and their atlas modes'."""
-    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, bounce_sub, culled, culled_smooth, intersect_fused
+    from python_ray_tracer_tpu_torch.ops import (
+        bounce_lane, bounce_smooth_sub, bounce_sub, culled, culled_smooth, intersect_fused,
+    )
 
-    atlas_modules = (bounce_sub, bounce_smooth_sub, culled, culled_smooth)
+    atlas_modules = (bounce_sub, bounce_smooth_sub, culled, culled_smooth, bounce_lane)
     return (tuple(m.LAUNCHES for m in (*atlas_modules, intersect_fused)), tuple(m.ATLAS_LAUNCHES for m in atlas_modules))
 
 
@@ -2546,6 +2591,301 @@ def _range_profile(fn, label: str, card: str, name: str) -> None:
             print(f"[timing] {label}: range {e.key!r}, {e.count} calls, its kernels {device_us / 1e3:.3f} ms of device "
                   f"time, host {e.cpu_time_total / 1e3:.3f} ms ({card})", flush=True)
 
+# --- The lane-layout hard bounce and the JSON-scene render path ----------------
+
+
+def _lane80_scene(dtype: torch.dtype, width: int = LANE_WIDTH, height: int = LANE_HEIGHT):
+    from python_ray_tracer_tpu_torch.io import load_scene
+
+    return load_scene(REPO / LANE_SCENE, width=width, height=height, dtype=dtype, device=DEVICE)
+
+
+def _lane_big_scene(dtype: torch.dtype, width: int, height: int, n_random: int = BIG_SPHERES,
+                    atlas: bool = False):
+    """Config 4's random_spheres_scene(1024) (its ground in the exact tier;
+    ``n_random`` spheres in all) with 8 more r = 99999 spheres, built from
+    the port's make_sphere_row: 9 in the exact tier, past the culled route's
+    8, so render() takes the lane kernel.  One is a far back wall the rays
+    see, seven lie under the ground: none stands between a sphere and the
+    light, whose hard shadow test counts every sphere along the light ray,
+    beyond the light too (a wall at either side would shade the whole
+    scene).  With ``atlas``, every 4th random sphere shows one of lane80's
+    first two textures."""
+    from python_ray_tracer_tpu_torch import build_lights, build_spheres, make_scene, make_sphere_row
+    from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene
+    from python_ray_tracer_tpu_torch.scene import TEXTURE_IMAGE
+
+    base = random_spheres_scene(n_random, width, height, dtype=torch.float64)
+    sp = base.spheres
+    fields = ("reflection_gain", "specular_gain", "specular_roughness", "iridescence_gain", "diffuse_gain",
+              "specular_ior", "thin_film_weight", "thin_film_thickness", "thin_film_ior")
+
+    def texture(k: int) -> dict:
+        if atlas and k % 4 == 1:
+            return dict(texture_kind=TEXTURE_IMAGE, texture_id=(k // 4) % 2)
+        return dict(texture_kind=int(sp.texture_kind[k]), texture_id=int(sp.texture_id[k]))
+
+    rows = [
+        make_sphere_row(sp.center[k].tolist(), float(sp.radius[k]), diffuse_color=sp.diffuse_color[k].tolist(),
+                        **texture(k), **{f: float(getattr(sp, f)[k]) for f in fields})
+        for k in range(sp.count)
+    ]
+    walls = [((0.0, 0.0, 100060.0), (0.7, 0.8, 0.9))]
+    walls += [((0.0, -100000.5 - 10.0 * i, 0.0), (1.0, 1.0, 1.0)) for i in range(7)]
+    rows += [make_sphere_row(c, 99999.0, diffuse_gain=0.8, diffuse_color=col, specular_gain=0.2) for c, col in walls]
+    lights = base.lights
+    lights = build_lights(lights.point_position.tolist(), domes=list(zip(lights.dome_intensity.tolist(),
+                          lights.dome_color.tolist())), dtype=dtype, device=DEVICE)
+    tex = {}
+    if atlas:
+        lane80 = _lane80_scene(torch.float64, 16, 8)
+        tex = dict(texture_atlas=lane80.texture_atlas[:2], texture_hw=lane80.texture_hw[:2].cpu().numpy())
+    return make_scene(build_spheres(rows, dtype=dtype, device=DEVICE), lights, base.camera.position.tolist(),
+                      width, height, dtype=dtype, device=DEVICE, **tex)
+
+
+def _lane_cfg(dtype: torch.dtype = torch.float32):
+    from python_ray_tracer_tpu_torch.io import load_settings
+
+    cfg, _ = load_settings(REPO / LANE_SETTINGS)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def _lane_record(scene, dtype: torch.dtype) -> list[tuple]:
+    """Each bounce's (args, kwargs) of bounce_lane in the scene's frame,
+    traced through the kernel on the card (render() takes the lane route)."""
+    from python_ray_tracer_tpu_torch import render
+    from python_ray_tracer_tpu_torch.ops import bounce_lane
+    from python_ray_tracer_tpu_torch.render import hard_route
+
+    cfg = _lane_cfg(dtype)
+    if hard_route(scene, cfg, None) != "lane":
+        fail(f"{scene.spheres.count} spheres ({scene.spheres.n_exact} exact): render() does not take the lane route")
+    calls: list = []
+    with _capture(bounce_lane, "bounce_lane", calls), torch.no_grad():
+        render(scene, cfg)
+    torch.cuda.synchronize()
+    return calls
+
+
+def _check_lane(tag: str, record: list, dtype: torch.dtype) -> float:
+    """bounce_lane against its plain version on every bounce's inputs: twice,
+    bitwise; alive exactly, the rest under the per-value limit."""
+    from python_ray_tracer_tpu_torch.ops import bounce_lane
+
+    err = 0.0
+    with torch.no_grad():
+        for b, (args, kw) in enumerate(record):
+            k = _twice_bitwise("bounce_lane", f"{tag} bounce {b}", lambda: bounce_lane.bounce_lane(*args, **kw))
+            p = bounce_lane.bounce_lane_plain(*args, **kw)
+            for name, kv, pv in zip(("o", "d", "thr", "alive", "acc"), k, p):
+                if name == "alive":
+                    _exact_check(f"bounce_lane {tag} bounce {b} alive", kv, pv)
+                else:
+                    err = max(err, _per_value_check(f"bounce_lane {tag} bounce {b} {name}", kv, pv, dtype))
+    return err
+
+
+def _lane_tag(name: str, scene, dtype: torch.dtype) -> str:
+    sp, cam = scene.spheres, scene.camera
+    return f"{name} ({sp.count} spheres, {sp.n_exact} exact) {str(dtype).split('.')[-1]} {cam.width}x{cam.height}"
+
+
+def phase_lane_kernels() -> tuple[dict[str, float], dict]:
+    """bounce_lane against its plain version on every bounce of both lane
+    scenes: (a) lane80 (atlas mode) f32 1920x1080 and f64 480x270; (b) the
+    1032-sphere scene f32 1920x1080 and f64 240x135.  Returns the max abs
+    error of each variant, from the f32 records at the main path's
+    1920x1080, and those records for the timings."""
+    scenes = {"a": ("lane80", ATLAS["bounce_lane"], _lane80_scene),
+              "b": ("config4+9exact", "bounce_lane", _lane_big_scene)}
+    errs, inputs = {}, {}
+    for key, (name, entry, make) in scenes.items():
+        scene = make(torch.float32, LANE_WIDTH, LANE_HEIGHT)
+        inputs[key] = _lane_record(scene, torch.float32)
+        errs[entry] = _check_lane(_lane_tag(name, scene, torch.float32), inputs[key], torch.float32)
+    for name, make, size in (("lane80", _lane80_scene, LANE_F64_SIZE),
+                             ("config4+9exact", _lane_big_scene, LANE_BIG_F64_SIZE)):
+        scene = make(torch.float64, *size)
+        _check_lane(_lane_tag(name, scene, torch.float64), _lane_record(scene, torch.float64), torch.float64)
+    return errs, inputs
+
+
+def _lane_instantiation(args: tuple, kw: dict) -> tuple[str, ...]:
+    """The template arguments (T, kAtlas, kStaged) of the bounce_lane
+    instantiation that one launch with these arguments runs, from its name
+    under torch.profiler."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from python_ray_tracer_tpu_torch.ops import bounce_lane
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bounce_lane.bounce_lane(*args, **kw)
+        torch.cuda.synchronize()
+    found = {m.groups() for e in prof.key_averages() if (m := re.search(r"bounce_lane<(\w+), (\w+), (\w+)>", e.key))}
+    if len(found) != 1:
+        fail(f"bounce_lane: expected one kernel instantiation in the profile, found {sorted(found)}")
+    return found.pop()
+
+
+def _lane_geometry(tag: str, record: list, card: str) -> None:
+    """bounce_lane with its geometry forced into shared memory and forced
+    to global memory, on every bounce of ``record``: each bitwise the auto
+    choice's output, each running its own instantiation (the profiler's
+    kernel name), both timed per launch (CUDA events, mean over the
+    bounces) beside the side the auto choice took."""
+    from python_ray_tracer_tpu_torch.ops import bounce_lane
+
+    auto = _lane_instantiation(*record[0])
+    ms = {}
+    with torch.no_grad():
+        for side, staged in (("shared", "true"), ("global", "false")):
+            args, kw = record[0]
+            got = _lane_instantiation(args, {**kw, "geometry": side})
+            if got != (*auto[:2], staged):
+                fail(f"bounce_lane {tag}: geometry={side} ran bounce_lane<{', '.join(got)}>")
+            for b, (args, kw) in enumerate(record):
+                want = bounce_lane.bounce_lane(*args, **kw)
+                forced = bounce_lane.bounce_lane(*args, **kw, geometry=side)
+                if not all(torch.equal(x, y) for x, y in zip(want, forced)):
+                    fail(f"bounce_lane {tag} bounce {b}: geometry={side} differs from the auto choice")
+            ms[side] = statistics.mean(
+                time_ms(lambda a=a, k=k: bounce_lane.bounce_lane(*a, **k, geometry=side)) for a, k in record)
+    took = "shared" if auto[2] == "true" else "global"
+    print(f"[timing] bounce_lane {tag}: geometry in shared memory {ms['shared']:.4f} ms, from global memory "
+          f"{ms['global']:.4f} ms a launch (mean of {len(record)}; bitwise equal); the auto choice took {took}, "
+          f"bounce_lane<{', '.join(auto)}> ({card})", flush=True)
+
+
+def phase_lane_geometry(card: str, inputs: dict) -> None:
+    """Both sides of bounce_lane's geometry choice (_lane_geometry) on the
+    1032- and 4104-sphere scenes, without and with an atlas, f32 480x270
+    and f64 240x135, each first held against the plain version (every
+    bounce, twice bitwise), and on the main path's 1920x1080 records of both
+    lane scenes."""
+    for n_random in LANE_GEOMETRY_RANDOM:
+        for atlas in (False, True):
+            for dtype, size in ((torch.float32, LANE_GEOMETRY_SIZE), (torch.float64, LANE_GEOMETRY_F64_SIZE)):
+                scene = _lane_big_scene(dtype, *size, n_random=n_random, atlas=atlas)
+                tag = _lane_tag("geometry" + (" atlas" if atlas else ""), scene, dtype)
+                record = _lane_record(scene, dtype)
+                _check_lane(tag, record, dtype)
+                _lane_geometry(tag, record, card)
+    _lane_geometry("lane80 (80 spheres, atlas) float32 1920x1080", inputs["a"], card)
+    _lane_geometry("config4+9exact (1032 spheres) float32 1920x1080", inputs["b"], card)
+
+
+def phase_lane_main(tmp: Path) -> dict[str, int]:
+    """The JSON-scene render path on the card.  ``render --scene lane80.json
+    --settings lane80_settings.json`` (use_pallas true: 1920x1080, depth 4):
+    exactly 4 bounce_lane (atlas) launches a frame and no other kernel,
+    within 0.1% of uint8 values of the JAX golden; one render() of it,
+    exactly 4.  The 1032-sphere scene through render(): 4 bounce_lane
+    launches (no atlas), and at 480x270 its frame against the pure-torch
+    route.  ``--denoise`` against the CPU's denoise of the card's frame, and
+    ``--profile`` writing a trace that holds the kernel."""
+    from python_ray_tracer_tpu_torch import cli, render
+    from python_ray_tracer_tpu_torch.utils.denoise import nl_means_denoise
+    from python_ray_tracer_tpu_torch.utils.image import load_png, to_uint8
+
+    launches: dict[str, int] = {}
+    cmd = ["render", "--scene", str(REPO / LANE_SCENE), "--settings", str(REPO / LANE_SETTINGS)]
+    _reset_launches()
+    cli.main([*cmd, "-o", str(tmp / "lane80.png")])
+    counts = _launches()
+    # The CLI renders each frame twice (a first call and a timed one).
+    _atlas_launched("the lane80 CLI render (two frames)", counts, BOUNCE_LANE, 2 * LANE_DEPTH)
+    launches[ATLAS["bounce_lane"]] = counts[ATLAS["bounce_lane"]]
+    _compare_uint8("lane80 1920x1080 depth 4", load_png(tmp / "lane80.png"), np.load(REPO / LANE_GOLDEN)["image"],
+                   "the JAX golden")
+
+    scene, cfg = _lane80_scene(torch.float32), _lane_cfg()
+    _reset_launches()
+    with torch.no_grad():
+        frame = render(scene, cfg)
+    torch.cuda.synchronize()
+    _atlas_launched("one render() of lane80", _launches(), BOUNCE_LANE, LANE_DEPTH)
+
+    big = _lane_big_scene(torch.float32, LANE_WIDTH, LANE_HEIGHT)
+    _reset_launches()
+    with torch.no_grad():
+        img = render(big, cfg)
+    torch.cuda.synchronize()
+    counts = _launches()
+    _atlas_launched("one render() of the 1032-sphere scene", counts, (), 0, BOUNCE_LANE, LANE_DEPTH)
+    launches["bounce_lane"] = counts["bounce_lane"]
+    if not bool(torch.isfinite(img).all()) or tuple(img.shape) != (LANE_HEIGHT, LANE_WIDTH, 3):
+        fail("the 1032-sphere frame is not a finite (1080, 1920, 3) image")
+    small = _lane_big_scene(torch.float32, *LANE_BIG_CHECK_SIZE)
+    with torch.no_grad():
+        kernel_frame = render(small, cfg)
+    pure = _pure_frame(small, dataclasses.replace(cfg, use_pallas=False), None)
+    _compare_uint8(f"1032 spheres {LANE_BIG_CHECK_SIZE[0]}x{LANE_BIG_CHECK_SIZE[1]} depth {LANE_DEPTH}",
+                   to_uint8(kernel_frame), to_uint8(pure), "the pure-torch route")
+
+    cli.main([*cmd, "--denoise", "-o", str(tmp / "lane80_denoised.png")])
+    cpu = nl_means_denoise(torch.clamp(frame.cpu(), 0.0, 1.0))
+    _compare_uint8("lane80 --denoise", load_png(tmp / "lane80_denoised.png"), to_uint8(cpu),
+                   "the CPU's denoise of the card's frame")
+
+    cli.main([*cmd, "--profile", str(tmp / "profile"), "-o", str(tmp / "lane80_profiled.png")])
+    trace = tmp / "profile" / "trace.json"
+    if not trace.exists() or "bounce_lane" not in trace.read_text():
+        fail("render --profile wrote no trace, or a trace without the bounce_lane kernel")
+    print(f"[main] render --profile wrote {trace.stat().st_size} bytes of torch.profiler trace", flush=True)
+    return launches
+
+
+def _lane_bound(args: tuple, kw: dict) -> tuple[float, str]:
+    """The least time of one bounce_lane launch on these inputs: each input
+    and output once, and the plain version's operations counted over 4096
+    of the lanes, scaled to all of them (every lane sweeps every sphere
+    twice)."""
+    from python_ray_tracer_tpu_torch.ops import bounce_lane
+
+    n = args[0].shape[1]
+    part = min(n, 4096)
+    sliced = [a[..., :part] if isinstance(a, torch.Tensor) and a.shape[-1] == n else a for a in args]
+    with torch.no_grad():
+        ops = count_ops(lambda: bounce_lane.bounce_lane_plain(*sliced, **kw)) * n / part
+        out = bounce_lane.bounce_lane(*args, **kw)
+    return _bound(int(ops), _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out))
+
+
+def phase_lane_timing(card: str, inputs: dict) -> dict[str, dict]:
+    """bounce_lane on each of its launches of both scenes' 1920x1080 frames
+    (CUDA events) beside its plain version and bound; each frame through
+    render() in ms/frame, with a torch.profiler split."""
+    from python_ray_tracer_tpu_torch import render
+    from python_ray_tracer_tpu_torch.ops import bounce_lane
+
+    def calls(record):
+        return [(lambda a=a, k=k: bounce_lane.bounce_lane(*a, **k),
+                 lambda a=a, k=k: bounce_lane.bounce_lane_plain(*a, **k),
+                 lambda a=a, k=k: _lane_bound(a, k)) for a, k in record]
+
+    with torch.no_grad():
+        res = {
+            ATLAS["bounce_lane"]: _time_launches("bounce_lane (atlas)", calls(inputs["a"]), card,
+                                                 "lane80, 80 spheres, 20,480 texels, 1920x1080 f32",
+                                                 f"the lane80 frame's {LANE_DEPTH}"),
+            "bounce_lane": _time_launches("bounce_lane", calls(inputs["b"]), card,
+                                          "config 4 + 8 exact, 1032 spheres, 1920x1080 f32",
+                                          f"the 1032-sphere frame's {LANE_DEPTH}"),
+        }
+        cfg = _lane_cfg()
+        for label, scene in (("lane80 (80 spheres, atlas)", _lane80_scene(torch.float32)),
+                             ("1032 spheres, 9 exact", _lane_big_scene(torch.float32, LANE_WIDTH, LANE_HEIGHT))):
+            ms = time_ms(lambda scene=scene: render(scene, cfg), warmup=2, iters=5)
+            print(f"[timing] {label} frame through the lane kernel: {ms:.3f} ms/frame, "
+                  f"{LANE_WIDTH * LANE_HEIGHT / (ms * 1e-3):.4e} primary rays/s (render(), {LANE_WIDTH}x{LANE_HEIGHT} "
+                  f"depth {LANE_DEPTH}, f32; {card})", flush=True)
+            _device_profile(lambda scene=scene: render(scene, cfg), f"{label} frame", card, BOUNCE_LANE)
+    return res
+
+
 
 def main() -> int:
     card = phase_device()
@@ -2564,6 +2904,9 @@ def main() -> int:
     errs.update({LANE[k]: v for k, v in lane_errs.items()})
     atlas_errs, atlas_inputs = phase_atlas_kernels()
     errs.update({ATLAS[k]: v for k, v in atlas_errs.items()})
+    lane_errs, lane_inputs = phase_lane_kernels()
+    errs.update(lane_errs)
+    phase_lane_geometry(card, lane_inputs)
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(phase_main_path(Path(tmp)))
         launches.update(phase_smooth_main(Path(tmp)))
@@ -2574,6 +2917,7 @@ def main() -> int:
         launches.update(phase_cs_main(Path(tmp)))
         c5_launches = phase_c5_main(Path(tmp))
         launches.update(phase_tex_main(Path(tmp)))
+        launches.update(phase_lane_main(Path(tmp)))
     launches.update({k: v for k, v in c5_launches.items() if k in LANE.values()})
     phase_cs_golden()
     timings.update(phase_timing(card))
@@ -2581,6 +2925,7 @@ def main() -> int:
     timings.update(phase_cs_timing(card, cs_record))
     phase_c5_timing(card)
     timings.update(phase_atlas_timing(card, atlas_inputs))
+    timings.update(phase_lane_timing(card, lane_inputs))
     lane_timing = next(t for label, t in blocked_timings.items() if label.startswith(f"random_spheres({LANE_SPHERES})"))
     timings.update({LANE[k]: lane_timing[k] for k in STEP})
     kernels = [
@@ -2593,7 +2938,7 @@ def main() -> int:
             "max_abs_err": errs[name],
             **timings[name],
         }
-        for name in HARD + SMOOTH + CULLED + SWEEPS + CS + tuple(LANE.values()) + tuple(ATLAS.values())
+        for name in HARD + SMOOTH + CULLED + SWEEPS + CS + tuple(LANE.values()) + BOUNCE_LANE + tuple(ATLAS.values())
     ]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -1,6 +1,7 @@
 """Command-line interface: ``render``, ``optimize`` and ``bench``.
 
     python -m python_ray_tracer_tpu_torch.cli render --builtin reference -o out.png
+    python -m python_ray_tracer_tpu_torch.cli render --scene scene.json --settings settings.json -o out.png
     python -m python_ray_tracer_tpu_torch.cli render --builtin random1024 --width 1920 --height 1080 --depth 4
     python -m python_ray_tracer_tpu_torch.cli optimize --builtin random1024 --width 1920 --height 1080 --depth 3 \
         --visibility smooth --target target.png --steps 3 --lr 1e-3
@@ -14,6 +15,15 @@ hand-written kernels (as the JAX CLI does with ``--pallas``); on ``--device
 cpu`` they take the pure-torch bounce loop, differentiated by torch
 autograd.  The default device is ``cuda``, and without a card the command
 fails rather than drop to the CPU on its own.
+
+``--scene`` reads a JSON scene file and ``--settings`` a JSON render-settings
+file (:mod:`.io.scene_json`, the JAX package's schema).  With a settings
+file the frame size, depth, dtype, visibility, samples, seed and
+``use_pallas`` come from the file, as in the JAX CLI: ``use_pallas`` is taken
+as the file says (JAX's default is false, the pure-torch route on whatever
+device was asked for), and the file's ``output_path`` and ``denoise`` apply
+when ``-o`` and ``--denoise`` do not override them.  ``--profile DIR`` writes
+a ``torch.profiler`` Chrome trace of the timed render into DIR.
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ BUILTINS = {
 
 
 def _add_render_opts(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--scene", type=str, help="JSON scene file (instead of --builtin)")
     p.add_argument("--builtin", type=str, default="reference", choices=sorted(BUILTINS))
+    p.add_argument("--settings", type=str, help="JSON render-settings file (replaces the render flags)")
     p.add_argument("--width", type=int, default=960)
     p.add_argument("--height", type=int, default=540)
     p.add_argument(
@@ -66,27 +78,42 @@ def _device(args) -> torch.device:
 
 
 def _build(args, device: torch.device):
+    """``(scene, cfg, extras)`` from the flags, or from the ``--scene`` and
+    ``--settings`` files; ``extras`` holds a settings file's output path and
+    denoise flag (empty without one)."""
     from .config import RenderConfig
     from .models import scenes as builtin
     from .render import auto_max_depth
 
-    dtype = {"float32": torch.float32, "float64": torch.float64}[args.dtype]
     depth_auto = str(args.depth) == "auto"
-    cfg = RenderConfig(
-        max_depth=1 if depth_auto else int(args.depth),
-        dtype=dtype,
-        visibility=args.visibility,
-        use_pallas=device.type == "cuda",
-        samples_per_pixel=args.spp,
-        stochastic_roughness=args.stochastic_roughness,
-        rng_seed=args.seed,
-    )
-    make = getattr(builtin, BUILTINS[args.builtin])
-    scene = make(width=args.width, height=args.height, dtype=dtype, device=device)
+    extras = {}
+    if args.settings:
+        from .io import load_settings
+
+        cfg, extras = load_settings(args.settings)
+        width, height = extras["width"], extras["height"]
+    else:
+        cfg = RenderConfig(
+            max_depth=1 if depth_auto else int(args.depth),
+            dtype={"float32": torch.float32, "float64": torch.float64}[args.dtype],
+            visibility=args.visibility,
+            use_pallas=device.type == "cuda",
+            samples_per_pixel=args.spp,
+            stochastic_roughness=args.stochastic_roughness,
+            rng_seed=args.seed,
+        )
+        width, height = args.width, args.height
+    if args.scene:
+        from .io import load_scene
+
+        scene = load_scene(args.scene, width=width, height=height, dtype=cfg.dtype, device=device)
+    else:
+        make = getattr(builtin, BUILTINS[args.builtin])
+        scene = make(width=width, height=height, dtype=cfg.dtype, device=device)
     if depth_auto:
         cfg = dataclasses.replace(cfg, max_depth=auto_max_depth(scene))
         print(f"auto depth: {cfg.max_depth}", file=sys.stderr)
-    return scene, cfg
+    return scene, cfg, extras
 
 
 def _sync(device: torch.device) -> None:
@@ -101,10 +128,10 @@ def _device_name(device: torch.device) -> str:
 def cmd_render(args) -> int:
     from .render import render
     from .utils.image import save_png
-    from .utils.metrics import MetricsLogger, rays_per_second
+    from .utils.metrics import MetricsLogger, profile_trace, rays_per_second
 
     device = _device(args)
-    scene, cfg = _build(args, device)
+    scene, cfg, extras = _build(args, device)
     metrics = MetricsLogger(args.metrics)
 
     # The first call builds the kernels (on CUDA); the second is timed.
@@ -113,13 +140,18 @@ def cmd_render(args) -> int:
         img = render(scene, cfg)
     _sync(device)
     first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with torch.no_grad():
+    with profile_trace(args.profile), torch.no_grad():
+        t0 = time.perf_counter()
         img = render(scene, cfg)
-    _sync(device)
-    render_s = time.perf_counter() - t0
+        _sync(device)
+        render_s = time.perf_counter() - t0
 
-    out = args.output or "render_out.png"
+    # A settings file's keys apply where no flag overrides them.
+    if args.denoise or extras.get("denoise", False):
+        from .utils.denoise import nl_means_denoise
+
+        img = nl_means_denoise(torch.clamp(img, 0.0, 1.0))
+    out = args.output or extras.get("output_path") or "render_out.png"
     save_png(img, out)
     n = scene.camera.width * scene.camera.height
     rec = metrics.log(
@@ -157,7 +189,7 @@ def cmd_optimize(args) -> int:
     from .utils.metrics import MetricsLogger
 
     device = _device(args)
-    scene, cfg = _build(args, device)
+    scene, cfg, _ = _build(args, device)
     target = torch.tensor(np.asarray(load_png(args.target), np.float32) / 255.0, dtype=cfg.dtype, device=device)
     if tuple(target.shape[:2]) != (scene.camera.height, scene.camera.width):
         print(
@@ -209,9 +241,11 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="python_ray_tracer_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("render", help="render a built-in scene to PNG")
+    p = sub.add_parser("render", help="render a built-in or JSON scene to PNG")
     _add_render_opts(p)
     p.add_argument("-o", "--output", type=str, help="output PNG path")
+    p.add_argument("--denoise", action="store_true", help="NL-means denoise the output")
+    p.add_argument("--profile", type=str, help="directory for a torch.profiler Chrome trace of the timed render")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("optimize", help="inverse rendering against a target image")

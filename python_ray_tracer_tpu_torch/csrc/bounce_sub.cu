@@ -118,7 +118,8 @@ __device__ __forceinline__ V3<T> bounce(V3<T>& o, V3<T>& d, T& thr, T& alive, co
   const T in_light = t_self <= t_others ? T(1) : T(0);
 
   TexHit<T> th;
-  const V3<T> color = shade_color_tex<T, kAtlas>(p, normal, to_light, to_cam, in_light, m, cst, tex_h, tex_w, th);
+  const V3<T> color =
+      shade_color_tex<T, kAtlas, false>(p, normal, to_light, to_cam, in_light, m, cst, tex_h, tex_w, th, nullptr);
   if constexpr (kAtlas) {
     flat = th.flat;
     dww = th.is_image ? th.diffuse_w * thr * coverage : T(0);

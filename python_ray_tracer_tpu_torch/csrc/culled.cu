@@ -178,7 +178,8 @@ __global__ void __launch_bounds__(kThreads)
   const T in_light = t_self <= t_others ? T(1) : T(0);
 
   TexHit<T> th;
-  const V3<T> color = shade_color_tex<T, kAtlas>(p, normal, to_light, to_cam, in_light, m, cst, tex_h, tex_w, th);
+  const V3<T> color =
+      shade_color_tex<T, kAtlas, false>(p, normal, to_light, to_cam, in_light, m, cst, tex_h, tex_w, th, nullptr);
   if constexpr (kAtlas) {
     flat_out[i] = th.flat;
     dww_out[i] = th.is_image ? th.diffuse_w * thr[i] * coverage : T(0);

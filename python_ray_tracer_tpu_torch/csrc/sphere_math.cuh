@@ -236,12 +236,16 @@ template <typename T> struct TexHit {
 // glint + thin-film iridescence.  p the hit point, normal its unit normal,
 // L and V the unit directions to the light and to the ORIGINAL camera,
 // m the winner's material row (kMatCols values), cst the consts row.
-// kAtlas: image lanes get a zero diffuse texture here and their texel id in
-// th (atlas slots tex_h x tex_w); the caller composes the texel outside.
-template <typename T, bool kAtlas>
+// kAtlas: image lanes get their texel id in th (atlas slots tex_h x tex_w)
+// and a zero diffuse texture here, the caller composing the texel outside.
+// kTexelsInside (with kAtlas): their diffuse texture is instead the texel
+// itself, read from the (T * tex_h * tex_w, 3) table texels, inside the sum
+// (the lane-layout bounce, bounce_lane.cu); texels is unread otherwise.
+template <typename T, bool kAtlas, bool kTexelsInside>
 __device__ __forceinline__ V3<T> shade_color_tex(const V3<T>& p, const V3<T>& normal, const V3<T>& L,
                                                  const V3<T>& V, T in_light, const T* m, const T* cst, int tex_h,
-                                                 int tex_w, TexHit<T>& th) {
+                                                 int tex_w, TexHit<T>& th, const T* texels) {
+  static_assert(kAtlas || !kTexelsInside, "the in-kernel texel read is a mode of the atlas");
   const T n_dot_l = vmax(dot3(normal, L), T(0));
   const int cx_i = mod2(static_cast<int>(m_trunc(p.x * T(2))));
   const int cz_i = mod2(static_cast<int>(m_trunc(p.z * T(2))));
@@ -251,7 +255,14 @@ __device__ __forceinline__ V3<T> shade_color_tex(const V3<T>& p, const V3<T>& no
   if constexpr (kAtlas) {
     th.is_image = m[KIND] == T(2);
     th.flat = th.is_image ? flat_texel(normal, m, tex_h, tex_w) : 0;
-    if (th.is_image) tex = {T(0), T(0), T(0)};
+    if (th.is_image) {
+      if constexpr (kTexelsInside) {
+        const T* tx = texels + 3 * static_cast<long long>(th.flat);
+        tex = {tx[0], tx[1], tx[2]};
+      } else {
+        tex = {T(0), T(0), T(0)};
+      }
+    }
   }
   const T diffuse_w = n_dot_l * in_light * m[DG];
   th.diffuse_w = diffuse_w;
@@ -299,7 +310,7 @@ template <typename T>
 __device__ __forceinline__ V3<T> shade_color(const V3<T>& p, const V3<T>& normal, const V3<T>& L,
                                              const V3<T>& V, T in_light, const T* m, const T* cst) {
   TexHit<T> unused;
-  return shade_color_tex<T, false>(p, normal, L, V, in_light, m, cst, 0, 0, unused);
+  return shade_color_tex<T, false, false>(p, normal, L, V, in_light, m, cst, 0, 0, unused, nullptr);
 }
 
 // Stage the (S, 4) geometry table in dynamic shared memory; every thread

@@ -37,7 +37,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 GENERATED = BUILD_DIR / "include"
-SOURCES = ("bounce_sub.cu", "bounce_smooth_sub.cu", "culled.cu", "culled_smooth.cu", "intersect_fused.cu")
+SOURCES = (
+    "bounce_sub.cu", "bounce_smooth_sub.cu", "culled.cu", "culled_smooth.cu", "intersect_fused.cu", "bounce_lane.cu",
+)
 # Shared memory one block may use on Hopper (227 KB; above 48 KB only as
 # dynamic shared memory, which the kernels opt in to).
 MAX_SHARED_BYTES = 232_448

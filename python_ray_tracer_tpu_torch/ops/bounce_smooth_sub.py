@@ -1127,7 +1127,7 @@ def _kernel_inputs(origin, dirs_t, scene, cfg):
     """(o, d) (3, N), the three tables and the scalar parameters."""
     dtype = cfg.dtype
     d = dirs_t.to(dtype).contiguous()
-    o = origin.to(dtype).reshape(3, 1).expand(d.shape).contiguous()
+    o = origin.to(dtype).reshape(3, -1).expand(d.shape).contiguous()
     tables = (geometry_table(scene, dtype), material_table(scene, dtype), consts_row(scene, dtype))
     kw = dict(
         depth=cfg.max_depth, faraway=cfg.faraway, s_cheap=scene.spheres.count - scene.spheres.n_exact,

@@ -181,23 +181,31 @@ def ggx_continuation(d, normal, refl, alpha, xi) -> SimpleNamespace:
     return g
 
 
-def image_texels(normal, m, tex, tex_hw):
+def image_texels(normal, m, tex, tex_hw, texels=None):
     """The atlas mode's texture step of the JAX kernel bodies: ``(tex, flat,
     is_image)``, the diffuse texture ``tex`` (3-tuple of (N,)) zeroed on
-    image lanes and their flat texel ids (0 elsewhere)."""
+    image lanes and their flat texel ids (0 elsewhere).  Given the texel
+    table ``texels`` (T * Hpad * Wpad, 3), image lanes take their texel as
+    the diffuse texture instead, as the lane-layout kernel does
+    (``ops/pallas_bounce.py`` :227-260)."""
     is_image = m(KIND) == 2.0
     flat = torch.where(is_image, flat_texel(normal, m(TID), m(TEXH), m(TEXW), tex_hw), 0)
-    tex = tuple(torch.where(is_image, torch.zeros_like(t), t) for t in tex)
+    if texels is None:
+        tex = tuple(torch.where(is_image, torch.zeros_like(t), t) for t in tex)
+    else:
+        img = texels[flat.long()].T
+        tex = tuple(torch.where(is_image, img[i], t) for i, t in enumerate(tex))
     return tex, flat, is_image
 
 
-def shade_color(p, normal, to_light, to_cam, in_light, m, const, tex_hw=None):
+def shade_color(p, normal, to_light, to_cam, in_light, m, const, tex_hw=None, texels=None):
     """The local color of a hit, the JAX kernel bodies' shading
     (``ops/shading.py`` term for term) on rows: ``p``, ``normal``,
     ``to_light``, ``to_cam`` 3-tuples of (N,), ``in_light`` (N,), ``m(col)``
     the winner's material column, ``const(i)`` a scene constant.  With the
     atlas's slot extents ``tex_hw`` returns ``(color, flat, is_image,
-    diffuse_w)``: image lanes' diffuse texture is left to the caller."""
+    diffuse_w)``: image lanes' diffuse texture is left to the caller, or,
+    given the texel table ``texels``, is their texel, inside the sum."""
     n_dot_l = torch.clamp_min(_dot3(normal, to_light), 0.0)
     cx_i = torch.trunc(p[0] * 2.0).to(torch.int32) % 2
     cz_i = torch.trunc(p[2] * 2.0).to(torch.int32) % 2
@@ -205,7 +213,7 @@ def shade_color(p, normal, to_light, to_cam, in_light, m, const, tex_hw=None):
     is_checker = m(KIND) == 1.0
     tex = tuple(torch.where(is_checker, checker, m(c)) for c in (DCR, DCG, DCB))
     if tex_hw is not None:
-        tex, flat, is_image = image_texels(normal, m, tex, tex_hw)
+        tex, flat, is_image = image_texels(normal, m, tex, tex_hw, texels)
 
     diffuse_w = n_dot_l * in_light * m(DG)
 

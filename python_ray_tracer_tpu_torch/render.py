@@ -12,11 +12,13 @@ Two routes, chosen as the JAX package chooses them:
 * ``cfg.use_pallas`` -> the hand-written CUDA kernels (their plain torch
   versions on a CPU tensor).  Hard visibility (:func:`hard_route`):
   :func:`.ops.bounce_sub.trace_fused_sub` up to 64 spheres,
-  :func:`.ops.culled.trace_fused_culled` for 96 and more, and with a
-  stochastic key above 64 spheres :func:`trace` with the standalone sweep
-  kernels (:mod:`.ops.intersect_fused`), as with an image atlas of more
-  than MAX_FUSED_TEXELS texels on a scene neither of the others takes.
-  Smooth visibility
+  :func:`.ops.culled.trace_fused_culled` for 96 and more with at most 8 in
+  the exact tier, :func:`.ops.bounce_lane.trace_fused_lane` (one lane-layout
+  bounce a launch, image texels sampled in the kernel) for the rest, and
+  with a stochastic key above 64 spheres :func:`trace` with the standalone
+  sweep kernels (:mod:`.ops.intersect_fused`), as with an image atlas of
+  more than MAX_FUSED_TEXELS texels on a scene the sub and culled kernels
+  do not take.  Smooth visibility
   (:func:`smooth_route`): :func:`.ops.culled_smooth.trace_culled_smooth`
   (the culled smooth kernels, one ``near_cs`` and one ``fwd_cs``/``bwd_cs``
   pair per bounce) where :func:`.ops.culled_smooth.cull_smooth_ok` holds,
@@ -27,22 +29,29 @@ Two routes, chosen as the JAX package chooses them:
   4096 spheres takes :func:`trace`, as the JAX package takes its XLA path
   there.  Every kernel route samples image atlases in the kernels' atlas
   mode: the kernels write flat texel ids and weights, and the route adds
-  the texels outside them (:func:`.ops.texture.compose_texels`);
+  the texels outside them (:func:`.ops.texture.compose_texels`); the lane
+  kernel reads its texels itself;
 * otherwise :func:`trace`, the pure-torch bounce loop that mirrors the JAX
   XLA path term for term.  Torch autograd through it is the oracle for the
-  kernels' handwritten adjoints.
+  kernels' handwritten adjoints.  So do ``cfg.ray_chunk`` (the frame traced
+  tile by tile through :func:`trace`, which still sweeps hard tiles through
+  the sweep kernels and sends smooth ones down the smooth kernel routes)
+  and, on hard visibility, ``cfg.tie_mode="sum"`` (both tied winners
+  shaded), as in the JAX package.
 
 :func:`l2_loss_fused` is the L2 training loss as one ``train_deep``
-launch, where :func:`fused_train_l2_ok` allows it.  Every route the JAX
-package has and this port does not raises ``NotImplementedError`` naming
-the JAX function it waits for.
+launch, where :func:`fused_train_l2_ok` allows it.  The one option of the
+JAX renderer this port refuses is ``pallas_interpret``: a CUDA kernel has
+no interpret mode.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from .camera import ray_directions, ray_directions_t
 from .config import VISIBILITY_SMOOTH, RenderConfig
@@ -53,6 +62,7 @@ from .ops.intersect import (
     nearest_hit,
 )
 from .ops.bounce_smooth_sub import MAX_TRAIN_DEPTH, fused_train_l2, trace_fused_smooth_sub
+from .ops.bounce_lane import trace_fused_lane
 from .ops.bounce_sub import MAX_SUB_SPHERES, trace_fused_sub
 from .ops.texture import MAX_FUSED_TEXELS
 from .ops.culled import MAX_CULL_DEPTH, MAX_CULL_EXACT, MIN_CULL_SPHERES, trace_fused_culled
@@ -155,7 +165,9 @@ def bounce(
     With ``xi`` the continuation reflects about a GGX-sampled microfacet
     (stochastic glossy roughness) instead of the mirror normal.  Hard
     visibility with ``cfg.use_pallas`` sweeps through the ``nearest_sweep``
-    and ``shadow_sweep`` kernels, the JAX ``trace``'s fused branch.
+    and ``shadow_sweep`` kernels, the JAX ``trace``'s fused branch; hard
+    visibility with ``cfg.tie_mode="sum"`` also shades each lane's second
+    tied winner (:func:`_add_tied_winner`).
     """
     smooth = cfg.visibility == VISIBILITY_SMOOTH
     dtype = cfg.dtype
@@ -194,6 +206,8 @@ def bounce(
     local = shade(p, normal, to_light, to_camera, in_light, mat, scene)
 
     accum = accum + local.color * (throughput * coverage)[:, None]
+    if cfg.tie_mode == "sum" and not smooth:
+        accum = _add_tied_winner(accum, res, near, idx, p, d, to_light, to_camera, throughput * coverage, scene, cfg)
     throughput = throughput * coverage * local.refl_coeff
     alive = coverage if smooth else alive * hit
     if xi is None:
@@ -201,6 +215,36 @@ def bounce(
     else:
         d_next = ggx_perturb_reflect(d, normal, mat.specular_roughness, xi)
     return p_nudged, d_next, throughput, alive, accum
+
+
+def _add_tied_winner(accum, res: IntersectResult, near, idx, p, d, to_light, to_camera, weight, scene: Scene,
+                     cfg: RenderConfig) -> torch.Tensor:
+    """The JAX ``trace``'s tie_sum branch: shade each hit lane's second tied
+    winner too, as the reference shades every sphere at the minimum distance
+    and sums.  The second winner is the HIGHEST index whose ``t`` equals the
+    winning ``t`` bitwise (2-way ties); it is shaded with its own normal and
+    shadow sweep and weighted by ``weight`` (throughput x coverage).  With
+    depth > 1 its mirror continuation runs as a nested depth - 1 trace
+    (``tie_mode="first"``, no kernels, no key), scaled by its weight times
+    its reflection coefficient.  The main continuation stays with the
+    lowest-index winner."""
+    dtype = cfg.dtype
+    ids = torch.arange(res.t.shape[1], dtype=torch.int32, device=idx.device)[None, :]
+    idx2 = torch.amax(torch.where(res.t == near.t[:, None], ids, -1), dim=1)
+    has2 = near.hit & (idx2 != idx)
+    idx2 = torch.where(has2, idx2, idx)
+    mat2 = gather_material(scene.spheres, idx2)
+    normal2 = (p - mat2.center) * (1.0 / mat2.radius)[:, None]
+    p_nudged2 = p + normal2 * NUDGE
+    in_light2 = _shadow_hard(_sweep(p_nudged2, to_light, scene, cfg), idx2, dtype)
+    local2 = shade(p, normal2, to_light, to_camera, in_light2, mat2, scene)
+    w2 = weight * has2.to(dtype)
+    accum = accum + local2.color * w2[:, None]
+    if cfg.max_depth > 1:
+        sub_cfg = dataclasses.replace(cfg, max_depth=cfg.max_depth - 1, tie_mode="first", use_pallas=False)
+        cont2 = trace(p_nudged2, reflect(d, normal2), scene, sub_cfg)
+        accum = accum + cont2 * (w2 * local2.refl_coeff)[:, None]
+    return accum
 
 
 def _sweep_kernels(cfg: RenderConfig) -> bool:
@@ -231,13 +275,22 @@ def trace(
     With ``cfg.stochastic_roughness`` and a seed ``key``, each bounce takes
     its xi on the JAX package's schedule (:func:`.ops.rng.bounce_xi`), the
     lanes' draws from global ray index ``ray_offset`` on, so a chunk of a
-    frame draws what the whole frame's draw has there.  Hard visibility
-    with ``cfg.use_pallas`` and no key takes the culled kernels where the
-    JAX ``trace`` does (:func:`culled_ok`).
+    frame draws what the whole frame's draw has there.  As in the JAX
+    ``trace``, ``cfg.use_pallas`` sends hard visibility with no key and no
+    ``ray_chunk`` to the culled kernels where :func:`culled_ok` holds, and
+    smooth visibility with no key to the smooth kernel routes
+    (:func:`smooth_route` judged on these N rays) unless that route is
+    ``"pure"``.  ``cfg.remat`` recomputes each bounce of the loop below in
+    the backward pass (``torch.utils.checkpoint``); the kernel routes have
+    their own backward passes and ignore it, as the JAX package's do.
     """
     dtype = cfg.dtype
     if _sweep_kernels(cfg) and key is None and not cfg.ray_chunk and culled_ok(scene, cfg):
         return trace_fused_culled(origin.expand(direction.shape).T, direction.T, scene, cfg)
+    if cfg.use_pallas and cfg.visibility == VISIBILITY_SMOOTH and key is None:
+        route = smooth_route(scene, cfg, direction.shape[0], None)
+        if route != "pure":
+            return _smooth_kernels(route, origin.to(dtype).expand(direction.shape).T, direction.T, scene, cfg, None)
     direction = direction.to(dtype)
     n = direction.shape[0]
     o = origin.to(dtype).expand(direction.shape)
@@ -249,23 +302,22 @@ def trace(
     if cfg.stochastic_roughness and key is not None:
         xis = [xi.T for xi in bounce_xi(key, n, cfg.max_depth, dtype, d.device, offset=ray_offset)]
     for xi in xis:
-        o, d, throughput, alive, accum = bounce(o, d, throughput, alive, accum, scene, cfg, xi)
+        state = (o, d, throughput, alive, accum, scene, cfg, xi)
+        if cfg.remat:
+            o, d, throughput, alive, accum = torch.utils.checkpoint.checkpoint(bounce, *state, use_reentrant=False)
+        else:
+            o, d, throughput, alive, accum = bounce(*state)
     return accum
 
 
 def _check_scope(scene: Scene, cfg: RenderConfig) -> None:
-    """Refuse every route of the JAX renderer this port does not have yet."""
-    waits = None
-    if cfg.tie_mode == "sum":
-        waits = "tie_mode='sum' (render.trace's tie_sum branch)"
-    elif cfg.ray_chunk:
-        waits = "ray chunking (render._render_sample's lax.map over tiles)"
-    elif cfg.remat:
-        waits = "remat (render.trace's jax.checkpoint around each bounce)"
-    elif cfg.pallas_interpret:
-        waits = "interpret mode (a CUDA kernel has none; pallas_interpret has no counterpart)"
-    if waits is not None:
-        raise NotImplementedError(f"not ported yet: {waits} in python_ray_tracer_tpu")
+    """Refuse the one option of the JAX renderer the port has no counterpart
+    for: interpret mode."""
+    if cfg.pallas_interpret:
+        raise NotImplementedError(
+            "not ported: interpret mode (a CUDA kernel has none; pallas_interpret of python_ray_tracer_tpu "
+            "has no counterpart)"
+        )
 
 
 def smooth_route(scene: Scene, cfg: RenderConfig, n_rays: int, key) -> str:
@@ -289,11 +341,12 @@ def hard_route(scene: Scene, cfg: RenderConfig, key) -> str:
     """The kernels a hard frame with ``cfg.use_pallas`` takes, as the JAX
     ``render._render_sample`` picks them: ``"sub"`` (``trace_deep`` or
     ``bounce_step``, up to 64 spheres), ``"culled"`` (the culled pair, 96 and
-    more spheres with at most 8 in the exact tier, no key) or ``"sweeps"``
-    (``trace`` with ``nearest_sweep``/``shadow_sweep`` and the pure-torch
-    shading: a key above 64 spheres, or the rest with an image atlas of more
-    than MAX_FUSED_TEXELS texels, which the JAX package sends down its XLA
-    path).  Raises ``NotImplementedError`` for the lane kernel's scenes.
+    more spheres with at most 8 in the exact tier, no key), ``"lane"``
+    (``bounce_lane`` once a bounce: the rest without a key, with an image
+    atlas of at most MAX_FUSED_TEXELS texels) or ``"sweeps"`` (``trace`` with
+    ``nearest_sweep``/``shadow_sweep`` and the pure-torch shading: a key
+    above 64 spheres, or a bigger atlas on a scene the lane kernel would
+    take, which the JAX package sends down its XLA path).
     """
     s = scene.spheres.count
     if key is not None and s > MAX_SUB_SPHERES:
@@ -304,33 +357,59 @@ def hard_route(scene: Scene, cfg: RenderConfig, key) -> str:
         return "sub"
     if scene.has_atlas and scene.texture_atlas[..., 0].numel() > MAX_FUSED_TEXELS:
         return "sweeps"
-    raise NotImplementedError(
-        f"not ported yet: a mirror scene of {s} spheres ({scene.spheres.n_exact} in the exact tier) takes "
-        "python_ray_tracer_tpu.ops.pallas_bounce._bounce_kernel (trace_fused) in python_ray_tracer_tpu"
-    )
+    return "lane"
+
+
+def _smooth_kernels(route: str, origin, dirs_t, scene: Scene, cfg: RenderConfig, key) -> torch.Tensor:
+    """The smooth kernel route ``route`` of :func:`smooth_route` (not
+    ``"pure"``) on the rays ``dirs_t`` (3, N): (N, 3) colors."""
+    if route == "culled":
+        return trace_culled_smooth(origin, dirs_t, scene, cfg, key=key)
+    if route == "step":
+        return trace_fused_smooth_sub(origin, dirs_t, scene, cfg, route="step")
+    return trace_fused_smooth_sub(origin, dirs_t, scene, cfg, key=key)
 
 
 def _render_sample(scene: Scene, cfg: RenderConfig, jitter: torch.Tensor | None, key) -> torch.Tensor:
     """One (optionally jittered) sample per pixel -> flat (H*W, 3) colors;
-    ``key`` seeds the stochastic continuation (None: mirror)."""
-    route = None
-    if cfg.use_pallas and cfg.visibility == VISIBILITY_SMOOTH:
-        route = "smooth_" + smooth_route(scene, cfg, scene.camera.width * scene.camera.height, key)
-    elif cfg.use_pallas:
-        route = hard_route(scene, cfg, key)
-    if route in ("smooth_culled", "smooth_sub", "smooth_step", "culled", "sub"):
-        dirs_t = ray_directions_t(scene.camera, cfg.dtype, None if jitter is None else jitter.T)
-        if route == "smooth_culled":
-            return trace_culled_smooth(scene.camera.position, dirs_t, scene, cfg, key=key)
-        if route == "smooth_sub":
-            return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
-        if route == "smooth_step":
-            return trace_fused_smooth_sub(scene.camera.position, dirs_t, scene, cfg, route="step")
-        if route == "culled":
-            return trace_fused_culled(scene.camera.position, dirs_t, scene, cfg)
-        return trace_fused_sub(scene.camera.position, dirs_t, scene, cfg, key=key)
+    ``key`` seeds the stochastic continuation (None: mirror).
+
+    The kernel routes take the whole frame where the JAX package's
+    ``_can_fuse_bounce`` lets them: ``cfg.use_pallas``, no ``ray_chunk``,
+    and on hard visibility ``tie_mode="first"``.  Everything else goes
+    through :func:`trace`: with ``cfg.ray_chunk`` below the frame's ray
+    count, tile by tile (the last tile padded with copies of ray 0); a
+    stochastic key gives tile ``i`` the key ``fold_seed(key, i)``, its lanes
+    drawing from offset 0, the JAX package's ``lax.map`` schedule.
+    """
+    smooth = cfg.visibility == VISIBILITY_SMOOTH
+    pos = scene.camera.position
+    if cfg.use_pallas and not cfg.ray_chunk and (smooth or cfg.tie_mode == "first"):
+        if smooth:
+            route = smooth_route(scene, cfg, scene.camera.width * scene.camera.height, key)
+        else:
+            route = hard_route(scene, cfg, key)
+        if route not in ("pure", "sweeps"):
+            dirs_t = ray_directions_t(scene.camera, cfg.dtype, None if jitter is None else jitter.T)
+            if smooth:
+                return _smooth_kernels(route, pos, dirs_t, scene, cfg, key)
+            if route == "culled":
+                return trace_fused_culled(pos, dirs_t, scene, cfg)
+            if route == "lane":
+                return trace_fused_lane(pos, dirs_t, scene, cfg)
+            return trace_fused_sub(pos, dirs_t, scene, cfg, key=key)
     dirs = ray_directions(scene.camera, cfg.dtype, jitter)
-    return trace(scene.camera.position, dirs, scene, cfg, key=key)
+    n, chunk = dirs.shape[0], cfg.ray_chunk
+    if not chunk or n <= chunk:
+        return trace(pos, dirs, scene, cfg, key=key)
+    n_pad = -(-n // chunk) * chunk
+    if n_pad != n:
+        dirs = torch.cat([dirs, dirs[:1].expand(n_pad - n, 3)])
+    tiles = [
+        trace(pos, dirs[a : a + chunk], scene, cfg, key=None if key is None else fold_seed(key, i))
+        for i, a in enumerate(range(0, n_pad, chunk))
+    ]
+    return torch.cat(tiles)[:n]
 
 
 def fused_train_l2_ok(scene: Scene, cfg: RenderConfig) -> bool:

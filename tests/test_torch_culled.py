@@ -297,16 +297,21 @@ ROUTE_CASES = [
 
 @pytest.mark.parametrize("n_spheres,n_exact,depth,key", ROUTE_CASES)
 def test_hard_route_matches_jax(monkeypatch, n_spheres, n_exact, depth, key):
-    """The port takes JAX's kernel route, and refuses the lane kernel's
-    scenes (65-95 spheres, or more than 8 exact-tier spheres, mirror)."""
+    """The port takes JAX's kernel route, the lane kernel's scenes (65-95
+    spheres, or more than 8 exact-tier spheres, mirror) included: there
+    render() runs ``trace_fused_lane``, the counterpart of JAX's
+    ``_bounce_kernel``."""
     want = _jax_route(monkeypatch, n_spheres, n_exact, depth, key)
     rows = _rows(T.make_sphere_row, n_spheres, n_exact)
     scene = T.make_scene(T.build_spheres(rows), T.build_lights((-2.0, 3.0, 0.0)), (0.0, 0.5, -3.0), 8, 4)
     cfg = T.RenderConfig(max_depth=depth, use_pallas=True, stochastic_roughness=key is not None)
     if want == "_bounce_kernel":
-        with pytest.raises(NotImplementedError, match="_bounce_kernel"):
-            hard_route(scene, cfg, key)
-        with pytest.raises(NotImplementedError, match="_bounce_kernel"):
+        assert hard_route(scene, cfg, key) == "lane"
+        def took(*args, **kwargs):
+            raise _Took("lane")
+
+        monkeypatch.setattr(importlib.import_module("python_ray_tracer_tpu_torch.render"), "trace_fused_lane", took)
+        with pytest.raises(_Took, match="lane"):
             T.render(scene, cfg)
     else:
         assert hard_route(scene, cfg, key) == want

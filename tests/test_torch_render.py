@@ -8,6 +8,7 @@ module, to keep the suite's CPU budget.
 
 import ast
 import dataclasses
+import importlib
 from pathlib import Path
 
 import jax
@@ -30,7 +31,7 @@ from python_ray_tracer_tpu_torch import camera as tcam  # noqa: E402
 from python_ray_tracer_tpu_torch import cli  # noqa: E402
 from python_ray_tracer_tpu_torch.convert import scene_from_numpy, scene_to_numpy  # noqa: E402
 from python_ray_tracer_tpu_torch.models import scenes as tscenes  # noqa: E402
-from python_ray_tracer_tpu_torch.ops import bounce_sub  # noqa: E402
+from python_ray_tracer_tpu_torch.ops import bounce_lane, bounce_sub  # noqa: E402
 from python_ray_tracer_tpu_torch.ops import intersect as tint  # noqa: E402
 from python_ray_tracer_tpu_torch.utils.image import load_png, to_uint8  # noqa: E402
 
@@ -175,29 +176,45 @@ def test_cli_refuses_missing_cuda(tmp_path):
         cli.main(["render", "--width", "8", "--height", "4", "-o", str(tmp_path / "x.png")])
 
 
-def _ninety_six_spheres():
+def _kernel_rows(make_row, n_spheres: int, n_exact: int, atlas: bool):
+    """The lane kernel's scenes: a grid of spheres (every 4th image-textured
+    with ``atlas``), then ``n_exact`` r = 99999 spheres in the exact tier."""
+    rows = [make_row((float(i % 12) - 6.0, 0.0, 5.0 + i // 12), 0.3, specular_gain=0.5, diffuse_gain=0.8,
+                     texture_kind=2 if atlas and i % 4 == 0 else 0) for i in range(n_spheres - n_exact)]
+    rows += [make_row((0.0, -99999.5 - i, 0.0), 99999.0, diffuse_gain=1.0) for i in range(n_exact)]
+    return rows
+
+
+def _ninety_six_spheres(make_row=T.make_sphere_row):
     """96 spheres, 9 of them in the exact tier: the JAX renderer sends this
-    mirror scene to its lane kernel, which the port does not have."""
-    rows = [T.make_sphere_row((float(i % 12) - 6.0, 0.0, 5.0 + i // 12), 0.3) for i in range(87)]
-    rows += [T.make_sphere_row((0.0, -99999.5 - i, 0.0), 99999.0) for i in range(9)]
-    spheres = T.build_spheres(rows, dtype=torch.float32)
-    lights = T.build_lights((-2.0, 1.0, 2.0), dtype=torch.float32)
-    return T.make_scene(spheres, lights, (0.0, 0.2, -2.0), 8, 4, dtype=torch.float32)
+    mirror scene to its lane kernel."""
+    return _kernel_rows(make_row, 96, 9, False), None
 
 
-def _eighty_atlas_spheres():
+def _eighty_atlas_spheres(make_row=T.make_sphere_row):
     """80 spheres with a 4,096-texel atlas: the JAX renderer sends this hard
     scene to its lane kernel, which samples atlases of up to
     MAX_FUSED_TEXELS texels in-kernel."""
-    rows = [T.make_sphere_row((float(i % 12) - 6.0, 0.0, 5.0 + i // 12), 0.3,
-                              texture_kind=T.TEXTURE_IMAGE if i % 4 == 0 else 0) for i in range(79)]
-    rows.append(T.make_sphere_row((0.0, -99999.5, 0.0), 99999.0))
-    atlas = np.full((1, 64, 64, 3), 0.5)
-    return T.make_scene(T.build_spheres(rows), T.build_lights((-2.0, 1.0, 2.0)), (0.0, 0.2, -2.0), 8, 4,
-                        texture_atlas=atlas)
+    return _kernel_rows(make_row, 80, 1, True), np.random.default_rng(2).uniform(0.0, 1.0, (1, 64, 64, 3))
 
 
-_UNPORTED = {
+def _tied_spheres(make_row=T.make_sphere_row):
+    """A scene that really ties: sphere 1 duplicated bitwise as sphere 3 with
+    another colour, so every lane that hits it has two winners at one t."""
+    rows = [
+        make_row((0.0, -99999.5, 0.0), 99999.0, diffuse_gain=1.0, texture_kind=1, specular_gain=0.3),
+        make_row((-0.4, 0.1, 1.0), 0.5, diffuse_gain=0.9, diffuse_color=(0.2, 0.4, 0.9), specular_gain=0.6),
+        make_row((0.6, 0.2, 1.6), 0.45, diffuse_gain=0.8, specular_gain=0.9, iridescence_gain=0.5),
+    ]
+    rows.append(dict(rows[1], diffuse_color=np.asarray((0.9, 0.3, 0.1)), specular_gain=0.8))
+    return rows, None
+
+
+# Each route of the JAX renderer, by the options it takes (and its scene).
+# Every one but interpret mode renders the JAX package's frame (float64,
+# every value within 1e-12); the kernel routes run their plain versions on
+# the CPU, against JAX's float64 XLA route with the kernels' two-tier sweep.
+_ROUTES = {
     "tie_sum": dict(tie_mode="sum"),
     "ray_chunk": dict(ray_chunk=16),
     "stochastic_ray_chunk": dict(stochastic_roughness=True, ray_chunk=16),
@@ -206,10 +223,18 @@ _UNPORTED = {
     "spp2_atlas": dict(samples_per_pixel=2),
     "96_spheres_kernels": dict(use_pallas=True),
     "80_spheres_atlas_kernels": dict(use_pallas=True),
+    "tie_sum_duplicate": dict(tie_mode="sum"),
+    "ray_chunk_12": dict(ray_chunk=12),
+    "smooth_ray_chunk_kernels": dict(visibility="smooth", use_pallas=True, ray_chunk=16),
+    "96_spheres_ray_chunk_kernels": dict(use_pallas=True, ray_chunk=12),
+    "interpret": dict(pallas_interpret=True),
 }
-# Routes of the table above that the port has since taken over: they render
-# the JAX package's frame (float64, every value within 1e-12).
-_PORTED = ("atlas", "spp2_atlas")
+# The kernel function each chunked kernel case reaches once per tile (and
+# per bounce), counted at the call: 32 rays in tiles of 16 or 12.
+_CHUNK_CALLS = {"smooth_ray_chunk_kernels": ("trace_fused_smooth_sub", 2),
+                "96_spheres_ray_chunk_kernels": ("nearest_sweep", 3 * 3)}
+_SCENES = {"96_spheres_kernels": _ninety_six_spheres, "80_spheres_atlas_kernels": _eighty_atlas_spheres,
+           "tie_sum_duplicate": _tied_spheres, "96_spheres_ray_chunk_kernels": _ninety_six_spheres}
 
 
 def _atlas_reference_scenes():
@@ -222,33 +247,89 @@ def _atlas_reference_scenes():
         texture_atlas=jnp.asarray(np.random.default_rng(0).uniform(0.0, 1.0, (1, 4, 4, 3))),
         texture_hw=jnp.asarray([[4, 4]], jnp.int32),
     )
-    return js, scene_from_numpy(_jax_leaves(js), width=8, height=4, n_exact=js.spheres.n_exact, device="cpu",
-                                dtype=torch.float64)
+    return js, _port_of(js)
 
 
-@pytest.mark.parametrize("route", _UNPORTED)
-def test_unported_routes_raise(route):
-    """Each route the port does not have yet raises; none falls back, and
-    nothing launches a kernel on the CPU.  The image-atlas routes, ported
-    since, render the JAX frame instead (one sample and two jittered ones)."""
-    before = dict(bounce_sub.LAUNCHES)
-    scene = tscenes.reference_scene(8, 4)
-    if route in _PORTED:
-        js, ts = _atlas_reference_scenes()
-        kw = dict(_UNPORTED[route], max_depth=3)
-        want = np.asarray(jax.jit(lambda s: J.render(s, J.RenderConfig(dtype=jnp.float64, **kw)))(js))
-        got = T.render(ts, T.RenderConfig(dtype=torch.float64, **kw)).numpy()
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
-        assert bounce_sub.LAUNCHES == before == {"trace_deep": 0, "bounce_step": 0}
+def _port_of(js):
+    return scene_from_numpy(_jax_leaves(js), width=js.camera.width, height=js.camera.height,
+                            n_exact=js.spheres.n_exact, device="cpu", dtype=torch.float64)
+
+
+def _route_scenes(route):
+    """(JAX scene, port scene) of a route's case, float64, 8x4."""
+    if route in ("atlas", "spp2_atlas"):
+        return _atlas_reference_scenes()
+    if route in _SCENES:
+        from python_ray_tracer_tpu.scene import build_lights, build_spheres, make_scene, make_sphere_row
+
+        rows, atlas = _SCENES[route](make_sphere_row)
+        js = make_scene(build_spheres(rows, dtype=jnp.float64), build_lights((-2.0, 1.0, 2.0), dtype=jnp.float64),
+                        (0.0, 0.2, -2.0), 8, 4, texture_atlas=atlas, dtype=jnp.float64)
+        return js, _port_of(js)
+    js = jscenes.reference_scene(8, 4, dtype=jnp.float64)
+    return js, _port_of(js)
+
+
+@pytest.mark.parametrize("route", _ROUTES)
+def test_unported_routes_raise(route, monkeypatch):
+    """Each route of the JAX renderer renders the JAX frame (float64, within
+    1e-12), and nothing launches a kernel on the CPU; interpret mode, which
+    a CUDA kernel has no counterpart for, still raises.  The tie scene does
+    tie (its tie_mode="sum" frame is not its "first" one), ray_chunk 12
+    pads its last tile (32 rays), and chunked kernel frames take their
+    kernels' plain versions tile by tile: the smooth kernel route, and the
+    sweeps on a scene that unchunked takes the lane kernel."""
+    launches = (bounce_sub.LAUNCHES, bounce_lane.LAUNCHES, bounce_lane.ATLAS_LAUNCHES)
+    before = tuple(dict(c) for c in launches)
+    js, ts = _route_scenes(route)
+    kw = dict(_ROUTES[route], max_depth=3)
+    if route == "interpret":
+        with pytest.raises(NotImplementedError, match="interpret"):
+            T.render(ts, T.RenderConfig(dtype=torch.float64, **kw))
         return
-    if route == "96_spheres_kernels":
-        scene = _ninety_six_spheres()
-    elif route == "80_spheres_atlas_kernels":
-        scene = _eighty_atlas_spheres()
-    match = "_bounce_kernel" if route.endswith("_kernels") else "python_ray_tracer_tpu"
-    with pytest.raises(NotImplementedError, match=match):
-        T.render(scene, T.RenderConfig(**_UNPORTED[route]))
-    assert bounce_sub.LAUNCHES == before == {"trace_deep": 0, "bounce_step": 0}
+    jax_kw = {k: v for k, v in kw.items() if k != "use_pallas"}
+    if route.endswith("_kernels"):
+        jax_kw.update(intersect_mode="stable")
+    want = np.asarray(_unfused(lambda s: J.render(s, J.RenderConfig(dtype=jnp.float64, **jax_kw)), js))
+    calls = []
+    if route in _CHUNK_CALLS:
+        render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")
+        name, expected = _CHUNK_CALLS[route]
+        real = getattr(render_mod, name)
+        monkeypatch.setattr(render_mod, name, lambda *a, **k: calls.append(name) or real(*a, **k))
+    got = T.render(ts, T.RenderConfig(dtype=torch.float64, **kw)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    assert tuple(launches) == before
+    if route in _CHUNK_CALLS:
+        assert len(calls) == expected
+    if route == "tie_sum_duplicate":
+        first = T.render(ts, T.RenderConfig(dtype=torch.float64, max_depth=3)).numpy()
+        assert np.abs(first - got).max() > 0.1
+
+
+def test_remat_gradients_bitwise():
+    """``remat`` recomputes each bounce of the pure-torch trace in the
+    backward pass: every gradient equal bitwise with and without it
+    (smooth, float64).  The kernel routes have their own backward passes and
+    ignore it, as the JAX package's do: their frames are unchanged."""
+    from python_ray_tracer_tpu_torch.optim import combine, scene_to_params
+
+    scene = tscenes.reference_scene(8, 4, dtype=torch.float64)
+    grads = []
+    for remat in (False, True):
+        params = scene_to_params(scene)
+        cfg = T.RenderConfig(dtype=torch.float64, visibility="smooth", max_depth=3, remat=remat)
+        loss = torch.sum(T.render(combine(params, scene), cfg) ** 2)
+        grads.append(torch.autograd.grad(loss, list(params.values()), allow_unused=True))
+    assert any(g is not None and bool(g.abs().max() > 0) for g in grads[0])
+    for a, b in zip(*grads):
+        assert (a is None and b is None) or torch.equal(a, b)
+    for vis in ("hard", "smooth"):
+        cfg = T.RenderConfig(dtype=torch.float64, visibility=vis, max_depth=3, use_pallas=True)
+        with torch.no_grad():
+            plain = T.render(scene, cfg)
+            remat = T.render(scene, dataclasses.replace(cfg, remat=True))
+        assert torch.equal(plain, remat)
 
 
 def test_image_texture_kind_raises():
@@ -279,5 +360,7 @@ def test_port_never_imports_jax():
             elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
                 names = [node.module]
             offenders += [f"{path.name}: {n}" for n in names if n.split(".")[0] in ("jax", "jaxlib", "python_ray_tracer_tpu")]
-    assert len(list(PORT_ROOT.rglob("*.py"))) >= 15
+    scanned = {path.relative_to(PORT_ROOT).as_posix() for path in PORT_ROOT.rglob("*.py")}
+    assert {"io/scene_json.py", "io/__init__.py", "utils/denoise.py", "utils/metrics.py", "ops/bounce_lane.py"} <= scanned
+    assert len(scanned) >= 15
     assert offenders == []

@@ -416,7 +416,8 @@ ROUTING = [
 @pytest.mark.parametrize("case", ROUTING, ids=lambda c: "-".join(map(str, c)))
 def test_atlas_routing_matches_jax(case):
     """``hard_route``/``smooth_route`` with an atlas take the JAX renderer's
-    route; its lane kernel's scenes still raise, naming it."""
+    route, its lane kernel's scenes (atlases of at most MAX_FUSED_TEXELS
+    texels) included."""
     n_spheres, texels, vis, key, *n_exact = case
     ts = _routing_scene(n_spheres, texels, *n_exact)
     js = jax.tree_util.tree_map(jnp.asarray, _jax_scene_like(ts))
@@ -426,10 +427,6 @@ def test_atlas_routing_matches_jax(case):
     if vis == "smooth":
         got = smooth_route(ts, tcfg, 32, key)
         assert ("pure" if got == "pure" else "kernels") == want
-        return
-    if want == "lane":
-        with pytest.raises(NotImplementedError, match="_bounce_kernel"):
-            hard_route(ts, tcfg, key)
         return
     assert hard_route(ts, tcfg, key) == want
 
