@@ -72,7 +72,21 @@ at 960x540:
   --scene lane80.json --settings lane80_settings.json`` (1920x1080, depth
   4) against a JAX golden with exact launch counts, the 1032-sphere frame
   through ``render()`` against the pure-torch route, ``--denoise`` against
-  the CPU's denoise of the card's frame, and ``--profile``.
+  the CPU's denoise of the card's frame, and ``--profile``;
+* the sphere-sharded path (``parallel/`` on ``torch.distributed``), ranks
+  started by the CLI or by ``run_local``, two on the one card over gloo:
+  ``[parts]``, the per-shard kernels against their plain versions on both
+  sphere shards of config 4 (``shadow_parts`` on the 1920x1080 mirror
+  frame, ``smooth_nearest_parts``, ``clear_fwd`` and ``clear_bwd`` on the
+  960x540 smooth step; f32, and f64 at 480x270; ``clear_bwd`` twice,
+  bitwise) and the sharded first step against the JAX golden (f32 by the
+  noise rule, f64); ``[sharded]``, ``render --builtin random1024
+  --sphere-shards 2`` against the JAX golden and the single-process frame
+  and ``optimize --sphere-shards 2`` (960x540, 3 steps), each rank's launch
+  counts exact, and ``optimize --builtin inverse64 --ray-shards 2`` with its
+  first step against the single-process step; with two or more cards the
+  render and the optimize again over NCCL, one rank a card (a 2x2 mesh on
+  four).
 
 Then it times every kernel (and each one's glossy variant) beside its plain
 version and its bound, the benchmark's Adam step and the stochastic one,
@@ -84,7 +98,8 @@ variant beside its no-atlas kernel on the same inputs, the textured1024
 frame (with the texel composition's share), the texture task's Adam step
 and the textured1024 culled smooth step, and ``bounce_lane`` per launch on
 both lane scenes with each frame's ms and profiler split, and with its
-geometry in shared and in global memory.
+geometry in shared and in global memory, and each per-shard kernel at its
+shard's shape.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -223,6 +238,17 @@ LANE_GEOMETRY_RANDOM = (BIG_SPHERES, 4096)
 LANE_GEOMETRY_SIZE, LANE_GEOMETRY_F64_SIZE = (480, 270), (240, 135)
 ATLAS = {k: f"{k} (atlas)" for k in HARD + ("smooth_fwd_deep", "smooth_bwd_deep") + STEP + ("shade_culled", "fwd_cs", "bwd_cs")
          + BOUNCE_LANE}
+# The sphere-sharded path (parallel/): rows 18-20 (ops/smooth_parts.py) and
+# row 4's parts mode (shadow_parts), on config 4 over two sphere shards of
+# 512 spheres; the f64 kernel checks at a quarter of each frame's sides.
+PARTS = ("smooth_nearest_parts", "clear_fwd", "clear_bwd")
+SHARD_F64_SIZE = (480, 270)
+# The ray-sharded config-5-shape first step (f32) against the
+# single-process step on the card, relative to each leaf's largest value:
+# the same arithmetic, but each shard's depth-fused pair sums its own
+# 259,200 rays' table gradients and the all-reduce adds the two, where
+# train_deep sums all 518,400 in one kernel.
+RAY_SHARD_RTOL = 1e-4
 DEVICE = "cuda"
 REPLACES = {
     "bounce_lane": "python_ray_tracer_tpu/ops/pallas_bounce.py:160",
@@ -242,7 +268,13 @@ REPLACES = {
     "train_deep": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1799",
     "smooth_fwd_step": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:544",
     "smooth_bwd_step": "python_ray_tracer_tpu/ops/pallas_bounce_smooth_sub.py:1040",
+    "smooth_nearest_parts": "python_ray_tracer_tpu/ops/pallas_smooth_parts.py:107",
+    "clear_fwd": "python_ray_tracer_tpu/ops/pallas_smooth_parts.py:313",
+    "clear_bwd": "python_ray_tracer_tpu/ops/pallas_smooth_parts.py:345",
+    "shadow_parts": "python_ray_tracer_tpu/ops/pallas_intersect.py:384",
 }
+SOURCE.update({k: "python_ray_tracer_tpu_torch/csrc/smooth_parts.cu" for k in PARTS})
+SOURCE["shadow_parts"] = "python_ray_tracer_tpu_torch/csrc/intersect_fused.cu"
 REPLACES.update({v: REPLACES[k] for k, v in ATLAS.items()})
 SOURCE.update({v: SOURCE[k] for k, v in ATLAS.items()})
 # Kernel vs plain version: at most this share of values may differ by more
@@ -300,6 +332,10 @@ F64_RTOL = 1e-6
 # test_config4_scene_f64_gradients_match_torch_autograd), the leaves that
 # do not reach Phase C within 5e-10.
 CS_F64_RTOL = 1e-5
+# The sphere-sharded f64 first step at 960x540 against the JAX f64 golden:
+# the limit of the culled route's f64 step (Phase C's max(1 - occlusion,
+# 1e-6)), which the parts kernels' adjoint shares.
+SHARDED_F64_RTOL = CS_F64_RTOL
 # The published peaks of one H100 SXM (NVIDIA's datasheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -796,29 +832,17 @@ def phase_xi() -> None:
         fail("the card's xi draw differs from the CPU's or from JAX's")
 
 
-def _launch_counts() -> tuple[tuple[dict[str, int], ...], tuple[dict[str, int], ...]]:
-    """The wrappers' launch counters: the kernels', and their atlas modes'."""
-    from python_ray_tracer_tpu_torch.ops import (
-        bounce_lane, bounce_smooth_sub, bounce_sub, culled, culled_smooth, intersect_fused,
-    )
-
-    atlas_modules = (bounce_sub, bounce_smooth_sub, culled, culled_smooth, bounce_lane)
-    return (tuple(m.LAUNCHES for m in (*atlas_modules, intersect_fused)), tuple(m.ATLAS_LAUNCHES for m in atlas_modules))
-
-
 def _reset_launches() -> None:
-    for group in _launch_counts():
-        for counts in group:
-            for k in counts:
-                counts[k] = 0
+    from python_ray_tracer_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def _launches() -> dict[str, int]:
-    """Every counter, an atlas mode's under its ATLAS name."""
-    plain, atlas = _launch_counts()
-    out = {k: v for counts in plain for k, v in counts.items()}
-    out.update({ATLAS[k]: v for counts in atlas for k, v in counts.items()})
-    return out
+    """Every wrapper's counter, an atlas mode's under its ATLAS name."""
+    from python_ray_tracer_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def _expect_launched(what: str, launches: dict[str, int], kernels: tuple[str, ...],
@@ -2721,10 +2745,19 @@ def _lane_instantiation(args: tuple, kw: dict) -> tuple[str, ...]:
 
     from python_ray_tracer_tpu_torch.ops import bounce_lane
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        bounce_lane.bounce_lane(*args, **kw)
-        torch.cuda.synchronize()
-    found = {m.groups() for e in prof.key_averages() if (m := re.search(r"bounce_lane<(\w+), (\w+), (\w+)>", e.key))}
+    for attempt in range(1, 6):
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bounce_lane.bounce_lane(*args, **kw)
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()]
+        found = {m.groups() for key in keys if (m := re.search(r"bounce_lane<(\w+), (\w+), (\w+)>", key))}
+        if found:
+            break
+        # A profile that holds no bounce_lane kernel is the profiler's miss
+        # (the launch returned no error): the launch is profiled again, at
+        # most five times.  A wrong or second instantiation fails at once.
+        print(f"[geometry] the profiler recorded no bounce_lane kernel (attempt {attempt} of 5; its events: "
+              f"{[k[:60] for k in keys]})", flush=True)
     if len(found) != 1:
         fail(f"bounce_lane: expected one kernel instantiation in the profile, found {sorted(found)}")
     return found.pop()
@@ -2886,6 +2919,367 @@ def phase_lane_timing(card: str, inputs: dict) -> dict[str, dict]:
     return res
 
 
+# --- The sphere-sharded path: parallel/ on torch.distributed, the per-shard kernels ---
+
+
+def _shard_scene(dtype: torch.dtype, width: int, height: int, builtin: str = "random1024"):
+    from python_ray_tracer_tpu_torch.models.scenes import inverse_task_scene
+
+    if builtin == "inverse64":
+        return inverse_task_scene(64, width, height, dtype=dtype, device=DEVICE)
+    return _big_scene(dtype, width, height)
+
+
+def _rank_tag(mesh) -> str:
+    return f"rank ({mesh.rays.index}, {mesh.spheres.index})"
+
+
+def _check_parts_calls(tag: str, calls: dict, dtype: torch.dtype, err: dict) -> None:
+    """Each recorded per-shard call of the first two bounces, its kernel
+    against its plain version: indices exactly, values as PERF.md section 2
+    states (THRESHOLD, RAY_GRAD_TOL, COLUMN_RTOL); clear_bwd twice, bitwise."""
+    from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
+
+    def det(args):
+        return [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+
+    for b, (args, kw) in enumerate(calls.get("shadow_parts", [])[:2]):
+        args = det(args)
+        got = intersect_fused.shadow_parts(*args, **kw)
+        torch.cuda.synchronize()
+        want = intersect_fused.shadow_parts_plain(*args, **kw)
+        for name, k, p in zip(("t_others", "t_self"), got, want):
+            err["shadow_parts"] = max(err["shadow_parts"], _per_value_check(f"shadow_parts {tag} bounce {b} {name}", k, p, dtype))
+    for b, (args, kw) in enumerate(calls.get("nearest", [])[:2]):
+        args = det(args)
+        got = sp.nearest_parts(*args, **kw)
+        torch.cuda.synchronize()
+        want = sp.smooth_nearest_parts_plain(*args, **kw)
+        for name, k, p in zip(sp.SmoothParts._fields, got, want):
+            if name in ("idx", "fidx"):
+                _exact_check(f"smooth_nearest_parts {tag} bounce {b} {name}", k, p)
+            else:
+                err["smooth_nearest_parts"] = max(err["smooth_nearest_parts"], _per_value_check(
+                    f"smooth_nearest_parts {tag} bounce {b} {name}", k, p, dtype))
+    for b, (args, kw) in enumerate(calls.get("clear", [])[:2]):
+        args = det(args)
+        got = sp.clear_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        err["clear_fwd"] = max(err["clear_fwd"], _per_value_check(f"clear_fwd {tag} bounce {b} clear", got,
+                                                                   sp.clear_fwd_plain(*args, **kw), dtype))
+    # The backward runs the bounces in reverse: bounce 0 is the last call.
+    for b, (args, kw) in enumerate(calls.get("clear_bwd", [])[::-1][:2]):
+        args = det(args)
+        got = sp.clear_bwd(*args, **kw)
+        again = sp.clear_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+        print(f"[parts] clear_bwd {tag} bounce {b}: two launches bitwise equal: {same}", flush=True)
+        if not same:
+            fail(f"clear_bwd {tag} bounce {b}: two launches differ")
+        want = sp.clear_bwd_plain(*args, **kw)
+        for name, k, p in zip(("g_o", "g_d", "g_geom"), got, want):
+            e = _per_ray_check(f"clear_bwd {tag} bounce {b} {name}", k, p, dtype) if name != "g_geom" else \
+                _column_check(f"clear_bwd {tag} bounce {b} {name}", k, p, dtype)
+            err["clear_bwd"] = max(err["clear_bwd"], e)
+
+
+@contextlib.contextmanager
+def _parts_capture(calls: dict):
+    """Record every per-shard kernel call of the sharded path (arguments, keywords)."""
+    from python_ray_tracer_tpu_torch.ops import smooth_parts
+
+    render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")
+    with contextlib.ExitStack() as stack:
+        for module, name, key in ((render_mod, "shadow_parts", "shadow_parts"),
+                                  (render_mod, "smooth_nearest_parts", "nearest"),
+                                  (render_mod, "smooth_clear_parts", "clear"), (smooth_parts, "clear_bwd", "clear_bwd")):
+            stack.enter_context(_capture(module, name, calls.setdefault(key, [])))
+        yield
+
+
+def _shard_rank(shape: tuple[int, int], jobs: list[dict], tmp: str) -> dict:
+    """One rank of a mesh of ``shape`` on the card (spawned by run_local).
+
+    ``"hard"`` jobs render config 4's mirror frame (depth 4) sharded and
+    check the shard's shadow_parts calls; ``"smooth"`` jobs take the
+    first-step loss and gradients of config 4's smooth L2 step (depth 3,
+    the target ``job["target"]``), checking rows 18-20's calls where
+    ``check`` is set; ``"step"`` jobs only the loss and gradients.  Rank 0
+    saves its first f32 call of each kernel for the timings.  Returns the
+    errors and, per job, the loss and gradients (numpy)."""
+    from python_ray_tracer_tpu_torch import RenderConfig
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
+    from python_ray_tracer_tpu_torch.parallel import make_mesh, render_sharded
+
+    mesh = make_mesh(*shape)
+    tag0 = _rank_tag(mesh)
+    err = dict.fromkeys(PARTS + ("shadow_parts",), 0.0)
+    out: dict = {"err": err}
+    saved: dict = {}
+    for job in jobs:
+        dtype = job["dtype"]
+        width, height = job["size"]
+        tag = f"{tag0} {job['builtin']} {str(dtype).split('.')[-1]} {width}x{height}"
+        scene = _shard_scene(dtype, width, height, job["builtin"])
+        calls: dict = {}
+        if job["kind"] == "hard":
+            with _parts_capture(calls), torch.no_grad():
+                render_sharded(scene, _big_cfg(dtype, use_pallas=True), mesh)
+            torch.cuda.synchronize()
+        else:
+            cfg = RenderConfig(max_depth=job["depth"], dtype=dtype, visibility="smooth", use_pallas=True)
+            target = torch.as_tensor(job["target"], dtype=dtype, device=DEVICE)
+            params = scene_to_params(scene)
+            with _parts_capture(calls) if job.get("check") else contextlib.nullcontext():
+                loss = make_loss_fn(scene, target, cfg, mesh)(params)
+                loss.backward()
+            torch.cuda.synchronize()
+            out[job["name"]] = {"loss": float(loss.detach()),
+                                **{k: g.cpu().numpy() for k, g in _leaf_grads(params).items()}}
+            print(f"[sharded] {tag}: first-step loss {float(loss.detach()):.8e}", flush=True)
+        if job.get("check"):
+            _check_parts_calls(tag, calls, dtype, err)
+            if dtype == torch.float32 and mesh.spheres.index == 0 and mesh.rays.index == 0:
+                for key in calls:
+                    if calls[key] and key not in saved:
+                        args, kw = calls[key][-1 if key == "clear_bwd" else 0]
+                        saved[key] = ([a.detach() if isinstance(a, torch.Tensor) else a for a in args], kw)
+        del calls
+    if saved:
+        torch.save(saved, Path(tmp) / "parts_inputs.pt")
+    return out
+
+
+def _golden_target(width: int, height: int) -> np.ndarray:
+    """config 4's smooth-step target: the CS golden's uint8 image / 255 at
+    960x540, else the clipped single-process hard frame at that size."""
+    if (width, height) == (WIDTH, HEIGHT):
+        return np.load(REPO / CS_GOLDEN)["image"] / 255.0
+    from python_ray_tracer_tpu_torch import render
+
+    with torch.no_grad():
+        img = render(_big_scene(torch.float32, width, height), dataclasses.replace(_big_cfg(use_pallas=True), max_depth=CS_DEPTH))
+    return torch.clamp(img, 0.0, 1.0).cpu().numpy()
+
+
+def phase_parts(tmp: Path) -> dict[str, float]:
+    """[parts]: two ranks on the one card (gloo), sphere shards 0 and 1 of
+    config 4.  Each rank checks its shard's calls on real inputs: row 4's
+    parts mode on the first two bounces of the 1920x1080 mirror frame (f32;
+    f64 at 480x270), rows 18-20 on the first two bounces of the 960x540
+    smooth step's forward and backward (f32; f64 at 480x270).  The f32 and
+    f64 first steps at 960x540 are then held to the JAX golden: f32 within
+    NOISE_FACTOR x the single-process culled route's distance from the f64
+    golden (+ NOISE_FLOOR of the leaf), f64 within SHARDED_F64_RTOL.
+    Returns the f32 errors per kernel."""
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
+    from python_ray_tracer_tpu_torch.parallel.distributed import run_local
+
+    full, quarter = (BIG_WIDTH, BIG_HEIGHT), SHARD_F64_SIZE
+    jobs = [
+        dict(kind="hard", builtin="random1024", dtype=torch.float32, size=full, check=True),
+        dict(kind="hard", builtin="random1024", dtype=torch.float64, size=quarter, check=True),
+        dict(kind="smooth", name="step32", builtin="random1024", dtype=torch.float32, size=(WIDTH, HEIGHT),
+             depth=CS_DEPTH, target=_golden_target(WIDTH, HEIGHT), check=True),
+        dict(kind="smooth", name="check64", builtin="random1024", dtype=torch.float64, size=quarter, depth=CS_DEPTH,
+             target=_golden_target(*quarter), check=True),
+        dict(kind="smooth", name="step64", builtin="random1024", dtype=torch.float64, size=(WIDTH, HEIGHT),
+             depth=CS_DEPTH, target=_golden_target(WIDTH, HEIGHT)),
+    ]
+    t0 = time.perf_counter()
+    ranks = run_local(_shard_rank, 2, (1, 2), jobs, str(tmp))
+    print(f"[parts] two ranks on one card: {time.perf_counter() - t0:.1f} s", flush=True)
+    errs = {k: max(r["err"][k] for r in ranks) for k in ranks[0]["err"]}
+    for name in ("step32", "step64"):
+        for key in ranks[0][name]:
+            if not np.array_equal(ranks[0][name][key], ranks[1][name][key]):
+                fail(f"[parts] the ranks' {name} {key} differ")
+    golden = np.load(REPO / CS_GOLDEN)
+    scene = _big_scene(torch.float32, WIDTH, HEIGHT)
+    params = scene_to_params(scene)
+    loss = make_loss_fn(scene, torch.tensor(golden["image"], dtype=torch.float32, device=DEVICE) / 255.0,
+                        _cs_cfg())(params)
+    loss.backward()
+    peer = {k: g.cpu().numpy() for k, g in _leaf_grads(params).items()}
+    step = ranks[0]["step32"]
+    _noise_check("sphere-sharded f32 first-step loss (peer: the single-process culled route)", step["loss"],
+                 float(loss.detach()), golden["loss64"])
+    for key in peer:
+        _noise_check(f"sphere-sharded f32 first step d/d{key} (peer: the single-process culled route)", step[key],
+                     peer[key], golden[f"grad64/{key}"])
+    step = ranks[0]["step64"]
+    _relative_check("sphere-sharded f64 first-step loss vs the JAX f64 golden", torch.tensor(step["loss"]),
+                    torch.as_tensor(golden["loss64"]), F64_RTOL)
+    for key in peer:
+        _relative_check(f"sphere-sharded f64 first step d/d{key} vs the JAX f64 golden", torch.as_tensor(step[key]),
+                        torch.as_tensor(golden[f"grad64/{key}"]), SHARDED_F64_RTOL)
+    return errs
+
+
+def _cli_sharded(what: str, argv: list[str], metrics: Path) -> dict:
+    """Run ``cli.main(argv)`` with ``--metrics metrics`` (it starts the ranks)
+    and return rank 0's last record there: the render's, or the optimize run's."""
+    from python_ray_tracer_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    code = cli.main([*argv, "--metrics", str(metrics)])
+    if code != 0:
+        fail(f"{what}: exit code {code}")
+    rec = json.loads(metrics.read_text().splitlines()[-1])
+    print(f"[sharded] {what}: {time.perf_counter() - t0:.1f} s for the command (ranks started, kernels loaded)",
+          flush=True)
+    return rec
+
+
+def _rank_launches(what: str, rec: dict, kernels: tuple[str, ...], exactly: int, absent: tuple[str, ...]) -> dict:
+    """Each rank's launches in ``rec`` hold ``exactly`` of each of
+    ``kernels`` and none of ``absent``; returns their sums over the ranks."""
+    total = dict.fromkeys(kernels, 0)
+    for r, counts in enumerate(rec["launches"]):
+        full = {k: counts.get(k, 0) for k in set(counts) | set(kernels) | set(absent)}
+        _expect_launched(f"{what}, rank {r}", full, kernels, exactly=exactly, absent=absent)
+        for k in kernels:
+            total[k] += counts[k]
+    return total
+
+
+def phase_sharded_main(tmp: Path, shape: tuple[int, int] = (1, 2), label: str = "two ranks on one card, gloo") -> dict:
+    """[sharded]: the CLI over a mesh of ranks (started by the CLI itself).
+
+    (a) ``render --builtin random1024 --sphere-shards 2`` (1920x1080, depth
+    4): within MAX_GOLDEN_SHARE of the JAX golden's uint8 values and of the
+    single-process CLI frame; each rank exactly 4 nearest_sweep and 4
+    shadow_parts, no culled kernel and no hard-mode shadow_sweep.  (b)
+    ``optimize --builtin random1024 --width 960 --height 540 --visibility
+    smooth --sphere-shards 2``, 3 steps: each rank exactly 9 of each of rows
+    18-20 and none of the unsharded smooth kernels.  On one card also (c)
+    ``optimize --builtin inverse64 --visibility smooth --ray-shards 2`` (960x540,
+    depth 3), 3 steps, and its first step's loss and gradients against the
+    single-process step (RAY_SHARD_RTOL).  Returns the new kernels' launches
+    in (a) and (b), summed over the ranks."""
+    from python_ray_tracer_tpu_torch.parallel.distributed import run_local
+    from python_ray_tracer_tpu_torch.utils.image import load_png, save_png
+
+    mesh_flags = ["--ray-shards", str(shape[0]), "--sphere-shards", str(shape[1])]
+    tag = f"{shape[0]}x{shape[1]} mesh, {label}"
+    big = ["--builtin", "random1024", "--width", str(BIG_WIDTH), "--height", str(BIG_HEIGHT), "--depth", str(BIG_DEPTH)]
+    out = tmp / f"sharded_{shape[0]}x{shape[1]}.png"
+    rec = _cli_sharded(f"render --sphere-shards ({tag})", ["render", *big, *mesh_flags, "-o", str(out)],
+                       tmp / f"render_{shape[0]}x{shape[1]}.jsonl")
+    print(f"[sharded] config-4 frame over the {tag}: {rec['render_s'] * 1e3:.3f} ms for the timed frame (a check "
+          "of the path, not a speed of the port)", flush=True)
+    counts = _rank_launches(f"the sharded config-4 render ({tag})", rec, ("nearest_sweep", "shadow_parts"),
+                            BIG_DEPTH, CULLED + ("shadow_sweep",))
+    launches = {"shadow_parts": counts["shadow_parts"]}
+    img = load_png(out)
+    _compare_uint8(f"config 4 sphere-sharded ({tag})", img, np.load(REPO / BIG_GOLDEN)["image"], "the JAX golden")
+    _compare_uint8(f"config 4 sphere-sharded ({tag})", img, load_png(tmp / "big.png"), "the single-process CLI frame")
+
+    target = tmp / "sharded_target.png"
+    save_png(torch.as_tensor(np.load(REPO / CS_GOLDEN)["image"] / 255.0), target)
+    small = ["--builtin", "random1024", "--width", str(WIDTH), "--height", str(HEIGHT), "--depth", str(CS_DEPTH),
+             "--visibility", "smooth"]
+    opt_metrics = tmp / f"optimize_{shape[0]}x{shape[1]}.jsonl"
+    rec = _cli_sharded(f"optimize --sphere-shards ({tag})",
+                       ["optimize", *small, *mesh_flags, "--target", str(target), "--steps", "3", "--sync-every", "3",
+                        "--lr", "1e-3"], opt_metrics)
+    steps = [r for r in map(json.loads, opt_metrics.read_text().splitlines()) if r["event"] == "step"]
+    print(f"[sharded] config-4 smooth steps over the {tag}: losses {[s['loss'] for s in steps]}, "
+          f"{steps[-1]['step_s'] * 1e3:.3f} ms/step, the mean of the three steps with the first one's set-up (a "
+          "check of the path, not a speed of the port)", flush=True)
+    if len(steps) != 3 or not all(np.isfinite([s["loss"] for s in steps])):
+        fail(f"optimize --sphere-shards ({tag}) logged {len(steps)} steps")
+    launches.update(_rank_launches(f"the sharded config-4 smooth optimize ({tag})", rec, PARTS, 3 * CS_DEPTH,
+                                   SMOOTH + CS))
+    if shape != (1, 2):
+        return launches
+
+    inv = ["--builtin", "inverse64", "--width", str(WIDTH), "--height", str(HEIGHT), "--depth", str(CS_DEPTH)]
+    inv_target = tmp / "inverse64_target.png"
+    _cli_render(tmp, inv_target.name, *inv)
+    inv_metrics = tmp / "optimize_inverse64_2x1.jsonl"
+    rec = _cli_sharded("optimize --builtin inverse64 --ray-shards 2",
+                       ["optimize", *inv, "--visibility", "smooth", "--ray-shards", "2", "--target", str(inv_target),
+                        "--steps", "3", "--sync-every", "3", "--lr", "1e-3"], inv_metrics)
+    _rank_launches("the ray-sharded config-5-shape optimize", rec, ("smooth_fwd_deep", "smooth_bwd_deep"), 3,
+                   PARTS + ("train_deep",))
+    # Its first step against the single-process step on the card.
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
+
+    tgt = load_png(inv_target) / 255.0
+    job = dict(kind="step", name="inv", builtin="inverse64", dtype=torch.float32, size=(WIDTH, HEIGHT), depth=CS_DEPTH,
+               target=tgt)
+    ranks = run_local(_shard_rank, 2, (2, 1), [job], str(tmp))
+    scene = _shard_scene(torch.float32, WIDTH, HEIGHT, "inverse64")
+    params = scene_to_params(scene)
+    loss = make_loss_fn(scene, torch.tensor(tgt, dtype=torch.float32, device=DEVICE), _cs_cfg())(params)
+    loss.backward()
+    _relative_check("ray-sharded inverse64 first-step loss vs the single-process step", torch.tensor(ranks[0]["inv"]["loss"]),
+                    loss.detach().cpu(), RAY_SHARD_RTOL)
+    for key, g in _leaf_grads(params).items():
+        if not np.array_equal(ranks[0]["inv"][key], ranks[1]["inv"][key]):
+            fail(f"the ray-sharded ranks' d/d{key} differ")
+        _relative_check(f"ray-sharded inverse64 first step d/d{key} vs the single-process step",
+                        torch.as_tensor(ranks[0]["inv"][key]), g.cpu(), RAY_SHARD_RTOL)
+    return launches
+
+
+def phase_multi_card(tmp: Path) -> None:
+    """(a) and (b) of [sharded] over NCCL, one rank a card: a 2x2 mesh with
+    four cards, (1, 2) with two or three; one card prints that it needs more."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[multi-card] {n} card visible: the NCCL phase needs two or more (skipped on this machine)", flush=True)
+        return
+    shape = (2, 2) if n >= 4 else (1, 2)
+    phase_sharded_main(tmp, shape, f"one rank a card, NCCL, {n} cards visible")
+
+
+def _parts_bound(name: str, args: list, kw: dict) -> tuple[float, str]:
+    """The least time of one launch: each input and output once, and the plain
+    version's operations counted over 4096 of the lanes, scaled to all."""
+    from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
+
+    plain, kernel = {
+        "smooth_nearest_parts": (sp.smooth_nearest_parts_plain, sp.nearest_parts),
+        "clear_fwd": (sp.clear_fwd_plain, sp.clear_fwd),
+        "clear_bwd": (sp.clear_bwd_plain, sp.clear_bwd),
+        "shadow_parts": (intersect_fused.shadow_parts_plain, intersect_fused.shadow_parts),
+    }[name]
+    n = args[0].shape[0]
+    part = min(n, 4096)
+    sliced = [a[:part] if isinstance(a, torch.Tensor) and a.shape[0] == n else a for a in args]
+    with torch.no_grad():
+        ops = count_ops(lambda: plain(*sliced, **kw)) * n / part
+        out = kernel(*args, **kw)
+    out = out if isinstance(out, tuple) else (out,)
+    return _bound(int(ops), _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out))
+
+
+def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
+    """Each new kernel, one launch at its shard's shape (shard 0 of config 4,
+    f32: 1920x1080 for shadow_parts, 960x540 for rows 18-20, first bounce),
+    beside its plain version and its bound by counted operations."""
+    from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
+
+    saved = torch.load(tmp / "parts_inputs.pt", weights_only=False)
+    kernels = {
+        "smooth_nearest_parts": ("nearest", sp.nearest_parts, sp.smooth_nearest_parts_plain, "960x540"),
+        "clear_fwd": ("clear", sp.clear_fwd, sp.clear_fwd_plain, "960x540"),
+        "clear_bwd": ("clear_bwd", sp.clear_bwd, sp.clear_bwd_plain, "960x540"),
+        "shadow_parts": ("shadow_parts", intersect_fused.shadow_parts, intersect_fused.shadow_parts_plain, "1920x1080"),
+    }
+    res = {}
+    with torch.no_grad():
+        for name, (key, kernel, plain, size) in kernels.items():
+            args, kw = saved[key]
+            res[name] = _time_launches(
+                name, [(lambda: kernel(*args, **kw), lambda: plain(*args, **kw), lambda: _parts_bound(name, args, kw))],
+                card, f"config 4 sphere shard 0 of 2, {args[2].shape[0]} spheres, {size} f32", "one")
+    return res
+
+
 
 def main() -> int:
     card = phase_device()
@@ -2918,6 +3312,10 @@ def main() -> int:
         c5_launches = phase_c5_main(Path(tmp))
         launches.update(phase_tex_main(Path(tmp)))
         launches.update(phase_lane_main(Path(tmp)))
+        errs.update(phase_parts(Path(tmp)))
+        timings.update(phase_parts_timing(card, Path(tmp)))
+        launches.update(phase_sharded_main(Path(tmp)))
+        phase_multi_card(Path(tmp))
     launches.update({k: v for k, v in c5_launches.items() if k in LANE.values()})
     phase_cs_golden()
     timings.update(phase_timing(card))
@@ -2939,6 +3337,7 @@ def main() -> int:
             **timings[name],
         }
         for name in HARD + SMOOTH + CULLED + SWEEPS + CS + tuple(LANE.values()) + BOUNCE_LANE + tuple(ATLAS.values())
+        + PARTS + ("shadow_parts",)
     ]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

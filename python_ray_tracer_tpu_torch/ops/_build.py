@@ -39,6 +39,7 @@ BUILD_DIR = _PKG / "_build"
 GENERATED = BUILD_DIR / "include"
 SOURCES = (
     "bounce_sub.cu", "bounce_smooth_sub.cu", "culled.cu", "culled_smooth.cu", "intersect_fused.cu", "bounce_lane.cu",
+    "smooth_parts.cu",
 )
 # Shared memory one block may use on Hopper (227 KB; above 48 KB only as
 # dynamic shared memory, which the kernels opt in to).

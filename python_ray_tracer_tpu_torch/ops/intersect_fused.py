@@ -1,13 +1,16 @@
 """Standalone nearest-hit and hard-shadow sweeps: wrappers and plain versions.
 
 Port of :mod:`python_ray_tracer_tpu.ops.pallas_intersect`'s two kernels,
-``_nearest_kernel`` (``nearest_hit_pallas``) and ``_shadow_kernel`` in hard
-mode (``shadow_hard_pallas``), as the CUDA kernels ``nearest_sweep`` and
-``shadow_sweep`` in ``csrc/intersect_fused.cu``: one thread per ray over the
-(N, 3) rows of :func:`..render.trace`, one ascending loop over the (S, 4)
-geometry table, cheap tier then exact tier.  ``render.trace`` calls them once
-each per bounce on its kernel branch (a stochastic glossy hard scene above
-64 spheres), with plain torch shading between them.  (The module is not
+``_nearest_kernel`` (``nearest_hit_pallas``) and ``_shadow_kernel`` in its
+hard mode (``shadow_hard_pallas``) and its parts mode
+(``shadow_parts_pallas``), as the CUDA kernels ``nearest_sweep``,
+``shadow_sweep`` and ``shadow_parts`` in ``csrc/intersect_fused.cu``: one
+thread per ray over the (N, 3) rows of :func:`..render.trace`, one ascending
+loop over the (S, 4) geometry table, cheap tier then exact tier.
+``render.trace`` calls the first two once each per bounce on its kernel
+branch (a stochastic glossy hard scene above 64 spheres), with plain torch
+shading between them; its sphere-sharded hard branch sweeps each shard with
+``nearest_sweep`` and ``shadow_parts``.  (The module is not
 ``intersect.py``, which is the port of the JAX ``ops/intersect.py``.)
 
 The plain versions are the pure-torch two-tier sweep
@@ -17,7 +20,8 @@ reduce, over chunks of rays so that no (N, S) table outgrows memory.  A
 wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches the kernel or raises.  Hard visibility has no gradient here: the
 JAX ``nearest_hit_pallas`` VJP is XLA code that hard rendering never runs.
-:data:`LAUNCHES` counts the launches.
+:data:`LAUNCHES` counts the launches, :data:`PARTS_LAUNCHES` the parts
+mode's.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from . import _build
 from .intersect import NearestHit, intersect_two_tier, nearest_hit
 
 LAUNCHES = {"nearest_sweep": 0, "shadow_sweep": 0}
+# The shadow kernel's parts mode, counted apart as the atlas modes are.
+PARTS_LAUNCHES = {"shadow_parts": 0}
 
 _SOURCE = "intersect_fused.cu"
 
@@ -58,20 +64,28 @@ def nearest_sweep_plain(o, d, geom, *, faraway: float, s_cheap: int):
     return torch.cat(ts), torch.cat(idxs)
 
 
+def shadow_parts_plain(o, d, geom, self_idx, *, faraway: float, s_cheap: int):
+    """Plain version of ``shadow_parts``: ``(t_others, t_self)`` (N,), the
+    least hit distance along each shadow ray over the spheres other than the
+    lane's own ``self_idx`` and that of its own sphere, both starting from
+    the sentinel; an index outside ``0..S-1`` matches no sphere."""
+    big = torch.tensor(_BIG[o.dtype], dtype=o.dtype, device=o.device)
+    ids = torch.arange(geom.shape[0], dtype=torch.int32, device=o.device)[None, :]
+    others, selfs = [], []
+    for a, b in _chunks(o.shape[0], geom.shape[0]):
+        t = _t_table(o[a:b], d[a:b], geom, faraway, s_cheap)
+        is_self = ids == self_idx[a:b, None]
+        others.append(torch.minimum(torch.amin(torch.where(is_self, big, t), dim=1), big))
+        selfs.append(torch.minimum(torch.amin(torch.where(is_self, t, big), dim=1), big))
+    return torch.cat(others), torch.cat(selfs)
+
+
 def shadow_sweep_plain(o, d, geom, self_idx, *, faraway: float, s_cheap: int):
     """Plain version of ``shadow_sweep``: 1 where the lane's own sphere
     ``self_idx`` is nearest along its shadow ray (``t_self <= t_others``,
     both starting from the sentinel), else 0; (N,) in the rays' dtype."""
-    big = torch.tensor(_BIG[o.dtype], dtype=o.dtype, device=o.device)
-    ids = torch.arange(geom.shape[0], dtype=torch.int32, device=o.device)[None, :]
-    lit = []
-    for a, b in _chunks(o.shape[0], geom.shape[0]):
-        t = _t_table(o[a:b], d[a:b], geom, faraway, s_cheap)
-        is_self = ids == self_idx[a:b, None]
-        t_others = torch.minimum(torch.amin(torch.where(is_self, big, t), dim=1), big)
-        t_self = torch.minimum(torch.amin(torch.where(is_self, t, big), dim=1), big)
-        lit.append((t_self <= t_others).to(o.dtype))
-    return torch.cat(lit)
+    t_others, t_self = shadow_parts_plain(o, d, geom, self_idx, faraway=faraway, s_cheap=s_cheap)
+    return (t_self <= t_others).to(o.dtype)
 
 
 def _check(o, d, geom, s_cheap: int, self_idx=None) -> torch.device:
@@ -111,13 +125,14 @@ def _check(o, d, geom, s_cheap: int, self_idx=None) -> torch.device:
 _SIGNATURES = {
     "nearest_sweep": "ppppp" "iii" "r",  # o, d, geom, t, idx; n, s_cheap, s_total; faraway
     "shadow_sweep": "ppppp" "iii" "r",  # o, d, geom, self_idx, lit; n, s_cheap, s_total; faraway
+    "shadow_parts": "pppppp" "iii" "r",  # o, d, geom, self_idx, t_others, t_self; n, s_cheap, s_total; faraway
 }
 
 
 def _launch(name: str, dtype: torch.dtype, *args) -> None:
     """Launch kernel ``name`` on the current stream and count it."""
     _build.launch(_SOURCE, name, _SIGNATURES[name], dtype, *args)
-    LAUNCHES[name] += 1
+    (PARTS_LAUNCHES if name in PARTS_LAUNCHES else LAUNCHES)[name] += 1
 
 
 def nearest_sweep(o, d, geom, *, faraway: float, s_cheap: int) -> NearestHit:
@@ -146,3 +161,20 @@ def shadow_sweep(o, d, geom, self_idx, *, faraway: float, s_cheap: int) -> torch
         lit = torch.empty((n,), dtype=o.dtype, device=device)
         _launch("shadow_sweep", o.dtype, o, d, geom, self_idx, lit, n, s_cheap, geom.shape[0], float(faraway))
     return lit
+
+
+def shadow_parts(o, d, geom, self_idx, *, faraway: float, s_cheap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sphere shard's hard-shadow partials ``(t_others, t_self)`` (N,) of
+    shadow rays ``o``/``d`` (N, 3) from each lane's own sphere ``self_idx``
+    (N,) int32, an index LOCAL to the shard ``geom`` (S, 4): out of range on
+    a lane whose sphere another shard holds."""
+    device = _check(o, d, geom, s_cheap, self_idx)
+    if device.type == "cpu":
+        return shadow_parts_plain(o, d, geom, self_idx, faraway=faraway, s_cheap=s_cheap)
+    n = o.shape[0]
+    with torch.cuda.device(device):
+        t_others = torch.empty((n,), dtype=o.dtype, device=device)
+        t_self = torch.empty((n,), dtype=o.dtype, device=device)
+        _launch("shadow_parts", o.dtype, o, d, geom, self_idx, t_others, t_self, n, s_cheap, geom.shape[0],
+                float(faraway))
+    return t_others, t_self

@@ -3,7 +3,8 @@
 Port of ``_material_table`` (``ops/pallas_bounce.py``), ``_geometry_table``
 and ``_consts_row`` (``ops/pallas_bounce_sub.py``) of the JAX package.  The
 column orders are the kernels' ABI: ``csrc/bounce_sub.cu`` reads them by
-the same indices.
+the same indices.  :func:`segment_sum` scatters per-lane rows into such a
+table in a fixed order.
 """
 
 from __future__ import annotations
@@ -54,3 +55,21 @@ def consts_row(scene: Scene, dtype: torch.dtype) -> torch.Tensor:
     consts[0, 6:9] = lights.dome_color[-1].to(dtype)
     consts[0, 9] = torch.sum(lights.dome_intensity.to(dtype))
     return consts
+
+
+def segment_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``out[ids[m]] += vals[m]`` into an (n, C) zero table for (M, C)
+    ``vals``, summed in a fixed order (ascending ``m`` within each row, the
+    order of a sequential scatter-add) with no atomics, so two calls on the
+    same inputs agree bit for bit.
+    Rows of ``vals`` that are all zero are left out: they add exact zeros."""
+    out = torch.zeros((n, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    rows = torch.nonzero((vals != 0).any(1)).flatten()
+    if rows.numel() == 0:
+        return out
+    ids = ids[rows]
+    order = torch.argsort(ids, stable=True)
+    ids = ids[order]
+    uniq, counts = torch.unique_consecutive(ids, return_counts=True)
+    out[uniq.long()] = torch.segment_reduce(vals[rows[order]], "sum", lengths=counts, axis=0)
+    return out

@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from .tables import segment_sum
 from .vecmath import sqrt
 
 # Largest atlas (texels, all slots) the JAX package's lane hard kernel
@@ -160,19 +161,8 @@ def scatter_texels(contrib: torch.Tensor, flat: torch.Tensor, n_texels: int) -> 
     """The adjoint of the gather: ``out[flat[i]] += contrib[:, i]`` into an
     (n_texels, 3) zero table, summed in a fixed order (ascending lane within
     each texel, the order of a sequential scatter-add) with no atomics, so
-    two calls on the same inputs agree bit for bit.  Lanes whose
-    contributions are all zero are left out: they add exact zeros."""
-    out = torch.zeros((n_texels, 3), dtype=contrib.dtype, device=contrib.device)
-    lanes = torch.nonzero((contrib != 0).any(0)).flatten()
-    if lanes.numel() == 0:
-        return out
-    ids = flat[lanes]
-    order = torch.argsort(ids, stable=True)
-    ids = ids[order]
-    uniq, counts = torch.unique_consecutive(ids, return_counts=True)
-    vals = contrib[:, lanes[order]].T.contiguous()  # (M, 3) sorted by texel
-    out[uniq.long()] = torch.segment_reduce(vals, "sum", lengths=counts, axis=0)
-    return out
+    two calls on the same inputs agree bit for bit (:func:`.tables.segment_sum`)."""
+    return segment_sum(contrib.T, flat, n_texels)
 
 
 def compose_texels(acc: torch.Tensor, texels: torch.Tensor, flat: torch.Tensor, dww: torch.Tensor) -> torch.Tensor:

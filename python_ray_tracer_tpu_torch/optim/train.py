@@ -1,13 +1,16 @@
 """Inverse rendering: differentiable L2 loss and the Adam training step.
 
-Port of :mod:`python_ray_tracer_tpu.optim.train` (single device; the JAX
-package's ``mesh`` route waits for the port of ``parallel/``).  The loss is
-an L2 pixel loss against a target image; a step is ``loss.backward()`` and
-one ``torch.optim.Adam`` update, the counterpart of ``optax.adam``.
+Port of :mod:`python_ray_tracer_tpu.optim.train`.  The loss is an L2
+pixel loss against a target image; a step is ``loss.backward()`` and one
+``torch.optim.Adam`` update, the counterpart of ``optax.adam``.
 
 Where :func:`..render.fused_train_l2_ok` holds (smooth visibility through
 the kernels), the loss is one ``train_deep`` launch that also computed
-every gradient; its backward only scales them.
+every gradient; its backward only scales them.  With a mesh
+(:mod:`..parallel`) the loss renders through
+:func:`..parallel.sharded.render_sharded` on every rank of the mesh, and
+every rank's backward gives the gradients of the single-device loss, so
+the ranks' Adam updates agree.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 
 from ..config import RenderConfig
 from ..ops.vecmath import clip
+from ..parallel.mesh import Mesh
+from ..parallel.sharded import render_sharded
 from ..render import fused_train_l2_ok, l2_loss_fused, render
 from ..scene import Scene
 from .params import Params, combine
@@ -37,17 +42,17 @@ def make_loss_fn(
     template: Scene,
     target: torch.Tensor,  # (H, W, 3) float in [0, 1]
     cfg: RenderConfig,
-    mesh: object | None = None,
+    mesh: Mesh | None = None,
 ) -> Callable[[Params], torch.Tensor]:
-    """Loss as a function of the parameter dict."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: the sharded loss (parallel.sharded.render_sharded) in python_ray_tracer_tpu"
-        )
+    """Loss as a function of the parameter dict; with a ``mesh`` every rank
+    of it calls the function, and the rendering (and the backward pass) runs
+    sharded."""
     tgt = target.detach().to(cfg.dtype)
 
     def loss_fn(params: Params) -> torch.Tensor:
         scene = combine(params, template)
+        if mesh is not None:
+            return l2_image_loss(render_sharded(scene, cfg, mesh), tgt)
         if fused_train_l2_ok(scene, cfg):
             return l2_loss_fused(scene, tgt, cfg)
         return l2_image_loss(render(scene, cfg), tgt)
@@ -158,7 +163,7 @@ def fit(
     *,
     steps: int = 100,
     learning_rate: float = 1e-2,
-    mesh: object | None = None,
+    mesh: Mesh | None = None,
     update_mask: Params | None = None,
     callback: Callable[[int, float], None] | None = None,
     sync_every: int = 25,

@@ -57,7 +57,10 @@ from .camera import ray_directions, ray_directions_t
 from .config import VISIBILITY_SMOOTH, RenderConfig
 from .ops.intersect import (
     IntersectResult,
+    NearestHit,
     intersect_all,
+    intersect_all_plain,
+    intersect_all_stable,
     intersect_two_tier,
     nearest_hit,
 )
@@ -67,11 +70,13 @@ from .ops.bounce_sub import MAX_SUB_SPHERES, trace_fused_sub
 from .ops.texture import MAX_FUSED_TEXELS
 from .ops.culled import MAX_CULL_DEPTH, MAX_CULL_EXACT, MIN_CULL_SPHERES, trace_fused_culled
 from .ops.culled_smooth import MAX_BLK_SPHERES_SMOOTH, cull_smooth_ok, trace_culled_smooth
-from .ops.intersect_fused import nearest_sweep, shadow_sweep
+from .ops.intersect_fused import nearest_sweep, shadow_parts, shadow_sweep
 from .ops.shading import NUDGE, gather_material, shade
+from .ops.smooth_parts import SmoothParts, smooth_clear_parts, smooth_nearest_parts
 from .ops.rng import bounce_xi, fold_seed, seed_root, uniform2
 from .ops.tables import geometry_table
 from .ops.vecmath import ggx_perturb_reflect, normalize, reflect
+from .parallel import collectives
 from .scene import Scene
 
 
@@ -171,8 +176,6 @@ def bounce(
     """
     smooth = cfg.visibility == VISIBILITY_SMOOTH
     dtype = cfg.dtype
-    cam_pos = scene.camera.position.to(dtype)
-    light_pos = scene.lights.point_position.to(dtype)
     if _sweep_kernels(cfg):
         geom = geometry_table(scene, dtype)
         sweep_kw = dict(faraway=cfg.faraway, s_cheap=scene.spheres.count - scene.spheres.n_exact)
@@ -188,14 +191,7 @@ def bounce(
         idx = near.idx
         coverage = hit * alive
 
-    t_safe = torch.where(near.hit, near.t, torch.ones_like(near.t))
-    mat = gather_material(scene.spheres, idx)
-
-    p = o + d * t_safe[:, None]
-    normal = (p - mat.center) * (1.0 / mat.radius)[:, None]
-    to_light = normalize(light_pos[None, :] - p)
-    to_camera = normalize(cam_pos[None, :] - p)
-    p_nudged = p + normal * NUDGE
+    mat, p, normal, to_light, to_camera, p_nudged = _hit_frame(o, d, near, idx, scene, dtype)
 
     if _sweep_kernels(cfg):
         in_light = shadow_sweep(p_nudged.contiguous(), to_light.contiguous(), geom, idx, **sweep_kw)
@@ -208,13 +204,33 @@ def bounce(
     accum = accum + local.color * (throughput * coverage)[:, None]
     if cfg.tie_mode == "sum" and not smooth:
         accum = _add_tied_winner(accum, res, near, idx, p, d, to_light, to_camera, throughput * coverage, scene, cfg)
+    return p_nudged, *_advance(d, normal, mat, local, throughput, coverage, alive, hit, smooth, xi), accum
+
+
+def _hit_frame(o, d, near: NearestHit, idx, scene: Scene, dtype: torch.dtype):
+    """The winner's material and the hit's frame: ``(mat, p, normal,
+    to_light, to_camera, p_nudged)``.  A miss lane's ``t`` reads 1 so dead
+    lanes stay finite; ``to_camera`` points at the ORIGINAL camera on every
+    bounce (reference quirk kept)."""
+    t_safe = torch.where(near.hit, near.t, torch.ones_like(near.t))
+    mat = gather_material(scene.spheres, idx)
+    p = o + d * t_safe[:, None]
+    normal = (p - mat.center) * (1.0 / mat.radius)[:, None]
+    to_light = normalize(scene.lights.point_position.to(dtype)[None, :] - p)
+    to_camera = normalize(scene.camera.position.to(dtype)[None, :] - p)
+    return mat, p, normal, to_light, to_camera, p + normal * NUDGE
+
+
+def _advance(d, normal, mat, local, throughput, coverage, alive, hit, smooth: bool, xi):
+    """The next ``(d, throughput, alive)``: the mirror continuation, or with
+    ``xi`` the GGX-sampled one; smooth visibility's ``alive`` is the coverage."""
     throughput = throughput * coverage * local.refl_coeff
     alive = coverage if smooth else alive * hit
     if xi is None:
         d_next = reflect(d, normal)
     else:
         d_next = ggx_perturb_reflect(d, normal, mat.specular_roughness, xi)
-    return p_nudged, d_next, throughput, alive, accum
+    return d_next, throughput, alive
 
 
 def _add_tied_winner(accum, res: IntersectResult, near, idx, p, d, to_light, to_camera, weight, scene: Scene,
@@ -269,6 +285,10 @@ def trace(
     key=None,
     *,
     ray_offset: int = 0,
+    sweep_center: torch.Tensor | None = None,  # (S_local, 3) this rank's sphere shard
+    sweep_radius: torch.Tensor | None = None,  # (S_local,)
+    sphere_axis=None,  # the mesh's sphere Axis the sweep is sharded over
+    sphere_offset: int = 0,  # global index of sweep row 0
 ) -> torch.Tensor:
     """Trace N rays to ``cfg.max_depth`` bounces; returns (N, 3) color.
 
@@ -283,7 +303,22 @@ def trace(
     ``"pure"``.  ``cfg.remat`` recomputes each bounce of the loop below in
     the backward pass (``torch.utils.checkpoint``); the kernel routes have
     their own backward passes and ignore it, as the JAX package's do.
+
+    With ``sphere_axis`` (a :class:`.parallel.mesh.Axis`, inside
+    :func:`.parallel.sharded.trace_sharded`) the sweeps cover only this
+    rank's shard ``sweep_center``/``sweep_radius`` of the sphere table, rows
+    ``sphere_offset`` on (the whole table by default), and every reduction
+    over spheres finishes with a collective along the axis
+    (:func:`_bounce_sphere_sharded`); shading reads the whole replicated
+    ``scene``.
     """
+    if sphere_axis is not None:
+        center = scene.spheres.center if sweep_center is None else sweep_center
+        radius = scene.spheres.radius if sweep_radius is None else sweep_radius
+        return _trace_sphere_sharded(origin, direction, scene, cfg, key, ray_offset,
+                                     _SphereShard(center, radius, sphere_axis, sphere_offset))
+    if sweep_center is not None or sweep_radius is not None:
+        raise ValueError("sweep_center and sweep_radius are a sphere shard: pass them with sphere_axis")
     dtype = cfg.dtype
     if _sweep_kernels(cfg) and key is None and not cfg.ray_chunk and culled_ok(scene, cfg):
         return trace_fused_culled(origin.expand(direction.shape).T, direction.T, scene, cfg)
@@ -307,6 +342,240 @@ def trace(
             o, d, throughput, alive, accum = torch.utils.checkpoint.checkpoint(bounce, *state, use_reentrant=False)
         else:
             o, d, throughput, alive, accum = bounce(*state)
+    return accum
+
+
+# ---------------------------------------------------------------------------
+# Sphere-sharded tracing: each rank sweeps its shard of the sphere table and
+# the reductions over spheres finish with collectives along the sphere axis
+# (the JAX trace's sphere_axis branches).  Selectors (the winning index, the
+# shadow comparison) run on detached values; the values they pick come
+# through owner-masked sums, so gradients reach exactly the owning shard
+# (.parallel.collectives says how the backward counts).
+# ---------------------------------------------------------------------------
+
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+@dataclasses.dataclass(frozen=True)
+class _SphereShard:
+    center: torch.Tensor  # (S_local, 3)
+    radius: torch.Tensor  # (S_local,)
+    axis: object  # parallel.mesh.Axis
+    offset: int  # global index of row 0
+
+    def gidx(self) -> torch.Tensor:
+        """(1, S_local) global sphere indices of the shard's rows."""
+        return (torch.arange(self.center.shape[0], device=self.center.device) + self.offset).to(torch.int32)[None, :]
+
+    def geom(self, dtype: torch.dtype) -> torch.Tensor:
+        return torch.cat([self.center.to(dtype), self.radius.to(dtype)[:, None]], dim=1)
+
+
+def _sweep_shard(o, d, shard: _SphereShard, scene: Scene, cfg: RenderConfig) -> IntersectResult:
+    """The JAX ``_sweep`` on a sphere shard: the shard's rows each in the
+    tier of their GLOBAL index (``exact_mask``, when the exact tier cuts
+    strictly inside the table), so every row gets the formula it gets on one
+    device."""
+    c, r = shard.center, shard.radius
+    if not cfg.stable_intersect:
+        return intersect_all(o, d, c, r, cfg.faraway)
+    n_ex, s_glob = scene.spheres.n_exact, scene.spheres.count
+    if 0 < n_ex < s_glob:
+        a = intersect_all_plain(o, d, c, r, cfg.faraway)
+        b = intersect_all_stable(o, d, c, r, cfg.faraway)
+        m = shard.gidx() >= s_glob - n_ex
+        return IntersectResult(*(torch.where(m, y, x) for x, y in zip(a, b)))
+    return intersect_two_tier(o, d, c, r, cfg.faraway, n_ex)
+
+
+def _self_lookup(table, idx, shard: _SphereShard, fill: float):
+    """Each lane's value of its own (global) sphere ``idx`` from the shard's
+    (N, S_local) ``table`` as a one-hot masked sum, and whether this shard
+    owns it; ``fill`` where it does not."""
+    onehot = shard.gidx() == idx[:, None]
+    val = torch.sum(torch.where(onehot, table, torch.zeros_like(table)), dim=1)
+    owns = torch.any(onehot, dim=1)
+    return torch.where(owns, val, torch.full_like(val, fill)), owns
+
+
+def _combine_nearest_reduced(t_l, idx_l, faraway: float, axis) -> NearestHit:
+    """Nearest hit across the shards from each shard's ``(t, global idx)``:
+    the least ``t`` wins, the lowest global index on a tie (a miss resolves
+    to index 0); the winning ``t`` is the owner's, summed from it."""
+    t_sg = t_l.detach()
+    tmin_sel = collectives.pmin(t_sg, axis)
+    idx = collectives.pmin(torch.where(t_sg == tmin_sel, idx_l, _INT32_MAX), axis)
+    tmin = collectives.psum_owner(torch.where(idx_l == idx, t_l, torch.zeros_like(t_l)), axis)
+    return NearestHit(t=tmin, idx=idx, hit=tmin != faraway)
+
+
+def _combine_nearest(t_table, faraway: float, shard: _SphereShard) -> NearestHit:
+    """:func:`_combine_nearest_reduced` from the shard's (N, S_local) table."""
+    t_sg = t_table.detach()
+    tmin_l, arg = torch.min(t_sg, dim=1)
+    idx_l = arg.to(torch.int32) + shard.offset
+    tmin_sel = collectives.pmin(tmin_l, shard.axis)
+    idx = collectives.pmin(torch.where(tmin_l == tmin_sel, idx_l, _INT32_MAX), shard.axis)
+    t_val, _ = _self_lookup(t_table, idx, shard, 0.0)
+    tmin = collectives.psum_owner(t_val, shard.axis)
+    return NearestHit(t=tmin, idx=idx, hit=tmin != faraway)
+
+
+def _fallback_idx(dmax_l, fidx_l, axis) -> torch.Tensor:
+    """Global index of the largest discriminant over the shards (the lowest
+    index among equal maxima)."""
+    dmax = collectives.pmax(dmax_l, axis)
+    return collectives.pmin(torch.where(dmax_l == dmax, fidx_l, _INT32_MAX), axis)
+
+
+def _shadow_hard_sharded(res: IntersectResult, idx, shard: _SphereShard, dtype) -> torch.Tensor:
+    """Hard shadow over the shards: ``t_self <= min(others)``, each side the
+    least over the shards (a step function: no gradient)."""
+    is_self = shard.gidx() == idx[:, None]
+    t_others = torch.amin(torch.where(is_self, torch.full_like(res.t, math.inf), res.t), dim=1)
+    t_self, _ = _self_lookup(res.t, idx, shard, math.inf)
+    t_others = collectives.pmin(t_others, shard.axis)
+    t_self = collectives.pmin(t_self, shard.axis)
+    return (t_self <= t_others).to(dtype)
+
+
+def _shadow_smooth_sharded(res: IntersectResult, idx, shard: _SphereShard, cfg: RenderConfig) -> torch.Tensor:
+    """Smooth shadow: each shard's product over its spheres other than the
+    lane's own, multiplied over the shards."""
+    occl = _soft_cover(res.sol, res.disc, cfg.shadow_sharpness)
+    not_self = shard.gidx() != idx[:, None]
+    clear = torch.prod(torch.where(not_self, 1.0 - occl, torch.ones_like(occl)), dim=1)
+    return collectives.gather_prod(clear, shard.axis)
+
+
+def _winner_cover_parts(parts: SmoothParts, near: NearestHit, shard: _SphereShard, sharpness: float):
+    """Winner index and soft coverage from the shards' :class:`SmoothParts`:
+    the fallback winner by the largest discriminant, the winner's ``(sol,
+    disc)`` summed from its owner, the sigmoids taken after the sum."""
+    gidx_l = parts.idx + shard.offset
+    gfidx_l = parts.fidx + shard.offset
+    fidx = _fallback_idx(parts.dmax.detach(), gfidx_l, shard.axis)
+    idx = torch.where(near.hit, near.idx, fidx)
+    zero = torch.zeros_like(parts.sol_w)
+    own_hit = gidx_l == idx
+    own_f = gfidx_l == idx
+    sol = torch.where(near.hit, torch.where(own_hit, parts.sol_w, zero), torch.where(own_f, parts.sol_f, zero))
+    disc = torch.where(near.hit, torch.where(own_hit, parts.disc_w, zero), torch.where(own_f, parts.dmax, zero))
+    sol = collectives.psum_owner(sol, shard.axis)
+    disc = collectives.psum_owner(disc, shard.axis)
+    return idx, _soft_cover(sol, disc, sharpness)
+
+
+def _bounce_sphere_sharded(o, d, throughput, alive, accum, scene: Scene, cfg: RenderConfig, shard: _SphereShard,
+                           xi: torch.Tensor | None = None):
+    """One bounce of the JAX ``trace`` with a sphere axis: returns the next
+    ``(o, d, throughput, alive, accum)``, equal on every rank of the axis.
+
+    ``cfg.use_pallas`` sweeps each shard through the kernels: hard
+    visibility (``tie_mode="first"``) with ``nearest_sweep`` and
+    ``shadow_parts``, smooth visibility with ``smooth_nearest_parts`` and
+    ``clear_fwd``/``clear_bwd``; each shard takes its last ``min(n_exact,
+    S_local)`` rows as its exact tier, as the JAX kernels clamp it.  Else the
+    shard's (N, S_local) tables (:func:`_sweep_shard`) and the collective
+    forms of the single-device helpers; hard ``tie_mode="sum"`` shades each
+    lane's second tied winner too (the highest tied global index over the
+    shards) and continues it with a nested sharded trace.
+    """
+    smooth = cfg.visibility == VISIBILITY_SMOOTH
+    dtype = cfg.dtype
+    axis, offset = shard.axis, shard.offset
+    fused = cfg.use_pallas and not smooth and cfg.tie_mode == "first"
+    parts_route = cfg.use_pallas and smooth
+    tie_sum = cfg.tie_mode == "sum" and not smooth and not fused
+    s_local = shard.center.shape[0]
+    kw = dict(faraway=cfg.faraway, s_cheap=s_local - min(scene.spheres.n_exact, s_local))
+    if fused or parts_route:
+        geom = shard.geom(dtype)
+    if fused:
+        near_l = nearest_sweep(o.contiguous(), d.contiguous(), geom.contiguous(), **kw)
+        near = _combine_nearest_reduced(near_l.t, near_l.idx + offset, cfg.faraway, axis)
+    elif parts_route:
+        parts = smooth_nearest_parts(collectives.vary(o, axis), collectives.vary(d, axis), geom, **kw)
+        near = _combine_nearest_reduced(parts.t, parts.idx + offset, cfg.faraway, axis)
+    else:
+        res = _sweep_shard(collectives.vary(o, axis), collectives.vary(d, axis), shard, scene, cfg)
+        near = _combine_nearest(res.t, cfg.faraway, shard)
+    hit = near.hit.to(dtype)
+    if smooth and parts_route:
+        idx, cover = _winner_cover_parts(parts, near, shard, cfg.edge_sharpness)
+        coverage = cover * alive
+    elif smooth:
+        dmax_l, arg = torch.max(res.disc.detach(), dim=1)
+        idx = torch.where(near.hit, near.idx, _fallback_idx(dmax_l, arg.to(torch.int32) + offset, axis))
+        cover, _ = _self_lookup(_soft_cover(res.sol, res.disc, cfg.edge_sharpness), idx, shard, 0.0)
+        coverage = collectives.psum_owner(cover, axis) * alive
+    else:
+        idx = near.idx
+        coverage = hit * alive
+
+    mat, p, normal, to_light, to_camera, p_nudged = _hit_frame(o, d, near, idx, scene, dtype)
+
+    if fused:
+        t_others, t_self = shadow_parts(p_nudged.contiguous(), to_light.contiguous(), geom.contiguous(),
+                                        (idx - offset).to(torch.int32), **kw)
+        in_light = (collectives.pmin(t_self, axis) <= collectives.pmin(t_others, axis)).to(dtype)
+    elif parts_route:
+        clear_l = smooth_clear_parts(collectives.vary(p_nudged, axis), collectives.vary(to_light, axis), geom,
+                                     (idx - offset).to(torch.int32), sharpness=cfg.shadow_sharpness, **kw)
+        in_light = collectives.gather_prod(clear_l, axis).to(dtype)
+    else:
+        shadow_res = _sweep_shard(collectives.vary(p_nudged, axis), collectives.vary(to_light, axis), shard, scene,
+                                  cfg)
+        if smooth:
+            in_light = _shadow_smooth_sharded(shadow_res, idx, shard, cfg).to(dtype)
+        else:
+            in_light = _shadow_hard_sharded(shadow_res, idx, shard, dtype)
+    local = shade(p, normal, to_light, to_camera, in_light, mat, scene)
+
+    accum = accum + local.color * (throughput * coverage)[:, None]
+    if tie_sum:
+        tied = res.t == near.t[:, None]
+        idx2 = collectives.pmax(torch.amax(torch.where(tied, shard.gidx(), -1), dim=1), axis)
+        has2 = near.hit & (idx2 != idx)
+        idx2 = torch.where(has2, idx2, idx)
+        mat2 = gather_material(scene.spheres, idx2)
+        normal2 = (p - mat2.center) * (1.0 / mat2.radius)[:, None]
+        p_nudged2 = p + normal2 * NUDGE
+        shadow_res2 = _sweep_shard(collectives.vary(p_nudged2, axis), collectives.vary(to_light, axis), shard,
+                                   scene, cfg)
+        in_light2 = _shadow_hard_sharded(shadow_res2, idx2, shard, dtype)
+        local2 = shade(p, normal2, to_light, to_camera, in_light2, mat2, scene)
+        w2 = throughput * coverage * has2.to(dtype)
+        accum = accum + local2.color * w2[:, None]
+        if cfg.max_depth > 1:
+            sub_cfg = dataclasses.replace(cfg, max_depth=cfg.max_depth - 1, tie_mode="first", use_pallas=False)
+            cont2 = _trace_sphere_sharded(p_nudged2, reflect(d, normal2), scene, sub_cfg, None, 0, shard)
+            accum = accum + cont2 * (w2 * local2.refl_coeff)[:, None]
+    return p_nudged, *_advance(d, normal, mat, local, throughput, coverage, alive, hit, smooth, xi), accum
+
+
+def _trace_sphere_sharded(origin, direction, scene: Scene, cfg: RenderConfig, key, ray_offset: int,
+                          shard: _SphereShard) -> torch.Tensor:
+    """:func:`trace`'s loop with :func:`_bounce_sphere_sharded`."""
+    dtype = cfg.dtype
+    d = direction.to(dtype)
+    n = d.shape[0]
+    o = origin.to(dtype).expand(d.shape)
+    throughput = torch.ones((n,), dtype=dtype, device=d.device)
+    alive = torch.ones((n,), dtype=dtype, device=d.device)
+    accum = torch.zeros((n, 3), dtype=dtype, device=d.device)
+    xis = [None] * cfg.max_depth
+    if cfg.stochastic_roughness and key is not None:
+        xis = [xi.T for xi in bounce_xi(key, n, cfg.max_depth, dtype, d.device, offset=ray_offset)]
+    for xi in xis:
+        state = (o, d, throughput, alive, accum, scene, cfg, shard, xi)
+        if cfg.remat:
+            o, d, throughput, alive, accum = torch.utils.checkpoint.checkpoint(
+                _bounce_sphere_sharded, *state, use_reentrant=False
+            )
+        else:
+            o, d, throughput, alive, accum = _bounce_sphere_sharded(*state)
     return accum
 
 

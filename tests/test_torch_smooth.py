@@ -48,6 +48,7 @@ from python_ray_tracer_tpu_torch.optim import (  # noqa: E402
     make_train_step,
     scene_to_params,
 )
+from python_ray_tracer_tpu_torch.parallel import make_mesh  # noqa: E402
 from python_ray_tracer_tpu_torch.render import fused_train_l2_ok  # noqa: E402
 from python_ray_tracer_tpu_torch.utils.image import save_png  # noqa: E402
 
@@ -380,7 +381,7 @@ def test_unported_smooth_routes_raise(monkeypatch, route, match):
     depth-fused pair and the loss ``fused_train_l2`` (``train_deep``); more
     than 4096 (JAX's lane kernels, ``pallas_bounce_smooth.trace_fused_smooth``)
     reach its one-bounce pair, the loss through render().  The sharded loss
-    still waits for ``parallel``."""
+    (a one-rank mesh) reaches the same kernels through ``render_sharded``."""
     render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")  # the package exports a render function
     lane = "pallas_bounce_smooth.trace_fused_smooth"
     blocked = "pallas_bounce_smooth_sub.trace_fused_smooth_sub in blocked mode"
@@ -404,8 +405,8 @@ def test_unported_smooth_routes_raise(monkeypatch, route, match):
         T.render(scene, cfg)
     with pytest.raises(_Took, match=match):
         make_loss_fn(scene, target, cfg)(scene_to_params(scene))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make_loss_fn(scene, target, cfg, mesh=object())
+    with pytest.raises(_Took, match=match):
+        make_loss_fn(scene, target, cfg, mesh=make_mesh())(scene_to_params(scene))
     assert bss.LAUNCHES == dict.fromkeys(SMOOTH_KERNELS, 0)
 
 
