@@ -116,7 +116,9 @@ frame (with the texel composition's share), the texture task's Adam step
 and the textured1024 culled smooth step, and ``bounce_lane`` per launch on
 both lane scenes with each frame's ms and profiler split, and with its
 geometry in shared and in global memory, and each per-shard kernel at its
-shard's shape.
+shard's shape.  For ``bwd_cs`` and ``gather_shuffle`` it prints the launch
+layout: CTAs per launch, resident CTAs per SM (the occupancy API) and
+ptxas's registers and spill bytes of each instantiation.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -419,17 +421,22 @@ def phase_device() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict[str, str]:
+    """Build every source; returns each one's nvcc log (ptxas's registers and
+    spills)."""
     from python_ray_tracer_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    logs = {}
     for source, (path, log, seconds) in _build.build_all().items():
+        logs[source] = log
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
         _build.load_library(source)
         print(f"[build] {path.name} built in {seconds:.1f} s")
     print(f"[build] all sources built in {time.perf_counter() - t0:.1f} s", flush=True)
+    return logs
 
 
 def _inputs(name: str, dtype: torch.dtype, device: str, width: int, height: int):
@@ -1591,12 +1598,12 @@ def _linear_ops(run, lanes: int) -> tuple[float, float]:
     return zero / lanes, (one - zero) / lanes
 
 
-def _list_bound(plain, kernel, args: tuple, kw: dict, ci: int) -> tuple[float, str]:
-    """The least time of one launch of a list-sweeping kernel on these
-    inputs: bytes in and out once, and the operations of this run's lists
-    (each lane's fixed work plus its tile's listed and full-tier spheres),
-    counted on the plain version over one tile.  ``args[ci:ci + 3]`` are the
-    swept lists (cand, cnt_cand, cnt_full)."""
+def _list_ops(plain, args: tuple, kw: dict, ci: int) -> tuple[float, float, float]:
+    """(operations per lane, per lane and listed sphere, listed lane-sphere
+    pairs) of a list-sweeping kernel's launch: each lane's fixed work and
+    its tile's listed and full-tier spheres, counted on the plain version
+    over one tile.  ``args[ci:ci + 3]`` are the swept lists (cand, cnt_cand,
+    cnt_full)."""
     tile, s_cheap = kw["tile_rays"], kw["s_cheap"]
     n = args[0].shape[1]
 
@@ -1614,10 +1621,88 @@ def _list_bound(plain, kernel, args: tuple, kw: dict, ci: int) -> tuple[float, s
 
     per_lane, per_sphere = _linear_ops(one_tile, tile)
     swept = float((args[ci + 1].double().clamp(0, args[ci].shape[1]) + args[ci + 2].double().clamp(0, s_cheap)).sum()) * tile
+    return per_lane, per_sphere, swept
+
+
+def _io_bytes(kernel, args: tuple, kw: dict) -> int:
+    """Bytes a launch reads and writes once: its tensor inputs and outputs."""
     with torch.no_grad():
         out = kernel(*args, **kw)
-    n_bytes = _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out)
-    return _bound(int(per_lane * n + per_sphere * swept), n_bytes)
+    return _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out)
+
+
+def _list_bound(plain, kernel, args: tuple, kw: dict, ci: int) -> tuple[float, str]:
+    """The least time of one launch of a list-sweeping kernel on these
+    inputs: bytes in and out once, and the operations of this run's lists
+    (:func:`_list_ops`)."""
+    per_lane, per_sphere, swept = _list_ops(plain, args, kw, ci)
+    return _bound(int(per_lane * args[0].shape[1] + per_sphere * swept), _io_bytes(kernel, args, kw))
+
+
+def _bwd_cs_reach(args: tuple, kw: dict) -> tuple[float, int, int]:
+    """(operations of Phase C's test per lane and listed sphere, the listed
+    lane-sphere pairs of the cheap tier, those Phase C reaches) of a bwd_cs
+    call.  Phase C reaches a pair unless the sphere is the lane's winner or
+    its shadow sigmoid is exactly 0: every one of its terms is then exactly
+    +-0, and the kernel's warps skip the sphere where all their lanes agree.
+    The test is the pair's quadratic and sigmoid, as the plain version
+    computes them."""
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain, sig
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth_sub import _xi_pair, fwd_sub_math
+
+    o, d, thr, alive, idx, hit, clear, cand, cnt, cnt_full = args[:10]
+    geom, mat, consts = args[13:16]
+    xi = args[21] if len(args) > 21 else None
+    tile, s_cheap, sharp_s = kw["tile_rays"], kw["s_cheap"], kw["sharp_s"]
+    f = fwd_sub_math(tuple(o), tuple(d), thr, alive, geom, mat, consts, _xi_pair(xi, 0), faraway=kw["faraway"],
+                     s_cheap=s_cheap, sharp_e=kw["sharp_e"], sharp_s=sharp_s, saved=(idx, hit != 0, clear),
+                     cand_sh=(cand, cnt, cnt_full, tile), tex_hw=kw.get("tex_hw"))
+
+    def reaches(lanes, sid):
+        g = geom[sid.long()]
+        p_n, light = tuple(x[lanes] for x in f.p_n), tuple(x[lanes] for x in f.L)
+        b, ct = b_cterm_plain(p_n, light, (g[:, 0], g[:, 1], g[:, 2]), g[:, 3])
+        return (sig(sharp_s * (b * b - 4.0 * ct)) != 0) & (idx[lanes] != sid)
+
+    n = o.shape[1]
+    every = torch.arange(n, device=o.device)
+    tile_of = every // tile
+    cc = torch.clamp(cnt.long()[tile_of], 0, cand.shape[1])
+    cf = torch.clamp(cnt_full.long()[tile_of], 0, s_cheap)
+    with torch.no_grad():
+        test_ops = count_ops(lambda: reaches(every[:tile], torch.zeros_like(every[:tile]))) / tile
+        listed, reached = int((cc + cf).sum()), 0
+        for j in range(int(cc.max())):
+            lanes = every[j < cc]
+            reached += int(reaches(lanes, cand[tile_of[lanes], j]).sum())
+        for k in range(int(cf.max())):
+            lanes = every[k < cf]
+            reached += int(reaches(lanes, torch.full_like(lanes, k)).sum())
+    return test_ops, listed, reached
+
+
+def _bwd_cs_bound(args: tuple, kw: dict, label: str) -> tuple[float, str]:
+    """bwd_cs's least time on one recorded call: as :func:`_list_bound`, but
+    Phase C's operations counted on the pairs it reaches (each listed pair
+    still paying its test): the work this run's data needs.  Prints the
+    pairs reached beside the bound that counts every listed pair."""
+    from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
+
+    kernel, plain = cs.bwd_cs, cs.bwd_cs_plain
+    if kw.get("g_dww") is not None:  # the dww cotangent at the end, so one_tile cuts it
+        args, kw = _bwd_cs_g_dww(args, kw)
+        kernel, plain = _bwd_cs_last(kernel), _bwd_cs_last(plain)
+    per_lane, per_sphere, swept = _list_ops(plain, args, kw, 7)
+    test_ops, listed, reached = _bwd_cs_reach(args, kw)
+    n_bytes = _io_bytes(kernel, args, kw)
+    n = args[0].shape[1]
+    every_pair = _bound(int(per_lane * n + per_sphere * swept), n_bytes)
+    bound = _bound(int(per_lane * n + test_ops * swept + (per_sphere - test_ops) * reached), n_bytes)
+    print(f"[timing] bwd_cs {label}: Phase C reaches {reached} of {listed} listed lane-sphere pairs "
+          f"({reached / max(listed, 1):.2%}; test {test_ops:g}, whole pair {per_sphere:g} operations); bound "
+          f"{bound[0]:.4f} ms by {bound[1]} on the reached pairs, {every_pair[0]:.4f} ms on every listed pair",
+          flush=True)
+    return bound
 
 
 def _culled_bound(name: str, r: dict) -> tuple[float, str]:
@@ -1900,16 +1985,43 @@ def phase_cs_golden() -> None:
 def _cs_bound(name: str, r: dict) -> tuple[float, str]:
     from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
 
+    if name == "bwd_cs":
+        return _bwd_cs_bound(*r["bwd"], "config 4")
     args, kw = r[{"near_cs": "near", "fwd_cs": "fwd", "bwd_cs": "bwd"}[name]]
     ci = 4 if name == "near_cs" else 7  # the nearest lists, or the shadow lists
     return _list_bound(getattr(cs, f"{name}_plain"), getattr(cs, name), args, kw, ci)
 
 
-def phase_cs_timing(card: str, record: list[dict]) -> dict[str, dict]:
+def _bwd_cs_layout(card: str, log: str) -> None:
+    """[timing] bwd_cs's launch: CTAs per launch at config 4 and at the atlas
+    loss's 960x540, and per instantiation (1024 spheres) its resident CTAs
+    per SM (the occupancy API at the launch's shared bytes) and ptxas's
+    registers and spill bytes."""
+    from python_ray_tracer_tpu_torch.benchmarks.bwd_cs_split import ptxas_report
+    from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
+
+    ptxas = ptxas_report(log)
+    ctas = {f"{w}x{h}": cs.bwd_rows(-(-w * h // 4096) * 4096, 4096) for w, h in ((BIG_WIDTH, BIG_HEIGHT), TEX_CS_SIZE)}
+    parts = []
+    for dtype in (torch.float32, torch.float64):
+        for glossy in (False, True):
+            for atlas in (False, True):
+                key = f"{str(dtype).split('.')[-1].replace('float', 'f')}{' glossy' if glossy else ''}{' atlas' if atlas else ''}"
+                rec = ptxas.get(key, {})
+                parts.append(f"{key}: {cs.bwd_blocks_per_sm(dtype, glossy, atlas, BIG_SPHERES)} CTAs/SM, "
+                             f"{rec.get('registers', 'n/a')} registers, {rec.get('spill_stores', 'n/a')}/"
+                             f"{rec.get('spill_loads', 'n/a')} B spilled")
+    print(f"[timing] bwd_cs layout: {cs.BWD_CTAS_PER_TILE} CTAs of {cs.BWD_THREADS} threads a 4096-ray tile, "
+          f"{', '.join(f'{v} CTAs at {k}' for k, v in ctas.items())}; {cs.bwd_shared_bytes(BIG_SPHERES, torch.float32)} B "
+          f"shared f32 at {BIG_SPHERES} spheres; {'; '.join(parts)} ({card})", flush=True)
+
+
+def phase_cs_timing(card: str, record: list[dict], logs: dict[str, str]) -> dict[str, dict]:
     """The three kernels on each bounce of the config-4 step (CUDA events),
-    beside their plain versions and bounds; the config-4 culled smooth Adam
-    step in ms/step with a torch.profiler split into the kernels and the
-    glue; the smooth frame in ms/frame."""
+    beside their plain versions and bounds; bwd_cs's launch layout (from
+    ``logs``, phase_build's); the config-4 culled smooth Adam step in
+    ms/step with a torch.profiler split into the kernels and the glue; the
+    smooth frame in ms/frame."""
     from python_ray_tracer_tpu_torch import render
     from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
     from python_ray_tracer_tpu_torch.optim import make_loss_fn
@@ -1929,8 +2041,9 @@ def phase_cs_timing(card: str, record: list[dict]) -> dict[str, dict]:
     n, s = BIG_WIDTH * BIG_HEIGHT, BIG_SPHERES
     n_pad = -(-n // 4096) * 4096
     print(f"[timing] bwd_cs table-gradient rows per launch: {cs.grad_rows_bytes(n_pad, s, 4096, torch.float32)} bytes f32, "
-          f"{cs.grad_rows_bytes(n_pad, s, 4096, torch.float64)} f64 (config 4: {n_pad // 4096} tiles x 8 warps x "
-          f"(19 x {s} + 16) values)", flush=True)
+          f"{cs.grad_rows_bytes(n_pad, s, 4096, torch.float64)} f64 (config 4: {n_pad // 4096} tiles x "
+          f"{cs.BWD_CTAS_PER_TILE} CTAs x (19 x {s} + 16) values)", flush=True)
+    _bwd_cs_layout(card, logs["culled_smooth.cu"])
 
     scene = _big_scene(torch.float32)
     with torch.no_grad():
@@ -2628,11 +2741,9 @@ def phase_atlas_timing(card: str, inputs: dict) -> dict[str, dict]:
             for r in inputs["cs"]:
                 args, kw = r[part]
                 kernel, plain = getattr(cs, name), getattr(cs, f"{name}_plain")
-                if name == "bwd_cs":
-                    args, kw = _bwd_cs_g_dww(args, kw)
-                    kernel, plain = _bwd_cs_last(kernel), _bwd_cs_last(plain)
-                rows.append((lambda k=kernel, a=args, w=kw: k(*a, **w), lambda p=plain, a=args, w=kw: p(*a, **w),
-                             lambda k=kernel, p=plain, a=args, w=kw: _list_bound(p, k, a, w, ci)))
+                bound = (lambda a=args, w=kw: _bwd_cs_bound(a, w, "textured1024 atlas")) if name == "bwd_cs" else (
+                    lambda k=kernel, p=plain, a=args, w=kw: _list_bound(p, k, a, w, ci))
+                rows.append((lambda k=kernel, a=args, w=kw: k(*a, **w), lambda p=plain, a=args, w=kw: p(*a, **w), bound))
             res[ATLAS[name]] = _time_launches(f"{name} (atlas)", rows, card, "textured1024 smooth, 960x540 f32",
                                               f"the loss's {len(rows)}")
             for b, r in enumerate(inputs["cs"]):
@@ -3372,7 +3483,8 @@ WRAP_INDICES = (0, 6, 7, -1, -8, 2**31 - 1, -(2**31))
 WRAP_DRAW, WRAP_SPHERES = 4099, (1024, 1000, 7)
 
 
-def phase_probes(card: str) -> tuple[dict[str, float], dict[str, int], dict[str, dict], dict[str, float]]:
+def phase_probes(card: str, logs: dict[str, str]) -> tuple[dict[str, float], dict[str, int], dict[str, dict],
+                                                            dict[str, float]]:
     """[probes]: TPU rows 21-22 (python_ray_tracer_tpu_torch/benchmarks/).
 
     Checks first: each gather bitwise its plain version at the five stage-1
@@ -3384,7 +3496,8 @@ def phase_probes(card: str) -> tuple[dict[str, float], dict[str, int], dict[str,
     JAX's indices and stage 2, 2,097,152 rays x 1024 spheres x 12 channels,
     each bitwise the take there), with exact launch counts; then the kernels
     line's figures and the ceiling in count_ops' units, for [ceiling].
-    Returns (errors, launches, timings, ceiling)."""
+    gather_shuffle's launch layout reads ptxas's report in ``logs``
+    (phase_build's).  Returns (errors, launches, timings, ceiling)."""
     from python_ray_tracer_tpu_torch.benchmarks import gather_probe as gp
     from python_ray_tracer_tpu_torch.benchmarks import vpu_ceiling as vc
 
@@ -3446,6 +3559,13 @@ def phase_probes(card: str) -> tuple[dict[str, float], dict[str, int], dict[str,
           f"ops/s as count_ops counts the work the output needs ({per_lane_iter:g} a lane-iteration); bound "
           f"{bound_ms:.4f} ms by {bound_by} at {PEAK_F32_OPS_PER_S / 1e12:g} TFLOP/s, kernel at {bound_ms / ms:.1%} of "
           f"it; plain version {plain_ms:.2f} ms at {VPU_PLAIN_ITERS} iterations ({card})", flush=True)
+    from python_ray_tracer_tpu_torch.benchmarks.bwd_cs_split import ptxas_kernels
+
+    ctas, per_sm = gp.shuffle_launch(gp.RAYS)
+    rec = next((r for k, r in ptxas_kernels(logs["gather_probe.cu"]).items() if "gather_shuffle" in k), {})
+    print(f"[timing] gather_shuffle layout: {ctas} CTAs of 256 threads at {gp.RAYS} rays, {per_sm} CTAs/SM, "
+          f"{rec.get('registers', 'n/a')} registers, {rec.get('spill_stores', 'n/a')}/{rec.get('spill_loads', 'n/a')} B "
+          f"spilled ({card})", flush=True)
     # The gathers' bound is the probe's own, bytes (their abs and mod, two
     # operations an index, would take ~0.2% of it at 67 TFLOP/s).
     for k in GATHERS:
@@ -3593,7 +3713,7 @@ def main() -> int:
     card = phase_device()
     sys.path.insert(0, str(REPO))
     t0 = time.perf_counter()
-    phase_build()
+    logs = phase_build()
     errs, launches, timings = {}, {}, {}
     errs.update(phase_kernels())
     errs.update(phase_smooth_kernels())
@@ -3629,13 +3749,13 @@ def main() -> int:
     phase_cs_golden()
     timings.update(phase_timing(card))
     timings.update(phase_big_timing(card, big_inputs))
-    timings.update(phase_cs_timing(card, cs_record))
+    timings.update(phase_cs_timing(card, cs_record, logs))
     phase_c5_timing(card)
     timings.update(phase_atlas_timing(card, atlas_inputs))
     timings.update(phase_lane_timing(card, lane_inputs))
     lane_timing = next(t for label, t in blocked_timings.items() if label.startswith(f"random_spheres({LANE_SPHERES})"))
     timings.update({LANE[k]: lane_timing[k] for k in STEP})
-    probe_errs, probe_launches, probe_timings, ceiling = phase_probes(card)
+    probe_errs, probe_launches, probe_timings, ceiling = phase_probes(card, logs)
     errs.update(probe_errs)
     launches.update(probe_launches)
     timings.update(probe_timings)

@@ -8,6 +8,12 @@ module: ``python -m python_ray_tracer_tpu_torch.benchmarks.<name>``.
 * :mod:`.gather_probe`: material-row gathers (``benchmarks/gather_probe.py``)
   from global memory, shared memory and registers, beside torch's take.
 
+Two A/B scripts of the port's own build variants (no JAX counterpart):
+:mod:`.geometry_ab` (the smooth kernels' geometry staged or read from
+global memory) and :mod:`.bwd_cs_split` (``bwd_cs`` with one part stubbed
+out at a time).  Each builds its variants in copies of the package made by
+:func:`package_copy`, never by a switch in the shipped source.
+
 An entry point runs on ``cuda`` unless ``--device cpu`` is given, and then
 runs the plain versions at the size the caller gives; without a card it
 fails.  Every figure it prints carries the card's name and power limit.
@@ -15,9 +21,33 @@ fails.  Every figure it prints carries the card's name and power limit.
 
 from __future__ import annotations
 
+import re
+import shutil
 import subprocess
+from pathlib import Path
 
 import torch
+
+PACKAGE = Path(__file__).resolve().parent.parent
+OUT = PACKAGE.parent / "out"
+
+
+def package_copy(root: Path, patches=(), source: Path = PACKAGE) -> Path:
+    """A copy of the package directory ``source`` at ``root / source.name``
+    (its build outputs and caches left out), with each ``(file, pattern,
+    replacement)`` of ``patches`` applied to that file (a path inside the
+    package) as one regular-expression substitution.  A pattern that does not
+    match exactly once raises.  Returns ``root``: put it first on
+    ``sys.path`` to import the copy."""
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(source, root / source.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for file, pattern, replacement in patches:
+        path = root / source.name / file
+        text, n = re.subn(pattern, replacement, path.read_text(), flags=re.DOTALL)
+        if n != 1:
+            raise RuntimeError(f"{pattern!r} matched {n} times in {path}, expected once")
+        path.write_text(text)
+    return root
 
 
 def resolve_device(name: str) -> torch.device:

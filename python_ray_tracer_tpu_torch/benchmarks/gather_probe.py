@@ -13,9 +13,9 @@ for a (C, S) f32 table (JAX's ``mat_t``: the first 12 columns of an
   as ``shade_culled`` reads the winner's row today;
 * :func:`gather_shared`: each block stages the table in shared memory (the
   counterpart of JAX's direct gather ``kern_d``);
-* :func:`gather_shuffle`: the register gather, 32-entry pieces of a channel
-  held one value a lane and taken with warp shuffles (the counterpart of
-  JAX's piecewise ``kern``).
+* :func:`gather_shuffle`: the register gather, the 32-entry pieces of the
+  table that a lane of the warp wants held one value a lane and taken with
+  warp shuffles (the counterpart of JAX's piecewise ``kern``).
 
 :func:`gather_plain` is torch's advanced indexing; torch's own take
 (:func:`library_take`, ``index_select``) is the counterpart of JAX's
@@ -109,6 +109,16 @@ def gather_shuffle(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 GATHERS = {"gather_global": gather_global, "gather_shared": gather_shared, "gather_shuffle": gather_shuffle}
+
+
+def shuffle_launch(n: int) -> tuple[int, int]:
+    """``(CTAs, resident CTAs per SM)`` of a ``gather_shuffle`` launch over
+    ``n`` indices on the current card."""
+    lib = _build.load_library(_SOURCE)
+    blocks = lib.prt_gather_shuffle_blocks_per_sm()
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query of gather_shuffle failed: CUDA error {-blocks}")
+    return lib.prt_gather_shuffle_grid(n), blocks
 
 
 def take_along_axis(gather, x: torch.Tensor, i: torch.Tensor, axis: int) -> torch.Tensor:

@@ -4,26 +4,28 @@ against read from global memory, on one CUDA card.
 ``csrc/bounce_smooth_sub.cu`` stages the (S, 4) geometry table in shared
 memory up to ``kStageMaxBytes`` and reads it through ``__ldg`` past that.
 This script builds the source three ways, each in a copy of the package
-under ``out/geometry_ab/`` of the checkout: as it is, with nothing staged
+(:func:`.package_copy`) under ``out/geometry_ab/`` of the checkout: as it
+is, with nothing staged
 (0), and with up to 128 KB staged.  It then times every kernel on the cases
 below, each variant in its own process, in turns (as it is, global,
 128 KB, 128 KB, global, as it is), and prints one line a case and turn with
 each kernel's median CUDA-event time and resident blocks per SM::
 
-    python -m python_ray_tracer_tpu_torch.geometry_ab
+    python -m python_ray_tracer_tpu_torch.benchmarks.geometry_ab
 """
 
 from __future__ import annotations
 
-import re
 import shutil
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-PACKAGE = Path(__file__).resolve().parent
-OUT = PACKAGE.parent / "out" / "geometry_ab"
+from . import OUT as OUT_ROOT
+from . import package_copy
+
+OUT = OUT_ROOT / "geometry_ab"
 # name: kStageMaxBytes (None: as in the source).
 VARIANTS = {"as_is": None, "global": 0, "staged_128KB": 131072}
 ORDER = ("as_is", "global", "staged_128KB", "staged_128KB", "global", "as_is")
@@ -41,17 +43,10 @@ CASES = (
 
 def _variant(name: str, stage_max: int | None) -> Path:
     """A copy of the package with kStageMaxBytes set to ``stage_max``."""
-    root = OUT / name
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PACKAGE, root / PACKAGE.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    if stage_max is not None:
-        src = root / PACKAGE.name / "csrc" / "bounce_smooth_sub.cu"
-        text, n = re.subn(r"constexpr int kStageMaxBytes = \d+;", f"constexpr int kStageMaxBytes = {stage_max};",
-                          src.read_text())
-        if n != 1:
-            raise RuntimeError(f"kStageMaxBytes not found in {src}")
-        src.write_text(text)
-    return root
+    patches = [] if stage_max is None else [
+        ("csrc/bounce_smooth_sub.cu", r"constexpr int kStageMaxBytes = \d+;", f"constexpr int kStageMaxBytes = {stage_max};")
+    ]
+    return package_copy(OUT / name, patches)
 
 
 def _time_ms(fn, warmup: int, iters: int) -> float:
@@ -127,7 +122,7 @@ def main(argv: list[str]) -> int:
     roots = {name: _variant(name, stage_max) for name, stage_max in VARIANTS.items()}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    child = [sys.executable, "-m", "python_ray_tracer_tpu_torch.geometry_ab", "--child"]
+    child = [sys.executable, "-m", "python_ray_tracer_tpu_torch.benchmarks.geometry_ab", "--child"]
     builds = [subprocess.Popen([*child, str(root), name, "build"], cwd=root) for name, root in roots.items()]
     if any(p.wait() != 0 for p in builds):
         return 1

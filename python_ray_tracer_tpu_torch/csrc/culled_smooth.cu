@@ -39,16 +39,23 @@
 // 128 KB f64 at 4096 spheres, opted in above 48 KB); the winner's material
 // row is read from global memory by index.
 //
-// bwd_cs: one CTA per tile, each thread taking tile_rays / 256 rays in turn,
-// so a tile's table gradients stay in the tile's own rows.  Each warp owns
-// (S, 4) rows keyed by shadow-list slot, (S, 15) keyed by nearest-list slot
-// (the winner lies in the tile's nearest list, its full-tier fallback or
-// the exact tier, so Phase F loops that list, not the table) and 16
-// constants; its lane 0 adds the warp's shuffle sum into them.  reduce_cs
-// then sums each sphere's slots over every tile and warp in a fixed order
-// (a tile's candidate ids are ascending: binary search).  No float atomics:
-// two launches on the same inputs give bitwise-equal gradients.  The rows
-// take (n_tiles * 8) * (19 S + 16) values: 316 MB in f32 at config 4.
+// bwd_cs: kBwdCtasPerTile CTAs of kBwdThreads threads share a tile (8 CTAs
+// of 128 on the main path: 1,016 CTAs at 960x540, 4,056 at 1920x1080), each
+// thread taking its rays in rounds of kBwdBatch.  Phase C, ~94% of the time
+// of the one-CTA-a-tile kernel it replaces on an H100
+// (benchmarks/bwd_cs_split.py),
+// runs slot-outer over the tile's shadow list with the round's rays in
+// registers: a sphere's four gradients are summed over a thread's rays, over
+// its warp by one shuffle sum, over the CTA's warps in order in shared
+// memory, and written to the CTA's own row every kChunk slots; a warp skips a
+// sphere whose terms are exactly zero on all its lanes.  Phase F adds each
+// distinct winner of a warp once (__match_any_sync; the peers summed in lane
+// order), the warps in turn; Phase G sums in registers.  Each CTA owns one
+// row: (S, 4) by shadow slot, (S, 15) by nearest slot, 16 constants, so the
+// rows take (n_tiles * 8) * (19 S + 16) values, 316 MB in f32 at config 4 as
+// before.  reduce_cs then sums each sphere's slots over every row in a fixed
+// order (a tile's candidate ids are ascending: binary search).  No float
+// atomics: two launches on the same inputs give bitwise-equal gradients.
 //
 // What bounds them on this card: per ray and listed sphere ~40 operations
 // (a quadratic, two sigmoids) in near_cs and fwd_cs, ~120 in bwd_cs's
@@ -59,8 +66,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / kWarp;
+constexpr int kThreads = 256;  // near_cs and fwd_cs: one thread a ray
 constexpr int kMatGrads = 15;  // material columns CX..TFI that take gradients
 constexpr int kReduceThreads = 256;
 
@@ -194,88 +200,38 @@ __global__ void __launch_bounds__(kThreads)
   clear_out[i] = f.clear;
 }
 
-// adjoint_bounce's sink in bwd_cs: this warp's rows of its tile.  Every
-// lane of the warp calls with the same slot (the tile's list is uniform
-// across it); lane 0 adds the warp's sum, so no two threads write a row.
-template <typename T> struct TileSink {
-  T* pg;          // (S, 4): the shadow list's slots
-  T* pm;          // (S, kMatGrads): the nearest list's slots
-  T* pc;          // (kNConst,)
-  TileList near;  // the tile's nearest list: where a lane's winner lies
-  int lane;
+// bwd_cs's layout (ops/culled_smooth.py mirrors these): kBwdCtasPerTile
+// CTAs of kBwdThreads threads share a tile (its lists); CTA c of tile t
+// takes rays t * tile_rays + c * tile_rays / kBwdCtasPerTile onwards, thread
+// x of it rays x, x + kBwdThreads, ..., in rounds of kBwdBatch.
+constexpr int kBwdThreads = 128;
+constexpr int kBwdWarps = kBwdThreads / kWarp;
+constexpr int kBwdCtasPerTile = 8;
+constexpr int kBwdBatch = 4;
+// Resident CTAs an SM that bwd_cs's launch bounds ask for: ptxas then caps
+// its registers at 128 (236 uncapped in f32, 2 CTAs an SM), spilling ~0.8 KB
+// a thread of the passes around Phase C; the faster trade on an H100
+// (benchmarks/bwd_cs_split.py, variants nocap, min3 and min5).
+constexpr int kBwdMinBlocks = 4;
+constexpr int kChunk = kBwdThreads / 4;  // shadow slots a flush writes: one value a thread
+// A round's Phase C state in shared memory, kBwdBatch x kBwdThreads of
+// each: p_n (then Phase C's g_pn_s), L, g_clear * clear, g_L (Phase B's,
+// then Phase C's), and the winner as an int after them.
+enum BwdState { kPnX, kPnY, kPnZ, kLx, kLy, kLz, kGcc, kGLx, kGLy, kGLz, kBwdStateVals };
+// Scratch shared by Phase C's flush (two buffers of kChunk slots x warps x
+// 4), Phase F's exchange (kMatGrads x kWarp a warp) and Phase G's sums.
+constexpr int kBwdScratch = kBwdWarps * kMatGrads * kWarp;
+static_assert(2 * kChunk * kBwdWarps * 4 <= kBwdScratch && kBwdWarps * kAdjConsts <= kBwdScratch, "scratch");
+static_assert(kMatGrads == kAdjMat, "Phase F's row");
 
-  static __device__ __forceinline__ T warp_sum(T x) {
-    for (int off = kWarp / 2; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-    return x;
-  }
-  __device__ __forceinline__ void geom(int slot, int, int c, T x) const {
-    const T s = warp_sum(x);
-    if (lane == 0) pg[4 * slot + c] += s;
-  }
-  __device__ __forceinline__ void winner(const Scal<T>& sc, int idx, const T (&rows)[kMatGrads]) const {
-    near.visit(sc, [&](int slot, int k) {
-      const bool sel = idx == k;
-      if (!__any_sync(0xffffffffu, sel)) return;  // warp-uniform skip
-      for (int c = 0; c < kMatGrads; ++c) {
-        const T s = warp_sum(sel ? rows[c] : T(0));
-        if (lane == 0) pm[kMatGrads * slot + c] += s;
-      }
-    });
-  }
-  __device__ __forceinline__ void consts(const Scal<T>&, int c, T x) const {
-    const T s = warp_sum(x);
-    if (lane == 0) pc[c] += s;
-  }
-};
+template <typename T> int bwd_smem(int s_total) {
+  return (4 * s_total + kNConst + kBwdStateVals * kBwdBatch * kBwdThreads + kBwdScratch) * static_cast<int>(sizeof(T))
+         + kBwdBatch * kBwdThreads * static_cast<int>(sizeof(int));
+}
 
-// One CTA per tile; thread t takes rays tile * tile_rays + r * 256 + t.
-// The rows (pg, pm, pc) come zeroed.
-template <typename T, bool kXi, bool kAtlas>
-__global__ void __launch_bounds__(kThreads)
-    bwd_cs(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr, const T* __restrict__ alive,
-           const int* __restrict__ idx, const T* __restrict__ hit, const T* __restrict__ clear,
-           const int* __restrict__ cand_b, const int* __restrict__ cnt_b, const int* __restrict__ cnt_bf,
-           const int* __restrict__ cand_a, const int* __restrict__ cnt_a, const int* __restrict__ cnt_af,
-           const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
-           const T* __restrict__ g_o_in, const T* __restrict__ g_d_in, const T* __restrict__ g_thr_in,
-           const T* __restrict__ g_alive_in, const T* __restrict__ g_acc_in, const T* __restrict__ g_dww_in,
-           T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ g_thr_out, T* __restrict__ g_alive_out,
-           T* __restrict__ pg, T* __restrict__ pm, T* __restrict__ pc, int n, int tile_rays, int cand_stride,
-           Scal<T> sc) {
-  const T* s_geom = stage_geom_consts(geom, cst, sc.s_total);
-  const T* s_cst = s_geom + 4 * sc.s_total;
-  const int tile = blockIdx.x;
-  const long long N = n;
-  const int row = tile * kWarpsPerBlock + threadIdx.x / kWarp;
-  const long long S = sc.s_total;
-  TileSink<T> sink;
-  sink.pg = pg + row * S * 4;
-  sink.pm = pm + row * S * kMatGrads;
-  sink.pc = pc + static_cast<long long>(row) * kNConst;
-  sink.near = tile_list(cand_a, cnt_a, cnt_af, tile, cand_stride, sc.s_cheap);
-  sink.lane = threadIdx.x % kWarp;
-  const TileList shadow = tile_list(cand_b, cnt_b, cnt_bf, tile, cand_stride, sc.s_cheap);
-  for (int r = threadIdx.x; r < tile_rays; r += kThreads) {
-    const long long i = static_cast<long long>(tile) * tile_rays + r;
-    Fwd<T> f;
-    f.idx = idx[i];
-    f.hit = hit[i] != T(0);
-    f.clear = clear[i];
-    const T xi1 = kXi ? xi[i] : T(0);
-    const T xi2 = kXi ? xi[N + i] : T(0);
-    fwd_bounce<T, kXi, Winner::kSaved, kAtlas>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat,
-                                               s_cst, sc, shadow, xi1, xi2);
-    V3<T> g_o = load3(g_o_in, N, i);
-    V3<T> g_d = load3(g_d_in, N, i);
-    T g_thr = g_thr_in[i], g_alive = g_alive_in[i];
-    const T g_dww = kAtlas ? g_dww_in[i] : T(0);
-    adjoint_bounce<T, kXi, kAtlas>(f, g_o, g_d, g_thr, g_alive, load3(g_acc_in, N, i), s_geom, s_cst, sc, shadow, sink,
-                                   g_dww);
-    store3(g_o_out, N, i, g_o);
-    store3(g_d_out, N, i, g_d);
-    g_thr_out[i] = g_thr;
-    g_alive_out[i] = g_alive;
-  }
+template <typename T> __device__ __forceinline__ T warp_sum(T x) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+  return x;
 }
 
 // Slot of sphere k among a tile's candidates (ascending ids), or -1.
@@ -292,8 +248,229 @@ __device__ __forceinline__ int find_slot(const TileList& list, int k) {
   return lo < list.nc && __ldg(list.row + lo) == k ? lo : -1;
 }
 
+// Where sphere k lies in a tile's visiting order: its candidate slot, else
+// its full-tier slot, else its exact-tier slot; -1 if the list lacks it.
+__device__ __forceinline__ int list_slot(const TileList& list, int k, int s_cheap) {
+  if (k >= s_cheap) return list.nc + list.nf + (k - s_cheap);
+  const int j = find_slot(list, k);
+  return j >= 0 ? j : (k < list.nf ? list.nc + k : -1);
+}
+
+// Recompute ray i's bounce from its saved winner and shadow product and
+// run Phases A-B of its adjoint.
+template <typename T, bool kXi, bool kAtlas>
+__device__ __forceinline__ AdjShade<T> bwd_shade(Fwd<T>& f, long long i, long long N, const T* o, const T* d,
+                                                 const T* thr, const T* alive, const int* idx, const T* hit,
+                                                 const T* clear, const T* s_geom, const T* mat, const T* s_cst,
+                                                 const T* xi, const T* g_d_in, const T* g_thr_in, const T* g_alive_in,
+                                                 const T* g_acc_in, const T* g_dww_in, const Scal<T>& sc,
+                                                 const TileList& shadow) {
+  f.idx = idx[i];
+  f.hit = hit[i] != T(0);
+  f.clear = clear[i];
+  const T xi1 = kXi ? xi[i] : T(0);
+  const T xi2 = kXi ? xi[N + i] : T(0);
+  fwd_bounce<T, kXi, Winner::kSaved, kAtlas>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat, s_cst,
+                                             sc, shadow, xi1, xi2);
+  return adjoint_shade<T, kXi, kAtlas>(f, load3(g_d_in, N, i), g_thr_in[i], g_alive_in[i], load3(g_acc_in, N, i),
+                                       s_cst, sc, kAtlas ? g_dww_in[i] : T(0));
+}
+
+// The adjoint of one culled bounce.  Per round of kBwdBatch rays a thread:
+//   pass 1  recompute each ray's bounce and Phases A-B; keep what Phase C
+//           reads in shared memory;
+//   Phase C slot-outer over the tile's shadow list, the round's rays in
+//           registers: each sphere's four gradients are summed over a
+//           thread's rays, then over its warp (one shuffle sum a value),
+//           then over the CTA's warps in order in shared memory, and every
+//           kChunk slots written to the CTA's row;
+//   pass 2  recompute each ray's bounce and Phases A-B again (bitwise the
+//           same), take Phase C's sums and run Phases D-G.  Phase F: the
+//           lanes of a warp that share a winner add their rows at their
+//           lowest lane in lane order, which adds the sum into the winner's
+//           slot (binary search) of the CTA's row, the warps in turn.
+//           Phase G sums in registers over the thread's rays.
+// The rows: one per CTA (pg (S, 4) by shadow slot, written whole over the
+// list; pm (S, kMatGrads) by nearest slot, zeroed by the wrapper; pc
+// (kNConst,), written whole).
+template <typename T, bool kXi, bool kAtlas>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    bwd_cs(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr, const T* __restrict__ alive,
+           const int* __restrict__ idx, const T* __restrict__ hit, const T* __restrict__ clear,
+           const int* __restrict__ cand_b, const int* __restrict__ cnt_b, const int* __restrict__ cnt_bf,
+           const int* __restrict__ cand_a, const int* __restrict__ cnt_a, const int* __restrict__ cnt_af,
+           const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst, const T* __restrict__ xi,
+           const T* __restrict__ g_o_in, const T* __restrict__ g_d_in, const T* __restrict__ g_thr_in,
+           const T* __restrict__ g_alive_in, const T* __restrict__ g_acc_in, const T* __restrict__ g_dww_in,
+           T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ g_thr_out, T* __restrict__ g_alive_out,
+           T* __restrict__ pg, T* __restrict__ pm, T* __restrict__ pc, int n, int tile_rays, int cand_stride,
+           Scal<T> sc) {
+  T* const s_geom = stage_geom_consts(geom, cst, sc.s_total);
+  const T* s_cst = s_geom + 4 * sc.s_total;
+  T* state = s_geom + 4 * sc.s_total + kNConst;
+  T* scratch = state + kBwdStateVals * kBwdBatch * kBwdThreads;
+  int* s_idx = reinterpret_cast<int*>(scratch + kBwdScratch);
+  const int x = threadIdx.x, lane = x % kWarp, warp = x / kWarp;
+  const int tile = blockIdx.x / kBwdCtasPerTile;
+  const long long N = n;
+  const long long S = sc.s_total;
+  T* row_g = pg + blockIdx.x * S * 4;
+  T* row_m = pm + blockIdx.x * S * kMatGrads;
+  T* row_c = pc + static_cast<long long>(blockIdx.x) * kNConst;
+  const TileList near = tile_list(cand_a, cnt_a, cnt_af, tile, cand_stride, sc.s_cheap);
+  const TileList shadow = tile_list(cand_b, cnt_b, cnt_bf, tile, cand_stride, sc.s_cheap);
+  const int n_slots = shadow.nc + shadow.nf + (sc.s_total - sc.s_cheap);
+  const int per_thread = tile_rays / (kBwdCtasPerTile * kBwdThreads);
+  const long long first = static_cast<long long>(tile) * tile_rays
+                          + static_cast<long long>(blockIdx.x % kBwdCtasPerTile) * (tile_rays / kBwdCtasPerTile) + x;
+  auto st = [&](int v, int j) -> T& { return state[(v * kBwdBatch + j) * kBwdThreads + x]; };
+  T g_consts[kAdjConsts];
+  for (int c = 0; c < kAdjConsts; ++c) g_consts[c] = T(0);
+
+  for (int r0 = 0; r0 < per_thread; r0 += kBwdBatch) {
+    const int live = min(kBwdBatch, per_thread - r0);  // uniform over the CTA
+
+    // Pass 1: what Phase C reads.
+#pragma unroll 1
+    for (int j = 0; j < live; ++j) {
+      const long long i = first + static_cast<long long>(r0 + j) * kBwdThreads;
+      Fwd<T> f;
+      const AdjShade<T> a = bwd_shade<T, kXi, kAtlas>(f, i, N, o, d, thr, alive, idx, hit, clear, s_geom, mat, s_cst,
+                                                      xi, g_d_in, g_thr_in, g_alive_in, g_acc_in, g_dww_in, sc, shadow);
+      for (int c = 0; c < 3; ++c) {
+        st(kPnX + c, j) = f.p_n[c];
+        st(kLx + c, j) = f.L[c];
+        st(kGLx + c, j) = a.g_L[c];
+      }
+      st(kGcc, j) = a.g_clear * f.clear;
+      s_idx[j * kBwdThreads + x] = f.idx;
+    }
+
+    // Phase C, slot-outer over the round's rays.
+    V3<T> pn[kBwdBatch], L[kBwdBatch], gpn[kBwdBatch], gL[kBwdBatch];
+    T gcc[kBwdBatch];
+    int wid[kBwdBatch];
+#pragma unroll
+    for (int j = 0; j < kBwdBatch; ++j) {
+      if (j >= live) continue;
+      for (int c = 0; c < 3; ++c) {
+        pn[j][c] = st(kPnX + c, j);
+        L[j][c] = st(kLx + c, j);
+        gL[j][c] = st(kGLx + c, j);
+        gpn[j][c] = T(0);
+      }
+      gcc[j] = st(kGcc, j);
+      wid[j] = s_idx[j * kBwdThreads + x];
+    }
+    int buf = 0;
+    shadow.visit(sc, [&](int slot, int k) {
+      T part[4] = {T(0), T(0), T(0), T(0)};
+      bool reached = false;  // uniform over the warp
+#pragma unroll
+      for (int j = 0; j < kBwdBatch; ++j) {
+        if (j >= live) continue;
+        // A warp whose lanes the sphere does not reach skips it: its terms
+        // there are all exactly +-0, which leave every sum as it is.
+        if (!__any_sync(0xffffffffu, shadow_reaches(k, pn[j], L[j], wid[j], s_geom, sc))) continue;
+        reached = true;
+        T gk[4];
+        shadow_adjoint(k, pn[j], L[j], wid[j], gcc[j], s_geom, sc, gpn[j], gL[j], gk);
+        for (int c = 0; c < 4; ++c) part[c] += gk[c];
+      }
+      T* red = scratch + buf * (kChunk * kBwdWarps * 4);
+      for (int c = 0; c < 4; ++c) {
+        const T s = reached ? warp_sum(part[c]) : T(0);
+        if (lane == 0) red[((slot % kChunk) * kBwdWarps + warp) * 4 + c] = s;
+      }
+      if (slot % kChunk == kChunk - 1 || slot == n_slots - 1) {
+        __syncthreads();
+        const int base = slot - slot % kChunk;
+        const int e = x / 4, c = x % 4;
+        if (base + e <= slot) {
+          T v = red[(e * kBwdWarps) * 4 + c];
+          for (int w = 1; w < kBwdWarps; ++w) v += red[(e * kBwdWarps + w) * 4 + c];
+          T& out = row_g[4 * static_cast<long long>(base) + x];
+          out = r0 == 0 ? v : out + v;
+        }
+        buf ^= 1;
+      }
+    });
+#pragma unroll
+    for (int j = 0; j < kBwdBatch; ++j) {
+      if (j >= live) continue;
+      for (int c = 0; c < 3; ++c) {
+        st(kPnX + c, j) = gpn[j][c];
+        st(kGLx + c, j) = gL[j][c];
+      }
+    }
+    __syncthreads();  // the last flush's reads of the scratch before Phase F's writes
+
+    // Pass 2: Phases D-G.
+#pragma unroll 1
+    for (int j = 0; j < live; ++j) {
+      const long long i = first + static_cast<long long>(r0 + j) * kBwdThreads;
+      Fwd<T> f;
+      AdjShade<T> a = bwd_shade<T, kXi, kAtlas>(f, i, N, o, d, thr, alive, idx, hit, clear, s_geom, mat, s_cst, xi,
+                                                g_d_in, g_thr_in, g_alive_in, g_acc_in, g_dww_in, sc, shadow);
+      V3<T> g_pn_s;
+      for (int c = 0; c < 3; ++c) {
+        g_pn_s[c] = st(kPnX + c, j);
+        a.g_L[c] = st(kGLx + c, j);
+      }
+      V3<T> g_o = load3(g_o_in, N, i);
+      V3<T> g_d = load3(g_d_in, N, i);
+      T rows[kAdjMat], consts[kAdjConsts];
+      adjoint_geometry(f, a, g_pn_s, g_o, g_d, rows, consts);
+      store3(g_o_out, N, i, g_o);
+      store3(g_d_out, N, i, g_d);
+      g_thr_out[i] = a.g_thr_in;
+      g_alive_out[i] = a.g_alive_in;
+      for (int c = 0; c < kAdjConsts; ++c) g_consts[c] += consts[c];
+
+      // Phase F: each distinct winner of the warp once.
+      const unsigned peers = __match_any_sync(0xffffffffu, f.idx);
+      const bool leader = __ffs(peers) - 1 == lane;
+      T* ex = scratch + warp * (kMatGrads * kWarp);
+      for (int c = 0; c < kMatGrads; ++c) ex[c * kWarp + lane] = rows[c];
+      __syncwarp();
+      T sum[kMatGrads];
+      int slot = -1;
+      if (leader) {
+        for (int c = 0; c < kMatGrads; ++c) sum[c] = T(0);
+        for (unsigned m = peers; m != 0; m &= m - 1) {
+          const int p = __ffs(m) - 1;
+          for (int c = 0; c < kMatGrads; ++c) sum[c] += ex[c * kWarp + p];
+        }
+        slot = list_slot(near, f.idx, sc.s_cheap);
+      }
+      for (int w = 0; w < kBwdWarps; ++w) {  // the warps in turn: one writer a slot
+        if (w == warp && slot >= 0) {
+          T* r = row_m + static_cast<long long>(kMatGrads) * slot;
+          for (int c = 0; c < kMatGrads; ++c) r[c] += sum[c];
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // Phase G: the CTA's sums of the scene constants, warps in order.
+  for (int c = 0; c < kAdjConsts; ++c) {
+    const T s = warp_sum(g_consts[c]);
+    if (lane == 0) scratch[warp * kAdjConsts + c] = s;
+  }
+  __syncthreads();
+  if (x < kNConst) {
+    T v = T(0);
+    if (x < kAdjConsts) {
+      v = scratch[x];
+      for (int w = 1; w < kBwdWarps; ++w) v += scratch[w * kAdjConsts + x];
+    }
+    row_c[x] = v;
+  }
+}
+
 // Second pass, a fixed order: block k < S sums sphere k's geometry slots of
-// every (tile, warp) row, block S + k its material slots, block 2S the
+// every CTA's row, block S + k its material slots, block 2S the
 // constants; each thread strides over the rows, then a shared-memory tree.
 // out: geom (S, 4), then mat (S, 19) (columns past TFI zero), then consts 16.
 template <typename T>
@@ -319,14 +496,14 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
   T acc[kMatGrads + 1];
   for (int c = 0; c < kMatGrads + 1; ++c) acc[c] = T(0);
-  const int n_rows = n_tiles * kWarpsPerBlock;
+  const int n_rows = n_tiles * kBwdCtasPerTile;
   for (int r = threadIdx.x; r < n_rows; r += kReduceThreads) {
     const T* rowp = base + r * row_stride;
     if (!cand) {
       for (int c = 0; c < kNConst; ++c) acc[c] += rowp[c];
       continue;
     }
-    const TileList list = tile_list(cand, cnt, cnt_full, r / kWarpsPerBlock, cand_stride, s_cheap);
+    const TileList list = tile_list(cand, cnt, cnt_full, r / kBwdCtasPerTile, cand_stride, s_cheap);
     int slots[2] = {-1, -1};  // where k sits: a candidate or a full-tier slot, or the exact tier
     if (k >= s_cheap) {
       slots[0] = list.nc + list.nf + (k - s_cheap);
@@ -381,14 +558,18 @@ int launch_near(const T* o, const T* d, const T* thr, const T* alive, const int*
   return static_cast<int>(cudaGetLastError());
 }
 
+// KERNEL's instantiation for glossy (kXi) and ATLAS.
+#define PRT_CS_KERNEL(KERNEL, GLOSSY, ATLAS)                                                          \
+  ((GLOSSY) ? ((ATLAS) ? KERNEL<T, true, true> : KERNEL<T, true, false>)                             \
+            : ((ATLAS) ? KERNEL<T, false, true> : KERNEL<T, false, false>))
+
 // Launch KERNEL's instantiation for the xi pointer (null: the mirror) and
 // ATLAS (null: no atlas).
-#define PRT_CS_LAUNCH(KERNEL, ATLAS, GRID, ...)                                                      \
+#define PRT_CS_LAUNCH(KERNEL, ATLAS, GRID, THREADS, ...)                                             \
   [&]() {                                                                                            \
-    const auto kernel = xi ? (ATLAS ? KERNEL<T, true, true> : KERNEL<T, true, false>)                \
-                           : (ATLAS ? KERNEL<T, false, true> : KERNEL<T, false, false>);             \
+    const auto kernel = PRT_CS_KERNEL(KERNEL, xi, ATLAS);                                            \
     if (const int err = allow_smem(kernel, smem)) return err;                                        \
-    kernel<<<GRID, kThreads, smem, st>>>(__VA_ARGS__);                                               \
+    kernel<<<GRID, THREADS, smem, st>>>(__VA_ARGS__);                                                \
     return static_cast<int>(cudaGetLastError());                                                     \
   }()
 
@@ -405,7 +586,7 @@ int launch_fwd(const T* o, const T* d, const T* thr, const T* alive, const T* ac
   const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
   const int smem = geom_consts_smem<T>(s_total);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return PRT_CS_LAUNCH(fwd_cs, flat_out, blocks_for(n), o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom,
+  return PRT_CS_LAUNCH(fwd_cs, flat_out, blocks_for(n), kThreads, o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom,
                        mat, cst, xi, o_out, d_out, thr_out, alive_out, acc_out, clear_out, flat_out, dww_out, n,
                        tile_rays, cand_stride, sc);
 }
@@ -418,15 +599,15 @@ int launch_bwd(const T* o, const T* d, const T* thr, const T* alive, const int* 
                T* g_d_out, T* g_thr_out, T* g_alive_out, T* pg, T* pm, T* pc, T* flat, int n, int s_cheap,
                int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w,
                void* stream) {
-  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride) || n % tile_rays || tile_rays % kThreads ||
-      (g_dww && (tex_h < 1 || tex_w < 1))) {
+  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride) || n % tile_rays ||
+      tile_rays % (kBwdCtasPerTile * kBwdThreads) || (g_dww && (tex_h < 1 || tex_w < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
-  const int smem = geom_consts_smem<T>(s_total);
+  const int smem = bwd_smem<T>(s_total);
   const int n_tiles = n / tile_rays;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = PRT_CS_LAUNCH(bwd_cs, g_dww, n_tiles, o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf,
+  const int err = PRT_CS_LAUNCH(bwd_cs, g_dww, n_tiles * kBwdCtasPerTile, kBwdThreads, o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf,
                                 cand_a, cnt_a, cnt_af, geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_dww,
                                 g_o_out, g_d_out, g_thr_out, g_alive_out, pg, pm, pc, n, tile_rays, cand_stride, sc);
   if (err) return err;
@@ -435,7 +616,19 @@ int launch_bwd(const T* o, const T* d, const T* thr, const T* alive, const int* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Resident blocks per SM of bwd_cs's instantiation at its launch's dynamic
+// shared bytes for s_total spheres, or a negative CUDA error.
+template <typename T> int bwd_blocks_per_sm(int glossy, int atlas, int s_total) {
+  const int smem = bwd_smem<T>(s_total);
+  const auto kernel = PRT_CS_KERNEL(bwd_cs, glossy, atlas);
+  if (const int err = allow_smem(kernel, smem)) return -err;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBwdThreads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 #undef PRT_CS_LAUNCH
+#undef PRT_CS_KERNEL
 
 }  // namespace
 
@@ -443,6 +636,7 @@ int launch_bwd(const T* o, const T* d, const T* thr, const T* alive, const int* 
 // Each launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.  xi may
 // be null: the mirror instantiation; non-null launches the glossy one.
+// prt_bwd_cs_blocks_per_sm_* reports bwd_cs's resident blocks per SM.
 extern "C" {
 
 #define PRT_CS_ENTRIES(T, SUFFIX)                                                                              \
@@ -475,6 +669,9 @@ extern "C" {
                          geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_dww, g_o_out, g_d_out,          \
                          g_thr_out, g_alive_out, pg, pm, pc, flat, n, s_cheap, s_total, tile_rays, cand_stride, \
                          faraway, sharp_e, sharp_s, tex_h, tex_w, stream);                                     \
+  }                                                                                                            \
+  int prt_bwd_cs_blocks_per_sm_##SUFFIX(int glossy, int atlas, int s_total) {                                  \
+    return bwd_blocks_per_sm<T>(glossy, atlas, s_total);                                                      \
   }
 
 PRT_CS_ENTRIES(float, f32)

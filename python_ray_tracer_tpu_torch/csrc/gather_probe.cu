@@ -17,21 +17,23 @@
 //                   other kernels' staging) and walks its share of the lanes:
 //                   the counterpart of JAX's direct kern_d, one gather from
 //                   a resident table;
-//   gather_shuffle  the register gather: for each channel and 32-entry piece
-//                   of the table, lane k of a warp holds entry 32 p + k and
-//                   every lane takes __shfl_sync(piece, idx % 32), keeping it
-//                   where idx / 32 == p: the counterpart of JAX's piecewise
-//                   kern (a 128-lane piece broadcast, take_along_axis, a
-//                   select on hi).
+//   gather_shuffle  the register gather: for each 32-entry piece of the
+//                   table that a lane of the warp wants, lane k of the warp
+//                   holds entry 32 p + k of each channel and every lane takes
+//                   __shfl_sync(piece, idx % 32), keeping it where
+//                   idx / 32 == p: the counterpart of JAX's piecewise kern (a
+//                   128-lane piece broadcast, take_along_axis, a select on
+//                   hi).
 // The plain PyTorch version (advanced indexing) sits in
 // benchmarks/gather_probe.py (gather_plain).
 //
 // What bounds them on this card: bytes.  A lane reads a 4-byte index and
 // writes C 4-byte values, and the table is read once: 109 MB at stage 2,
 // ~0.033 ms at 3.35 TB/s.  The table's reads are what the three strategies
-// trade: L1 lines (global), a staging pass a block (shared), or C * S / 32
-// shuffles and piece loads a lane (shuffle, which does S / 32 times the work
-// of the others and is here to be measured, not to win).
+// trade: L1 lines (global), a staging pass a block (shared), or some
+// 0.6-0.9 C * S / 32 shuffles and piece loads a lane (shuffle, which issues
+// that many times the work of the others and is here to be measured, not
+// to win).
 
 #include <cuda_runtime.h>
 
@@ -41,6 +43,12 @@ constexpr int kThreads = 256;
 constexpr int kSharedThreads = 512;
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kChanGroup = 12;  // channels gather_shuffle loads a piece for at once
+// Indices a thread of gather_shuffle takes: 2 is the fastest of 1, 2 and 4
+// on an H100 (benchmarks/gather_lanes.py).  A second index a thread makes
+// a warp want more of the table's pieces (27.6 of 32 for 64 indices, 20.6
+// for 32), so more shuffles a value, but halves the loads a value.
+constexpr int kShuffleLanes = 2;
 constexpr long long kMaxSharedBytes = 232448;  // ops/_build.py MAX_SHARED_BYTES
 
 // jnp.abs(i) % s: the absolute value wraps at INT_MIN as int32 does, and the
@@ -78,25 +86,68 @@ __global__ void __launch_bounds__(kSharedThreads) gather_shared(const float* __r
   }
 }
 
+// The register gather, piece-outer: a warp visits only the 32-entry pieces
+// of the table that one of its lanes wants (the OR of each lane's bits over
+// the warp, a word of 32 pieces at a time), loads each such piece once for
+// a group of up to kChanGroup channels (entry 32 p + k of each channel in
+// lane k), and every lane takes __shfl_sync(piece, idx % 32) of each,
+// keeping it where idx / 32 == p.  A thread takes kShuffleLanes indices
+// (lanes base + k + 32 m), so one loaded piece serves that many shuffles.
+// A warp does (pieces wanted) x channels x kShuffleLanes shuffles: for
+// uniform indices 0.64 x S / 32 a value at one index a thread (32 draw 20.6
+// of 32 pieces), 0.86 x S / 32 at two (64 draw 27.6), the floor of this
+// strategy.
 __global__ void __launch_bounds__(kThreads) gather_shuffle(const float* __restrict__ table, const int* __restrict__ idx,
                                                            float* __restrict__ out, int chans, int s, int n) {
-  const long long lane = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const int k = threadIdx.x % kWarp;
-  // Every lane of the warp takes part in each shuffle, past the end too.
-  const bool live = lane < n;
-  const int j = live ? wrap(__ldg(idx + lane), s) : 0;
-  const int hi = j / kWarp, lo = j % kWarp;
+  const long long base = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x - k) * kShuffleLanes + k;
+  // Every lane of the warp takes part in each vote and shuffle, past the end too.
+  bool live[kShuffleLanes];
+  int hi[kShuffleLanes], lo[kShuffleLanes];
+#pragma unroll
+  for (int m = 0; m < kShuffleLanes; ++m) {
+    const long long lane = base + m * kWarp;
+    live[m] = lane < n;
+    const int j = live[m] ? wrap(__ldg(idx + lane), s) : 0;
+    hi[m] = j / kWarp;
+    lo[m] = j % kWarp;
+  }
   const int pieces = (s + kWarp - 1) / kWarp;
-  for (int c = 0; c < chans; ++c) {
-    const float* row = table + c * static_cast<long long>(s);
-    float acc = 0.0f;
-    for (int p = 0; p < pieces; ++p) {
-      const int e = p * kWarp + k;
-      const float held = e < s ? __ldg(row + e) : 0.0f;
-      const float got = __shfl_sync(kFullMask, held, lo);
-      if (hi == p) acc = got;
+  for (int c0 = 0; c0 < chans; c0 += kChanGroup) {
+    const int group = min(kChanGroup, chans - c0);
+    float acc[kChanGroup][kShuffleLanes] = {};
+    for (int w = 0; w * kWarp < pieces; ++w) {
+      unsigned bits = 0;
+#pragma unroll
+      for (int m = 0; m < kShuffleLanes; ++m) bits |= live[m] && hi[m] / kWarp == w ? 1u << (hi[m] % kWarp) : 0u;
+      unsigned wanted = __reduce_or_sync(kFullMask, bits);
+      while (wanted != 0) {  // warp-uniform
+        const int p = w * kWarp + __ffs(wanted) - 1;
+        wanted &= wanted - 1;
+        const int e = p * kWarp + k;
+        float held[kChanGroup];
+#pragma unroll
+        for (int c = 0; c < kChanGroup; ++c) {
+          held[c] = c < group && e < s ? __ldg(table + (c0 + c) * static_cast<long long>(s) + e) : 0.0f;
+        }
+#pragma unroll
+        for (int c = 0; c < kChanGroup; ++c) {
+#pragma unroll
+          for (int m = 0; m < kShuffleLanes; ++m) {
+            const float got = __shfl_sync(kFullMask, held[c], lo[m]);
+            if (hi[m] == p) acc[c][m] = got;
+          }
+        }
+      }
     }
-    if (live) out[c * static_cast<long long>(n) + lane] = acc;
+#pragma unroll
+    for (int m = 0; m < kShuffleLanes; ++m) {
+      if (!live[m]) continue;
+#pragma unroll
+      for (int c = 0; c < kChanGroup; ++c) {
+        if (c < group) out[(c0 + c) * static_cast<long long>(n) + base + m * kWarp] = acc[c][m];
+      }
+    }
   }
 }
 
@@ -124,8 +175,10 @@ bool bad_args(int chans, int s, int n) { return chans < 1 || s < 1 || n < 1; }
 // Plain C entries, bound with ctypes (benchmarks/gather_probe.py
 // _SIGNATURE).  Each launches on the given stream, does not synchronise,
 // and returns cudaGetLastError() so the caller can raise on a refused
-// launch.
+// launch.  The grid and occupancy entries answer for gather_shuffle.
 extern "C" {
+
+int prt_gather_shuffle_grid(int n) { return blocks_for(n, kThreads * kShuffleLanes); }
 
 int prt_gather_global_f32(const float* table, const int* idx, float* out, int chans, int s, int n, void* stream) {
   if (bad_args(chans, s, n)) return static_cast<int>(cudaErrorInvalidValue);
@@ -152,9 +205,17 @@ int prt_gather_shared_f32(const float* table, const int* idx, float* out, int ch
 
 int prt_gather_shuffle_f32(const float* table, const int* idx, float* out, int chans, int s, int n, void* stream) {
   if (bad_args(chans, s, n)) return static_cast<int>(cudaErrorInvalidValue);
-  gather_shuffle<<<blocks_for(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(table, idx, out, chans,
-                                                                                              s, n);
+  gather_shuffle<<<prt_gather_shuffle_grid(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(table, idx, out, chans,
+                                                                                                 s, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// gather_shuffle's resident blocks per SM (it takes no dynamic shared
+// memory), or a negative CUDA error; and its CTAs for n indices.
+int prt_gather_shuffle_blocks_per_sm() {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gather_shuffle, kThreads, 0);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 const char* prt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

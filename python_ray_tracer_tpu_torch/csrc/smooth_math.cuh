@@ -461,18 +461,30 @@ __device__ __forceinline__ T ggx_adjoint(const Fwd<T>& f, V3<T>& g_refl, V3<T>& 
   return T(2) * f.alpha * f.xi1 / vmax(T(1) - f.xi1, T(1e-8)) * g_t2q;
 }
 
-// One bounce's handwritten adjoint (Phases A-G).  In: the cotangents of the
-// bounce's outputs; out (in place): those of its inputs.  g_acc passes
-// through (acc is a pure accumulator).  Phase C visits the shadow set of
-// the forward; table gradients go to the sink.  kAtlas: g_dww_raw is the
-// cotangent of the bounce's dww (kept on image lanes only).
-template <typename T, bool kXi, bool kAtlas = false, typename Shadow, typename Sink, typename G>
-__device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T>& g_d, T& g_thr, T& g_alive,
-                                               const V3<T>& g_acc, const G& geom, const T* cst,
-                                               const Scal<T>& sc, const Shadow& shadow, const Sink& sink,
-                                               T g_dww_raw = T(0)) {
+// What Phases A and B of the adjoint hand on: the accumulated cotangents of
+// L, V, the normal and d; of clear and the winner's (sol, disc); those of
+// the bounce's thr and alive inputs; and the material and constant
+// gradients Phase A finishes (Phase F's row and Phase G's dome terms).
+template <typename T> struct AdjShade {
+  V3<T> g_L, g_V, g_n, g_d;
+  T g_clear, g_sol_w, g_disc_w, g_thr_in, g_alive_in;
+  T g_dg, g_sg, g_rough, g_ig, g_ior, g_tfw, g_tft, g_tfi, is_const;
+  V3<T> g_tex, g_dome_c;
+  T g_dome_t;
+};
+
+constexpr int kAdjMat = 15;    // Phase F's row: material columns CX..TFI
+constexpr int kAdjConsts = 10;  // Phase G's values: camera, light, dome color, dome
+
+// Phases A (top level and shading) and B (H = (L + V) / |L + V|) of one
+// bounce's handwritten adjoint, from the cotangents of its d, thr, alive
+// and acc outputs.  kAtlas: g_dww_raw is the cotangent of the bounce's dww
+// (kept on image lanes only).
+template <typename T, bool kXi, bool kAtlas = false>
+__device__ __forceinline__ AdjShade<T> adjoint_shade(const Fwd<T>& f, const V3<T>& g_d, T g_thr, T g_alive,
+                                                     const V3<T>& g_acc, const T* cst, const Scal<T>& sc,
+                                                     T g_dww_raw = T(0)) {
   const T* m = f.m;
-  const V3<T>& o = f.o;
   const V3<T>& d = f.d;
   const T g_thr_o = g_thr;
   const T g_alive_o = g_alive;
@@ -625,30 +637,95 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
     g_V_acc[i] = g_V_acc[i] + g_lv;
   }
 
-  // --- Phase C: shadow-product adjoint, one sphere at a time ---
-  V3<T> g_pn_s = {T(0), T(0), T(0)};
-  shadow.visit(sc, [&](int slot, int k) {
-    T sol, disc, t, b, ct;
-    sphere_quad(k, sc, f.p_n, f.L, geom, sol, disc, t, b, ct);
-    const T sd = sig(sc.sharp_s * disc);
-    const T ss = sig(sc.sharp_s * sol);
-    const T occl = sd * ss;
-    const bool is_self = f.idx == k;
-    const T fac = is_self ? T(1) : T(1) - occl;
-    const T g_fac = g_clear * f.clear / vmax(fac, T(kEpsDen));
-    const T g_occl = is_self ? T(0) : -g_fac;
-    const T g_disc_j = g_occl * ss * sd * (T(1) - sd) * sc.sharp_s;
-    const T g_sol_j = g_occl * sd * ss * (T(1) - ss) * sc.sharp_s;
-    T g_b, g_ct;
-    sol_disc_adjoint(b, ct, g_sol_j, g_disc_j, g_b, g_ct);
-    for (int i = 0; i < 3; ++i) {
-      const T oc = f.p_n[i] - geom[4 * k + i];
-      g_pn_s[i] = g_pn_s[i] + T(2) * f.L[i] * g_b + T(2) * oc * g_ct;
-      g_L_acc[i] = g_L_acc[i] + T(2) * oc * g_b;
-      sink.geom(slot, k, i, T(-2) * f.L[i] * g_b - T(2) * oc * g_ct);
-    }
-    sink.geom(slot, k, 3, T(-2) * geom[4 * k + 3] * g_ct);
-  });
+  AdjShade<T> a;
+  a.g_L = g_L_acc;
+  a.g_V = g_V_acc;
+  a.g_n = g_n_acc;
+  a.g_d = g_d_acc;
+  a.g_clear = g_clear;
+  a.g_sol_w = g_sol_w;
+  a.g_disc_w = g_disc_w;
+  a.g_thr_in = g_thr_in;
+  a.g_alive_in = g_alive_in;
+  a.g_dg = g_dg;
+  a.g_sg = g_sg;
+  a.g_rough = g_rough;
+  a.g_ig = g_ig;
+  a.g_ior = g_ior;
+  a.g_tfw = g_tfw;
+  a.g_tft = g_tft;
+  a.g_tfi = g_tfi;
+  a.is_const = is_const;
+  a.g_tex = g_tex;
+  a.g_dome_c = g_dome_c;
+  a.g_dome_t = g_dome_t;
+  return a;
+}
+
+// Phase C for one shadow sphere k of one ray (the shadow-product adjoint):
+// adds sphere k's terms to the ray's g_pn_s and g_L, and returns the
+// sphere's four table-gradient values (center x, y, z, radius) in gk.
+// g_cc is the ray's g_clear * clear, p_n and L its nudged hit point and
+// light direction, idx its winner.
+template <typename T, typename G>
+__device__ __forceinline__ void shadow_adjoint(int k, const V3<T>& p_n, const V3<T>& L, int idx, T g_cc,
+                                               const G& geom, const Scal<T>& sc, V3<T>& g_pn_s, V3<T>& g_L,
+                                               T (&gk)[4]) {
+  T sol, disc, t, b, ct;
+  sphere_quad(k, sc, p_n, L, geom, sol, disc, t, b, ct);
+  const T sd = sig(sc.sharp_s * disc);
+  const T ss = sig(sc.sharp_s * sol);
+  const T occl = sd * ss;
+  const bool is_self = idx == k;
+  const T fac = is_self ? T(1) : T(1) - occl;
+  const T g_fac = g_cc / vmax(fac, T(kEpsDen));
+  const T g_occl = is_self ? T(0) : -g_fac;
+  const T g_disc_j = g_occl * ss * sd * (T(1) - sd) * sc.sharp_s;
+  const T g_sol_j = g_occl * sd * ss * (T(1) - ss) * sc.sharp_s;
+  T g_b, g_ct;
+  sol_disc_adjoint(b, ct, g_sol_j, g_disc_j, g_b, g_ct);
+  for (int i = 0; i < 3; ++i) {
+    const T oc = p_n[i] - geom[4 * k + i];
+    g_pn_s[i] = g_pn_s[i] + T(2) * L[i] * g_b + T(2) * oc * g_ct;
+    g_L[i] = g_L[i] + T(2) * oc * g_b;
+    gk[i] = T(-2) * L[i] * g_b - T(2) * oc * g_ct;
+  }
+  gk[3] = T(-2) * geom[4 * k + 3] * g_ct;
+}
+
+// Does sphere k reach the Phase C terms of the ray (p_n, L) with winner
+// idx?  Not where it is the winner (its factor is 1), nor where its shadow
+// sigmoid sig(sharp_s * disc) is exactly 0 (the culled route's f32 case):
+// every one of shadow_adjoint's terms then carries that 0 as a factor and is
+// exactly +-0.  disc is the one sphere_quad computes.
+template <typename T, typename G>
+__device__ __forceinline__ bool shadow_reaches(int k, const V3<T>& p_n, const V3<T>& L, int idx, const G& geom,
+                                               const Scal<T>& sc) {
+  const V3<T> c = {geom[4 * k], geom[4 * k + 1], geom[4 * k + 2]};
+  T b, ct;
+  if (k < sc.s_cheap) {
+    b_cterm_plain(p_n, L, c, geom[4 * k + 3], b, ct);
+  } else {
+    b_cterm_exact(p_n, L, c, geom[4 * k + 3], b, ct);
+  }
+  return idx != k && sig(sc.sharp_s * (b * b - T(4) * ct)) != T(0);
+}
+
+// Phases D (p_n, L, V unit-vector transposes) and E (normal, p, winner
+// quadratic), after Phase C has added its sums to a.g_L and g_pn_s.  In
+// place: g_o (in: the cotangent of the bounce's o output) and g_d become
+// the cotangents of the bounce's o and d inputs.  Out: Phase F's row of
+// material gradients for the winner and Phase G's scene constants.
+template <typename T>
+__device__ __forceinline__ void adjoint_geometry(const Fwd<T>& f, const AdjShade<T>& a, const V3<T>& g_pn_s,
+                                                 V3<T>& g_o, V3<T>& g_d, T (&rows)[kAdjMat],
+                                                 T (&consts)[kAdjConsts]) {
+  const T* m = f.m;
+  const V3<T>& o = f.o;
+  const V3<T>& d = f.d;
+  V3<T> g_n_acc = a.g_n;
+  V3<T> g_d_acc = a.g_d;
+  T g_sol_w = a.g_sol_w;
 
   // --- Phase D: p_n, L, V unit-vector transposes ---
   V3<T> g_p;
@@ -657,18 +734,18 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
     g_p[i] = g_pn;
     g_n_acc[i] = g_n_acc[i] + T(kNudge) * g_pn;
   }
-  const T ldot = dot3(f.L, g_L_acc);
+  const T ldot = dot3(f.L, a.g_L);
   const T inv_lmag = T(1) / vmax(f.l_mag, T(kEpsDen));
   V3<T> g_light;
   for (int i = 0; i < 3; ++i) {
-    g_light[i] = (g_L_acc[i] - f.L[i] * ldot) * inv_lmag;
+    g_light[i] = (a.g_L[i] - f.L[i] * ldot) * inv_lmag;
     g_p[i] = g_p[i] - g_light[i];
   }
-  const T vdot = dot3(f.V, g_V_acc);
+  const T vdot = dot3(f.V, a.g_V);
   const T inv_vmag = T(1) / vmax(f.v_mag, T(kEpsDen));
   V3<T> g_cam;
   for (int i = 0; i < 3; ++i) {
-    g_cam[i] = (g_V_acc[i] - f.V[i] * vdot) * inv_vmag;
+    g_cam[i] = (a.g_V[i] - f.V[i] * vdot) * inv_vmag;
     g_p[i] = g_p[i] - g_cam[i];
   }
 
@@ -684,7 +761,7 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
   for (int i = 0; i < 3; ++i) g_d_acc[i] = g_d_acc[i] + g_p[i] * f.t_safe;
   g_sol_w = g_sol_w + (f.hit ? g_t : T(0));
   T g_bw, g_ctw;
-  sol_disc_adjoint(f.b_w, f.ct_w, g_sol_w, g_disc_w, g_bw, g_ctw);
+  sol_disc_adjoint(f.b_w, f.ct_w, g_sol_w, a.g_disc_w, g_bw, g_ctw);
   const V3<T> oc_w = {o.x - m[CX], o.y - m[CY], o.z - m[CZ]};
   for (int i = 0; i < 3; ++i) {
     g_o_in[i] = g_o_in[i] + T(2) * d[i] * g_bw + T(2) * oc_w[i] * g_ctw;
@@ -693,22 +770,51 @@ __device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T
   }
   g_rw = g_rw - T(2) * m[RAD] * g_ctw;
 
-  // --- Phase F: per-lane material gradients into the winner's row ---
-  const T rows[15] = {g_cw.x, g_cw.y, g_cw.z, g_rw, g_dg,
-                      g_tex.x * is_const, g_tex.y * is_const, g_tex.z * is_const, g_sg, g_rough, g_ig, g_ior,
-                      g_tfw, g_tft, g_tfi};
-  sink.winner(sc, f.idx, rows);
+  // --- Phase F: per-lane material gradients for the winner's row ---
+  const T row[kAdjMat] = {g_cw.x, g_cw.y, g_cw.z, g_rw, a.g_dg,
+                          a.g_tex.x * a.is_const, a.g_tex.y * a.is_const, a.g_tex.z * a.is_const, a.g_sg, a.g_rough,
+                          a.g_ig, a.g_ior, a.g_tfw, a.g_tft, a.g_tfi};
+  for (int c = 0; c < kAdjMat; ++c) rows[c] = row[c];
 
   // --- Phase G: scene constants ---
-  for (int i = 0; i < 3; ++i) sink.consts(sc, i, g_cam[i]);
-  for (int i = 0; i < 3; ++i) sink.consts(sc, 3 + i, g_light[i]);
-  for (int i = 0; i < 3; ++i) sink.consts(sc, 6 + i, g_dome_c[i]);
-  sink.consts(sc, 9, g_dome_t);
+  for (int i = 0; i < 3; ++i) {
+    consts[i] = g_cam[i];
+    consts[3 + i] = g_light[i];
+    consts[6 + i] = a.g_dome_c[i];
+  }
+  consts[9] = a.g_dome_t;
 
   g_o = g_o_in;
   g_d = g_d_acc;
-  g_thr = g_thr_in;
-  g_alive = g_alive_in;
+}
+
+// One bounce's handwritten adjoint (Phases A-G).  In: the cotangents of the
+// bounce's outputs; out (in place): those of its inputs.  g_acc passes
+// through (acc is a pure accumulator).  Phase C visits the shadow set of
+// the forward; table gradients go to the sink.  kAtlas: g_dww_raw is the
+// cotangent of the bounce's dww (kept on image lanes only).
+template <typename T, bool kXi, bool kAtlas = false, typename Shadow, typename Sink, typename G>
+__device__ __forceinline__ void adjoint_bounce(const Fwd<T>& f, V3<T>& g_o, V3<T>& g_d, T& g_thr, T& g_alive,
+                                               const V3<T>& g_acc, const G& geom, const T* cst,
+                                               const Scal<T>& sc, const Shadow& shadow, const Sink& sink,
+                                               T g_dww_raw = T(0)) {
+  AdjShade<T> a = adjoint_shade<T, kXi, kAtlas>(f, g_d, g_thr, g_alive, g_acc, cst, sc, g_dww_raw);
+
+  // --- Phase C: shadow-product adjoint, one sphere at a time ---
+  V3<T> g_pn_s = {T(0), T(0), T(0)};
+  const T g_cc = a.g_clear * f.clear;
+  shadow.visit(sc, [&](int slot, int k) {
+    T gk[4];
+    shadow_adjoint(k, f.p_n, f.L, f.idx, g_cc, geom, sc, g_pn_s, a.g_L, gk);
+    for (int c = 0; c < 4; ++c) sink.geom(slot, k, c, gk[c]);
+  });
+
+  T rows[kAdjMat], consts[kAdjConsts];
+  adjoint_geometry(f, a, g_pn_s, g_o, g_d, rows, consts);
+  sink.winner(sc, f.idx, rows);
+  for (int c = 0; c < kAdjConsts; ++c) sink.consts(sc, c, consts[c]);
+  g_thr = a.g_thr_in;
+  g_alive = a.g_alive_in;
 }
 
 }  // namespace

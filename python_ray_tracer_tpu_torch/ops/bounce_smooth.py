@@ -7,7 +7,9 @@ vector is a 3-tuple of (N,) tensors.  The sublane kernels' plain versions
 (:mod:`.bounce_smooth_sub`) are built from them, and
 ``csrc/bounce_smooth_sub.cu`` evaluates the same expressions in the same
 order.  The lane-layout kernels of that JAX module (``_fwd_kernel``,
-``_bwd_kernel``) are not ported yet.
+``_bwd_kernel``) are ported as the one-bounce pair of
+:mod:`.bounce_smooth_sub` (``smooth_fwd_step``, ``smooth_bwd_step``), launched
+once per bounce past 4096 spheres.
 """
 
 from __future__ import annotations

@@ -74,11 +74,16 @@ LAUNCHES = {"near_cs": 0, "fwd_cs": 0, "bwd_cs": 0}
 ATLAS_LAUNCHES = {"fwd_cs": 0, "bwd_cs": 0}
 
 _SOURCE = "culled_smooth.cu"
-# Threads per block of bwd_cs, whose CTA is one tile: a tile of the main
-# path is 4096 rays, 16 per thread.
-_BWD_THREADS = 256
-_WARPS_PER_TILE = _BWD_THREADS // 32
+# bwd_cs's launch (csrc/culled_smooth.cu kBwd*): BWD_CTAS_PER_TILE CTAs of
+# BWD_THREADS threads share a tile's lists, each CTA with one row of table
+# gradients; a thread takes its rays in rounds of BWD_BATCH.  A tile of the
+# main path is 4096 rays: 8 CTAs of 512 rays, 4 a thread, one round.
+BWD_THREADS = 128
+BWD_CTAS_PER_TILE = 8
+BWD_BATCH = 4
+_BWD_STATE_VALS = 10  # a round's Phase C state a ray in shared memory, and its winner
 _MAT_GRADS = 15  # material columns CX..TFI that take gradients
+_BWD_SCRATCH = BWD_THREADS * _MAT_GRADS  # Phase F's exchange: kMatGrads values a lane
 
 
 def cull_smooth_ok(scene, cfg, n_rays: int) -> bool:
@@ -247,11 +252,8 @@ def _check(rays: dict, lanes: dict, lists: list, geom, tables: dict | None, xi, 
         raise ValueError(f"unsupported dtype {ref.dtype}")
     if ref.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {ref.device}")
-    if ref.device.type == "cuda":
-        if (4 * s + N_CONST) * ref.element_size() > _build.MAX_SHARED_BYTES:
-            raise ValueError(f"{s} spheres do not fit the kernels' shared-memory geometry table")
-        if tile_rays % _BWD_THREADS:
-            raise ValueError(f"tile_rays must be a multiple of {_BWD_THREADS}, got {tile_rays}")
+    if ref.device.type == "cuda" and (4 * s + N_CONST) * ref.element_size() > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"{s} spheres do not fit the kernels' shared-memory geometry table")
     return ref.device
 
 
@@ -282,12 +284,42 @@ def _launch(name: str, dtype: torch.dtype, *args, atlas: bool = False) -> None:
     (ATLAS_LAUNCHES if atlas else LAUNCHES)[name] += 1
 
 
+def bwd_rows(n_rays: int, tile_rays: int) -> int:
+    """CTAs of one ``bwd_cs`` launch over ``n_rays`` rays in tiles of
+    ``tile_rays``, each with its row of table gradients; raises where the
+    launch's CTA split does not divide a tile."""
+    split = BWD_CTAS_PER_TILE * BWD_THREADS
+    if tile_rays < 1 or tile_rays % split:
+        raise ValueError(f"bwd_cs splits a tile among {BWD_CTAS_PER_TILE} CTAs of {BWD_THREADS} threads: tile_rays "
+                         f"must be a multiple of {split}, got {tile_rays}")
+    if n_rays < 1 or n_rays % tile_rays:
+        raise ValueError(f"{n_rays} rays: expected whole tiles of tile_rays = {tile_rays} rays")
+    return n_rays // tile_rays * BWD_CTAS_PER_TILE
+
+
 def grad_rows_bytes(n_rays: int, s: int, tile_rays: int, dtype: torch.dtype) -> int:
-    """Bytes of ``bwd_cs``'s per-warp table-gradient rows for one launch:
-    each warp of a tile owns (S, 4) shadow-slot, (S, 15) nearest-slot and 16
-    constant values."""
-    rows = (n_rays // tile_rays) * _WARPS_PER_TILE
+    """Bytes of ``bwd_cs``'s table-gradient rows for one launch: each CTA
+    owns (S, 4) shadow-slot, (S, 15) nearest-slot and 16 constant values."""
+    rows = bwd_rows(n_rays, tile_rays)
     return rows * ((4 + _MAT_GRADS) * s + N_CONST) * torch.empty((), dtype=dtype).element_size()
+
+
+def bwd_shared_bytes(s: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a ``bwd_cs`` CTA for ``s`` spheres: the
+    geometry and consts, a round's Phase C state and the scratch."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return (4 * s + N_CONST + _BWD_STATE_VALS * BWD_BATCH * BWD_THREADS + _BWD_SCRATCH) * size + 4 * BWD_BATCH * BWD_THREADS
+
+
+def bwd_blocks_per_sm(dtype: torch.dtype, glossy: bool, atlas: bool, s: int) -> int:
+    """Resident ``bwd_cs`` CTAs per SM of the instantiation for ``s``
+    spheres on the current card (the occupancy API at the launch's dynamic
+    shared bytes)."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    blocks = getattr(_build.load_library(_SOURCE), f"prt_bwd_cs_blocks_per_sm_{suffix}")(int(glossy), int(atlas), s)
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query of bwd_cs failed: CUDA error {-blocks}")
+    return blocks
 
 
 def near_cs(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_cheap, sharp_e, tile_rays):
@@ -353,13 +385,17 @@ def bwd_cs(o, d, thr, alive, idx, hit, clear, cand_b, cnt_b, cnt_bf, cand_a, cnt
     if cand_a.shape[1] != cand_b.shape[1]:
         raise ValueError("the nearest and shadow lists must have the same width")
     n, s = o.shape[1], geom.shape[0]
-    rows = (n // tile_rays) * _WARPS_PER_TILE
+    rows = bwd_rows(n, tile_rays)
+    if bwd_shared_bytes(s, o.dtype) > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"{s} spheres do not fit bwd_cs's shared memory")
     with torch.cuda.device(device):
         outs = (torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr), torch.empty_like(alive))
         like = dict(dtype=o.dtype, device=device)
-        pg = torch.zeros((rows, s, 4), **like)  # each warp's shadow-slot rows
-        pm = torch.zeros((rows, s, _MAT_GRADS), **like)  # its nearest-slot rows
-        pc = torch.zeros((rows, N_CONST), **like)
+        # Each CTA's rows: it writes every shadow slot of its list and its 16
+        # constants, and adds into the nearest slots its warps' winners take.
+        pg = torch.empty((rows, s, 4), **like)
+        pm = torch.zeros((rows, s, _MAT_GRADS), **like)
+        pc = torch.empty((rows, N_CONST), **like)
         flat = torch.empty(((4 + MAT_COLS) * s + N_CONST,), **like)
         _launch("bwd_cs", o.dtype, *args, xi, *cots, g_dww, *outs, pg, pm, pc, flat, n, s_cheap, s, tile_rays,
                 cand_b.shape[1], float(faraway), float(sharp_e), float(sharp_s), *slot_args(tex_hw),
