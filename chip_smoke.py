@@ -118,7 +118,13 @@ both lane scenes with each frame's ms and profiler split, and with its
 geometry in shared and in global memory, and each per-shard kernel at its
 shard's shape.  For ``bwd_cs`` and ``gather_shuffle`` it prints the launch
 layout: CTAs per launch, resident CTAs per SM (the occupancy API) and
-ptxas's registers and spill bytes of each instantiation.
+ptxas's registers and spill bytes of each instantiation; for
+``smooth_bwd_step`` its rows' bytes beside the column partials', and for
+``clear_bwd`` its resident CTAs per SM.  ``bwd_cs``, ``smooth_bwd_step``
+(1024 and 8192 spheres) and ``clear_bwd`` skip the shadow spheres that
+reach none of a warp's rays, so their bound counts the work this run's
+data needs: every lane-sphere pair pays the skip's test, the pairs reached
+the rest; each prints the pairs reached and the bound on every pair beside.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -360,8 +366,9 @@ COLUMN_RTOL = {torch.float32: 3e-5, torch.float64: 1e-12}
 # other (PERF.md, Findings).  Such a column alone may reach
 # ILL_CONDITIONED_FACTOR x COLUMN_RTOL, and only if the same kernel in
 # float64 on the same inputs is within COLUMN_RTOL of its plain version.
-# smooth_bwd_step's camera-z gradient at 8192 spheres reads 3.76e-5.
-ILL_CONDITIONED_COLUMNS = {"smooth_bwd_step random_spheres(8192) depth 2 float32 256x144 g_consts": (2,)}
+# None is named: smooth_bwd_step's camera-z gradient at 8192 spheres, named
+# while its column partials read 3.76e-5, reads 2.82e-5 in its row layout.
+ILL_CONDITIONED_COLUMNS: dict[str, tuple[int, ...]] = {}
 ILL_CONDITIONED_FACTOR = 2.0
 # Main path vs the JAX golden: share of uint8 values allowed to differ.
 MAX_GOLDEN_SHARE = 1e-3
@@ -756,6 +763,7 @@ def _check_step_pair(label: str, o, d, tables, kw, xis, dtype, err: dict, state_
                             _nbytes(*state, *tables, *[x for x in xis[1:2] if x is not None], *fk)),
         "smooth_bwd_step": (lambda: bss.smooth_bwd_step(*args, **skw),
                             _nbytes(*[a for a in args if a is not None], *bk)),
+        "bwd_step_args": (args, skw),
     }
 
 
@@ -1705,6 +1713,112 @@ def _bwd_cs_bound(args: tuple, kw: dict, label: str) -> tuple[float, str]:
     return bound
 
 
+def _shadow_reach(p_n, light, idx, geom, s_cheap: int, sharpness: float, warp: bool = True) -> tuple[int, int]:
+    """(lane-sphere pairs, warp-sphere pairs) that a shadow sweep's exact skip
+    reaches: the sphere is not the lane's own (idx) and its tier's shadow
+    sigmoid sig(sharpness * disc) is not exactly 0, disc from the (b, c_term)
+    the kernels' test computes.  p_n, light: 3 rows of (N,); a warp is 32
+    consecutive lanes (ray-warps); the spheres in chunks of 256."""
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain, compensated_b_cterm, sig
+
+    n, s = idx.shape[0], geom.shape[0]
+    o = tuple(x[:, None] for x in p_n)
+    dl = tuple(x[:, None] for x in light)
+    lanes = warps = 0
+    with torch.no_grad():
+        for k0 in range(0, s, 256):
+            ks = torch.arange(k0, min(k0 + 256, s), device=geom.device)
+            c = tuple(geom[None, ks, i] for i in range(3))
+            r = geom[None, ks, 3]
+            b, ct = b_cterm_plain(o, dl, c, r)
+            if k0 + len(ks) > s_cheap:  # the exact tier's columns
+                be, cte = compensated_b_cterm(o, dl, c, r)
+                exact = (ks >= s_cheap)[None, :]
+                b, ct = torch.where(exact, be, b), torch.where(exact, cte, ct)
+            reached = (sig(sharpness * (b * b - 4.0 * ct)) != 0) & (idx.long()[:, None] != ks[None, :])
+            lanes += int(reached.sum())
+            if warp:
+                pad = torch.zeros(((-n) % 32, len(ks)), dtype=torch.bool, device=reached.device)
+                warps += int(torch.cat([reached, pad]).reshape(-1, 32, len(ks)).any(1).sum())
+    return lanes, warps
+
+
+def _step_reach_bound(label: str, args: tuple, kw: dict, ops: int, n_bytes: int) -> tuple[float, str]:
+    """smooth_bwd_step's least time on one call, counted as _bwd_cs_bound
+    counts bwd_cs's: from the plain version's operations (``ops``, every
+    lane-sphere pair paying the whole of Phase C's loop body, and Phase F's
+    per-sphere winner compare), every pair pays the skip's test and only the
+    pairs reached pay the rest of the body; Phase F adds each lane's row once.
+    Prints the pairs reached (lanes and warps) beside the bound that counts
+    every pair."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain, sig
+
+    o, d, thr, alive, idx, hit, clear, geom, mat, consts = args[:10]
+    xi = args[15] if len(args) > 15 else None
+    n, s = d.shape[1], geom.shape[0]
+    with torch.no_grad():
+        f = bss.fwd_sub_math(tuple(o), tuple(d), thr, alive, geom, mat, consts, bss._xi_pair(xi, 0),
+                             faraway=kw["faraway"], s_cheap=kw["s_cheap"], sharp_e=kw["sharp_e"], sharp_s=kw["sharp_s"],
+                             saved=(idx, hit != 0, clear))
+        c, r = (geom[0, 0], geom[0, 1], geom[0, 2]), geom[0, 3]
+        g_pn_s, g_l = [torch.zeros_like(thr)] * 3, [torch.zeros_like(thr)] * 3
+
+        def body():  # Phase C's loop body of the plain version, one sphere on every lane
+            pn_b, pn_ct, l_b, row = bss.shadow_terms(f, 0, c, r, bss.sol_disc_plain, clear, kw["faraway"])
+            for i in range(3):
+                _ = g_pn_s[i] + pn_b[i] + pn_ct[i], g_l[i] + l_b[i]
+            return [torch.sum(x) for x in row]
+
+        def test():
+            b, ct = b_cterm_plain(f.p_n, f.L, c, r)
+            return (sig(kw["sharp_s"] * (b * b - 4.0 * ct)) != 0) & (idx != 0)
+
+        pair_ops, test_ops = count_ops(body) / n, count_ops(test) / n
+        lanes, warps = _shadow_reach(f.p_n, f.L, idx, geom, kw["s_cheap"], kw["sharp_s"])
+    every_pair = _bound(ops, n_bytes)
+    bound = _bound(int(ops - (pair_ops + 1) * n * s + test_ops * n * s + (pair_ops - test_ops) * lanes), n_bytes)
+    print(f"[timing] smooth_bwd_step {label}: Phase C reaches {lanes} of {n * s} lane-sphere pairs "
+          f"({lanes / (n * s):.3%}), {warps} of {-(-n // 32) * s} warp-sphere pairs ({warps / (-(-n // 32) * s):.3%}); "
+          f"test {test_ops:g}, whole pair {pair_ops:g} operations; bound {bound[0]:.4f} ms by {bound[1]} on the "
+          f"reached pairs, {every_pair[0]:.4f} ms on every pair", flush=True)
+    return bound
+
+
+def _clear_reach_bound(args: list, kw: dict, ops: float, n_bytes: int) -> tuple[float, str]:
+    """clear_bwd's least time on one call, counted as _bwd_cs_bound counts
+    bwd_cs's: from its plain version's operations (``ops``, every lane-sphere
+    pair paying the whole), every pair pays the skip's test and only the
+    pairs reached the rest.  Prints the pairs reached beside the bound that
+    counts every pair."""
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain, sig
+
+    o, d, geom, self_idx = args[:4]
+    n, s = o.shape[0], geom.shape[0]
+    part = min(n, 4096)
+    with torch.no_grad():
+        oi = tuple(o[:part, i, None] for i in range(3))
+        di = tuple(d[:part, i, None] for i in range(3))
+        c = tuple(geom[None, :, i] for i in range(3))
+
+        def test():
+            b, ct = b_cterm_plain(oi, di, c, geom[None, :, 3])
+            ids = torch.arange(s, device=geom.device)[None, :]
+            return (sig(kw["sharpness"] * (b * b - 4.0 * ct)) != 0) & (ids != self_idx[:part, None])
+
+        test_ops = count_ops(test) / (part * s)
+        lanes, warps = _shadow_reach(tuple(o[:, i] for i in range(3)), tuple(d[:, i] for i in range(3)), self_idx,
+                                     geom, kw["s_cheap"], kw["sharpness"])
+    pair_ops = ops / (n * s)
+    every_pair = _bound(int(ops), n_bytes)
+    bound = _bound(int(ops - (pair_ops - test_ops) * (n * s - lanes)), n_bytes)
+    print(f"[timing] clear_bwd: the skip reaches {lanes} of {n * s} lane-sphere pairs ({lanes / (n * s):.3%}), "
+          f"{warps} of {-(-n // 32) * s} warp-sphere pairs ({warps / (-(-n // 32) * s):.3%}); test {test_ops:g}, whole "
+          f"pair {pair_ops:g} operations; bound {bound[0]:.4f} ms by {bound[1]} on the reached pairs, "
+          f"{every_pair[0]:.4f} ms on every pair", flush=True)
+    return bound
+
+
 def _culled_bound(name: str, r: dict) -> tuple[float, str]:
     from python_ray_tracer_tpu_torch.ops import culled
 
@@ -2098,8 +2212,11 @@ def phase_blocked_kernels(card: str) -> tuple[dict[str, float], dict[str, dict]]
         occupancy = {k: bss.blocks_per_sm(k, dtype, glossy, s) for k in kernels}
         print(f"[blocked] {label}: geometry {'staged in shared memory' if smem > 16 * dtype.itemsize else 'read from global memory'} "
               f"({smem} B of shared memory a block); "
-              f"resident 128-thread blocks per SM {occupancy}; partials {bss.partials_bytes(n, s, dtype)} B "
-              f"= (23 x {s} + 17) x {min(-(-n // 32), bss.PARTIAL_COLS)} columns x {dtype.itemsize} B", flush=True)
+              f"resident blocks per SM {occupancy} (128 threads; smooth_bwd_step {bss.STEP_THREADS}); column partials "
+              f"{bss.partials_bytes(n, s, dtype)} B = (23 x {s} + 17) x {min(-(-n // 32), bss.PARTIAL_COLS)} columns x "
+              f"{dtype.itemsize} B (smooth_bwd_deep, train_deep); smooth_bwd_step's rows "
+              f"{bss.step_rows_bytes(n, s, dtype)} B = {bss.step_rows(n)} rows x (19 x {s} + 16) x {dtype.itemsize} B",
+              flush=True)
         plain_ms: dict | None = {} if timed else None
         t0 = time.perf_counter()
         if kernels != STEP:
@@ -2120,6 +2237,8 @@ def phase_blocked_kernels(card: str) -> tuple[dict[str, float], dict[str, dict]]
                 ms = time_ms(call, warmup=2, iters=10)
                 p_ms, ops = plain_ms[name]
                 bound_ms, bound_by = _bound(ops, n_bytes)
+                if name == "smooth_bwd_step":
+                    bound_ms, bound_by = _step_reach_bound(label, *calls["bwd_step_args"], ops, n_bytes)
                 res[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
                 print(f"[timing] {name} at {label}: kernel {ms:.4f} ms, plain version {p_ms:.1f} ms (one call, under "
                       f"the op counter), bound {bound_ms:.4f} ms by {bound_by} ({ops / n:.0f} operations per ray, "
@@ -3422,7 +3541,8 @@ def phase_multi_card(tmp: Path) -> None:
 
 def _parts_bound(name: str, args: list, kw: dict) -> tuple[float, str]:
     """The least time of one launch: each input and output once, and the plain
-    version's operations counted over 4096 of the lanes, scaled to all."""
+    version's operations counted over 4096 of the lanes, scaled to all;
+    clear_bwd's on the pairs its skip reaches (:func:`_clear_reach_bound`)."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
 
     plain, kernel = {
@@ -3438,7 +3558,10 @@ def _parts_bound(name: str, args: list, kw: dict) -> tuple[float, str]:
         ops = count_ops(lambda: plain(*sliced, **kw)) * n / part
         out = kernel(*args, **kw)
     out = out if isinstance(out, tuple) else (out,)
-    return _bound(int(ops), _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out))
+    n_bytes = _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out)
+    if name == "clear_bwd":
+        return _clear_reach_bound(args, kw, ops, n_bytes)
+    return _bound(int(ops), n_bytes)
 
 
 def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
@@ -3461,6 +3584,9 @@ def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
             res[name] = _time_launches(
                 name, [(lambda: kernel(*args, **kw), lambda: plain(*args, **kw), lambda: _parts_bound(name, args, kw))],
                 card, f"config 4 sphere shard 0 of 2, {args[2].shape[0]} spheres, {size} f32", "one")
+        args = saved["clear_bwd"][0]
+        print(f"[timing] clear_bwd: {sp.clear_bwd_blocks_per_sm(torch.float32, args[2].shape[0])} resident CTAs of 256 "
+              f"an SM, {-(-args[0].shape[0] // 256)} CTAs a launch ({card})", flush=True)
     return res
 
 
@@ -3559,7 +3685,7 @@ def phase_probes(card: str, logs: dict[str, str]) -> tuple[dict[str, float], dic
           f"ops/s as count_ops counts the work the output needs ({per_lane_iter:g} a lane-iteration); bound "
           f"{bound_ms:.4f} ms by {bound_by} at {PEAK_F32_OPS_PER_S / 1e12:g} TFLOP/s, kernel at {bound_ms / ms:.1%} of "
           f"it; plain version {plain_ms:.2f} ms at {VPU_PLAIN_ITERS} iterations ({card})", flush=True)
-    from python_ray_tracer_tpu_torch.benchmarks.bwd_cs_split import ptxas_kernels
+    from python_ray_tracer_tpu_torch.benchmarks.splits import ptxas_kernels
 
     ctas, per_sm = gp.shuffle_launch(gp.RAYS)
     rec = next((r for k, r in ptxas_kernels(logs["gather_probe.cu"]).items() if "gather_shuffle" in k), {})

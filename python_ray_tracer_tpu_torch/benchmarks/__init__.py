@@ -8,11 +8,15 @@ module: ``python -m python_ray_tracer_tpu_torch.benchmarks.<name>``.
 * :mod:`.gather_probe`: material-row gathers (``benchmarks/gather_probe.py``)
   from global memory, shared memory and registers, beside torch's take.
 
-Two A/B scripts of the port's own build variants (no JAX counterpart):
+A/B scripts of the port's own build variants (no JAX counterpart):
 :mod:`.geometry_ab` (the smooth kernels' geometry staged or read from
-global memory) and :mod:`.bwd_cs_split` (``bwd_cs`` with one part stubbed
-out at a time).  Each builds its variants in copies of the package made by
-:func:`package_copy`, never by a switch in the shipped source.
+global memory), :mod:`.gather_lanes` (the register gather's indices a
+thread), and the splits :mod:`.bwd_cs_split` (``bwd_cs``) and
+:mod:`.smooth_bwd_split` (``smooth_bwd_step`` and ``clear_bwd``), which
+stub out one part of a kernel at a time.  Each builds its variants in
+copies of the package made by :func:`package_copy`, never by a switch in
+the shipped source; the splits share :mod:`.splits` (the builds, one
+recording of the inputs, the timing turns, ``--tree``, the ptxas parser).
 
 An entry point runs on ``cuda`` unless ``--device cpu`` is given, and then
 runs the plain versions at the size the caller gives; without a card it
@@ -86,3 +90,4 @@ def time_launches(fn, launches: int, reps: int) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / launches)
     return best
+

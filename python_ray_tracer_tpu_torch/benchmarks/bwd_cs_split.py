@@ -42,17 +42,14 @@ inputs are taken once, with the source as it is, and saved under
 
 ``--tree`` takes the package directory of another checkout (for example a
 parent commit unpacked with ``git archive``) in place of this one; the
-patches are chosen by the layout its ``bwd_cs`` source has.
+patches are chosen by the layout its ``bwd_cs`` source has.  The builds,
+the recording and the turns are :func:`.run_split`'s.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import re
-import shutil
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -62,7 +59,6 @@ OUT = Path(__file__).resolve().parents[2] / "out" / "bwd_cs_split"
 SOURCE = "csrc/culled_smooth.cu"
 SPHERES, DEPTH = 1024, 3
 CASES = {"config4": (1920, 1080, "random_spheres"), "textured1024_atlas": (960, 540, "textured_spheres")}
-WARMUP, ITERS = 2, 10
 
 # The occupancy query of a layout whose source has none: bwd_cs's resident
 # blocks per SM at its launch's dynamic shared bytes (or -error).
@@ -93,8 +89,9 @@ LAYOUTS = {
     # One CTA of 256 threads per 4096-ray tile; each warp's lane 0 adds its
     # shuffle sums into the warp's rows (TileSink), per ray and listed sphere.
     "tile_cta": dict(
-        marker="template <typename T> struct TileSink",
-        ctas_per_tile=1,
+        markers=[(SOURCE, "template <typename T> struct TileSink")],
+        time_args=["1"],
+        report=lambda log: ptxas_report(log),
         common=[(SOURCE, r"(const char\* prt_error_string\(int err\) \{[^}]*\}\n\n\}  // extern \"C\"\n)",
                  _OCCUPANCY_ENTRY)],
         stubs={
@@ -113,8 +110,9 @@ LAYOUTS = {
     # BWD_CTAS_PER_TILE CTAs of 128 threads per tile, Phase C slot-outer
     # over a round of rays, one row per CTA (the shipped layout).
     "cta_split": dict(
-        marker="constexpr int kBwdCtasPerTile",
-        ctas_per_tile=None,
+        markers=[(SOURCE, "constexpr int kBwdCtasPerTile")],
+        time_args=["None"],
+        report=lambda log: ptxas_report(log),
         common=[],
         stubs={
             "no_c_sink": [(SOURCE, r"\n      T\* red = scratch \+ buf .*?\n        buf \^= 1;\n      \}", "")],
@@ -136,37 +134,16 @@ STUBS = ("no_c_sink", "no_f_sink", "no_g_sink", "no_c")
 
 def layout_of(tree: Path) -> str:
     """The layout whose marker ``tree``'s bwd_cs source holds."""
-    text = (tree / SOURCE).read_text()
-    found = [name for name, lay in LAYOUTS.items() if lay["marker"] in text]
-    if len(found) != 1:
-        raise RuntimeError(f"{tree / SOURCE}: expected the marker of exactly one layout, found {found}")
-    return found[0]
+    from .splits import layout_of as find
 
-
-def ptxas_kernels(log: str) -> dict[str, dict]:
-    """Registers and spill bytes of each entry function in an nvcc
-    ``-Xptxas -v`` log, keyed by its mangled name."""
-    out: dict[str, dict] = {}
-    current = None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
-        if m:
-            current = out.setdefault(m.group(1), {})
-            continue
-        if current is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            current.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            current["registers"] = int(m.group(1))
-    return out
+    return find(tree, LAYOUTS)
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
     """:func:`ptxas_kernels` of each bwd_cs instantiation, keyed
     ``"f32"``/``"f64"`` + ``" glossy"`` + ``" atlas"``."""
+    from .splits import ptxas_kernels
+
     out = {}
     for name, rec in ptxas_kernels(log).items():
         t = re.search(r"bwd_csI([fd])Lb([01])ELb([01])E", name)
@@ -175,23 +152,6 @@ def ptxas_report(log: str) -> dict[str, dict]:
                 " atlas" if t.group(3) == "1" else "")
             out[key] = rec
     return out
-
-
-def _time_ms(fn) -> float:
-    import torch
-
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(ITERS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _record(path: Path) -> None:
@@ -236,6 +196,8 @@ def _time_variant(label: str, inputs: Path, ctas_per_tile: int | None) -> None:
     on every recorded call; one JSON line a call."""
     import torch
 
+    from splits import median_ms  # this file's directory, not the copy's package (see .splits)
+
     from python_ray_tracer_tpu_torch.ops import _build
     from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
 
@@ -246,7 +208,7 @@ def _time_variant(label: str, inputs: Path, ctas_per_tile: int | None) -> None:
         for case, calls in records.items():
             for b, (args, kw) in enumerate(calls):
                 n, s, atlas = args[0].shape[1], args[13].shape[0], kw.get("g_dww") is not None
-                ms = _time_ms(lambda a=args, k=kw: cs.bwd_cs(*a, **k))
+                ms = median_ms(lambda a=args, k=kw: cs.bwd_cs(*a, **k))
                 blocks = lib.prt_bwd_cs_blocks_per_sm_f32(0, int(atlas), s)
                 print(json.dumps({"variant": label, "case": case, "bounce": b, "ms": ms, "blocks_per_sm": blocks,
                                   "ctas": n // kw["tile_rays"] * per_tile, "rays": n}), flush=True)
@@ -259,41 +221,15 @@ def main(argv: list[str]) -> int:
 
         _, log, _ = _build.build_all(("culled_smooth.cu",))["culled_smooth.cu"]
         if argv[3] == "build":
-            print(json.dumps({"variant": argv[2], "ptxas": ptxas_report(log)}), flush=True)
+            print(json.dumps({"variant": argv[2], "log": log}), flush=True)
         elif argv[3] == "record":
             _record(Path(argv[4]))
         else:
             _time_variant(argv[2], Path(argv[4]), None if argv[5] == "None" else int(argv[5]))
         return 0
-    from . import PACKAGE, package_copy
+    from .splits import run_split
 
-    ap = argparse.ArgumentParser(prog="python -m python_ray_tracer_tpu_torch.benchmarks.bwd_cs_split")
-    ap.add_argument("--tree", type=Path, default=PACKAGE, help="the package directory to copy (default: this one)")
-    ap.add_argument("--variants", default=",".join(STUBS),
-                    help="comma-separated variants beside as_is (default: the four stubs)")
-    args = ap.parse_args(argv)
-    tree = args.tree.resolve()
-    layout = LAYOUTS[layout_of(tree)]
-    variants = ("as_is", *args.variants.split(","))
-    unknown = [v for v in variants[1:] if v not in layout["stubs"]]
-    if unknown:
-        raise SystemExit(f"--variants: {unknown} not among {sorted(layout['stubs'])} for this layout")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    print(f"[bwd_cs_split] {tree}: layout {layout_of(tree)}", flush=True)
-    roots = {name: package_copy(OUT / name, layout["common"] + layout["stubs"].get(name, []), source=tree)
-             for name in variants}
-    child = [sys.executable, str(Path(__file__).resolve()), "--child"]
-    builds = [subprocess.Popen([*child, str(root), name, "build"], cwd=root) for name, root in roots.items()]
-    if any(p.wait() != 0 for p in builds):
-        return 1
-    inputs = OUT / "inputs.pt"
-    subprocess.run([*child, str(roots["as_is"]), "as_is", "record", str(inputs)], cwd=roots["as_is"], check=True)
-    for name in (*variants, "as_is"):
-        subprocess.run([*child, str(roots[name]), name, "time", str(inputs), str(layout["ctas_per_tile"])],
-                       cwd=roots[name], check=True)
-    shutil.rmtree(OUT, ignore_errors=True)
-    return 0
+    return run_split(argv, script=Path(__file__).resolve(), out=OUT, layouts=LAYOUTS, default_variants=STUBS)
 
 
 if __name__ == "__main__":

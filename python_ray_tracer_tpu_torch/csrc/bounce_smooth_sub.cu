@@ -59,18 +59,22 @@
 //     read from global memory through the read-only path (LdgGeom), every
 //     lane of a warp on the same sphere, so each load is one broadcast from
 //     L1.  Each kernel is built both ways (kStaged) and the launcher picks
-//     by size.  The winner's material row (19 values) is read from global
+//     by size, but smooth_bwd_step, which stages its geometry a chunk at a
+//     time.  The winner's material row (19 values) is read from global
 //     memory by index;
 //   * sphere and depth loops are runtime loops: no TPU compile-size caps;
-//   * table gradients without float atomics, in memory bounded in N: each
-//     warp of a gradient kernel owns one column of a (values, cols)
-//     partials array (cols given by the caller, at most ceil(N / 32); the
-//     wrapper's PARTIAL_COLS caps it), and walks the
+//   * table gradients without float atomics, in memory bounded in N.  In
+//     smooth_bwd_deep and train_deep each warp owns one column of a
+//     (values, cols) partials array (cols given by the caller, at most
+//     ceil(N / 32); the wrapper's PARTIAL_COLS caps it), and walks the
 //     ray-warps col, col + cols, ... in that order; for each, the warp sums
 //     its lanes' contributions by a shuffle tree and lane 0 adds the sum
-//     into its column.  A second kernel sums the columns in a fixed order.
-//     Two launches on the same inputs give bitwise-equal gradients, and the
-//     partials take (23 S + 17) * cols values whatever the frame.
+//     into its column; the partials take (23 S + 17) * cols values.
+//     smooth_bwd_step skips the shadow spheres that reach none of a warp's
+//     rays and sums the rest over its CTA in shared memory into one row a
+//     CTA, (19 S + 16) values (see the kernel).  A second kernel sums the
+//     columns or rows in a fixed order: two launches on the same inputs
+//     give bitwise-equal gradients.
 //
 // Numerics: smooth_math.cuh (no FMA contraction, the smooth split factor,
 // the sigmoid's form, the tie rules); x**n for integer n is binary
@@ -404,9 +408,73 @@ __global__ void __launch_bounds__(kThreads)
 // Its adjoint (_bwd_kernel_sub; above 4096 spheres _bwd_kernel): replays
 // the bounce from its inputs and residuals, takes the cotangents of all
 // five outputs and writes those of (o, d, thr, alive); acc's passes through
-// and is the caller's.  One ray-warp after another (for_ray_warps).
-template <typename T, bool kXi, bool kStaged, bool kAtlas>
-__global__ void __launch_bounds__(kThreads)
+// and is the caller's.
+//
+// Layout (ops/bounce_smooth_sub.py mirrors these constants): a CTA takes
+// kStepRayWarps ray-warps a round, each over kStepSplit warps that split
+// its spheres; rows CTAs (at most kStepMaxRows) walk the ray-warps in
+// rounds, CTA b taking ray-warps (r * rows + b) * kStepRayWarps + 0..3 in
+// round r.  Each CTA owns one row of table gradients: geometry (S, 4) and
+// constants 16 written whole, material (S, 15) added into (the wrapper
+// zeroes it); reduce_rows sums the rows in a fixed order.  No float
+// atomics, no read-modify-write of device memory in the sphere loop.
+//   Phase C  a warp visits its slice of the spheres, chunks of kStepChunk
+//            at a time, and passes a sphere that reaches no valid lane
+//            (shadow_reaches: the winner, or a shadow sigmoid of exactly
+//            0): its terms are all exactly +-0 there.  The test is the
+//            loop's cost (~99.9% of warp-sphere pairs end there), so a
+//            chunk's geometry is staged in shared memory by the CTA, the
+//            next one read while this one runs (one value a thread,
+//            coalesced), each tier is its own loop, the exact tier's
+//            quadratic never predicated into the cheap tier's, and
+//            kStepTests spheres are tested at once, independent chains
+//            without a branch under one vote (the sigmoid itself runs only
+//            where a lane sits on its zero edge).  A reached sphere's
+//            four gradients are summed over the warp (one shuffle sum a
+//            value) into a shared slot; at the end of each chunk the CTA
+//            sums each sphere's slots over its ray-warps in order and
+//            writes the row (added to it in later rounds; the same
+//            thread each time).  Each ray's g_pn_s and g_L keep the
+//            sphere order of the one-warp-a-ray-warp kernel; split over
+//            kStepSplit warps, the slices' sums are added in slice order.
+//   Phase F  each distinct winner of a warp once (__match_any_sync; the
+//            peers summed in lane order), the ray-warps' warps in turn.
+//   Phase G  sums in registers over a thread's rounds, then the warp and
+//            the CTA's warps in order.
+constexpr int kStepRayWarps = 4;
+constexpr int kStepSplit = 1;
+constexpr int kStepThreads = kStepRayWarps * kStepSplit * kWarp;
+constexpr int kStepChunk = kWarp;
+constexpr int kStepTests = 4;  // spheres tested at once in Phase C
+constexpr int kStepMaxRows = 4096;
+constexpr int kStepMat = kAdjMat;  // material columns CX..TFI that take gradients
+// Shared scratch, reused phase by phase: Phase C's two buffers of
+// (kStepSplit, kStepChunk, kStepRayWarps, 4) slots, the slices' Phase C
+// sums (kStepRayWarps, kStepSplit, 6, kWarp), Phase F's exchange
+// (kStepRayWarps, kStepMat, kWarp), Phase G's (warps, kAdjConsts).
+constexpr int kStepRed = kStepSplit * kStepChunk * kStepRayWarps * 4;
+constexpr int kStepScratch = cmax(cmax(2 * kStepRed, kStepRayWarps * kStepSplit * 6 * kWarp),
+                                  cmax(kStepRayWarps * kStepMat * kWarp, kStepRayWarps * kStepSplit * kAdjConsts));
+static_assert(kStepSplit * kStepChunk * 4 == kStepThreads, "a flush takes one value a thread");
+
+// Phase C's view of the geometry: one group's chunks staged in shared
+// memory, sphere k at p[4 (k - base) + c] (base: the warp's chunk's first).
+template <typename T> struct ChunkGeom {
+  const T* p;
+  int base;
+  __device__ __forceinline__ T operator[](int i) const { return p[i - 4 * base]; }
+};
+
+// Value x of group g's geometry chunks (thread x stages it): sphere
+// (g kStepSplit + x / (4 kStepChunk)) kStepChunk + (x / 4) % kStepChunk,
+// column x % 4; zero past the table.
+template <typename T> __device__ __forceinline__ T chunk_value(const T* geom, int g, int groups, int s_total, int x) {
+  const int k = (g * kStepSplit + x / (4 * kStepChunk)) * kStepChunk + (x / 4) % kStepChunk;
+  return g < groups && k < s_total ? __ldg(geom + 4 * k + x % 4) : T(0);
+}
+
+template <typename T, bool kXi, bool kAtlas>
+__global__ void __launch_bounds__(kStepThreads)
     smooth_bwd_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
                     const T* __restrict__ alive, const int* __restrict__ idx, const T* __restrict__ hit,
                     const T* __restrict__ clear, const T* __restrict__ geom, const T* __restrict__ mat,
@@ -415,10 +483,36 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ g_alive_in, const T* __restrict__ g_acc_in,
                     const T* __restrict__ g_dww_in, T* __restrict__ g_o_out,
                     T* __restrict__ g_d_out, T* __restrict__ g_thr_out, T* __restrict__ g_alive_out,
-                    T* __restrict__ parts, int n, int n_cols, Scal<T> sc) {
-  const Tables<T, kStaged> tb = stage_tables<T, kStaged>(geom, cst, sc.s_total);
+                    T* __restrict__ pg, T* __restrict__ pm, T* __restrict__ pc, int n, int rows, Scal<T> sc) {
+  // Only the consts row is staged whole: Phase C, the one reader of the
+  // geometry, takes it a group of chunks at a time (chunks below).
+  const Tables<T, false> tb = stage_tables<T, false>(geom, cst, sc.s_total);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const scratch = reinterpret_cast<T*>(smem_raw) + kNConst;
+  T* const chunks = scratch + kStepScratch;  // two buffers of kStepThreads values
+  const int x = threadIdx.x, lane = x % kWarp, warp = x / kWarp;
+  const int rws = warp / kStepSplit, slice = warp % kStepSplit;  // ray-warp slot, sphere slice
   const long long N = n;
-  for_ray_warps(parts, n, n_cols, [&](const Partials<T>& part, long long i) {
+  const int S = sc.s_total;
+  T* const row_g = pg + static_cast<long long>(blockIdx.x) * S * 4;
+  T* const row_m = pm + static_cast<long long>(blockIdx.x) * S * kStepMat;
+  T* const row_c = pc + static_cast<long long>(blockIdx.x) * kNConst;
+  const int n_ray_warps = ray_warps(n);
+  const int rounds = (n_ray_warps + rows * kStepRayWarps - 1) / (rows * kStepRayWarps);
+  const int groups = ((S + kStepChunk - 1) / kStepChunk + kStepSplit - 1) / kStepSplit;
+  T g_consts[kAdjConsts];
+  for (int c = 0; c < kAdjConsts; ++c) g_consts[c] = T(0);
+
+  for (int r = 0; r < rounds; ++r) {  // uniform over the CTA
+    // Phase C's slots start at zero (the flushes keep them so; the phases
+    // after Phase C reuse the scratch).
+    for (int v = x; v < 2 * kStepRed; v += kStepThreads) scratch[v] = T(0);
+    chunks[x] = chunk_value(geom, 0, groups, S, x);
+    __syncthreads();
+    const long long rw = (static_cast<long long>(r) * rows + blockIdx.x) * kStepRayWarps + rws;
+    const long long gi = rw * kWarp + lane;
+    const bool valid = gi < n;
+    const long long i = valid ? gi : N - 1;  // past the edge: a copy of the last ray, adding zero
     const V3<T> ro = {o[i], o[N + i], o[2 * N + i]};
     const V3<T> rd = {d[i], d[N + i], d[2 * N + i]};
     T xi1, xi2;
@@ -429,21 +523,208 @@ __global__ void __launch_bounds__(kThreads)
     f.clear = clear[i];
     fwd_bounce<T, kXi, Winner::kSaved, kAtlas>(f, ro, rd, thr[i], alive[i], tb.geom, mat, tb.cst, sc, AllSpheres{},
                                                xi1, xi2);
-    V3<T> g_o = {g_o_in[i], g_o_in[N + i], g_o_in[2 * N + i]};
-    V3<T> g_d = {g_d_in[i], g_d_in[N + i], g_d_in[2 * N + i]};
-    T g_thr = g_thr_in[i], g_alive = g_alive_in[i];
-    const V3<T> g_acc = {g_acc_in[i], g_acc_in[N + i], g_acc_in[2 * N + i]};
-    const T g_dww = kAtlas ? g_dww_in[i] : T(0);
-    adjoint_bounce<T, kXi, kAtlas>(f, g_o, g_d, g_thr, g_alive, g_acc, tb.geom, tb.cst, sc, AllSpheres{}, part, g_dww);
-    if (part.valid) {
-      for (int c = 0; c < 3; ++c) {
-        g_o_out[c * N + i] = g_o[c];
-        g_d_out[c * N + i] = g_d[c];
+    AdjShade<T> a = adjoint_shade<T, kXi, kAtlas>(f, V3<T>{g_d_in[i], g_d_in[N + i], g_d_in[2 * N + i]},
+                                                  g_thr_in[i], g_alive_in[i],
+                                                  V3<T>{g_acc_in[i], g_acc_in[N + i], g_acc_in[2 * N + i]}, tb.cst,
+                                                  sc, kAtlas ? g_dww_in[i] : T(0));
+
+    // --- Phase C over this warp's slice, chunk by chunk ---
+    const T g_cc = a.g_clear * f.clear;
+    V3<T> g_pn_s = {T(0), T(0), T(0)};
+    V3<T> g_L = slice == 0 ? a.g_L : V3<T>{T(0), T(0), T(0)};
+    int buf = 0;
+    for (int g = 0; g < groups; ++g) {
+      const int k0 = (g * kStepSplit + slice) * kStepChunk;
+      const int k1 = min(k0 + kStepChunk, S);
+      const T next = chunk_value(geom, g + 1, groups, S, x);  // the next group's, read while this one runs
+      const ChunkGeom<T> cg{chunks + buf * kStepThreads + slice * kStepChunk * 4, k0};
+      T* red = scratch + buf * kStepRed;
+      // The spheres [ka, kb) of one tier (kExact, known when compiled),
+      // kStepTests at a time under one vote; a sphere that reaches no valid
+      // lane of the warp is passed (its terms are all exactly +-0, which
+      // leave every sum as it is), the others take Phase C in sphere order.
+      // The test is shadow_reaches' without a branch where the answer is
+      // sure: below the sigmoid's zero edge (SigEdge lo) the sphere is
+      // passed, above it (hi) it reaches; only where a lane sits on the edge
+      // (or at a NaN) does the sigmoid decide, under a vote of the warp.
+      auto spheres = [&](auto exact, int ka, int kb) {
+        for (int k = ka; k < kb; k += kStepTests) {
+          T xs[kStepTests];
+          unsigned reach = 0;  // bit j: sphere k + j reaches the lane
+          bool edge = false;
+#pragma unroll
+          for (int j = 0; j < kStepTests; ++j) {
+            const int kk = min(k + j, kb - 1);
+            xs[j] = shadow_arg<decltype(exact)::value>(kk, f.p_n, f.L, cg, sc);
+            const bool maybe = valid & (k + j < kb) & (f.idx != kk) & !(xs[j] < SigEdge<T>::lo);
+            edge |= maybe & !(xs[j] > SigEdge<T>::hi);
+            reach |= static_cast<unsigned>(maybe) << j;
+          }
+          if (__any_sync(0xffffffffu, edge)) {
+#pragma unroll
+            for (int j = 0; j < kStepTests; ++j) {
+              if ((reach >> j & 1u) && !(xs[j] > SigEdge<T>::hi) && sig(xs[j]) == T(0)) reach &= ~(1u << j);
+            }
+          }
+          if (!__any_sync(0xffffffffu, reach != 0)) continue;
+          for (int j = 0; j < kStepTests && k + j < kb; ++j) {
+            if (!__any_sync(0xffffffffu, reach >> j & 1u)) continue;
+            T gk[4];
+            shadow_adjoint(k + j, f.p_n, f.L, f.idx, g_cc, cg, sc, g_pn_s, g_L, gk);
+            for (int c = 0; c < 4; ++c) {
+              const T s = warp_sum(valid ? gk[c] : T(0));
+              if (lane == 0) red[((slice * kStepChunk + (k + j - k0)) * kStepRayWarps + rws) * 4 + c] = s;
+            }
+          }
+        }
+      };
+      spheres(std::false_type{}, k0, min(k1, sc.s_cheap));
+      spheres(std::true_type{}, max(k0, sc.s_cheap), k1);
+      chunks[(buf ^ 1) * kStepThreads + x] = next;  // the buffer the previous group read
+      __syncthreads();
+      // Thread x finishes value x % 4 of slot (x / 4) % kStepChunk of the
+      // group's chunk x / (4 kStepChunk), and clears the slots it read.
+      const int sl = x / (4 * kStepChunk), e = (x / 4) % kStepChunk, c = x % 4;
+      const int k = (g * kStepSplit + sl) * kStepChunk + e;
+      if (k < S) {
+        T* slots = red + ((sl * kStepChunk + e) * kStepRayWarps) * 4 + c;
+        T v = slots[0];
+        slots[0] = T(0);
+        for (int w = 1; w < kStepRayWarps; ++w) {
+          v += slots[4 * w];
+          slots[4 * w] = T(0);
+        }
+        T& out = row_g[4 * static_cast<long long>(k) + c];
+        out = r == 0 ? v : out + v;
       }
-      g_thr_out[i] = g_thr;
-      g_alive_out[i] = g_alive;
+      buf ^= 1;
     }
-  });
+    __syncthreads();  // the last flush's reads of the scratch before its next use
+    if (kStepSplit > 1) {  // the slices' sums, added in slice order
+      T* mine = scratch + (rws * kStepSplit + slice) * 6 * kWarp + lane;
+      for (int c = 0; c < 3; ++c) {
+        mine[c * kWarp] = g_pn_s[c];
+        mine[(3 + c) * kWarp] = g_L[c];
+      }
+      __syncthreads();
+      if (slice == 0) {
+        for (int s = 1; s < kStepSplit; ++s) {
+          const T* other = scratch + (rws * kStepSplit + s) * 6 * kWarp + lane;
+          for (int c = 0; c < 3; ++c) {
+            g_pn_s[c] = g_pn_s[c] + other[c * kWarp];
+            g_L[c] = g_L[c] + other[(3 + c) * kWarp];
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // --- Phases D-G on the slice-0 warps ---
+    T rows_f[kAdjMat];
+    int key = -1;  // the lane's winner, -1 where it adds nothing
+    if (slice == 0) {
+      a.g_L = g_L;
+      V3<T> g_o = {g_o_in[i], g_o_in[N + i], g_o_in[2 * N + i]};
+      V3<T> g_d = {g_d_in[i], g_d_in[N + i], g_d_in[2 * N + i]};
+      T consts[kAdjConsts];
+      adjoint_geometry(f, a, g_pn_s, g_o, g_d, rows_f, consts);
+      if (valid) {
+        for (int c = 0; c < 3; ++c) {
+          g_o_out[c * N + i] = g_o[c];
+          g_d_out[c * N + i] = g_d[c];
+        }
+        g_thr_out[i] = a.g_thr_in;
+        g_alive_out[i] = a.g_alive_in;
+        for (int c = 0; c < kAdjConsts; ++c) g_consts[c] += consts[c];
+        key = f.idx;
+      }
+    }
+    // Phase F: each distinct winner of a warp once, at its lowest lane.
+    T sum[kStepMat];
+    bool leader = false;
+    if (slice == 0) {
+      const unsigned peers = __match_any_sync(0xffffffffu, key);
+      leader = key >= 0 && __ffs(peers) - 1 == lane;
+      T* ex = scratch + rws * (kStepMat * kWarp);
+      for (int c = 0; c < kStepMat; ++c) ex[c * kWarp + lane] = rows_f[c];
+      __syncwarp();
+      if (leader) {
+        for (int c = 0; c < kStepMat; ++c) sum[c] = T(0);
+        for (unsigned m = peers; m != 0; m &= m - 1) {
+          const int p = __ffs(m) - 1;
+          for (int c = 0; c < kStepMat; ++c) sum[c] += ex[c * kWarp + p];
+        }
+      }
+    }
+    for (int t = 0; t < kStepRayWarps; ++t) {  // the ray-warps in turn: one writer a slot
+      if (t == rws && leader) {
+        T* rm = row_m + static_cast<long long>(kStepMat) * key;
+        for (int c = 0; c < kStepMat; ++c) rm[c] += sum[c];
+      }
+      __syncthreads();
+    }
+  }
+
+  // Phase G: the CTA's sums of the scene constants, warps in order (the
+  // slice-0 warps hold them; the others add zeros).
+  for (int c = 0; c < kAdjConsts; ++c) {
+    const T s = warp_sum(g_consts[c]);
+    if (lane == 0) scratch[warp * kAdjConsts + c] = s;
+  }
+  __syncthreads();
+  if (x < kNConst) {
+    T v = T(0);
+    if (x < kAdjConsts) {
+      v = scratch[x];
+      for (int w = 1; w < kStepRayWarps * kStepSplit; ++w) v += scratch[w * kAdjConsts + x];
+    }
+    row_c[x] = v;
+  }
+}
+
+// smooth_bwd_step's second pass, a fixed order: block k < S sums sphere k's
+// geometry values over the rows, block S + k its material values, block 2S
+// the constants; each thread strides over the rows, then a shared-memory
+// tree.  out: geom (S, 4), mat (S, 19) (columns past TFI zero), consts 16.
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_rows(const T* __restrict__ pg, const T* __restrict__ pm, const T* __restrict__ pc, T* __restrict__ out,
+                int rows, int s_total) {
+  __shared__ T red[kNConst][kReduceThreads];
+  const int b = blockIdx.x;
+  const long long S = s_total;
+  int n_vals;
+  const T* base;
+  long long stride;
+  if (b < s_total) {
+    n_vals = 4, base = pg + 4 * static_cast<long long>(b), stride = 4 * S;
+  } else if (b < 2 * s_total) {
+    n_vals = kStepMat, base = pm + static_cast<long long>(kStepMat) * (b - s_total), stride = kStepMat * S;
+  } else {
+    n_vals = kNConst, base = pc, stride = kNConst;
+  }
+  T acc[kNConst];
+  for (int c = 0; c < kNConst; ++c) acc[c] = T(0);
+  for (int r = threadIdx.x; r < rows; r += kReduceThreads) {
+    for (int c = 0; c < n_vals; ++c) acc[c] += base[r * stride + c];
+  }
+  for (int c = 0; c < n_vals; ++c) red[c][threadIdx.x] = acc[c];
+  __syncthreads();
+  for (int st = kReduceThreads / 2; st > 0; st >>= 1) {
+    if (threadIdx.x < st) {
+      for (int c = 0; c < n_vals; ++c) red[c][threadIdx.x] += red[c][threadIdx.x + st];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  if (b < s_total) {
+    for (int c = 0; c < 4; ++c) out[4 * b + c] = red[c][0];
+  } else if (b < 2 * s_total) {
+    T* row = out + 4 * S + static_cast<long long>(kMatCols) * (b - s_total);
+    for (int c = 0; c < kMatCols; ++c) row[c] = c < kStepMat ? red[c][0] : T(0);
+  } else {
+    for (int c = 0; c < kNConst; ++c) out[(4 + kMatCols) * S + c] = red[c][0];
+  }
 }
 
 // Second pass: each block sums one value's row of column partials, in a
@@ -589,21 +870,44 @@ int launch_fwd_step(const T* o, const T* d, const T* thr, const T* alive, const 
                             hit, clear, flat, dww, n, sc);
 }
 
+// smooth_bwd_step's dynamic shared memory: the consts row, its scratch and
+// the two geometry buffers.
+template <typename T> int step_smem_bytes() {
+  return static_cast<int>(sizeof(T)) * (kNConst + kStepScratch + 2 * kStepThreads);
+}
+
+// smooth_bwd_step's rows (CTAs): 1 to ceil(ray-warps / kStepRayWarps), at
+// most kStepMaxRows.
+bool bad_rows(int n, int rows) {
+  return rows < 1 || rows > kStepMaxRows || rows > (ray_warps(n) + kStepRayWarps - 1) / kStepRayWarps;
+}
+
+template <typename T, bool kXi, bool kAtlas, typename... A> int launch_step(int rows, cudaStream_t stream, A... args) {
+  smooth_bwd_step<T, kXi, kAtlas><<<rows, kStepThreads, step_smem_bytes<T>(), stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_bwd_step(const T* o, const T* d, const T* thr, const T* alive, const int* idx, const T* hit,
                     const T* clear, const T* geom, const T* mat, const T* cst, const T* xi, const T* g_o,
                     const T* g_d, const T* g_thr, const T* g_alive, const T* g_acc, const T* g_dww, T* g_o_out,
-                    T* g_d_out, T* g_thr_out, T* g_alive_out, T* parts, T* flat, int n, int n_cols, int s_cheap,
-                    int s_total, T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w, void* stream) {
-  if (bad_args(n, s_cheap, s_total, 1) || bad_cols(n, n_cols) || bad_atlas(g_dww, g_dww, tex_h, tex_w)) {
+                    T* g_d_out, T* g_thr_out, T* g_alive_out, T* pg, T* pm, T* pc, T* flat, int n, int rows,
+                    int s_cheap, int s_total, T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w, void* stream) {
+  if (bad_args(n, s_cheap, s_total, 1) || bad_rows(n, rows) || bad_atlas(g_dww, g_dww, tex_h, tex_w)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = PRT_DISPATCH_ATLAS(smooth_bwd_step, T, g_dww, col_blocks(n_cols), s_total, st, o, d, thr, alive,
-                                     idx, hit, clear, geom, mat, cst, xi, g_o, g_d, g_thr, g_alive, g_acc, g_dww,
-                                     g_o_out, g_d_out, g_thr_out, g_alive_out, parts, n, n_cols, sc);
-  return launch_reduce(err, parts, flat, n_cols, s_total, st);
+#define PRT_STEP(XI, ATLAS)                                                                                     \
+  launch_step<T, XI, ATLAS>(rows, st, o, d, thr, alive, idx, hit, clear, geom, mat, cst, xi, g_o, g_d, \
+                            g_thr, g_alive, g_acc, g_dww, g_o_out, g_d_out, g_thr_out, g_alive_out, pg, pm, pc, n, \
+                            rows, sc)
+  const int err = xi ? (g_dww ? PRT_STEP(true, true) : PRT_STEP(true, false))
+                     : (g_dww ? PRT_STEP(false, true) : PRT_STEP(false, false));
+#undef PRT_STEP
+  if (err != 0) return err;
+  reduce_rows<T><<<2 * s_total + 1, kReduceThreads, 0, st>>>(pg, pm, pc, flat, rows, s_total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #undef PRT_DISPATCH
@@ -619,6 +923,13 @@ template <typename T, bool kStaged, typename... P> int blocks_per_sm(void (*kern
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+template <typename T, typename... P> int step_blocks_per_sm(void (*kernel)(P...)) {
+  const int smem = step_smem_bytes<T>();
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kStepThreads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 template <typename T, bool kXi> int occupancy_xi(int which, int s_total) {
   const bool is_staged = staged<T>(s_total);
 #define PRT_OCC(KERNEL) \
@@ -631,7 +942,8 @@ template <typename T, bool kXi> int occupancy_xi(int which, int s_total) {
     case 1: return PRT_OCC4(smooth_bwd_deep);
     case 2: return PRT_OCC(train_deep);
     case 3: return PRT_OCC4(smooth_fwd_step);
-    case 4: return PRT_OCC4(smooth_bwd_step);
+    case 4:
+      return step_blocks_per_sm<T>(smooth_bwd_step<T, kXi, false>);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PRT_OCC
@@ -687,12 +999,13 @@ extern "C" {
                                    const T* hit, const T* clear, const T* geom, const T* mat, const T* cst,    \
                                    const T* xi, const T* g_o, const T* g_d, const T* g_thr,                    \
                                    const T* g_alive, const T* g_acc, const T* g_dww, T* g_o_out, T* g_d_out,   \
-                                   T* g_thr_out, T* g_alive_out, T* parts, T* flat, int n, int n_cols,         \
-                                   int s_cheap, int s_total, T faraway, T sharp_e, T sharp_s, int tex_h,       \
-                                   int tex_w, void* stream) {                                                  \
+                                   T* g_thr_out, T* g_alive_out, T* pg, T* pm, T* pc, T* flat, int n,          \
+                                   int rows, int s_cheap, int s_total, T faraway, T sharp_e, T sharp_s,        \
+                                   int tex_h, int tex_w, void* stream) {                                       \
     return launch_bwd_step<T>(o, d, thr, alive, idx, hit, clear, geom, mat, cst, xi, g_o, g_d, g_thr,         \
-                              g_alive, g_acc, g_dww, g_o_out, g_d_out, g_thr_out, g_alive_out, parts, flat, n, \
-                              n_cols, s_cheap, s_total, faraway, sharp_e, sharp_s, tex_h, tex_w, stream);      \
+                              g_alive, g_acc, g_dww, g_o_out, g_d_out, g_thr_out, g_alive_out, pg, pm, pc,     \
+                              flat, n, rows, s_cheap, s_total, faraway, sharp_e, sharp_s, tex_h, tex_w,        \
+                              stream);                                                                         \
   }                                                                                                            \
   int prt_smooth_blocks_per_sm_##SUFFIX(int which, int glossy, int s_total) {                                  \
     return glossy ? occupancy_xi<T, true>(which, s_total) : occupancy_xi<T, false>(which, s_total);           \

@@ -229,11 +229,6 @@ template <typename T> int bwd_smem(int s_total) {
          + kBwdBatch * kBwdThreads * static_cast<int>(sizeof(int));
 }
 
-template <typename T> __device__ __forceinline__ T warp_sum(T x) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // Slot of sphere k among a tile's candidates (ascending ids), or -1.
 __device__ __forceinline__ int find_slot(const TileList& list, int k) {
   int lo = 0, hi = list.nc;

@@ -46,12 +46,40 @@ constexpr double kNegBig = -3.0e38;  // max-disc fallback sentinel
 __device__ __forceinline__ float m_exp(float x) { return expf(x); }
 __device__ __forceinline__ double m_exp(double x) { return exp(x); }
 
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The warp's sum of x, a shuffle tree: lane 0 holds it (every lane takes
+// part).
+template <typename T> __device__ __forceinline__ T warp_sum(T x) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+  return x;
+}
+
 template <typename T> __device__ __forceinline__ T split_factor();
 template <> __device__ __forceinline__ float split_factor<float>() { return 4097.0f; }
 template <> __device__ __forceinline__ double split_factor<double>() { return 134217729.0; }
 
 template <typename T> __device__ __forceinline__ T sgn(T x) { return T((T(0) < x) - (x < T(0))); }
 template <typename T> __device__ __forceinline__ T sig(T x) { return T(1) / (T(1) + m_exp(-x)); }
+
+// Is sig(x) exactly 0?  It is where exp(-x) overflows to inf, and nowhere
+// else (1 / (1 + exp(-x)) of a finite exp is at least a denormal, which is
+// kept).  exp overflows past 88.72 in f32 and 709.78 in f64; away from that
+// edge, farther than any ulp error of exp reaches, the answer needs no exp.
+// Near the edge, and for NaN, sig itself decides: the same answer as
+// sig(x) == 0 for every x, without the exp and the division on most.
+template <typename T> struct SigEdge;
+template <> struct SigEdge<float> {
+  static constexpr float lo = -89.0f, hi = -88.0f;
+};
+template <> struct SigEdge<double> {
+  static constexpr double lo = -710.0, hi = -709.0;
+};
+template <typename T> __device__ __forceinline__ bool sig_is_zero(T x) {
+  if (x < SigEdge<T>::lo) return true;
+  if (x > SigEdge<T>::hi) return false;
+  return sig(x) == T(0);
+}
 
 template <typename T> __device__ __forceinline__ T pow4(T x) {
   const T x2 = x * x;
@@ -698,17 +726,33 @@ __device__ __forceinline__ void shadow_adjoint(int k, const V3<T>& p_n, const V3
 // sigmoid sig(sharp_s * disc) is exactly 0 (the culled route's f32 case):
 // every one of shadow_adjoint's terms then carries that 0 as a factor and is
 // exactly +-0.  disc is the one sphere_quad computes.
+// The argument sharp_s * disc of sphere k's shadow sigmoid for the ray
+// (p_n, L), disc in the sphere's tier (kExact, known when compiled: a loop
+// over one tier then runs only that tier's quadratic).
+template <bool kExact, typename T, typename G>
+__device__ __forceinline__ T shadow_arg(int k, const V3<T>& p_n, const V3<T>& L, const G& geom, const Scal<T>& sc) {
+  const V3<T> c = {geom[4 * k], geom[4 * k + 1], geom[4 * k + 2]};
+  T b, ct;
+  if constexpr (kExact) {
+    b_cterm_exact(p_n, L, c, geom[4 * k + 3], b, ct);
+  } else {
+    b_cterm_plain(p_n, L, c, geom[4 * k + 3], b, ct);
+  }
+  return sc.sharp_s * (b * b - T(4) * ct);
+}
+
+// shadow_reaches with the sphere's tier known when compiled.
+template <bool kExact, typename T, typename G>
+__device__ __forceinline__ bool shadow_reaches_in(int k, const V3<T>& p_n, const V3<T>& L, int idx, const G& geom,
+                                                  const Scal<T>& sc) {
+  return idx != k && !sig_is_zero(shadow_arg<kExact>(k, p_n, L, geom, sc));
+}
+
 template <typename T, typename G>
 __device__ __forceinline__ bool shadow_reaches(int k, const V3<T>& p_n, const V3<T>& L, int idx, const G& geom,
                                                const Scal<T>& sc) {
-  const V3<T> c = {geom[4 * k], geom[4 * k + 1], geom[4 * k + 2]};
-  T b, ct;
-  if (k < sc.s_cheap) {
-    b_cterm_plain(p_n, L, c, geom[4 * k + 3], b, ct);
-  } else {
-    b_cterm_exact(p_n, L, c, geom[4 * k + 3], b, ct);
-  }
-  return idx != k && sig(sc.sharp_s * (b * b - T(4) * ct)) != T(0);
+  return k < sc.s_cheap ? shadow_reaches_in<false>(k, p_n, L, idx, geom, sc)
+                        : shadow_reaches_in<true>(k, p_n, L, idx, geom, sc);
 }
 
 // Phases D (p_n, L, V unit-vector transposes) and E (normal, p, winner

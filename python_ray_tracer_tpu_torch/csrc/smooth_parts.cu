@@ -33,6 +33,9 @@
 // warps in a fixed order through shared memory, a chunk of spheres at a
 // time) into one partial row per block, and reduce_parts sums the blocks'
 // rows in a fixed order: no float atomics, two launches agree bit for bit.
+// A warp passes a sphere that reaches none of its rays (the ray's own, or
+// a shadow sigmoid of exactly 0): no second sigmoid, no branch adjoint, no
+// warp sums there, its slot +0; about 0.1% of warp-sphere pairs reach.
 //
 // What bounds them on this card: per ray and sphere ~30 operations
 // (smooth_nearest_parts), ~45 with two sigmoids (clear_fwd) and ~110 with
@@ -144,11 +147,6 @@ __global__ void __launch_bounds__(kThreads)
   clear_out[i] = clear;
 }
 
-template <typename T> __device__ __forceinline__ T warp_sum(T x) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // parts: (4 * s_total, n_blocks), the block sums of each sphere's
 // (g_cx, g_cy, g_cz, g_r), value-major.
 template <typename T, bool kStaged>
@@ -176,6 +174,24 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 < s_total; k0 += kChunk) {
     const int k1 = min(k0 + kChunk, s_total);
     for (int k = k0; k < k1; ++k) {
+      // A sphere that reaches no valid lane of the warp (the lane's own, or
+      // a shadow sigmoid sig(k disc) of exactly 0, disc in the sphere's
+      // tier): every term it has there is exactly +-0, so the warp passes
+      // it and its slot reads +0.
+      const V3<T> c = {g[4 * k], g[4 * k + 1], g[4 * k + 2]};
+      T bt, ctt;
+      if (k < s_cheap) {
+        b_cterm_plain(ro, rd, c, g[4 * k + 3], bt, ctt);
+      } else {
+        b_cterm_exact(ro, rd, c, g[4 * k + 3], bt, ctt);
+      }
+      const bool reached = valid && k != self && !sig_is_zero(sharpness * (bt * bt - T(4) * ctt));
+      if (!__any_sync(0xffffffffu, reached)) {
+        if (lane == 0) {
+          for (int v = 0; v < 4; ++v) red[(warp * kChunk + (k - k0)) * 4 + v] = T(0);
+        }
+        continue;
+      }
       T sol, disc, t, b, ct;
       V3<T> oc;
       sphere_parts(k, s_cheap, ro, rd, g, faraway, sol, disc, t, b, ct, oc);
@@ -327,11 +343,22 @@ int launch_clear_bwd(const T* o, const T* d, const T* geom, const int* self_idx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Resident blocks per SM of the clear_bwd instantiation a launch for
+// s_total spheres takes (staged or global geometry), at its shared bytes.
+template <typename T> int clear_bwd_blocks_per_sm(int s_total) {
+  const long long red_bytes = static_cast<long long>(sizeof(T)) * kWarps * kChunk * 4;
+  const long long geom_bytes = static_cast<long long>(sizeof(T)) * 4 * s_total;
+  return staged(clear_bwd<T, true>, clear_bwd<T, false>, s_total, sizeof(T), red_bytes)
+             ? resident_blocks(clear_bwd<T, true>, geom_bytes + red_bytes)
+             : resident_blocks(clear_bwd<T, false>, red_bytes);
+}
+
 }  // namespace
 
 // Plain C entries, bound with ctypes (ops/smooth_parts.py _SIGNATURES).
 // Each launches on the given stream, does not synchronise, and returns
-// cudaGetLastError() so the caller can raise on a refused launch.
+// cudaGetLastError() so the caller can raise on a refused launch;
+// prt_clear_bwd_blocks_per_sm_* reports clear_bwd's resident blocks per SM.
 extern "C" {
 
 #define PRT_PARTS_ENTRIES(T, SUFFIX)                                                                               \
@@ -354,6 +381,9 @@ extern "C" {
 
 PRT_PARTS_ENTRIES(float, f32)
 PRT_PARTS_ENTRIES(double, f64)
+
+int prt_clear_bwd_blocks_per_sm_f32(int s_total) { return clear_bwd_blocks_per_sm<float>(s_total); }
+int prt_clear_bwd_blocks_per_sm_f64(int s_total) { return clear_bwd_blocks_per_sm<double>(s_total); }
 
 #undef PRT_PARTS_ENTRIES
 

@@ -20,9 +20,13 @@ of :func:`..camera.ray_directions_t`:
 None has a sphere cap: the geometry table sits in shared memory up to
 64 KB (4096 spheres in f32, 2048 in f64) and is read from global memory
 past that, the winner's material row is read from global memory, and the
-table-gradient partials of the three gradient kernels take ``(23 S + 17)
-* min(ceil(N / 32), PARTIAL_COLS)`` values (:func:`partials_bytes`)
-whatever the frame.  Above
+table-gradient partials take ``(23 S + 17) * min(ceil(N / 32),
+PARTIAL_COLS)`` values in ``smooth_bwd_deep`` and ``train_deep``
+(:func:`partials_bytes`) and ``(19 S + 16)`` a row, one row a CTA of
+``STEP_RAY_WARPS`` ray-warps, in ``smooth_bwd_step``
+(:func:`step_rows_bytes`), whatever the frame.  ``smooth_bwd_step``'s warps
+pass the shadow spheres that reach none of their rays
+(:func:`shadow_terms`: those terms are exactly +-0).  Above
 4096 spheres, where the JAX package runs its lane pair
 (:func:`python_ray_tracer_tpu.ops.pallas_bounce_smooth.trace_fused_smooth`),
 the renderer takes ``smooth_fwd_step``/``smooth_bwd_step`` once per bounce.
@@ -81,6 +85,17 @@ from .vecmath import ipow, sqrt
 # c.  A constant, not the card's occupancy: 2048 left 960x540 frames 512
 # blocks, 1.3 waves on an H100 (PERF.md, Findings).
 PARTIAL_COLS = 4096
+
+# smooth_bwd_step's layout (csrc/bounce_smooth_sub.cu kStep*): a CTA of
+# STEP_RAY_WARPS ray-warps, each over STEP_SPLIT warps that split its
+# spheres, owns one row of table gradients; at most STEP_MAX_ROWS CTAs walk
+# the ray-warps in rounds (one round up to 960x540: 1024 rows, four rounds,
+# ran the 3-sphere case 13% slower on an H100; PERF.md, Findings).
+STEP_RAY_WARPS = 4
+STEP_SPLIT = 1
+STEP_THREADS = STEP_RAY_WARPS * STEP_SPLIT * 32
+STEP_MAX_ROWS = 4096
+STEP_MAT = 15  # material columns CX..TFI that take gradients
 
 # train_deep keeps each bounce's replay state in a per-thread array of this
 # many entries (csrc/bounce_smooth_sub.cu kMaxTrainDepth); deeper L2 losses
@@ -367,6 +382,37 @@ def _ggx_adjoint(f, d, g_dout):
     return g_refl, g_d_p, g_n_p, g_A_pert
 
 
+def shadow_terms(f, k, c, r, fn, g_cc, faraway, active=None):
+    """Phase C's terms of one shadow sphere (center ``c``, radius ``r``,
+    tier ``fn``, index ``k``) on every lane: what it adds to g_pn_s, as
+    ``2 L g_b`` then ``2 oc g_ct`` (3 each), to g_L (``2 oc g_b``, 3), and
+    its table row (4) before the sum over lanes.  ``g_cc`` is the lanes'
+    ``g_clear * clear``; ``active`` masks a culled list's slots past a lane's
+    list.  Where the sphere is the lane's winner, or its shadow sigmoid
+    ``sig(sharp_s * disc)`` is exactly 0, every term is exactly +-0: the
+    kernels' warps pass such spheres (``shadow_reaches``)."""
+    zero = torch.zeros_like(g_cc)
+    sol, disc, _, b, ct = fn(f.p_n, f.L, c, r, faraway)
+    sd = sig(f.sharp_s * disc)
+    ss = sig(f.sharp_s * sol)
+    occl = sd * ss
+    is_self = f.idx == k
+    fac = torch.where(is_self, torch.ones_like(occl), 1.0 - occl)
+    g_fac = g_cc / torch.clamp_min(fac, EPS_DEN)
+    g_occl = torch.where(is_self, zero, -g_fac)
+    g_disc_j = g_occl * ss * sd * (1.0 - sd) * f.sharp_s
+    g_sol_j = g_occl * sd * ss * (1.0 - ss) * f.sharp_s
+    g_b, g_ct = sol_disc_adjoint(b, ct, g_sol_j, g_disc_j)
+    if active is not None:  # a slot past the lane's list: no contribution
+        g_b, g_ct = torch.where(active, g_b, zero), torch.where(active, g_ct, zero)
+    oc = tuple(f.p_n[i] - c[i] for i in range(3))
+    row = [-2.0 * f.L[i] * g_b - 2.0 * oc[i] * g_ct for i in range(3)] + [-2.0 * r * g_ct]
+    pn_b = [2.0 * f.L[i] * g_b for i in range(3)]
+    pn_ct = [2.0 * oc[i] * g_ct for i in range(3)]
+    l_b = [2.0 * oc[i] * g_b for i in range(3)]
+    return pn_b, pn_ct, l_b, row
+
+
 def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap):
     """One bounce's handwritten adjoint (``_adjoint_bounce``, Phases A-G).
 
@@ -518,25 +564,12 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
 
     # --- Phase C: shadow-product adjoint, one sphere at a time ---
     g_pn_s = [zero, zero, zero]
+    g_cc = g_clear * f.clear
     for k, c, r, fn, active in shadow_spheres(geom, s_cheap, f.cand_sh, zero.shape[0]):
-        sol, disc, _, b, ct = fn(f.p_n, f.L, c, r, faraway)
-        sd = sig(f.sharp_s * disc)
-        ss = sig(f.sharp_s * sol)
-        occl = sd * ss
-        is_self = f.idx == k
-        fac = torch.where(is_self, torch.ones_like(occl), 1.0 - occl)
-        g_fac = g_clear * f.clear / torch.clamp_min(fac, EPS_DEN)
-        g_occl = torch.where(is_self, zero, -g_fac)
-        g_disc_j = g_occl * ss * sd * (1.0 - sd) * f.sharp_s
-        g_sol_j = g_occl * sd * ss * (1.0 - ss) * f.sharp_s
-        g_b, g_ct = sol_disc_adjoint(b, ct, g_sol_j, g_disc_j)
-        if active is not None:  # a slot past the lane's list: no contribution
-            g_b, g_ct = torch.where(active, g_b, zero), torch.where(active, g_ct, zero)
-        oc = tuple(f.p_n[i] - c[i] for i in range(3))
-        row = [-2.0 * f.L[i] * g_b - 2.0 * oc[i] * g_ct for i in range(3)] + [-2.0 * r * g_ct]
+        pn_b, pn_ct, l_b, row = shadow_terms(f, k, c, r, fn, g_cc, faraway, active)
         for i in range(3):
-            g_pn_s[i] = g_pn_s[i] + 2.0 * f.L[i] * g_b + 2.0 * oc[i] * g_ct
-            g_L_acc[i] = g_L_acc[i] + 2.0 * oc[i] * g_b
+            g_pn_s[i] = g_pn_s[i] + pn_b[i] + pn_ct[i]
+            g_L_acc[i] = g_L_acc[i] + l_b[i]
         if isinstance(k, int):
             for i in range(4):
                 ggeom[k, i] += torch.sum(row[i])
@@ -839,9 +872,9 @@ _SIGNATURES = {
     "smooth_fwd_step": "ppppp" "pppp" "ppppp" "ppp" "pp" "iii" "rrr" "ii",
     # o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi, cotangents
     # g_o, g_d, g_thr, g_alive, g_acc, g_dww, the four input cotangents,
-    # partials, table grads; n, n_cols, s_cheap, s_total; faraway, sharp_e,
-    # sharp_s; tex_h, tex_w
-    "smooth_bwd_step": "ppppppp" "pppp" "pppppp" "pppp" "pp" "iiii" "rrr" "ii",
+    # the rows' geometry, material and constants, table grads; n, rows,
+    # s_cheap, s_total; faraway, sharp_e, sharp_s; tex_h, tex_w
+    "smooth_bwd_step": "ppppppp" "pppp" "pppppp" "pppp" "pppp" "iiii" "rrr" "ii",
 }
 
 # Per-column partial sums of the table gradients: 4 + 19 values per
@@ -858,9 +891,26 @@ def _n_cols(n: int) -> int:
 
 
 def partials_bytes(n: int, s: int, dtype: torch.dtype) -> int:
-    """Bytes of the partials a gradient kernel takes for ``n`` rays and ``s``
-    spheres: ``(23 s + 17) * min(ceil(n / 32), PARTIAL_COLS)`` values."""
+    """Bytes of the partials smooth_bwd_deep and train_deep take for ``n``
+    rays and ``s`` spheres: ``(23 s + 17) * min(ceil(n / 32), PARTIAL_COLS)``
+    values."""
     return _n_vals(s) * _n_cols(n) * torch.empty((), dtype=dtype).element_size()
+
+
+def step_rows(n: int) -> int:
+    """smooth_bwd_step's rows for ``n`` rays: one a CTA, ``min(ceil(ceil(n /
+    32) / STEP_RAY_WARPS), STEP_MAX_ROWS)``."""
+    if n < 1:
+        raise ValueError("no rays to trace")
+    ray_warps = -(-n // _WARP)
+    return min(-(-ray_warps // STEP_RAY_WARPS), STEP_MAX_ROWS)
+
+
+def step_rows_bytes(n: int, s: int, dtype: torch.dtype) -> int:
+    """Bytes of smooth_bwd_step's rows for ``n`` rays and ``s`` spheres:
+    ``step_rows(n) * (19 s + 16)`` values (geometry (s, 4), material (s, 15),
+    16 constants a row)."""
+    return step_rows(n) * ((4 + STEP_MAT) * s + N_CONST) * torch.empty((), dtype=dtype).element_size()
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -890,10 +940,10 @@ def _launch(name: str, dtype: torch.dtype, *args, atlas: bool = False) -> None:
     (ATLAS_LAUNCHES if atlas else LAUNCHES)[name] += 1
 
 
-def _scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials=None):
-    """The trailing scalars of an entry: n, the partials' columns (gradient
-    kernels), s_cheap, s_total, depth (the deep kernels), the reals."""
-    scalars = (n,) + (() if partials is None else (partials.shape[1],)) + (s_cheap, s)
+def _scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, cols=None):
+    """The trailing scalars of an entry: n, the partials' columns or rows
+    (gradient kernels), s_cheap, s_total, depth (the deep kernels), the reals."""
+    scalars = (n,) + (() if cols is None else (cols,)) + (s_cheap, s)
     return scalars + (() if depth is None else (depth,)) + (float(faraway), float(sharp_e), float(sharp_s))
 
 
@@ -961,7 +1011,7 @@ def smooth_bwd_deep(
         partials, flat = _grad_buffers(n, s, d)
         _launch("smooth_bwd_deep", d.dtype, o, d, osave, dsave, thrsave, alivesave, idx, hit, clear,
                 geom, mat, consts, xi, g_acc, g_dww, g_o, g_d, partials, flat,
-                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials), *slot_args(tex_hw),
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials.shape[1]), *slot_args(tex_hw),
                 atlas=g_dww is not None)
     g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
     return g_o, g_d, g_geom, g_mat, g_consts
@@ -983,7 +1033,7 @@ def train_deep(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap
         g_o, g_d = torch.empty_like(d), torch.empty_like(d)
         partials, flat = _grad_buffers(n, s, d)
         _launch("train_deep", d.dtype, o, d, tgt, geom, mat, consts, xi, g_o, g_d, partials, flat,
-                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials))
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials.shape[1]))
     g_geom, g_mat, g_consts, sse = _split_grads(flat, s)
     return sse, g_o, g_d, g_geom, g_mat, g_consts
 
@@ -1036,10 +1086,15 @@ def smooth_bwd_step(
     n, s = d.shape[1], geom.shape[0]
     with torch.cuda.device(device):
         outs = (torch.empty_like(o), torch.empty_like(d), torch.empty_like(thr), torch.empty_like(alive))
-        partials, flat = _grad_buffers(n, s, d)
+        rows = step_rows(n)
+        # The geometry and constant rows are written whole; the material
+        # rows are added into at each CTA's winners.
+        e = functools.partial(torch.empty, dtype=d.dtype, device=device)
+        pg, pc, flat = e((rows, s, 4)), e((rows, N_CONST)), e((_n_vals(s),))
+        pm = torch.zeros((rows, s, STEP_MAT), dtype=d.dtype, device=device)
         _launch("smooth_bwd_step", d.dtype, o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi,
-                g_o, g_d, g_thr, g_alive, g_acc, g_dww, *outs, partials, flat,
-                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s, partials), *slot_args(tex_hw),
+                g_o, g_d, g_thr, g_alive, g_acc, g_dww, *outs, pg, pm, pc, flat,
+                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s, rows), *slot_args(tex_hw),
                 atlas=g_dww is not None)
     g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
     return (*outs, g_geom, g_mat, g_consts)

@@ -145,27 +145,38 @@ def clear_bwd_plain(o, d, geom, self_idx, clear, g_clear, *, faraway: float, sha
     1e-6)`` and the branch adjoint at the plain tier's ``(b, c_term)``."""
     g_o, g_d = [], []
     g_geom = torch.zeros_like(geom)
-    c = tuple(geom[None, :, i] for i in range(3))
-    r = geom[None, :, 3]
     for a, b in _chunks(o.shape[0], geom.shape[0]):
-        fac, sd, ss, is_self = _factors(o[a:b], d[a:b], geom, self_idx[a:b], faraway=faraway, sharpness=sharpness,
-                                        s_cheap=s_cheap)
-        gc = (g_clear[a:b] * clear[a:b])[:, None]
-        g_fac = gc / torch.clamp_min(fac, EPS_DEN)
-        g_occl = torch.where(is_self, torch.zeros_like(g_fac), -g_fac)
-        g_disc = g_occl * ss * sd * (1.0 - sd) * sharpness
-        g_sol = g_occl * sd * ss * (1.0 - ss) * sharpness
-        oi = tuple(o[a:b, i, None] for i in range(3))
-        di = tuple(d[a:b, i, None] for i in range(3))
-        b_, ct = b_cterm_plain(oi, di, c, r)
-        g_b, g_ct = sol_disc_adjoint(b_, ct, g_sol, g_disc)
-        oc = tuple(oi[i] - c[i] for i in range(3))
-        go = [2.0 * di[i] * g_b + 2.0 * oc[i] * g_ct for i in range(3)]
+        go, gd, rows, _ = clear_terms(o[a:b], d[a:b], geom, self_idx[a:b], g_clear[a:b] * clear[a:b],
+                                      faraway=faraway, sharpness=sharpness, s_cheap=s_cheap)
         g_o.append(torch.stack([x.sum(1) for x in go], dim=1))
-        g_d.append(torch.stack([(2.0 * oc[i] * g_b).sum(1) for i in range(3)], dim=1))
-        rows = [-x for x in go] + [-2.0 * r * g_ct]
+        g_d.append(torch.stack([x.sum(1) for x in gd], dim=1))
         g_geom = g_geom + torch.stack([x.sum(0) for x in rows], dim=1)
     return torch.cat(g_o), torch.cat(g_d), g_geom
+
+
+def clear_terms(o, d, geom, self_idx, gc, *, faraway: float, sharpness: float, s_cheap: int):
+    """The (N, S) terms of ``clear_bwd_plain``, lane by sphere: what each
+    sphere adds to g_o (3) and g_d (3) and its row of g_geom (4), with
+    ``gc = g_clear * clear`` (N,); and where the sphere reaches the lane.
+    It does not where it is the lane's own or its shadow sigmoid
+    ``sig(k disc)`` (disc in its tier) is exactly 0: every term is exactly
+    +-0 there, and the kernel's warps pass such spheres."""
+    fac, sd, ss, is_self = _factors(o, d, geom, self_idx, faraway=faraway, sharpness=sharpness, s_cheap=s_cheap)
+    g_fac = gc[:, None] / torch.clamp_min(fac, EPS_DEN)
+    g_occl = torch.where(is_self, torch.zeros_like(g_fac), -g_fac)
+    g_disc = g_occl * ss * sd * (1.0 - sd) * sharpness
+    g_sol = g_occl * sd * ss * (1.0 - ss) * sharpness
+    c = tuple(geom[None, :, i] for i in range(3))
+    r = geom[None, :, 3]
+    oi = tuple(o[:, i, None] for i in range(3))
+    di = tuple(d[:, i, None] for i in range(3))
+    b_, ct = b_cterm_plain(oi, di, c, r)
+    g_b, g_ct = sol_disc_adjoint(b_, ct, g_sol, g_disc)
+    oc = tuple(oi[i] - c[i] for i in range(3))
+    go = [2.0 * di[i] * g_b + 2.0 * oc[i] * g_ct for i in range(3)]
+    gd = [2.0 * oc[i] * g_b for i in range(3)]
+    rows = [-x for x in go] + [-2.0 * r * g_ct]
+    return go, gd, rows, ~is_self & (sd != 0)
 
 
 def _row_adjoint(o, d, geom, idx, g_sol, g_disc):
@@ -247,6 +258,14 @@ def clear_fwd(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap
         _launch("clear_fwd", o.dtype, o, d, geom, self_idx, clear, n, s_cheap, geom.shape[0], float(faraway),
                 float(sharpness))
     return clear
+
+
+def clear_bwd_blocks_per_sm(dtype: torch.dtype, s: int) -> int:
+    """Resident 256-thread blocks per SM of the clear_bwd instantiation a
+    launch for ``s`` spheres takes (staged or global geometry) on the
+    current card."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(_build.load_library(_SOURCE), f"prt_clear_bwd_blocks_per_sm_{suffix}")(s)
 
 
 def clear_bwd(o, d, geom, self_idx, clear, g_clear, *, faraway: float, sharpness: float, s_cheap: int):
