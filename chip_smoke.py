@@ -29,8 +29,8 @@ at 960x540:
   ``shade_culled``) against a JAX golden, and the ``--stochastic-roughness``
   frame through the standalone sweeps (``nearest_sweep``, ``shadow_sweep``)
   against the pure-torch route; each of the four kernels first against its
-  plain version on its main path's real inputs, f32 at 1920x1080 and f64 at
-  480x270;
+  plain version on its main path's real inputs (the sweeps on every bounce),
+  f32 at 1920x1080 and f64 at 480x270;
 * the culled smooth route, config 4's training step (1920x1080, depth 3):
   ``near_cs``, ``fwd_cs`` and ``bwd_cs`` against their plain versions on
   every bounce of a loss's forward and backward (mirror and glossy, f32 at
@@ -125,6 +125,14 @@ ptxas's registers and spill bytes of each instantiation; for
 reach none of a warp's rays, so their bound counts the work this run's
 data needs: every lane-sphere pair pays the skip's test, the pairs reached
 the rest; each prints the pairs reached and the bound on every pair beside.
+The warp-bundle sphere skip of ``bounce_lane`` (both modes), ``shadow_sweep``
+and ``shadow_parts``: on every recorded main-path launch, f32 and f64, the
+kernel is held bitwise to the same kernel with the skip compiled out
+(``skip="off"``), and ``[skip]`` lines print the share of (warp, sphere)
+pairs the skip reaches (the plain bundle test) and the operations on every
+pair beside those on the reached pairs with the bundles and the tests; the
+f32 launches' bound (the kernels line's) is the second, the skip-off kernel
+timed beside in turns.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1497,11 +1505,13 @@ def _exact_check(label: str, kernel: torch.Tensor, plain: torch.Tensor) -> None:
 
 def phase_big_kernels() -> tuple[dict[str, float], dict]:
     """The culled pair on the mirror config-4 frame's primary, first
-    re-sorted and first full-sweep bounce, the sweeps on the stochastic
-    frame's first two bounces, each against its plain version (idx exactly),
-    f32 at 1920x1080 and f64 at 480x270; the primary lists checked
-    conservative against the full sweep.  Returns the max abs error per
-    kernel over the f32 cases and the f32 inputs (for the timings)."""
+    re-sorted and first full-sweep bounce, the sweeps on every bounce of the
+    stochastic frame, each against its plain version (idx exactly), f32 at
+    1920x1080 and f64 at 480x270; shadow_sweep with its skip bitwise the
+    kernel without it, and (f64) the pairs the skip reaches; the primary
+    lists checked conservative against the full sweep.  Returns the max abs
+    error per kernel over the f32 cases and the f32 inputs (for the
+    timings)."""
     from python_ray_tracer_tpu_torch.ops import culled, intersect_fused
 
     errs = dict.fromkeys(CULLED + SWEEPS, 0.0)
@@ -1540,8 +1550,8 @@ def phase_big_kernels() -> tuple[dict[str, float], dict]:
               f"differ in t or idx (limit {MAX_BAD_SHARE:g} of them)", flush=True)
         if n_diff > MAX_BAD_SHARE * o.shape[1]:
             fail(f"{tag}: the candidate lists lose hits ({n_diff} rays differ from the full sweep)")
-        near, shadow = _sweep_record(dtype, width, height, depth=2)
-        for b in range(2):
+        near, shadow = _sweep_record(dtype, width, height)
+        for b in range(BIG_DEPTH):
             (args, kw_n), (sargs, kw_s) = near[b], shadow[b]
             nk = intersect_fused.nearest_sweep(*args, **kw_n)
             torch.cuda.synchronize()
@@ -1552,6 +1562,9 @@ def phase_big_kernels() -> tuple[dict[str, float], dict]:
             torch.cuda.synchronize()
             lit_p = intersect_fused.shadow_sweep_plain(*sargs, **kw_s)
             err["shadow_sweep"] = max(err["shadow_sweep"], _per_value_check(f"shadow_sweep {tag} glossy bounce {b} in_light", lit, lit_p, dtype))
+            _skip_bitwise("shadow_sweep", f"{tag} glossy bounce {b}", intersect_fused.shadow_sweep, sargs, kw_s)
+            if dtype == torch.float64:
+                _sweep_skip_ops("shadow_sweep", f"{tag} glossy bounce {b}", sargs, kw_s)
         if dtype == torch.float32:
             errs = err
             inputs = dict(record=record, near=near, shadow=shadow)
@@ -1827,34 +1840,152 @@ def _culled_bound(name: str, r: dict) -> tuple[float, str]:
 
 
 def _sweep_bound(name: str, call) -> tuple[float, str]:
+    """The least time of one sweep launch: each input and output once, and
+    the plain version's operations counted over 4096 of the lanes, scaled to
+    all of them; shadow_sweep's on the pairs its skip reaches
+    (:func:`_skip_bound`)."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused
 
     args, kw = call
     n, part = args[0].shape[0], 4096
     plain = intersect_fused.nearest_sweep_plain if name == "nearest_sweep" else intersect_fused.shadow_sweep_plain
-    ops = count_ops(lambda: plain(*(a[:part] if a.shape[0] == n else a for a in args), **kw)) * n / part
+    ops = count_ops(lambda: plain(*(a[:part] if a.shape[0] == n else a for a in args), **kw)) * n / min(n, part)
     out = intersect_fused.nearest_sweep(*args, **kw)[:2] if name == "nearest_sweep" else (intersect_fused.shadow_sweep(*args, **kw),)
-    return _bound(int(ops), _nbytes(*args, *out))
+    if name == "nearest_sweep":
+        return _bound(int(ops), _nbytes(*args, *out))
+    return _skip_bound(name, [_skip_sweep(plain, args, kw)], ops, _nbytes(*args, *out))
+
+
+# --- The warp-bundle sphere skip of rows 4 (both modes) and 5 (both modes) ---
+
+
+def _skip_bitwise(name: str, label: str, kernel, args, kw) -> None:
+    """The kernel with its skip (the launcher's rule) bitwise the same
+    kernel with the skip compiled out (skip="off")."""
+    with torch.no_grad():
+        got, off = kernel(*args, **kw), kernel(*args, **kw, skip="off")
+    got, off = (got if isinstance(got, tuple) else (got,)), (off if isinstance(off, tuple) else (off,))
+    same = all(bool(torch.equal(x, y)) for x, y in zip(got, off))
+    print(f"[skip] {name} {label}: with the skip bitwise the kernel without it: {same}", flush=True)
+    if not same:
+        fail(f"{name} {label}: the skip changes the output")
+
+
+def _skip_sweep(plain, args: tuple, kw: dict) -> dict:
+    """One sweep with the skip, on a sweep's (o, d, geom[, self_idx]) (N, 3)
+    rows: the (warp, sphere) pairs the skip reaches (``bundle_reach``) and the
+    operations it saves on the plain version ``plain``'s count: each skipped
+    lane-sphere pair's operations (the plain version over two cheap spheres
+    less over one), less the bundles (one a warp of 32 lanes in range) and
+    the tests (one a cheap sphere and warp with a usable bundle), counted as
+    count_ops counts their plain versions on 4096 lanes."""
+    from python_ray_tracer_tpu_torch.ops import intersect_fused as f
+
+    o, d, geom = args[:3]
+    rest = args[3:]
+    n, s_cheap, light = o.shape[0], kw["s_cheap"], kw.get("light")
+    part = min(n // 32 * 32, 4096) or n
+    with torch.no_grad():
+        def pair(k):
+            sub = [a[:part] for a in rest]
+            return count_ops(lambda: plain(o[:part], d[:part], geom[:k].contiguous(), *sub, faraway=kw["faraway"],
+                                           s_cheap=k))
+        pair_ops = (pair(2) - pair(1)) / part
+        ok = f.warp_bundles(o, d, light).ok
+        reach = f.bundle_reach(o, d, geom, s_cheap, light)
+        lanes = torch.full((reach.shape[0],), 32, device=o.device)
+        lanes[-1] = n - 32 * (reach.shape[0] - 1)
+        skipped = int(((~reach).sum(1) * lanes).sum())
+        warps = -(-part // 32)
+        bundle_ops = count_ops(lambda: f.warp_bundles(o[:part], d[:part], light)) / warps
+        sample = f.warp_bundles(o[:part], d[:part], light)
+        test_ops = count_ops(lambda: f.bundle_test(sample, geom[:1])) / warps
+    saved = pair_ops * skipped - bundle_ops * (n // 32) - test_ops * int(ok.sum()) * s_cheap
+    return dict(reached=int(reach.sum()), pairs=reach.numel(), saved=saved, pair_ops=pair_ops, test_ops=test_ops)
+
+
+def _lane_skips(args: tuple, kw: dict) -> list[dict]:
+    """bounce_lane's two sweeps with the skip on one launch's inputs
+    (:func:`_skip_sweep`): the nearest on the bounce's rays, the shadow on
+    the plain version's shadow rays (its apex the light)."""
+    from python_ray_tracer_tpu_torch.ops import bounce_lane, intersect_fused as f
+
+    calls: list = []
+    with _capture(f, "bundle_reach", calls), torch.no_grad():
+        plain_kw = {k: v for k, v in kw.items() if k not in ("geometry", "skip")}
+        bounce_lane.bounce_lane_plain(*args, **plain_kw, skip=True)
+    (near, _), (shadow, _) = calls
+    o, d = near[0].contiguous(), near[1].contiguous()
+    self_idx = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)  # the count does not read it
+    sweep_kw = dict(faraway=kw["faraway"], s_cheap=kw["s_cheap"])
+    return [_skip_sweep(f.nearest_sweep_plain, (o, d, near[2]), sweep_kw),
+            _skip_sweep(f.shadow_sweep_plain, (*shadow[:3], self_idx), {**sweep_kw, "light": shadow[4]})]
+
+
+def _skip_line(name: str, label: str, sweeps: list[dict], ops: float) -> float:
+    """Print the pairs each sweep's skip reaches and the operations with the
+    skip beside every pair's; returns the operations with the skip."""
+    reached_ops = ops - sum(s["saved"] for s in sweeps)
+    shares = ", ".join(f"{s['reached']} of {s['pairs']} ({s['reached'] / s['pairs']:.2%})" for s in sweeps)
+    which = "nearest, shadow" if len(sweeps) == 2 else "shadow"
+    pair_ops = "/".join(f"{s['pair_ops']:g}" for s in sweeps)
+    head = f"[skip] {name} {label}".rstrip()
+    print(f"{head}: the skip reaches {shares} (warp, sphere) pairs ({which}); {ops:.4e} operations on every pair, "
+          f"{reached_ops:.4e} on the reached pairs with the bundles and the tests (a pair {pair_ops}, a test "
+          f"{sweeps[0]['test_ops']:g})", flush=True)
+    return reached_ops
+
+
+def _skip_bound(name: str, sweeps: list[dict], ops: float, n_bytes: int, label: str = "") -> tuple[float, str]:
+    """The least time of a launch with the skip: the plain version's
+    operations ``ops`` less what the skip saves (:func:`_skip_sweep`), beside
+    the bound on every pair; returns the first."""
+    reached_ops = _skip_line(name, label, sweeps, ops)
+    every, bound = _bound(int(ops), n_bytes), _bound(int(reached_ops), n_bytes)
+    print(f"{f'[skip] {name} {label}'.rstrip()}: bound {bound[0]:.4f} ms by {bound[1]} on the reached pairs, "
+          f"{every[0]:.4f} ms by {every[1]} on every pair", flush=True)
+    return bound
+
+
+def _sweep_skip_ops(name: str, label: str, args: tuple, kw: dict) -> None:
+    """The reached pairs and operations of one shadow launch (an f64 record:
+    no bound in time, the H100's float64 rate being no figure of this run)."""
+    from python_ray_tracer_tpu_torch.ops import intersect_fused as f
+
+    plain = f.shadow_parts_plain if name == "shadow_parts" else f.shadow_sweep_plain
+    n, part = args[0].shape[0], 4096
+    with torch.no_grad():
+        ops = count_ops(lambda: plain(*(a[:part] if a.shape[0] == n else a for a in args), **kw)) * n / min(n, part)
+    _skip_line(name, label, [_skip_sweep(plain, args, kw)], ops)
 
 
 def _time_launches(name: str, calls: list, card: str, context: str, what: str) -> dict:
     """Time each of a kernel's main-path launches, ``(kernel, plain, bound)``
-    callables, beside its plain version and bound; returns the means per
-    launch as the kernels line takes them."""
-    rows = []
-    for b, (kernel, plain, bound) in enumerate(calls):
-        ms = time_ms(kernel, warmup=2, iters=10)
+    callables (and a fourth, the kernel without its skip, timed beside in
+    turns: skip, off, off, skip), beside its plain version and bound; returns
+    the means per launch as the kernels line takes them."""
+    rows, offs = [], []
+    for b, (kernel, plain, bound, *off) in enumerate(calls):
+        if off:
+            turns = [time_ms(fn, warmup=2, iters=10) for fn in (kernel, off[0], off[0], kernel)]
+            ms, off_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            offs.append(off_ms)
+        else:
+            ms = time_ms(kernel, warmup=2, iters=10)
         plain_ms = time_ms(plain, warmup=0, iters=1)
         bound_ms, bound_by = bound()
         rows.append((ms, plain_ms, bound_ms, bound_by))
-        print(f"[timing] {name} bounce {b}: kernel {ms:.4f} ms, plain version {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-              f"by {bound_by}, kernel at {bound_ms / ms:.1%} of its bound ({context}; {card})", flush=True)
+        beside = f" (skip off {offs[-1]:.4f} ms, {offs[-1] / ms:.2f}x)" if off else ""
+        print(f"[timing] {name} bounce {b}: kernel {ms:.4f} ms{beside}, plain version {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by}, kernel at {bound_ms / ms:.1%} of its bound ({context}; {card})",
+              flush=True)
     k = len(rows)
     by_ops = sum(r[2] for r in rows if r[3] == "operations") >= sum(r[2] for r in rows if r[3] == "bytes")
     res = dict(ms=sum(r[0] for r in rows) / k, plain_ms=sum(r[1] for r in rows) / k,
                bound_ms=sum(r[2] for r in rows) / k, bound_by="operations" if by_ops else "bytes", library_ms=None)
-    print(f"[timing] {name}: mean per launch over {what}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms, "
-          f"bound {res['bound_ms']:.4f} ms ({card})", flush=True)
+    beside = f", skip off {sum(offs) / k:.4f} ms" if offs else ""
+    print(f"[timing] {name}: mean per launch over {what}: kernel {res['ms']:.4f} ms{beside}, plain {res['plain_ms']:.2f} "
+          f"ms, bound {res['bound_ms']:.4f} ms ({card})", flush=True)
     return res
 
 
@@ -1878,11 +2009,12 @@ def phase_big_timing(card: str, inputs: dict) -> dict[str, dict]:
                            lambda c=c: _sweep_bound("nearest_sweep", c)) for c in inputs["near"]],
         "shadow_sweep": [(lambda c=c: intersect_fused.shadow_sweep(*c[0], **c[1]),
                           lambda c=c: intersect_fused.shadow_sweep_plain(*c[0], **c[1]),
-                          lambda c=c: _sweep_bound("shadow_sweep", c)) for c in inputs["shadow"]],
+                          lambda c=c: _sweep_bound("shadow_sweep", c),
+                          lambda c=c: intersect_fused.shadow_sweep(*c[0], **c[1], skip="off")) for c in inputs["shadow"]],
     }
     res = {name: _time_launches(name, calls, card, "config 4, 1920x1080 f32",
                                 f"the mirror frame's {len(calls)}" if name in CULLED
-                                else f"the glossy frame's first {len(calls)} (every bounce sweeps the table)")
+                                else f"the glossy frame's {len(calls)}")
            for name, calls in launches.items()}
 
     scene = _big_scene(torch.float32)
@@ -2997,12 +3129,14 @@ def _lane_record(scene, dtype: torch.dtype) -> list[tuple]:
 
 def _check_lane(tag: str, record: list, dtype: torch.dtype) -> float:
     """bounce_lane against its plain version on every bounce's inputs: twice,
-    bitwise; alive exactly, the rest under the per-value limit."""
+    bitwise; alive exactly, the rest under the per-value limit; and bitwise
+    the kernel with its skip compiled out."""
     from python_ray_tracer_tpu_torch.ops import bounce_lane
 
     err = 0.0
     with torch.no_grad():
         for b, (args, kw) in enumerate(record):
+            _skip_bitwise("bounce_lane", f"{tag} bounce {b}", bounce_lane.bounce_lane, args, kw)
             k = _twice_bitwise("bounce_lane", f"{tag} bounce {b}", lambda: bounce_lane.bounce_lane(*args, **kw))
             p = bounce_lane.bounce_lane_plain(*args, **kw)
             for name, kv, pv in zip(("o", "d", "thr", "alive", "acc"), k, p):
@@ -3034,12 +3168,16 @@ def phase_lane_kernels() -> tuple[dict[str, float], dict]:
     for name, make, size in (("lane80", _lane80_scene, LANE_F64_SIZE),
                              ("config4+9exact", _lane_big_scene, LANE_BIG_F64_SIZE)):
         scene = make(torch.float64, *size)
-        _check_lane(_lane_tag(name, scene, torch.float64), _lane_record(scene, torch.float64), torch.float64)
+        tag = _lane_tag(name, scene, torch.float64)
+        record = _lane_record(scene, torch.float64)
+        _check_lane(tag, record, torch.float64)
+        for b, (args, kw) in enumerate(record):
+            _skip_line("bounce_lane", f"{tag} bounce {b}", _lane_skips(args, kw), _lane_ops(args, kw))
     return errs, inputs
 
 
 def _lane_instantiation(args: tuple, kw: dict) -> tuple[str, ...]:
-    """The template arguments (T, kAtlas, kStaged) of the bounce_lane
+    """The template arguments (T, kAtlas, kStaged, kSkip) of the bounce_lane
     instantiation that one launch with these arguments runs, from its name
     under torch.profiler."""
     import re
@@ -3053,7 +3191,7 @@ def _lane_instantiation(args: tuple, kw: dict) -> tuple[str, ...]:
             bounce_lane.bounce_lane(*args, **kw)
             torch.cuda.synchronize()
         keys = [e.key for e in prof.key_averages()]
-        found = {m.groups() for key in keys if (m := re.search(r"bounce_lane<(\w+), (\w+), (\w+)>", key))}
+        found = {m.groups() for key in keys if (m := re.search(r"bounce_lane<(\w+), (\w+), (\w+), (\w+)>", key))}
         if found:
             break
         # A profile that holds no bounce_lane kernel is the profiler's miss
@@ -3080,7 +3218,7 @@ def _lane_geometry(tag: str, record: list, card: str) -> None:
         for side, staged in (("shared", "true"), ("global", "false")):
             args, kw = record[0]
             got = _lane_instantiation(args, {**kw, "geometry": side})
-            if got != (*auto[:2], staged):
+            if got != (*auto[:2], staged, auto[3]):
                 fail(f"bounce_lane {tag}: geometry={side} ran bounce_lane<{', '.join(got)}>")
             for b, (args, kw) in enumerate(record):
                 want = bounce_lane.bounce_lane(*args, **kw)
@@ -3174,20 +3312,29 @@ def phase_lane_main(tmp: Path) -> dict[str, int]:
     return launches
 
 
-def _lane_bound(args: tuple, kw: dict) -> tuple[float, str]:
-    """The least time of one bounce_lane launch on these inputs: each input
-    and output once, and the plain version's operations counted over 4096
-    of the lanes, scaled to all of them (every lane sweeps every sphere
-    twice)."""
+def _lane_ops(args: tuple, kw: dict) -> float:
+    """The plain version's operations on one bounce_lane launch, counted over
+    4096 of the lanes and scaled to all of them (every lane sweeping every
+    sphere twice)."""
     from python_ray_tracer_tpu_torch.ops import bounce_lane
 
     n = args[0].shape[1]
     part = min(n, 4096)
     sliced = [a[..., :part] if isinstance(a, torch.Tensor) and a.shape[-1] == n else a for a in args]
     with torch.no_grad():
-        ops = count_ops(lambda: bounce_lane.bounce_lane_plain(*sliced, **kw)) * n / part
+        return count_ops(lambda: bounce_lane.bounce_lane_plain(*sliced, **kw)) * n / part
+
+
+def _lane_bound(args: tuple, kw: dict, label: str = "") -> tuple[float, str]:
+    """The least time of one bounce_lane launch on these inputs: each input
+    and output once, and the operations of :func:`_lane_ops` less what the
+    skip saves on this launch (:func:`_skip_bound`)."""
+    from python_ray_tracer_tpu_torch.ops import bounce_lane
+
+    with torch.no_grad():
         out = bounce_lane.bounce_lane(*args, **kw)
-    return _bound(int(ops), _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out))
+    n_bytes = _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out)
+    return _skip_bound("bounce_lane", _lane_skips(args, kw), _lane_ops(args, kw), n_bytes, label)
 
 
 def phase_lane_timing(card: str, inputs: dict) -> dict[str, dict]:
@@ -3197,17 +3344,18 @@ def phase_lane_timing(card: str, inputs: dict) -> dict[str, dict]:
     from python_ray_tracer_tpu_torch import render
     from python_ray_tracer_tpu_torch.ops import bounce_lane
 
-    def calls(record):
+    def calls(record, tag):
         return [(lambda a=a, k=k: bounce_lane.bounce_lane(*a, **k),
                  lambda a=a, k=k: bounce_lane.bounce_lane_plain(*a, **k),
-                 lambda a=a, k=k: _lane_bound(a, k)) for a, k in record]
+                 lambda a=a, k=k, b=b: _lane_bound(a, k, f"{tag} bounce {b}"),
+                 lambda a=a, k=k: bounce_lane.bounce_lane(*a, **k, skip="off")) for b, (a, k) in enumerate(record)]
 
     with torch.no_grad():
         res = {
-            ATLAS["bounce_lane"]: _time_launches("bounce_lane (atlas)", calls(inputs["a"]), card,
+            ATLAS["bounce_lane"]: _time_launches("bounce_lane (atlas)", calls(inputs["a"], "lane80 1920x1080"), card,
                                                  "lane80, 80 spheres, 20,480 texels, 1920x1080 f32",
                                                  f"the lane80 frame's {LANE_DEPTH}"),
-            "bounce_lane": _time_launches("bounce_lane", calls(inputs["b"]), card,
+            "bounce_lane": _time_launches("bounce_lane", calls(inputs["b"], "1032 spheres 1920x1080"), card,
                                           "config 4 + 8 exact, 1032 spheres, 1920x1080 f32",
                                           f"the 1032-sphere frame's {LANE_DEPTH}"),
         }
@@ -3240,14 +3388,20 @@ def _rank_tag(mesh) -> str:
 def _check_parts_calls(tag: str, calls: dict, dtype: torch.dtype, err: dict) -> None:
     """Each recorded per-shard call of the first two bounces, its kernel
     against its plain version: indices exactly, values as PERF.md section 2
-    states (THRESHOLD, RAY_GRAD_TOL, COLUMN_RTOL); clear_bwd twice, bitwise."""
+    states (THRESHOLD, RAY_GRAD_TOL, COLUMN_RTOL); clear_bwd twice, bitwise;
+    shadow_parts on every bounce bitwise the kernel without its skip, with
+    the pairs the skip reaches."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
 
     def det(args):
         return [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
 
-    for b, (args, kw) in enumerate(calls.get("shadow_parts", [])[:2]):
+    for b, (args, kw) in enumerate(calls.get("shadow_parts", [])):
         args = det(args)
+        _skip_bitwise("shadow_parts", f"{tag} bounce {b}", intersect_fused.shadow_parts, args, kw)
+        _sweep_skip_ops("shadow_parts", f"{tag} bounce {b}", tuple(args), kw)
+        if b >= 2:
+            continue
         got = intersect_fused.shadow_parts(*args, **kw)
         torch.cuda.synchronize()
         want = intersect_fused.shadow_parts_plain(*args, **kw)
@@ -3346,8 +3500,10 @@ def _shard_rank(shape: tuple[int, int], jobs: list[dict], tmp: str) -> dict:
             if dtype == torch.float32 and mesh.spheres.index == 0 and mesh.rays.index == 0:
                 for key in calls:
                     if calls[key] and key not in saved:
-                        args, kw = calls[key][-1 if key == "clear_bwd" else 0]
-                        saved[key] = ([a.detach() if isinstance(a, torch.Tensor) else a for a in args], kw)
+                        # shadow_parts: every bounce of the frame; the others their first.
+                        picked = calls[key] if key == "shadow_parts" else [calls[key][-1 if key == "clear_bwd" else 0]]
+                        saved[key] = [([a.detach() if isinstance(a, torch.Tensor) else a for a in args], kw)
+                                      for args, kw in picked]
         del calls
     if saved:
         torch.save(saved, Path(tmp) / "parts_inputs.pt")
@@ -3561,13 +3717,16 @@ def _parts_bound(name: str, args: list, kw: dict) -> tuple[float, str]:
     n_bytes = _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out)
     if name == "clear_bwd":
         return _clear_reach_bound(args, kw, ops, n_bytes)
+    if name == "shadow_parts":
+        return _skip_bound(name, [_skip_sweep(plain, tuple(args), kw)], ops, n_bytes)
     return _bound(int(ops), n_bytes)
 
 
 def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
-    """Each new kernel, one launch at its shard's shape (shard 0 of config 4,
-    f32: 1920x1080 for shadow_parts, 960x540 for rows 18-20, first bounce),
-    beside its plain version and its bound by counted operations."""
+    """Each new kernel at its shard's shape (shard 0 of config 4, f32):
+    shadow_parts on each bounce of the 1920x1080 frame, beside the kernel
+    without its skip; rows 18-20 on the first bounce at 960x540; each beside
+    its plain version and its bound by counted operations."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
 
     saved = torch.load(tmp / "parts_inputs.pt", weights_only=False)
@@ -3580,11 +3739,13 @@ def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
     res = {}
     with torch.no_grad():
         for name, (key, kernel, plain, size) in kernels.items():
-            args, kw = saved[key]
-            res[name] = _time_launches(
-                name, [(lambda: kernel(*args, **kw), lambda: plain(*args, **kw), lambda: _parts_bound(name, args, kw))],
-                card, f"config 4 sphere shard 0 of 2, {args[2].shape[0]} spheres, {size} f32", "one")
-        args = saved["clear_bwd"][0]
+            calls = [(lambda a=a, k=k: kernel(*a, **k), lambda a=a, k=k: plain(*a, **k),
+                      lambda a=a, k=k, n=name: _parts_bound(n, a, k),
+                      *([lambda a=a, k=k: kernel(*a, **k, skip="off")] if name == "shadow_parts" else []))
+                     for a, k in saved[key]]
+            res[name] = _time_launches(name, calls, card, f"config 4 sphere shard 0 of 2, {saved[key][0][0][2].shape[0]} "
+                                       f"spheres, {size} f32", f"the frame's {len(calls)}" if len(calls) > 1 else "one")
+        args = saved["clear_bwd"][0][0]
         print(f"[timing] clear_bwd: {sp.clear_bwd_blocks_per_sm(torch.float32, args[2].shape[0])} resident CTAs of 256 "
               f"an SM, {-(-args[0].shape[0] // 256)} CTAs a launch ({card})", flush=True)
     return res

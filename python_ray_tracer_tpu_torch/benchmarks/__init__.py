@@ -14,9 +14,11 @@ global memory), :mod:`.gather_lanes` (the register gather's indices a
 thread), and the splits :mod:`.bwd_cs_split` (``bwd_cs``) and
 :mod:`.smooth_bwd_split` (``smooth_bwd_step`` and ``clear_bwd``), which
 stub out one part of a kernel at a time.  Each builds its variants in
-copies of the package made by :func:`package_copy`, never by a switch in
-the shipped source; the splits share :mod:`.splits` (the builds, one
-recording of the inputs, the timing turns, ``--tree``, the ptxas parser).
+copies of the package made by :func:`package_copy`; the splits share
+:mod:`.splits` (the builds, one recording of the inputs, the timing turns,
+``--tree``, the ptxas parser).  :mod:`.sweep_skip_ab` times the sweeps'
+warp-bundle skip off and on through the wrappers' own ``skip`` switch (a
+template argument of the shipped source), in one process.
 
 An entry point runs on ``cuda`` unless ``--device cpu`` is given, and then
 runs the plain versions at the size the caller gives; without a card it

@@ -30,6 +30,16 @@ has no gradient, and the wrapper refuses tensors that require grad.
 The material and texel reads are exact in f64, where the JAX kernel's
 one-hot products accumulate in float32.
 
+Both sweeps of the kernel skip the cheap-tier spheres no ray of a warp can
+hit (:func:`.intersect_fused.bundle_reach`, ``csrc/sweep_math.cuh``), each
+under its own warp bundle: the bounce's rays for the nearest hit, the
+nudged hit points and their directions to the light for the shadow.  The
+outputs are bitwise those of the full sweeps.  ``skip`` ("auto", "on",
+"off") picks the kernel with the skip or without, as ``geometry`` picks
+where it reads the table ("auto": the launcher's rule, as the shadow
+sweep's); :func:`bounce_lane_plain` with ``skip=True`` is the plain version
+of the kernel with it, which the tests and the card check's counts run.
+
 :data:`LAUNCHES` counts the launches without an atlas, :data:`ATLAS_LAUNCHES`
 those with one.
 """
@@ -40,7 +50,7 @@ import torch
 
 from . import _build
 from .bounce_sub import _dot3, _normalize3, shade_color
-from .intersect_fused import nearest_sweep_plain, shadow_sweep_plain
+from .intersect_fused import _skip_code, nearest_sweep_plain, shadow_sweep_plain
 from .shading import NUDGE
 from .tables import CX, CY, CZ, MAT_COLS, N_CONST, RAD, SG, consts_row, geometry_table, material_table
 from .texture import MAX_FUSED_TEXELS, atlas_texels, slot_args
@@ -53,17 +63,20 @@ _SOURCE = "bounce_lane.cu"
 # C signature of the entry in csrc/bounce_lane.cu, before the trailing
 # stream: o, d, thr, alive, acc, their five outputs, geom, mat, consts,
 # texels (or null); n, s_cheap, s_total; faraway; the atlas's slot extents;
-# where the geometry is read (_GEOMETRY).
-_SIGNATURE = "ppppp" "ppppp" "pppp" "iii" "r" "ii" "i"
+# where the geometry is read (_GEOMETRY); the skip (intersect_fused.SKIP).
+_SIGNATURE = "ppppp" "ppppp" "pppp" "iii" "r" "ii" "i" "i"
 _GEOMETRY = {"auto": -1, "global": 0, "shared": 1}
 
 
 def bounce_lane_plain(o, d, thr, alive, acc, geom, mat, consts, texels=None, *, faraway: float, s_cheap: int,
-                      tex_hw=None):
+                      tex_hw=None, skip: bool = False):
     """Plain version of ``bounce_lane``: the next ``(o, d, thr, alive, acc)``
-    of rays ``o``/``d``/``acc`` (3, N) and lanes ``thr``/``alive`` (N,)."""
+    of rays ``o``/``d``/``acc`` (3, N) and lanes ``thr``/``alive`` (N,).
+    ``skip``: each sweep over the (warp, sphere) pairs its bundle reaches
+    (:func:`.intersect_fused.bundle_reach`; the shadow's apex the light), as
+    the kernel with the skip."""
     dtype = o.dtype
-    tmin, idx = nearest_sweep_plain(o.T, d.T, geom, faraway=faraway, s_cheap=s_cheap)
+    tmin, idx = nearest_sweep_plain(o.T, d.T, geom, faraway=faraway, s_cheap=s_cheap, skip=skip)
     hit = (tmin != faraway).to(dtype)
     coverage = hit * alive
     t_safe = torch.where(hit > 0, tmin, 1.0)
@@ -85,7 +98,7 @@ def bounce_lane_plain(o, d, thr, alive, acc, geom, mat, consts, texels=None, *, 
     p_n = tuple(p[i] + normal[i] * NUDGE for i in range(3))
 
     in_light = shadow_sweep_plain(torch.stack(p_n, 1), torch.stack(to_light, 1), geom, idx, faraway=faraway,
-                                  s_cheap=s_cheap)
+                                  s_cheap=s_cheap, skip=skip, light=consts[0, 3:6])
     color = shade_color(p, normal, to_light, to_cam, in_light, m, const, tex_hw, texels)
     if tex_hw is not None:
         color = color[0]
@@ -138,21 +151,25 @@ def _check(o, d, thr, alive, acc, geom, mat, consts, texels, s_cheap: int, tex_h
         raise ValueError(f"unsupported dtype {o.dtype}")
     if o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {o.device}")
+    if o.device.type == "cuda" and geom.data_ptr() % 16:
+        raise ValueError("geom: the kernel reads the table in 16-byte rows; expected a 16-byte-aligned tensor")
     return o.device
 
 
 def bounce_lane(o, d, thr, alive, acc, geom, mat, consts, texels=None, *, faraway: float, s_cheap: int,
-                tex_hw=None, geometry: str = "auto"):
+                tex_hw=None, geometry: str = "auto", skip: str = "auto"):
     """One hard bounce of rays ``o``/``d``/``acc`` (3, N), ``thr``/``alive``
     (N,) over the tables ``geom`` (S, 4), ``mat`` (S, 19), ``consts`` (1, 16),
     rows ``s_cheap..S`` in the exact tier; returns the next ``(o, d, thr,
     alive, acc)``.  With an atlas, ``texels`` (T * Hpad * Wpad, 3) and its
     slot extents ``tex_hw = (Hpad, Wpad)``: image lanes shade their texel.
     ``geometry`` ("auto", "shared" or "global") is where the kernel reads the
-    sphere table; the result is the same bitwise, and the card check forces
-    each side to time it."""
+    sphere table, and ``skip`` ("auto", "on" or "off") whether its sweeps
+    skip the spheres no ray of a warp can hit; the result is the same
+    bitwise, and the card check forces each side to time it."""
     if geometry not in _GEOMETRY:
         raise ValueError(f"geometry: expected one of {sorted(_GEOMETRY)}, got {geometry!r}")
+    code = _skip_code(skip)
     device = _check(o, d, thr, alive, acc, geom, mat, consts, texels, s_cheap, tex_hw)
     kw = dict(faraway=faraway, s_cheap=s_cheap, tex_hw=tex_hw)
     if device.type == "cpu":
@@ -161,10 +178,18 @@ def bounce_lane(o, d, thr, alive, acc, geom, mat, consts, texels=None, *, farawa
         out = tuple(torch.empty_like(t) for t in (o, d, thr, alive, acc))
         _build.launch(
             _SOURCE, "bounce_lane", _SIGNATURE, o.dtype, o, d, thr, alive, acc, *out, geom, mat, consts, texels,
-            o.shape[1], s_cheap, geom.shape[0], float(faraway), *slot_args(tex_hw), _GEOMETRY[geometry],
+            o.shape[1], s_cheap, geom.shape[0], float(faraway), *slot_args(tex_hw), _GEOMETRY[geometry], code,
         )
         (LAUNCHES if texels is None else ATLAS_LAUNCHES)["bounce_lane"] += 1
     return out
+
+
+def blocks_per_sm(dtype: torch.dtype, s: int, *, atlas: bool, skip: bool) -> int:
+    """Resident 128-thread blocks per SM of the bounce_lane instantiation
+    (``atlas``, ``skip``) that a launch at ``s`` spheres takes by the
+    residency rule, on the current card."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(_build.load_library(_SOURCE), f"prt_bounce_lane_blocks_per_sm_{suffix}")(int(atlas), int(skip), s)
 
 
 def trace_fused_lane(origin: torch.Tensor, dirs_t: torch.Tensor, scene, cfg) -> torch.Tensor:

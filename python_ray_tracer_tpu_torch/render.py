@@ -194,7 +194,8 @@ def bounce(
     mat, p, normal, to_light, to_camera, p_nudged = _hit_frame(o, d, near, idx, scene, dtype)
 
     if _sweep_kernels(cfg):
-        in_light = shadow_sweep(p_nudged.contiguous(), to_light.contiguous(), geom, idx, **sweep_kw)
+        in_light = shadow_sweep(p_nudged.contiguous(), to_light.contiguous(), geom, idx,
+                                light=scene.lights.point_position, **sweep_kw)
     elif smooth:
         in_light = _shadow_smooth(_sweep(p_nudged, to_light, scene, cfg), idx, cfg)
     else:
@@ -518,7 +519,7 @@ def _bounce_sphere_sharded(o, d, throughput, alive, accum, scene: Scene, cfg: Re
 
     if fused:
         t_others, t_self = shadow_parts(p_nudged.contiguous(), to_light.contiguous(), geom.contiguous(),
-                                        (idx - offset).to(torch.int32), **kw)
+                                        (idx - offset).to(torch.int32), light=scene.lights.point_position, **kw)
         in_light = (collectives.pmin(t_self, axis) <= collectives.pmin(t_others, axis)).to(dtype)
     elif parts_route:
         clear_l = smooth_clear_parts(collectives.vary(p_nudged, axis), collectives.vary(to_light, axis), geom,
