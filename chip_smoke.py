@@ -1507,7 +1507,7 @@ def phase_big_kernels() -> tuple[dict[str, float], dict]:
     """The culled pair on the mirror config-4 frame's primary, first
     re-sorted and first full-sweep bounce, the sweeps on every bounce of the
     stochastic frame, each against its plain version (idx exactly), f32 at
-    1920x1080 and f64 at 480x270; shadow_sweep with its skip bitwise the
+    1920x1080 and f64 at 480x270; both sweeps with their skip bitwise the
     kernel without it, and (f64) the pairs the skip reaches; the primary
     lists checked conservative against the full sweep.  Returns the max abs
     error per kernel over the f32 cases and the f32 inputs (for the
@@ -1558,12 +1558,14 @@ def phase_big_kernels() -> tuple[dict[str, float], dict]:
             np_ = intersect_fused.nearest_sweep_plain(*args, **kw_n)
             err["nearest_sweep"] = max(err["nearest_sweep"], _per_value_check(f"nearest_sweep {tag} glossy bounce {b} t", nk.t, np_[0], dtype))
             _exact_check(f"nearest_sweep {tag} glossy bounce {b} idx", nk.idx, np_[1])
+            _skip_bitwise("nearest_sweep", f"{tag} glossy bounce {b}", intersect_fused.nearest_sweep, args, kw_n)
             lit = intersect_fused.shadow_sweep(*sargs, **kw_s)
             torch.cuda.synchronize()
             lit_p = intersect_fused.shadow_sweep_plain(*sargs, **kw_s)
             err["shadow_sweep"] = max(err["shadow_sweep"], _per_value_check(f"shadow_sweep {tag} glossy bounce {b} in_light", lit, lit_p, dtype))
             _skip_bitwise("shadow_sweep", f"{tag} glossy bounce {b}", intersect_fused.shadow_sweep, sargs, kw_s)
             if dtype == torch.float64:
+                _sweep_skip_ops("nearest_sweep", f"{tag} glossy bounce {b}", args, kw_n)
                 _sweep_skip_ops("shadow_sweep", f"{tag} glossy bounce {b}", sargs, kw_s)
         if dtype == torch.float32:
             errs = err
@@ -1842,8 +1844,7 @@ def _culled_bound(name: str, r: dict) -> tuple[float, str]:
 def _sweep_bound(name: str, call) -> tuple[float, str]:
     """The least time of one sweep launch: each input and output once, and
     the plain version's operations counted over 4096 of the lanes, scaled to
-    all of them; shadow_sweep's on the pairs its skip reaches
-    (:func:`_skip_bound`)."""
+    all of them, on the pairs the skip reaches (:func:`_skip_bound`)."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused
 
     args, kw = call
@@ -1851,8 +1852,6 @@ def _sweep_bound(name: str, call) -> tuple[float, str]:
     plain = intersect_fused.nearest_sweep_plain if name == "nearest_sweep" else intersect_fused.shadow_sweep_plain
     ops = count_ops(lambda: plain(*(a[:part] if a.shape[0] == n else a for a in args), **kw)) * n / min(n, part)
     out = intersect_fused.nearest_sweep(*args, **kw)[:2] if name == "nearest_sweep" else (intersect_fused.shadow_sweep(*args, **kw),)
-    if name == "nearest_sweep":
-        return _bound(int(ops), _nbytes(*args, *out))
     return _skip_bound(name, [_skip_sweep(plain, args, kw)], ops, _nbytes(*args, *out))
 
 
@@ -1927,7 +1926,7 @@ def _skip_line(name: str, label: str, sweeps: list[dict], ops: float) -> float:
     skip beside every pair's; returns the operations with the skip."""
     reached_ops = ops - sum(s["saved"] for s in sweeps)
     shares = ", ".join(f"{s['reached']} of {s['pairs']} ({s['reached'] / s['pairs']:.2%})" for s in sweeps)
-    which = "nearest, shadow" if len(sweeps) == 2 else "shadow"
+    which = "nearest, shadow" if len(sweeps) == 2 else ("nearest" if name == "nearest_sweep" else "shadow")
     pair_ops = "/".join(f"{s['pair_ops']:g}" for s in sweeps)
     head = f"[skip] {name} {label}".rstrip()
     print(f"{head}: the skip reaches {shares} (warp, sphere) pairs ({which}); {ops:.4e} operations on every pair, "
@@ -1948,15 +1947,70 @@ def _skip_bound(name: str, sweeps: list[dict], ops: float, n_bytes: int, label: 
 
 
 def _sweep_skip_ops(name: str, label: str, args: tuple, kw: dict) -> None:
-    """The reached pairs and operations of one shadow launch (an f64 record:
+    """The reached pairs and operations of one sweep launch (an f64 record:
     no bound in time, the H100's float64 rate being no figure of this run)."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused as f
 
-    plain = f.shadow_parts_plain if name == "shadow_parts" else f.shadow_sweep_plain
+    plain = {"shadow_parts": f.shadow_parts_plain, "nearest_sweep": f.nearest_sweep_plain}.get(name, f.shadow_sweep_plain)
     n, part = args[0].shape[0], 4096
     with torch.no_grad():
         ops = count_ops(lambda: plain(*(a[:part] if a.shape[0] == n else a for a in args), **kw)) * n / min(n, part)
     _skip_line(name, label, [_skip_sweep(plain, args, kw)], ops)
+
+
+def _cs_skip_line(name: str, label: str, args: tuple, kw: dict) -> dict:
+    """fwd_cs's skip on one recorded launch: its listed cheap-tier (ray,
+    sphere) pairs, those whose shadow sigmoid is exactly 0, those whose warp
+    has that on every lane, and those the warp bound keeps
+    (``benchmarks/sweep_skip_ab.cs_counts``); fails if the bound drops a
+    pair that shades.  Returns the counts."""
+    from python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab import cs_counts, cs_counts_text
+
+    c = cs_counts(args, kw)
+    print(f"[skip] {name} {label}: {cs_counts_text(c)}", flush=True)
+    if c["missed"]:
+        fail(f"{name} {label}: the warp bound drops {c['missed']} (warp, sphere) pairs that shade")
+    return c
+
+
+def _fwd_cs_bound(args: tuple, kw: dict, label: str) -> tuple[float, str]:
+    """fwd_cs's least time on one recorded call: as :func:`_list_bound`, with
+    the shadow loop counted on the pairs the skip keeps: each listed (warp,
+    cheap sphere) pair pays one test of the warp bound, each pair the bound
+    keeps the quadratic and the zero test on every lane, and only the lanes
+    whose shadow sigmoid is not exactly 0 the rest of the pair; the bundle
+    once a lane.  Prints it beside the bound that counts every listed
+    pair."""
+    from python_ray_tracer_tpu_torch.ops import culled_smooth as cs, intersect_fused as f
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain
+
+    per_lane, per_sphere, swept = _list_ops(cs.fwd_cs_plain, args, kw, 7)
+    c = _cs_skip_line("fwd_cs", label, args, kw)
+    n_bytes = _io_bytes(cs.fwd_cs, args, kw)
+    n, part = args[0].shape[1], 4096
+    geom = args[10]
+    o, d = args[0][:, :part].T.contiguous(), args[1][:, :part].T.contiguous()
+    sharp_s = kw["sharp_s"]
+    with torch.no_grad():
+        edge = torch.tensor(-cs.SIG_EDGE[o.dtype], dtype=o.dtype) / (4 * torch.tensor(sharp_s, dtype=o.dtype))
+        sample = f.warp_bundles(o, d, args[12][0, 3:6])
+        bundle_ops = count_ops(lambda: f.warp_bundles(o, d, args[12][0, 3:6])) / part
+        line_ops = count_ops(lambda: f.line_test(sample, geom[:1], edge.to(o.device))) / (part // 32)
+        g = geom[0]
+
+        def test():
+            b, ct = b_cterm_plain(tuple(o.T), tuple(d.T), (g[0], g[1], g[2]), g[3])
+            return sharp_s * (b * b - 4.0 * ct) < cs.SIG_EDGE[o.dtype]
+
+        test_ops = count_ops(test) / part
+    every = _bound(int(per_lane * n + per_sphere * swept), n_bytes)
+    ops = (per_lane + bundle_ops) * n + line_ops * c["w_listed"] + test_ops * c["kept"] + (per_sphere - test_ops) * (
+        c["listed"] - c["zero"])
+    bound = _bound(int(ops), n_bytes)
+    print(f"[skip] fwd_cs {label}: bound {bound[0]:.4f} ms by {bound[1]} on the kept pairs (a warp test {line_ops:g}, "
+          f"a pair's test {test_ops:g}, a whole pair {per_sphere:g} operations), {every[0]:.4f} ms by {every[1]} on "
+          f"every listed pair", flush=True)
+    return bound
 
 
 def _time_launches(name: str, calls: list, card: str, context: str, what: str) -> dict:
@@ -2006,7 +2060,8 @@ def phase_big_timing(card: str, inputs: dict) -> dict[str, dict]:
                           lambda r=r: _culled_bound("shade_culled", r)) for r in inputs["record"]],
         "nearest_sweep": [(lambda c=c: intersect_fused.nearest_sweep(*c[0], **c[1]),
                            lambda c=c: intersect_fused.nearest_sweep_plain(*c[0], **c[1]),
-                           lambda c=c: _sweep_bound("nearest_sweep", c)) for c in inputs["near"]],
+                           lambda c=c: _sweep_bound("nearest_sweep", c),
+                           lambda c=c: intersect_fused.nearest_sweep(*c[0], **c[1], skip="off")) for c in inputs["near"]],
         "shadow_sweep": [(lambda c=c: intersect_fused.shadow_sweep(*c[0], **c[1]),
                           lambda c=c: intersect_fused.shadow_sweep_plain(*c[0], **c[1]),
                           lambda c=c: _sweep_bound("shadow_sweep", c),
@@ -2090,8 +2145,9 @@ def phase_cs_kernels() -> tuple[dict[str, float], list[dict]]:
     bounce of the config-4 step's forward and backward (primary, then two
     re-sorted reflected bounces), mirror and glossy, f32 at 1920x1080 and f64
     at 480x270: idx exactly, the rest under the per-value, per-ray and
-    per-column limits; bwd_cs twice, bitwise.  On the f32 primary bounce the
-    lists lose nothing: near_cs's (idx, hit) equal the plain full sweep's on
+    per-column limits; bwd_cs twice, bitwise; fwd_cs with its skip bitwise
+    the kernel without it (f64: the pairs the skip keeps; f32 in the
+    timings).  On the f32 primary bounce the lists lose nothing: near_cs's (idx, hit) equal the plain full sweep's on
     every lane.  Returns the max abs error per kernel over the f32 cases and
     the f32 mirror record (for the timings)."""
     from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs
@@ -2123,6 +2179,9 @@ def phase_cs_kernels() -> tuple[dict[str, float], list[dict]]:
                     fp = cs.fwd_cs_plain(*fa, **fkw)
                     for name, k, p in zip(("o", "d", "thr", "alive", "acc", "clear"), fk, fp):
                         err["fwd_cs"] = max(err["fwd_cs"], _per_value_check(f"fwd_cs {tag} bounce {b} {name}", k, p, dtype))
+                    _skip_bitwise("fwd_cs", f"{tag} bounce {b}", cs.fwd_cs, fa, fkw)
+                    if dtype == torch.float64:
+                        _cs_skip_line("fwd_cs", f"{tag} bounce {b}", fa, fkw)
                     bk = cs.bwd_cs(*ba, **bkw)
                     bk2 = cs.bwd_cs(*ba, **bkw)
                     torch.cuda.synchronize()
@@ -2233,6 +2292,8 @@ def _cs_bound(name: str, r: dict) -> tuple[float, str]:
 
     if name == "bwd_cs":
         return _bwd_cs_bound(*r["bwd"], "config 4")
+    if name == "fwd_cs":
+        return _fwd_cs_bound(*r["fwd"], "config 4")
     args, kw = r[{"near_cs": "near", "fwd_cs": "fwd", "bwd_cs": "bwd"}[name]]
     ci = 4 if name == "near_cs" else 7  # the nearest lists, or the shadow lists
     return _list_bound(getattr(cs, f"{name}_plain"), getattr(cs, name), args, kw, ci)
@@ -2273,13 +2334,17 @@ def phase_cs_timing(card: str, record: list[dict], logs: dict[str, str]) -> dict
     from python_ray_tracer_tpu_torch.optim import make_loss_fn
 
     parts = {"near_cs": "near", "fwd_cs": "fwd", "bwd_cs": "bwd"}
+
+    def off(name, r):  # fwd_cs without its skip, timed beside in turns
+        return (lambda: cs.fwd_cs(*r["fwd"][0], **r["fwd"][1], skip="off"),) if name == "fwd_cs" else ()
+
     with torch.no_grad():
         res = {
             name: _time_launches(
                 name,
                 [(lambda r=r, f=getattr(cs, name): f(*r[parts[name]][0], **r[parts[name]][1]),
                   lambda r=r, f=getattr(cs, f"{name}_plain"): f(*r[parts[name]][0], **r[parts[name]][1]),
-                  lambda r=r: _cs_bound(name, r)) for r in record],
+                  lambda r=r: _cs_bound(name, r), *off(name, r)) for r in record],
                 card, "config 4 smooth step, 1920x1080 f32", f"the step's {len(record)}",
             )
             for name in CS
@@ -2721,8 +2786,9 @@ def phase_atlas_kernels() -> tuple[dict[str, float], dict]:
     frame (f32 1920x1080, f64 480x270); fwd_cs and bwd_cs on every bounce of
     a textured1024 smooth loss (f32 960x540, f64 480x270).  Texel ids
     exactly, the rest under the per-value, per-ray and per-column limits;
-    the gradient kernels twice, bitwise.  Returns the max abs error per
-    kernel (f32) and the f32 calls and records for the timings."""
+    the gradient kernels twice, bitwise; fwd_cs with its skip bitwise the
+    kernel without it.  Returns the max abs error per kernel (f32) and the
+    f32 calls and records for the timings."""
     from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs
 
     errs = dict.fromkeys(ATLAS, 0.0)
@@ -2758,6 +2824,9 @@ def phase_atlas_kernels() -> tuple[dict[str, float], dict]:
                 for name, k, p in zip(("o", "d", "thr", "alive", "acc", "clear"), fk, fp):
                     err["fwd_cs"] = max(err["fwd_cs"], _per_value_check(f"fwd_cs (atlas) {tag} bounce {b} {name}", k, p, dtype))
                 n_image += _check_texels(f"{tag} bounce {b}", "fwd_cs", fk[6:], fp[6:], dtype, err, False)
+                _skip_bitwise("fwd_cs (atlas)", f"{tag} bounce {b}", cs.fwd_cs, fa, fkw)
+                if dtype == torch.float64:
+                    _cs_skip_line("fwd_cs (atlas)", f"{tag} bounce {b}", fa, fkw)
                 bk = _twice_bitwise("bwd_cs (atlas)", f"{tag} bounce {b}", lambda: cs.bwd_cs(*ba, **bkw))
                 bp = cs.bwd_cs_plain(*ba, **bkw)
                 for name, k, p in zip(("g_o", "g_d", "g_thr", "g_alive", "g_geom", "g_mat", "g_consts"), bk, bp):
@@ -2987,14 +3056,16 @@ def phase_atlas_timing(card: str, inputs: dict) -> dict[str, dict]:
             n_ms = time_ms(no_atlas(culled.shade_culled, r["shade"], r["shade_kw"]), warmup=2, iters=10)
             print(f"[timing] shade_culled bounce {b}: atlas {a_ms:.4f} ms, no atlas {n_ms:.4f} ms on the same inputs "
                   f"({a_ms / n_ms:.3f}x; {card})", flush=True)
-        for name, part, ci in (("fwd_cs", "fwd", 7), ("bwd_cs", "bwd", 7)):
+        for name, part in (("fwd_cs", "fwd"), ("bwd_cs", "bwd")):
             rows = []
             for r in inputs["cs"]:
                 args, kw = r[part]
                 kernel, plain = getattr(cs, name), getattr(cs, f"{name}_plain")
                 bound = (lambda a=args, w=kw: _bwd_cs_bound(a, w, "textured1024 atlas")) if name == "bwd_cs" else (
-                    lambda k=kernel, p=plain, a=args, w=kw: _list_bound(p, k, a, w, ci))
-                rows.append((lambda k=kernel, a=args, w=kw: k(*a, **w), lambda p=plain, a=args, w=kw: p(*a, **w), bound))
+                    lambda a=args, w=kw: _fwd_cs_bound(a, w, "textured1024 atlas"))
+                off = () if name == "bwd_cs" else ((lambda a=args, w=kw: cs.fwd_cs(*a, **w, skip="off")),)
+                rows.append((lambda k=kernel, a=args, w=kw: k(*a, **w), lambda p=plain, a=args, w=kw: p(*a, **w), bound,
+                             *off))
             res[ATLAS[name]] = _time_launches(f"{name} (atlas)", rows, card, "textured1024 smooth, 960x540 f32",
                                               f"the loss's {len(rows)}")
             for b, r in enumerate(inputs["cs"]):
@@ -3389,8 +3460,8 @@ def _check_parts_calls(tag: str, calls: dict, dtype: torch.dtype, err: dict) -> 
     """Each recorded per-shard call of the first two bounces, its kernel
     against its plain version: indices exactly, values as PERF.md section 2
     states (THRESHOLD, RAY_GRAD_TOL, COLUMN_RTOL); clear_bwd twice, bitwise;
-    shadow_parts on every bounce bitwise the kernel without its skip, with
-    the pairs the skip reaches."""
+    shadow_parts and the shard's nearest_sweep on every bounce bitwise the
+    kernel without its skip, with the pairs the skip reaches."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
 
     def det(args):
@@ -3407,6 +3478,10 @@ def _check_parts_calls(tag: str, calls: dict, dtype: torch.dtype, err: dict) -> 
         want = intersect_fused.shadow_parts_plain(*args, **kw)
         for name, k, p in zip(("t_others", "t_self"), got, want):
             err["shadow_parts"] = max(err["shadow_parts"], _per_value_check(f"shadow_parts {tag} bounce {b} {name}", k, p, dtype))
+    for b, (args, kw) in enumerate(calls.get("nearest_sweep", [])):
+        args = det(args)
+        _skip_bitwise("nearest_sweep", f"{tag} bounce {b}", intersect_fused.nearest_sweep, args, kw)
+        _sweep_skip_ops("nearest_sweep", f"{tag} bounce {b}", tuple(args), kw)
     for b, (args, kw) in enumerate(calls.get("nearest", [])[:2]):
         args = det(args)
         got = sp.nearest_parts(*args, **kw)
@@ -3448,7 +3523,7 @@ def _parts_capture(calls: dict):
 
     render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")
     with contextlib.ExitStack() as stack:
-        for module, name, key in ((render_mod, "shadow_parts", "shadow_parts"),
+        for module, name, key in ((render_mod, "shadow_parts", "shadow_parts"), (render_mod, "nearest_sweep", "nearest_sweep"),
                                   (render_mod, "smooth_nearest_parts", "nearest"),
                                   (render_mod, "smooth_clear_parts", "clear"), (smooth_parts, "clear_bwd", "clear_bwd")):
             stack.enter_context(_capture(module, name, calls.setdefault(key, [])))
@@ -3996,53 +4071,61 @@ def phase_drill(tmp: Path) -> None:
           flush=True)
 
 
+def _timed(phase, *args):
+    """Run one phase and print the seconds it took."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[phase] {phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
-    card = phase_device()
+    card = _timed(phase_device)
     sys.path.insert(0, str(REPO))
     t0 = time.perf_counter()
-    logs = phase_build()
+    logs = _timed(phase_build)
     errs, launches, timings = {}, {}, {}
-    errs.update(phase_kernels())
-    errs.update(phase_smooth_kernels())
-    phase_xi()
-    big_errs, big_inputs = phase_big_kernels()
+    errs.update(_timed(phase_kernels))
+    errs.update(_timed(phase_smooth_kernels))
+    _timed(phase_xi)
+    big_errs, big_inputs = _timed(phase_big_kernels)
     errs.update(big_errs)
-    cs_errs, cs_record = phase_cs_kernels()
+    cs_errs, cs_record = _timed(phase_cs_kernels)
     errs.update(cs_errs)
-    lane_errs, blocked_timings = phase_blocked_kernels(card)
+    lane_errs, blocked_timings = _timed(phase_blocked_kernels, card)
     errs.update({LANE[k]: v for k, v in lane_errs.items()})
-    atlas_errs, atlas_inputs = phase_atlas_kernels()
+    atlas_errs, atlas_inputs = _timed(phase_atlas_kernels)
     errs.update({ATLAS[k]: v for k, v in atlas_errs.items()})
-    lane_errs, lane_inputs = phase_lane_kernels()
+    lane_errs, lane_inputs = _timed(phase_lane_kernels)
     errs.update(lane_errs)
-    phase_lane_geometry(card, lane_inputs)
+    _timed(phase_lane_geometry, card, lane_inputs)
     with tempfile.TemporaryDirectory() as tmp:
-        launches.update(phase_main_path(Path(tmp)))
-        launches.update(phase_smooth_main(Path(tmp)))
-        launches.update(phase_step_main())
-        phase_sampled_main(Path(tmp))
-        phase_stochastic_train(Path(tmp))
-        launches.update(phase_big_main(Path(tmp)))
-        launches.update(phase_cs_main(Path(tmp)))
-        c5_launches = phase_c5_main(Path(tmp))
-        launches.update(phase_tex_main(Path(tmp)))
-        launches.update(phase_lane_main(Path(tmp)))
-        errs.update(phase_parts(Path(tmp)))
-        timings.update(phase_parts_timing(card, Path(tmp)))
-        launches.update(phase_sharded_main(Path(tmp)))
-        phase_multi_card(Path(tmp))
-        phase_drill(Path(tmp))
+        launches.update(_timed(phase_main_path, Path(tmp)))
+        launches.update(_timed(phase_smooth_main, Path(tmp)))
+        launches.update(_timed(phase_step_main))
+        _timed(phase_sampled_main, Path(tmp))
+        _timed(phase_stochastic_train, Path(tmp))
+        launches.update(_timed(phase_big_main, Path(tmp)))
+        launches.update(_timed(phase_cs_main, Path(tmp)))
+        c5_launches = _timed(phase_c5_main, Path(tmp))
+        launches.update(_timed(phase_tex_main, Path(tmp)))
+        launches.update(_timed(phase_lane_main, Path(tmp)))
+        errs.update(_timed(phase_parts, Path(tmp)))
+        timings.update(_timed(phase_parts_timing, card, Path(tmp)))
+        launches.update(_timed(phase_sharded_main, Path(tmp)))
+        _timed(phase_multi_card, Path(tmp))
+        _timed(phase_drill, Path(tmp))
     launches.update({k: v for k, v in c5_launches.items() if k in LANE.values()})
-    phase_cs_golden()
-    timings.update(phase_timing(card))
-    timings.update(phase_big_timing(card, big_inputs))
-    timings.update(phase_cs_timing(card, cs_record, logs))
-    phase_c5_timing(card)
-    timings.update(phase_atlas_timing(card, atlas_inputs))
-    timings.update(phase_lane_timing(card, lane_inputs))
+    _timed(phase_cs_golden)
+    timings.update(_timed(phase_timing, card))
+    timings.update(_timed(phase_big_timing, card, big_inputs))
+    timings.update(_timed(phase_cs_timing, card, cs_record, logs))
+    _timed(phase_c5_timing, card)
+    timings.update(_timed(phase_atlas_timing, card, atlas_inputs))
+    timings.update(_timed(phase_lane_timing, card, lane_inputs))
     lane_timing = next(t for label, t in blocked_timings.items() if label.startswith(f"random_spheres({LANE_SPHERES})"))
     timings.update({LANE[k]: lane_timing[k] for k in STEP})
-    probe_errs, probe_launches, probe_timings, ceiling = phase_probes(card, logs)
+    probe_errs, probe_launches, probe_timings, ceiling = _timed(phase_probes, card, logs)
     errs.update(probe_errs)
     launches.update(probe_launches)
     timings.update(probe_timings)

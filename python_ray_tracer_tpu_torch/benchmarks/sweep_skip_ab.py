@@ -1,39 +1,63 @@
-"""Time the warp-bundle sphere skip off and on, in turns, on one CUDA card.
+"""Time the sweeps' sphere skips off and on, in turns, on one CUDA card.
 
-``bounce_lane`` (kernel-table row 5) and ``shadow_sweep`` (row 4, both
-modes) skip the cheap-tier spheres that no ray of a warp can hit
-(``csrc/sweep_math.cuh``).  Their wrappers take ``skip="off"`` to launch
-the same source with the skip compiled out, so this A/B needs no build
-variant: it records the main path's inputs once, checks every launch with
-the skip bitwise equal to the launch without, and times the two in turns
-(off, on, on, off; each turn the mean over the record's launches of the
-median of 10 CUDA-event timings):
+``bounce_lane`` (kernel-table row 5), ``shadow_sweep`` (row 4, both modes)
+and ``nearest_sweep`` (row 3) skip the cheap-tier spheres that no ray of a
+warp can hit (``csrc/sweep_math.cuh``); ``fwd_cs`` (row 16, both modes)
+skips the shadow pairs whose factor is exactly 1: the spheres no shadow
+line of a warp comes near enough to shade (``csrc/bundle_math.cuh``
+``line_reaches``), and per lane the pairs whose ``sig(sharp_s disc)`` is
+exactly 0.  Their wrappers take ``skip="off"`` to launch the same source
+with the skip compiled out, so this A/B needs no build variant: it records
+the main path's inputs once, checks every launch with the skip bitwise
+equal to the launch without, and times the two in turns (off, on, on, off;
+each turn the mean over the record's launches of the median of 10
+CUDA-event timings):
 
 * ``bounce_lane`` on the 1032-sphere frame's 4 launches (config 4's
   spheres with 8 more in the exact tier, 1920x1080 f32) and on lane80's 4
   (80 spheres, atlas; ``testdata/lane80.json``);
-* ``shadow_sweep`` on config 4's 4 glossy launches (1920x1080 f32,
-  ``--stochastic-roughness --seed 7``);
-* ``shadow_parts`` on sphere shard 0's 4 launches of config 4's mirror
-  frame: spheres 0-511, the last in the shard's exact tier as the sharded
-  route takes it, on the shadow rays of the single-process frame traced
-  through the sweeps (each lane's own sphere a local index, out of range
-  where shard 1 holds it);
-* both kernels on the small tables the launch rule is for:
+* ``nearest_sweep`` and ``shadow_sweep`` on config 4's 4 glossy launches
+  each (1920x1080 f32, ``--stochastic-roughness --seed 7``);
+* ``nearest_sweep`` and ``shadow_parts`` on sphere shard 0's 4 launches of
+  config 4's mirror frame: spheres 0-511, the last in the shard's exact
+  tier as the sharded route takes it, on the rays of the single-process
+  frame traced through the sweeps (each shadow lane's own sphere a local
+  index, out of range where shard 1 holds it);
+* ``fwd_cs`` on the config-4 smooth frame's 3 bounces (1920x1080, depth 3,
+  mirror) and on the ``textured1024`` frame's 3 at 960x540 (atlas mode);
+* in f64, at a quarter of the size (480x270): ``nearest_sweep`` on the
+  glossy frame's 4 launches and ``fwd_cs`` on the config-4 frame's 3;
+* the sweeps on the small tables the launch rule is for:
   ``random_spheres_scene(n)`` for each n of ``SMALL`` (its ground the one
   exact sphere), ``bounce_lane`` through ``trace_fused_lane`` (mirror) and
-  ``shadow_sweep`` through ``render.trace`` (glossy, seed 7), 4 bounces.
+  ``nearest_sweep``/``shadow_sweep`` through ``render.trace`` (glossy,
+  seed 7), 4 bounces.
 
 Beside the times it prints each launch's share of (warp, sphere) pairs
-the skip reaches (:func:`..ops.intersect_fused.bundle_reach`), ptxas's
-registers and spill bytes of every instantiation of the two kernels (the
-build's ``-Xptxas -v`` log, read when this process builds the libraries),
-and each instantiation's resident blocks per SM::
+the skip reaches (:func:`..ops.intersect_fused.bundle_reach`); for
+``nearest_sweep`` also the share of those a distance cut could drop (a
+sphere whose nearest possible hit from the warp's ball of origins lies
+past the largest ``t`` the warp's lanes end with), and for ``fwd_cs`` the
+listed (ray, sphere) pairs whose shadow sigmoid is exactly 0, those whose
+warp has that on every lane, and those the warp bound keeps
+(:func:`..ops.culled_smooth.fwd_cs_reach`).  Then ptxas's registers and
+spill bytes of every instantiation of the four kernels (the build's
+``-Xptxas -v`` log, read when this process builds the libraries), and
+each instantiation's resident blocks per SM::
 
     python -m python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab [--device cpu --width 64 --height 36]
+        [--rows K] [--split] [--frames]
 
 On ``--device cpu`` it runs the plain versions at the size given (a check
-of the script, no times).
+of the script, no times).  ``--rows K`` prints only the counts of the
+nearest and shadow sweeps' cases, on K whole image rows (every
+``height / K``-th) of the frame at the size given: each row traced alone
+with its own ray offset (the xi the whole frame draws there), so that a
+warp is 32 neighbouring pixels as in the frame.  ``--split`` runs
+:mod:`.fwd_cs_split` after the A/B (``fwd_cs`` with its shadow loop
+stubbed out, beside the source as it is).  ``--frames`` times only the
+frames and steps ``nearest_sweep`` and ``fwd_cs`` sit in, with their skips
+off and on in turns (:func:`frames`; the card only).
 """
 
 from __future__ import annotations
@@ -54,10 +78,42 @@ from .splits import median_ms, ptxas_kernels
 PACKAGE = Path(__file__).resolve().parent.parent
 LANE80 = PACKAGE / "testdata" / "lane80.json"
 LANE80_SETTINGS = PACKAGE / "testdata" / "lane80_settings.json"
-SEED, DEPTH, SHARD = 7, 4, 512
+SEED, DEPTH, SHARD, CS_DEPTH = 7, 4, 512, 3
 TURNS = ("off", "on", "on", "off")
 # Table sizes below the main path's, for the launch rule (kSkipMinCheap).
-SMALL = (4, 8, 16, 17, 48)
+SMALL = (4, 8, 16, 17, 25, 32, 48)
+
+
+def _glossy():
+    """Config 4's glossy frame: the sweeps' main path (seed SEED)."""
+    from python_ray_tracer_tpu_torch import RenderConfig
+
+    return RenderConfig(max_depth=DEPTH, dtype=torch.float32, use_pallas=True, stochastic_roughness=True,
+                        rng_seed=SEED)
+
+
+def _mirror(width: int, height: int):
+    """Config 4's mirror frame through the sweeps (a ray chunk keeps it off
+    the culled pair), the rays each sphere shard sweeps."""
+    from python_ray_tracer_tpu_torch import RenderConfig
+
+    return RenderConfig(max_depth=DEPTH, dtype=torch.float32, use_pallas=True, ray_chunk=width * height)
+
+
+def _key():
+    """render()'s sample 0 at SEED."""
+    from python_ray_tracer_tpu_torch.ops.rng import fold_seed, seed_root
+
+    return fold_seed(fold_seed(seed_root(SEED), 0), 4)
+
+
+def _shard(cases: dict) -> None:
+    """Shard 0's tables in place of the whole one: spheres 0..SHARD-1, the
+    last in the exact tier (the sharded route's s_cheap)."""
+    for name, calls in cases.items():
+        if "shard 0" in name:
+            for j, (args, kw) in enumerate(calls):
+                calls[j] = ((*args[:2], args[2][:SHARD].contiguous(), *args[3:]), {**kw, "s_cheap": SHARD - 1})
 
 
 def _capture(module, name: str, calls: list):
@@ -99,6 +155,7 @@ def record(device, width: int, height: int) -> dict[str, list]:
     """Each case's launches: ``(args, kwargs)`` of its wrapper."""
     from python_ray_tracer_tpu_torch import RenderConfig, render
     from python_ray_tracer_tpu_torch.io import load_scene, load_settings
+    from python_ray_tracer_tpu_torch.models import scenes
     from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene
     from python_ray_tracer_tpu_torch.ops import bounce_lane
 
@@ -116,25 +173,42 @@ def record(device, width: int, height: int) -> dict[str, list]:
         finally:
             bounce_lane.bounce_lane = real
     config4 = random_spheres_scene(1024, width, height, dtype=torch.float32, device=device)
-    glossy = RenderConfig(max_depth=DEPTH, dtype=torch.float32, use_pallas=True, stochastic_roughness=True,
-                          rng_seed=SEED)
-    mirror = RenderConfig(max_depth=DEPTH, dtype=torch.float32, use_pallas=True, ray_chunk=width * height)
-    for name, cfg in (("shadow_sweep config 4 glossy", glossy), ("shadow_parts config 4 shard 0", mirror)):
-        calls = cases.setdefault(name, [])
-        real = _capture(render_mod, "shadow_sweep", calls)
+    for tag, cfg in (("config 4 glossy", _glossy()), ("config 4 shard 0", _mirror(width, height))):
+        near = cases.setdefault(f"nearest_sweep {tag}", [])
+        shadow = cases.setdefault(f"{'shadow_sweep' if 'glossy' in tag else 'shadow_parts'} {tag}", [])
+        real = _capture(render_mod, "nearest_sweep", near), _capture(render_mod, "shadow_sweep", shadow)
         try:
             with torch.no_grad():
                 render(config4, cfg)
         finally:
-            render_mod.shadow_sweep = real
-    parts = cases["shadow_parts config 4 shard 0"]
-    for j, (args, kw) in enumerate(parts):
-        o, d, geom, idx = args
-        parts[j] = ((o, d, geom[:SHARD].contiguous(), idx), {**kw, "s_cheap": SHARD - 1})
+            render_mod.nearest_sweep, render_mod.shadow_sweep = real
+    config4 = random_spheres_scene(1024, width // 4, height // 4, dtype=torch.float64, device=device)
+    near = cases.setdefault("nearest_sweep config 4 glossy f64 (a quarter of the size)", [])
+    real = _capture(render_mod, "nearest_sweep", near)
+    try:
+        with torch.no_grad():
+            render(config4, dataclasses.replace(_glossy(), dtype=torch.float64))
+    finally:
+        render_mod.nearest_sweep = real
+    _shard(cases)
     from python_ray_tracer_tpu_torch.camera import ray_directions, ray_directions_t
-    from python_ray_tracer_tpu_torch.ops.rng import fold_seed, seed_root
+    from python_ray_tracer_tpu_torch.ops import culled_smooth
 
-    key = fold_seed(fold_seed(seed_root(SEED), 0), 4)  # render()'s sample 0 at SEED
+    for name, kind, size, dtype in (
+            ("fwd_cs config 4 step", "random_spheres", (width, height), torch.float32),
+            ("fwd_cs textured1024 step (atlas)", "textured_spheres", (width // 2, height // 2), torch.float32),
+            ("fwd_cs config 4 step f64 (a quarter of the size)", "random_spheres", (width // 4, height // 4),
+             torch.float64)):
+        scene = getattr(scenes, f"{kind}_scene")(1024, *size, dtype=dtype, device=device)
+        cfg = RenderConfig(max_depth=CS_DEPTH, dtype=dtype, visibility="smooth", use_pallas=True)
+        calls = cases.setdefault(name, [])
+        real = _capture(culled_smooth, "fwd_cs", calls)
+        try:
+            with torch.no_grad():
+                culled_smooth.trace_culled_smooth(scene.camera.position, ray_directions_t(scene.camera, dtype), scene,
+                                                  cfg)
+        finally:
+            culled_smooth.fwd_cs = real
     for n in SMALL:
         scene = random_spheres_scene(n, width, height, dtype=torch.float32, device=device)
         calls = cases.setdefault(f"bounce_lane {n} spheres", [])
@@ -142,37 +216,192 @@ def record(device, width: int, height: int) -> dict[str, list]:
         try:
             with torch.no_grad():
                 bounce_lane.trace_fused_lane(scene.camera.position, ray_directions_t(scene.camera, torch.float32),
-                                             scene, dataclasses.replace(mirror, ray_chunk=0))
+                                             scene, dataclasses.replace(_mirror(width, height), ray_chunk=0))
         finally:
             bounce_lane.bounce_lane = real
-        calls = cases.setdefault(f"shadow_sweep {n} spheres glossy", [])
-        real = _capture(render_mod, "shadow_sweep", calls)
+        near = cases.setdefault(f"nearest_sweep {n} spheres glossy", [])
+        shadow = cases.setdefault(f"shadow_sweep {n} spheres glossy", [])
+        real = _capture(render_mod, "nearest_sweep", near), _capture(render_mod, "shadow_sweep", shadow)
         try:
             with torch.no_grad():
-                render_mod.trace(scene.camera.position, ray_directions(scene.camera, torch.float32), scene, glossy,
-                                 key=key)
+                render_mod.trace(scene.camera.position, ray_directions(scene.camera, torch.float32), scene, _glossy(),
+                                 key=_key())
         finally:
-            render_mod.shadow_sweep = real
+            render_mod.nearest_sweep, render_mod.shadow_sweep = real
     if device.type == "cuda":
         torch.cuda.synchronize()
     return cases
 
 
+def record_rows(device, width: int, height: int, rows: int) -> dict[str, list]:
+    """The nearest and shadow sweeps' cases of :func:`record` on ``rows``
+    whole image rows of the config-4 frames: each row traced alone through
+    ``render.trace`` with its ray offset, its launches joined row after row
+    (a warp is 32 neighbouring pixels, as in the frame)."""
+    from python_ray_tracer_tpu_torch.camera import ray_directions
+    from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene
+
+    render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")
+    scene = random_spheres_scene(1024, width, height, dtype=torch.float32, device=device)
+    dirs = ray_directions(scene.camera, torch.float32)
+    cases: dict[str, list] = {}
+    for tag, cfg, key in (("config 4 glossy", _glossy(), _key()), ("config 4 shard 0", _mirror(width, height), None)):
+        per_row = []
+        for y in range(0, height, max(1, height // rows)):
+            near, shadow = [], []
+            real = _capture(render_mod, "nearest_sweep", near), _capture(render_mod, "shadow_sweep", shadow)
+            try:
+                with torch.no_grad():
+                    render_mod.trace(scene.camera.position, dirs[y * width:(y + 1) * width], scene, cfg, key=key,
+                                     ray_offset=y * width)
+            finally:
+                render_mod.nearest_sweep, render_mod.shadow_sweep = real
+            per_row.append((near, shadow))
+        shadow = f"{'shadow_sweep' if 'glossy' in tag else 'shadow_parts'} {tag}"
+        for name, j in ((f"nearest_sweep {tag}", 0), (shadow, 1)):
+            cases[name] = [_join([row[j][b] for row in per_row]) for b in range(DEPTH)]
+    _shard(cases)
+    return cases
+
+
+def _join(calls: list) -> tuple:
+    """One launch's ``(args, kwargs)`` from the same launch of each row: the
+    per-ray arguments concatenated, the rest the first row's."""
+    args0, kw0 = calls[0]
+    n0 = args0[0].shape[0]
+    args = tuple(torch.cat([c[0][j] for c in calls]) if torch.is_tensor(a) and a.shape[0] == n0 and j != 2 else a
+                 for j, a in enumerate(args0))
+    return args, kw0
+
+
 def _kernel(name: str):
-    from python_ray_tracer_tpu_torch.ops import bounce_lane, intersect_fused
+    from python_ray_tracer_tpu_torch.ops import bounce_lane, culled_smooth, intersect_fused
 
     if name.startswith("bounce_lane"):
         return bounce_lane.bounce_lane
+    if name.startswith("fwd_cs"):
+        return culled_smooth.fwd_cs
+    if name.startswith("nearest_sweep"):
+        return lambda *a, **k: tuple(intersect_fused.nearest_sweep(*a, **k))
     return intersect_fused.shadow_parts if name.startswith("shadow_parts") else intersect_fused.shadow_sweep
 
 
-def _reach_shares(name: str, args, kw) -> list[float]:
-    """The share of (warp, sphere) pairs each sweep of the launch reaches."""
+def nearest_counts(o, d, geom, s_cheap: int, faraway: float) -> dict:
+    """Shares of a nearest sweep's cheap-tier (warp, sphere) pairs: those
+    the skip reaches (``bundle_reach`` with no apex), and those of the
+    reached a distance cut would also drop: a sphere whose nearest possible
+    hit from any origin in the warp's ball (|g - c| - r_ball - r) lies past
+    the largest t the warp's lanes end with (a bound of what the cut could
+    save, the final t being no larger than the running one); and the warps
+    with a lane that hits nothing (no cut there)."""
+    from python_ray_tracer_tpu_torch.ops import intersect_fused as f
+
+    b = f.warp_bundles(o, d)
+    cheap = geom[:s_cheap]
+    reach = f.bundle_test(b, cheap) | ~b.ok[:, None]
+    t = f.nearest_sweep_plain(o, d, geom, faraway=faraway, s_cheap=s_cheap)[0]
+    pad = (-t.shape[0]) % f.WARP
+    t_max = torch.cat([t, t.new_full((pad,), faraway)]).reshape(-1, f.WARP).amax(1)
+    dist = torch.linalg.vector_norm(cheap[None, :, :3] - b.c[:, None, :], dim=2)
+    cut = reach & b.ok[:, None] & (dist - b.r[:, None] - cheap[None, :, 3] > t_max[:, None])
+    n_reach = max(int(reach.sum()), 1)
+    return dict(reached=float(reach.float().mean()), cut=int(cut.sum()) / n_reach, cut_all=float(cut.float().mean()),
+                miss_warps=float((t_max == faraway).float().mean()))
+
+
+def cs_counts(args, kw) -> dict:
+    """Counts of one fwd_cs launch's listed cheap-tier (ray, sphere) pairs
+    (each tile's candidates and full-tier fallback): those whose shadow
+    sigmoid sig(sharp_s disc) is exactly 0, those whose warp has that on all
+    32 lanes, and those the warp bound keeps
+    (:func:`..ops.culled_smooth.fwd_cs_reach`); at warp level, the listed
+    (warp, sphere) pairs, those the bound keeps and those with a lane whose
+    sigmoid is not 0 (each of which the bound must keep: counted as
+    ``missed`` if not)."""
+    from python_ray_tracer_tpu_torch.ops import culled_smooth as cs
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain, sig
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth_sub import _xi_pair, fwd_sub_math
+
+    o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom, mat, consts = args[:13]
+    xi = args[13] if len(args) > 13 else None
+    tile, s_cheap, sharp_s = kw["tile_rays"], kw["s_cheap"], kw["sharp_s"]
+    with torch.no_grad():
+        f = fwd_sub_math(tuple(o), tuple(d), thr, alive, geom, mat, consts, _xi_pair(xi, 0), faraway=kw["faraway"],
+                         s_cheap=s_cheap, sharp_e=kw["sharp_e"], sharp_s=sharp_s,
+                         saved=(idx, hit != 0, torch.ones_like(thr)), tex_hw=kw.get("tex_hw"))
+        p_n, to_light = torch.stack(f.p_n, 1), torch.stack(f.L, 1)
+        reach = cs.fwd_cs_reach(p_n, to_light, consts[0, 3:6], geom, s_cheap, sharp_s, tile)
+        n = o.shape[1]
+        warps = torch.arange(n // 32, device=o.device)
+        tile_of = warps * 32 // tile
+        cc = torch.clamp(cnt.long()[tile_of], 0, cand.shape[1])
+        cf = torch.clamp(cnt_full.long()[tile_of], 0, s_cheap)
+        out = dict.fromkeys(("listed", "zero", "warp_zero", "kept", "w_listed", "w_kept", "w_live", "missed"), 0)
+        slots = [(j, cc, lambda w, j=j: cand[tile_of[w], j].long()) for j in range(int(cc.max()))]
+        slots += [(k, cf, lambda w, k=k: torch.full_like(w, k)) for k in range(int(cf.max()))]
+        for j, count, sid_of in slots:
+            w = warps[j < count]
+            sid = sid_of(w)
+            lanes = (w[:, None] * 32 + torch.arange(32, device=o.device)).reshape(-1)
+            g = geom[sid.repeat_interleave(32)]
+            b, ct = b_cterm_plain(tuple(x[lanes] for x in f.p_n), tuple(x[lanes] for x in f.L),
+                                  (g[:, 0], g[:, 1], g[:, 2]), g[:, 3])
+            zero = (sig(sharp_s * (b * b - 4.0 * ct)) == 0).reshape(-1, 32)
+            kept = reach[w, sid]
+            live = ~zero.all(1)
+            out["listed"] += zero.numel()
+            out["zero"] += int(zero.sum())
+            out["warp_zero"] += 32 * int((~live).sum())
+            out["kept"] += 32 * int(kept.sum())
+            out["w_listed"] += w.numel()
+            out["w_kept"] += int(kept.sum())
+            out["w_live"] += int(live.sum())
+            out["missed"] += int((live & ~kept).sum())
+    return out
+
+
+def cs_counts_text(c: dict) -> str:
+    """:func:`cs_counts`' figures of one launch as the scripts print them."""
+    listed, w_listed = max(c["listed"], 1), max(c["w_listed"], 1)
+    return (f"{c['listed']} listed cheap-tier pairs, sig(sharp_s disc) exactly 0 on {c['zero'] / listed:.2%}, on "
+            f"all 32 lanes of the warp {c['warp_zero'] / listed:.2%}; the warp bound keeps {c['w_kept']} of "
+            f"{c['w_listed']} (warp, sphere) pairs ({c['w_kept'] / w_listed:.2%}), {c['w_live']} with a lane that "
+            f"shades ({c['w_live'] / w_listed:.2%}), {c['missed']} of those dropped")
+
+
+def _counts_line(name: str, calls: list) -> list:
+    """The counts of each launch of a case, printed; returns the reached
+    shares the A/B line shows."""
+    from python_ray_tracer_tpu_torch.ops import intersect_fused
+
+    shares = []
+    for b, (args, kw) in enumerate(calls):
+        if name.startswith("fwd_cs"):
+            c = cs_counts(args, kw)
+            shares.append([round(c["w_kept"] / max(c["w_listed"], 1), 4)])
+            print(f"[sweep_skip_ab] {name} bounce {b}: {cs_counts_text(c)}", flush=True)
+            if c["missed"]:
+                raise SystemExit(f"{name} bounce {b}: the warp bound drops {c['missed']} pairs that shade")
+        elif name.startswith("nearest_sweep"):
+            o, d, geom = args[:3]
+            c = nearest_counts(o, d, geom, kw["s_cheap"], kw["faraway"])
+            shares.append([round(c["reached"], 4)])
+            print(f"[sweep_skip_ab] {name} bounce {b}: the skip reaches {c['reached']:.2%} of the cheap-tier (warp, "
+                  f"sphere) pairs; a distance cut could drop {c['cut']:.2%} of those ({c['cut_all']:.2%} of all); "
+                  f"{c['miss_warps']:.2%} of the warps have a lane that hits nothing", flush=True)
+        elif name.startswith(("shadow_sweep", "shadow_parts")):
+            o, d, geom = args[:3]
+            reach = intersect_fused.bundle_reach(o, d, geom, kw["s_cheap"], kw.get("light"))
+            shares.append([round(float(reach[:, :kw["s_cheap"]].float().mean()), 4)])
+        else:
+            shares.append([round(x, 4) for x in _lane_shares(args, kw)])
+    return shares
+
+
+def _lane_shares(args, kw) -> list[float]:
+    """The share of (warp, sphere) pairs each of bounce_lane's sweeps reaches."""
     from python_ray_tracer_tpu_torch.ops import bounce_lane, intersect_fused
 
-    if not name.startswith("bounce_lane"):
-        o, d, geom = args[:3]
-        return [float(intersect_fused.bundle_reach(o, d, geom, kw["s_cheap"], kw.get("light")).float().mean())]
     shares: list[float] = []
     real = intersect_fused.bundle_reach
 
@@ -196,11 +425,11 @@ def _same(a, b) -> bool:
 
 
 def _instantiations(log: str) -> dict[str, dict]:
-    """ptxas's figures of each bounce_lane and shadow_sweep instantiation,
-    keyed by its template arguments."""
+    """ptxas's figures of each instantiation of the four kernels, keyed by
+    its template arguments."""
     out = {}
     for mangled, figures in ptxas_kernels(log).items():
-        m = re.search(r"(bounce_lane|shadow_sweep)I([fd])((?:Lb[01]E)+)", mangled)
+        m = re.search(r"(bounce_lane|shadow_sweep|nearest_sweep|fwd_cs)I([fd])((?:Lb[01]E)+)", mangled)
         if m:
             flags = ", ".join("true" if b == "1" else "false" for b in re.findall(r"Lb([01])E", m.group(3)))
             out[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}, {flags}>"] = figures
@@ -208,9 +437,9 @@ def _instantiations(log: str) -> dict[str, dict]:
 
 
 def _layout(logs: dict[str, str], label: str) -> None:
-    from python_ray_tracer_tpu_torch.ops import bounce_lane, intersect_fused
+    from python_ray_tracer_tpu_torch.ops import bounce_lane, culled_smooth, intersect_fused
 
-    for source in ("bounce_lane.cu", "intersect_fused.cu"):
+    for source in SOURCES:
         found = _instantiations(logs.get(source, ""))
         if not found:
             print(f"[sweep_skip_ab] {source}: no ptxas log (the library was built before this process)", flush=True)
@@ -225,8 +454,84 @@ def _layout(logs: dict[str, str], label: str) -> None:
         for s in (SHARD, 1024):
             blocks = {f"parts={p} skip={k}": intersect_fused.shadow_blocks_per_sm(dtype, s, parts=p, skip=k)
                       for p in (False, True) for k in (False, True)}
-            print(f"[sweep_skip_ab] shadow_sweep {dtype} {s} spheres, resident blocks of 256 an SM: {blocks} ({label})",
-                  flush=True)
+            blocks.update({f"nearest skip={k}": intersect_fused.nearest_blocks_per_sm(dtype, s, skip=k)
+                           for k in (False, True)})
+            print(f"[sweep_skip_ab] shadow_sweep/nearest_sweep {dtype} {s} spheres, resident blocks of 256 an SM: "
+                  f"{blocks} ({label})", flush=True)
+        blocks = {f"glossy={g} atlas={a} skip={k}": culled_smooth.fwd_blocks_per_sm(dtype, g, a, k, 1024)
+                  for g in (False, True) for a in (False, True) for k in (False, True)}
+        print(f"[sweep_skip_ab] fwd_cs {dtype} 1024 spheres, resident blocks of 256 an SM: {blocks} ({label})",
+              flush=True)
+
+
+def _host_ms(fn, warmup: int = 1, iters: int = 5) -> float:
+    """Median host-clock time of ``fn()`` to a synchronised card, ms."""
+    import time
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def frames(device, label: str, width: int = 1920, height: int = 1080) -> None:
+    """The frames and steps the two kernels sit in, with every skip of this
+    PR's two kernels off and on in turns (off, on, on, off; the wrappers'
+    ``skip`` forced through the modules that call them): config 4's glossy
+    frame (the sweeps; ``render()``), its smooth frame, its smooth loss and
+    gradient (the culled smooth route at 1920x1080, depth 3), and the
+    textured1024 loss and gradient at 960x540."""
+    import functools
+
+    from python_ray_tracer_tpu_torch import RenderConfig, render
+    from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene, textured_spheres_scene
+    from python_ray_tracer_tpu_torch.ops import culled_smooth, intersect_fused
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
+
+    render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")
+    smooth = RenderConfig(max_depth=CS_DEPTH, dtype=torch.float32, visibility="smooth", use_pallas=True)
+    config4 = random_spheres_scene(1024, width, height, dtype=torch.float32, device=device)
+    textured = textured_spheres_scene(1024, width // 2, height // 2, dtype=torch.float32, device=device)
+
+    def loss_grad(scene):
+        target = torch.full((scene.camera.height, scene.camera.width, 3), 0.5, device=device)
+        loss_fn = make_loss_fn(scene, target, smooth)
+
+        def run():
+            params = scene_to_params(scene)
+            loss_fn(params).backward()
+        return run
+
+    size, half = f"{width}x{height}", f"{width // 2}x{height // 2}"
+    cases = {
+        f"config-4 glossy frame (render(), {size} depth {DEPTH})": lambda: render(config4, _glossy()),
+        f"config-4 smooth frame (render(), {size} depth {CS_DEPTH})": lambda: render(config4, smooth),
+        f"config-4 smooth loss and gradient ({size} depth {CS_DEPTH})": loss_grad(config4),
+        f"textured1024 smooth loss and gradient ({half} depth {CS_DEPTH})": loss_grad(textured),
+    }
+    real = render_mod.nearest_sweep, culled_smooth.fwd_cs
+    for name, fn in cases.items():
+        turns = {"off": [], "on": []}
+        for skip in TURNS:
+            render_mod.nearest_sweep = functools.partial(intersect_fused.nearest_sweep, skip=skip)
+            culled_smooth.fwd_cs = functools.partial(real[1], skip=skip)
+            try:
+                turns[skip].append(_host_ms(fn))
+            finally:
+                render_mod.nearest_sweep, culled_smooth.fwd_cs = real
+        off, on = statistics.mean(turns["off"]), statistics.mean(turns["on"])
+        print(f"[sweep_skip_ab] {name}: skips off {off:.3f} ms ({', '.join(f'{x:.3f}' for x in turns['off'])}), on "
+              f"{on:.3f} ms ({', '.join(f'{x:.3f}' for x in turns['on'])}), {off / on:.3f}x; host clock, median of 5 "
+              f"a turn ({label})", flush=True)
+
+
+SOURCES = ("bounce_lane.cu", "intersect_fused.cu", "culled_smooth.cu")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -234,25 +539,42 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--rows", type=int, default=0, help="count the sweeps on this many whole rows only")
+    ap.add_argument("--split", action="store_true", help="run fwd_cs_split after the A/B")
+    ap.add_argument("--frames", action="store_true",
+                    help="only the frames and steps with the skips off and on (card only)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     label = card_label(device)
     print(label, flush=True)
+    if args.frames:
+        if device.type != "cuda":
+            raise SystemExit("--frames times the card; it has no CPU mode")
+        frames(device, label, args.width, args.height)
+        return 0
+    if args.rows:
+        for name, calls in record_rows(device, args.width, args.height, args.rows).items():
+            n = calls[0][0][0].shape[0]
+            print(f"[sweep_skip_ab] {name}: {args.rows} rows of {args.width}x{args.height} ({n} rays a launch)",
+                  flush=True)
+            shares = _counts_line(name, calls)
+            print(f"[sweep_skip_ab] {name}: reached share a launch: {shares}", flush=True)
+        return 0
     logs = {}
     if device.type == "cuda":
         from python_ray_tracer_tpu_torch.ops import _build
 
-        logs = {source: log for source, (_, log, _) in _build.build_all(("bounce_lane.cu", "intersect_fused.cu")).items()}
+        logs = {source: log for source, (_, log, _) in _build.build_all(SOURCES).items()}
     cases = record(device, args.width, args.height)
     for name, calls in cases.items():
         kernel = _kernel(name)
-        shares = [_reach_shares(name, a, k) for a, k in calls]
+        shares = _counts_line(name, calls)
         with torch.no_grad():
             for b, (a, k) in enumerate(calls):
                 if not _same(kernel(*a, **k, skip="on"), kernel(*a, **k, skip="off")):
                     raise SystemExit(f"{name} launch {b}: the skip's output differs from the kernel without it")
         print(f"[sweep_skip_ab] {name}: {len(calls)} launches, skip on bitwise skip off; reached share of (warp, "
-              f"sphere) pairs a launch: {[[round(x, 4) for x in s] for s in shares]}", flush=True)
+              f"sphere) pairs a launch: {shares}", flush=True)
         if device.type != "cuda":
             continue
         turns = []
@@ -267,6 +589,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"[sweep_skip_ab] {name}: off {off:.4f} ms, on {on:.4f} ms, {off / on:.2f}x ({label})", flush=True)
     if device.type == "cuda":
         _layout(logs, label)
+        if args.split:
+            from . import fwd_cs_split
+
+            return fwd_cs_split.main([])
     return 0
 
 

@@ -11,7 +11,8 @@
 //       normal and the shadow-relevance mask sval.  Forward only.
 //   _fwd_kernel_cs  (:252, launched at :405) -> fwd_cs
 //       one smooth bounce with the winner known (idx, hit) and the shadow
-//       product over the tile's shadow list; the mirror or GGX continuation.
+//       product over the tile's shadow list, less the factors of exactly 1;
+//       the mirror or GGX continuation.
 //   _bwd_kernel_cs  (:284, launched at :442) -> bwd_cs
 //       its adjoint, Phase C over the same shadow list; ray gradients and
 //       the table gradients (one deterministic second pass, reduce_cs).
@@ -57,11 +58,27 @@
 // order (a tile's candidate ids are ascending: binary search).  No float
 // atomics: two launches on the same inputs give bitwise-equal gradients.
 //
+// fwd_cs's shadow product (kSkip, SkipList): a pair whose factor is exactly 1
+// is left out.  On config 4's lists sig(sharp_s disc) is exactly 0 on 98.6-
+// 99.8% of the listed (ray, sphere) pairs (benchmarks/sweep_skip_ab.py), so
+// each lane first computes the pair's quadratic and tests that (no exp, no
+// division where it holds), and each warp bounds its 32 shadow lines (a ball
+// of origins, a cone of directions, the light as apex) and skips the listed
+// cheap-tier spheres no line comes within r_eff of (bundle_math.cuh
+// line_reaches, with its rounding margin).  The order of the remaining
+// factors is the list's, so clear is bitwise the full product's.  The
+// launcher takes the skip unless the caller passes 0 (the card check and
+// the A/B time both sides); smooth_fwd_step and the other kernels that
+// share fwd_bounce compile as before (its kSkip is false there).
+//
 // What bounds them on this card: per ray and listed sphere ~40 operations
-// (a quadratic, two sigmoids) in near_cs and fwd_cs, ~120 in bwd_cs's
-// Phase C, plus the BRDF and its adjoint per ray, against 60-150 B of state
-// per ray: bound by operations once a list holds more than a few spheres.
+// (a quadratic, two sigmoids) in near_cs, ~120 in bwd_cs's Phase C, and in
+// fwd_cs the pairs its skip keeps (the quadratic, and the whole pair only
+// where a lane's sigmoid is not 0), plus the BRDF and its adjoint per ray,
+// against 60-150 B of state per ray: bound by operations once a list holds
+// more than a few spheres.
 
+#include "bundle_math.cuh"
 #include "smooth_math.cuh"
 
 namespace {
@@ -91,6 +108,56 @@ __device__ __forceinline__ TileList tile_list(const int* cand, const int* cnt, c
   return {cand + static_cast<long long>(tile) * stride, min(max(cnt[tile], 0), stride),
           min(max(cnt_full[tile], 0), s_cheap)};
 }
+
+// fwd_cs's shadow set with the skip: the tile's list in TileList's order,
+// less the pairs whose factor is exactly 1 (smooth_math.cuh shadow_fold, per
+// lane).  Where the warp's lanes all run (warp_full), the warp also bounds
+// its 32 shadow lines (a ball of origins, a cone of directions, the light as
+// apex; bundle_math.cuh) and tests each listed cheap-tier sphere once, one
+// lane a sphere, 32 under a ballot: a sphere no line comes within r_eff of
+// (r_eff^2 = r^2 + |SigEdge lo| / (4 sharp_s), line_reaches) has sig(sharp_s
+// disc) exactly 0 on every lane, and the warp visits only the others, in
+// the list's order.  The exact tier is always visited.
+template <typename T> struct SkipList {
+  TileList list;
+  T* slot;         // the warp's bundle slot (kBundleValues values)
+  bool warp_full;  // every lane of the warp runs, in one tile
+
+  __device__ __forceinline__ T product(const V3<T>& p_n, const V3<T>& L, int idx, const T* geom, const T* cst,
+                                       const Scal<T>& sc) const {
+    const bool finite = sc.sharp_s - sc.sharp_s == T(0);
+    T clear = T(1);
+    auto fold = [&](int k) {
+      if (k < sc.s_cheap) {
+        shadow_fold<false>(k, p_n, L, idx, geom, sc, finite, clear);
+      } else {
+        shadow_fold<true>(k, p_n, L, idx, geom, sc, finite, clear);
+      }
+    };
+    if (!warp_full) {
+      list.visit(sc, [&](int, int k) { fold(k); });
+      return clear;
+    }
+    const V3<T> light = {cst[3], cst[4], cst[5]};
+    const Bundle<T> b = finite && sc.sharp_s > T(0) ? warp_bundle(p_n, L, light, slot) : Bundle<T>{slot, false, false};
+    const T edge = T(-SigEdge<T>::lo) / (T(4) * sc.sharp_s);
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    for (int j0 = 0; j0 < list.nc; j0 += kWarp) {  // the candidates, lane j reading j0 + j
+      const int j = j0 + lane;
+      const int k = j < list.nc ? __ldg(list.row + j) : 0;
+      const unsigned reached = __ballot_sync(
+          kFullWarp, j < list.nc && (!b.ok || k >= sc.s_cheap || line_reaches(b, geom + 4 * k, edge)));
+      for (unsigned m = reached; m != 0u; m &= m - 1u) fold(__shfl_sync(kFullWarp, k, __ffs(static_cast<int>(m)) - 1));
+    }
+    for (int k0 = 0; k0 < list.nf; k0 += kWarp) {  // the full-tier fallback
+      const int k = k0 + lane;
+      const unsigned reached = __ballot_sync(kFullWarp, k < list.nf && (!b.ok || line_reaches(b, geom + 4 * k, edge)));
+      for (unsigned m = reached; m != 0u; m &= m - 1u) fold(k0 + __ffs(static_cast<int>(m)) - 1);
+    }
+    for (int k = sc.s_cheap; k < sc.s_total; ++k) fold(k);
+    return clear;
+  }
+};
 
 // Stage the geometry table and the consts row in dynamic shared memory;
 // every thread of the block takes part, before any leaves.
@@ -166,7 +233,8 @@ __global__ void __launch_bounds__(kThreads)
   sval_out[i] = (cov_w > T(0) && thr[i] > T(0) && alive[i] > T(0)) ? T(1) : T(0);
 }
 
-template <typename T, bool kXi, bool kAtlas>
+// kSkip: the shadow product leaves out the factors of exactly 1 (SkipList).
+template <typename T, bool kXi, bool kAtlas, bool kSkip>
 __global__ void __launch_bounds__(kThreads)
     fwd_cs(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr, const T* __restrict__ alive,
            const T* __restrict__ acc, const int* __restrict__ idx, const T* __restrict__ hit,
@@ -178,6 +246,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* s_geom = stage_geom_consts(geom, cst, sc.s_total);
   const T* s_cst = s_geom + 4 * sc.s_total;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool warp_full = kSkip && tile_rays % kWarp == 0 && __all_sync(kFullWarp, i < n);
   if (i >= n) return;
   const long long N = n;
   const TileList list = tile_list(cand, cnt, cnt_full, static_cast<int>(i / tile_rays), cand_stride, sc.s_cheap);
@@ -186,8 +255,15 @@ __global__ void __launch_bounds__(kThreads)
   f.hit = hit[i] != T(0);
   const T xi1 = kXi ? xi[i] : T(0);
   const T xi2 = kXi ? xi[N + i] : T(0);
-  fwd_bounce<T, kXi, Winner::kKnown, kAtlas>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat,
-                                             s_cst, sc, list, xi1, xi2);
+  if constexpr (kSkip) {
+    __shared__ T s_bundles[kBundleValues * kThreads / kWarp];
+    const SkipList<T> shadow = {list, s_bundles + kBundleValues * (threadIdx.x / kWarp), warp_full};
+    fwd_bounce<T, kXi, Winner::kKnown, kAtlas, true>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat,
+                                                     s_cst, sc, shadow, xi1, xi2);
+  } else {
+    fwd_bounce<T, kXi, Winner::kKnown, kAtlas>(f, load3(o, N, i), load3(d, N, i), thr[i], alive[i], s_geom, mat,
+                                               s_cst, sc, list, xi1, xi2);
+  }
   if constexpr (kAtlas) {
     flat_out[i] = f.flat;
     dww_out[i] = f.dww;
@@ -568,22 +644,39 @@ int launch_near(const T* o, const T* d, const T* thr, const T* alive, const int*
     return static_cast<int>(cudaGetLastError());                                                     \
   }()
 
+// fwd_cs's instantiation for glossy (kXi), atlas and skip.
+template <typename T> auto fwd_kernel(bool glossy, bool atlas, bool skip) {
+  if (skip) {
+    return glossy ? (atlas ? fwd_cs<T, true, true, true> : fwd_cs<T, true, false, true>)
+                  : (atlas ? fwd_cs<T, false, true, true> : fwd_cs<T, false, false, true>);
+  }
+  return glossy ? (atlas ? fwd_cs<T, true, true, false> : fwd_cs<T, true, false, false>)
+                : (atlas ? fwd_cs<T, false, true, false> : fwd_cs<T, false, false, false>);
+}
+
+// fwd_cs's skip code, as the sweeps' (sweep_math.cuh Skip): -1 the
+// launcher's rule, 0 off, 1 on.  The rule takes the skip on every launch:
+// the culled route's tables hold at least 96 spheres.
+inline bool fwd_takes_skip(int skip) { return skip != 0; }
+
 template <typename T>
 int launch_fwd(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const int* idx, const T* hit,
                const int* cand, const int* cnt, const int* cnt_full, const T* geom, const T* mat, const T* cst,
                const T* xi, T* o_out, T* d_out, T* thr_out, T* alive_out, T* acc_out, T* clear_out, int* flat_out,
                T* dww_out, int n, int s_cheap, int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e,
-               T sharp_s, int tex_h, int tex_w, void* stream) {
+               T sharp_s, int tex_h, int tex_w, int skip, void* stream) {
   if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride) ||
-      (flat_out && (!dww_out || tex_h < 1 || tex_w < 1))) {
+      (flat_out && (!dww_out || tex_h < 1 || tex_w < 1)) || skip < -1 || skip > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
   const int smem = geom_consts_smem<T>(s_total);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return PRT_CS_LAUNCH(fwd_cs, flat_out, blocks_for(n), kThreads, o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom,
-                       mat, cst, xi, o_out, d_out, thr_out, alive_out, acc_out, clear_out, flat_out, dww_out, n,
-                       tile_rays, cand_stride, sc);
+  const auto kernel = fwd_kernel<T>(xi != nullptr, flat_out != nullptr, fwd_takes_skip(skip));
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<blocks_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom, mat, cst, xi, o_out, d_out, thr_out, alive_out,
+      acc_out, clear_out, flat_out, dww_out, n, tile_rays, cand_stride, sc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -622,6 +715,18 @@ template <typename T> int bwd_blocks_per_sm(int glossy, int atlas, int s_total) 
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+// Resident blocks per SM of fwd_cs's instantiation (glossy, atlas, skip)
+// at its launch's dynamic shared bytes for s_total spheres, or a negative
+// CUDA error.
+template <typename T> int fwd_blocks_per_sm(int glossy, int atlas, int skip, int s_total) {
+  const int smem = geom_consts_smem<T>(s_total);
+  const auto kernel = fwd_kernel<T>(glossy, atlas, skip);
+  if (const int err = allow_smem(kernel, smem)) return -err;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 #undef PRT_CS_LAUNCH
 #undef PRT_CS_KERNEL
 
@@ -631,7 +736,8 @@ template <typename T> int bwd_blocks_per_sm(int glossy, int atlas, int s_total) 
 // Each launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.  xi may
 // be null: the mirror instantiation; non-null launches the glossy one.
-// prt_bwd_cs_blocks_per_sm_* reports bwd_cs's resident blocks per SM.
+// prt_bwd_cs_blocks_per_sm_* and prt_fwd_cs_blocks_per_sm_* report an
+// instantiation's resident blocks per SM.
 extern "C" {
 
 #define PRT_CS_ENTRIES(T, SUFFIX)                                                                              \
@@ -647,10 +753,10 @@ extern "C" {
                           const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, T* thr_out,              \
                           T* alive_out, T* acc_out, T* clear_out, int* tflat, T* dww, int n, int s_cheap,       \
                           int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e, T sharp_s,         \
-                          int tex_h, int tex_w, void* stream) {                                                 \
+                          int tex_h, int tex_w, int skip, void* stream) {                                       \
     return launch_fwd<T>(o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom, mat, cst, xi, o_out,      \
                          d_out, thr_out, alive_out, acc_out, clear_out, tflat, dww, n, s_cheap, s_total,        \
-                         tile_rays, cand_stride, faraway, sharp_e, sharp_s, tex_h, tex_w, stream);             \
+                         tile_rays, cand_stride, faraway, sharp_e, sharp_s, tex_h, tex_w, skip, stream);       \
   }                                                                                                            \
   int prt_bwd_cs_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const int* idx, const T* hit,   \
                           const T* clear, const int* cand_b, const int* cnt_b, const int* cnt_bf,               \
@@ -667,6 +773,9 @@ extern "C" {
   }                                                                                                            \
   int prt_bwd_cs_blocks_per_sm_##SUFFIX(int glossy, int atlas, int s_total) {                                  \
     return bwd_blocks_per_sm<T>(glossy, atlas, s_total);                                                      \
+  }                                                                                                            \
+  int prt_fwd_cs_blocks_per_sm_##SUFFIX(int glossy, int atlas, int skip, int s_total) {                        \
+    return fwd_blocks_per_sm<T>(glossy, atlas, skip, s_total);                                                \
   }
 
 PRT_CS_ENTRIES(float, f32)

@@ -228,11 +228,39 @@ struct AllSpheres {
   }
 };
 
+// One shadow sphere's factor of fwd_bounce's product folded into clear, with
+// the pairs whose factor is exactly 1 left out (kExact: the sphere's tier):
+// k the winner, and (sharp_s finite) sig(sharp_s disc) exactly 0.  There
+// the loop multiplies by 1 - sig(sharp_s disc) sig(sharp_s sol) = 1 - 0 ss,
+// and ss is no NaN: disc is no NaN, so neither is b or ct and b is finite
+// (b^2 <= 4 ct + |disc|); then sq = 0, qroot = -b / 2 is finite, ct / qroot
+// finite or +-inf, sol finite or +-inf, and sharp_s (finite, not 0) times
+// sol no NaN.  clear * 1 is clear, bitwise; the rest multiply as the loop.
+template <bool kExact, typename T, typename G>
+__device__ __forceinline__ void shadow_fold(int k, const V3<T>& p_n, const V3<T>& L, int idx, const G& geom,
+                                            const Scal<T>& sc, bool finite, T& clear) {
+  if (idx == k) return;
+  const V3<T> c = {geom[4 * k], geom[4 * k + 1], geom[4 * k + 2]};
+  T b, ct;
+  if constexpr (kExact) {
+    b_cterm_exact(p_n, L, c, geom[4 * k + 3], b, ct);
+  } else {
+    b_cterm_plain(p_n, L, c, geom[4 * k + 3], b, ct);
+  }
+  const T x = sc.sharp_s * (b * b - T(4) * ct);
+  if (finite && sig_is_zero(x)) return;
+  T sol, disc, t;
+  quad_sol_disc(b, ct, sc.faraway, sol, disc, t);
+  clear = clear * (T(1) - sig(x) * sig(sc.sharp_s * sol));
+}
+
 // One smooth bounce.  kXi: the continuation is glossy, from the uniforms
 // (xi1, xi2); otherwise the mirror.  kAtlas: the atlas mode (sc.tex_h x
-// sc.tex_w slots).  mat may lie in shared or global memory; geom is anything
-// sphere_quad indexes.
-template <typename T, bool kXi, Winner kWin, bool kAtlas = false, typename Shadow, typename G>
+// sc.tex_w slots).  kSkip: the shadow set computes the product itself,
+// shadow.product(p_n, L, idx, geom, cst, sc), leaving out factors of
+// exactly 1 (culled_smooth.cu's SkipList).  mat may lie in shared or global
+// memory; geom is anything sphere_quad indexes.
+template <typename T, bool kXi, Winner kWin, bool kAtlas = false, bool kSkip = false, typename Shadow, typename G>
 __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T>& d, T thr, T alive,
                                            const G& geom, const T* mat, const T* cst, const Scal<T>& sc,
                                            const Shadow& shadow, T xi1, T xi2) {
@@ -288,14 +316,18 @@ __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T
   f.p_n = {f.p.x + f.normal.x * T(kNudge), f.p.y + f.normal.y * T(kNudge), f.p.z + f.normal.z * T(kNudge)};
 
   if (kWin != Winner::kSaved) {
-    T clear = T(1);
-    shadow.visit(sc, [&](int, int k) {
-      T sol, disc, t, b, ct;
-      sphere_quad(k, sc, f.p_n, f.L, geom, sol, disc, t, b, ct);
-      const T occl = sig(sc.sharp_s * disc) * sig(sc.sharp_s * sol);
-      clear = clear * (f.idx == k ? T(1) : T(1) - occl);
-    });
-    f.clear = clear;
+    if constexpr (kSkip) {
+      f.clear = shadow.product(f.p_n, f.L, f.idx, geom, cst, sc);
+    } else {
+      T clear = T(1);
+      shadow.visit(sc, [&](int, int k) {
+        T sol, disc, t, b, ct;
+        sphere_quad(k, sc, f.p_n, f.L, geom, sol, disc, t, b, ct);
+        const T occl = sig(sc.sharp_s * disc) * sig(sc.sharp_s * sol);
+        clear = clear * (f.idx == k ? T(1) : T(1) - occl);
+      });
+      f.clear = clear;
+    }
   }
 
   f.n_dot_l = vmax(dot3(f.normal, f.L), T(0));

@@ -156,7 +156,7 @@ def shadow_spheres(geom, s_cheap: int, cand_sh=None, n: int = 0):
 
 
 def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, saved=None,
-                 known=None, cand_sh=None, tex_hw=None):
+                 known=None, cand_sh=None, tex_hw=None, shadow_keep=None):
     """One smooth bounce (``_FwdSub``): every intermediate the adjoint reads.
 
     ``o``/``d`` are 3-tuples of (N,) rows, ``thr``/``alive`` (N,).  With
@@ -168,7 +168,10 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_che
     GGX-sampled microfacet; otherwise it is the mirror ``refl``.  With the
     atlas's slot extents ``tex_hw`` (the atlas mode) image lanes' diffuse
     texture is zero and ``f.flat``/``f.dww`` hold their texel ids and
-    ``dw * w`` weights.
+    ``dw * w`` weights.  ``shadow_keep(f)``, once ``f.p_n`` and ``f.L`` are
+    known, gives ``keep(sid, disc)``: (N,) the lanes whose shadow product
+    takes that sphere's factor (a skip that drops only factors of exactly 1
+    leaves the product bitwise as it is).
     """
     f = SimpleNamespace()
     f.tex_hw = tex_hw
@@ -248,10 +251,13 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_che
         f.clear = saved_clear
     else:
         clear = torch.ones_like(o[0])
+        keep = None if shadow_keep is None else shadow_keep(f)
         for k, c, r, fn, active in shadow_spheres(geom, s_cheap, cand_sh, o[0].shape[0]):
             sol, disc, _, _, _ = fn(f.p_n, f.L, c, r, faraway)
             occl = sig(sharp_s * disc) * sig(sharp_s * sol)
             factor = clear * torch.where(f.idx == k, torch.ones_like(occl), 1.0 - occl)
+            if keep is not None:
+                active = keep(k, disc) if active is None else active & keep(k, disc)
             clear = factor if active is None else torch.where(active, factor, clear)
         f.clear = clear
 

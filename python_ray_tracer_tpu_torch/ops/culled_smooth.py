@@ -54,6 +54,7 @@ from .culled import (
     candidate_lists,
     ray_sort_keys,
 )
+from .intersect_fused import WARP, _skip_code, line_test, warp_bundles
 from .rng import fold_seed, uniform2
 from .shading import NUDGE
 from .tables import MAT_COLS, N_CONST, consts_row, geometry_table, material_table
@@ -68,6 +69,10 @@ MIN_CULL_SMOOTH_RAYS = 518_400  # 960x540
 MAX_BLK_SPHERES_SMOOTH = 4096
 # f32 sigmoid(x) == 0.0 exactly for x < -88.73; 90 leaves slack.
 _SIG_UNDERFLOW = 90.0
+
+# Below lo the shadow sigmoid is exactly 0 (csrc/smooth_math.cuh SigEdge):
+# exp(-x) overflows in the dtype.
+SIG_EDGE = {torch.float32: -89.0, torch.float64: -710.0}
 
 LAUNCHES = {"near_cs": 0, "fwd_cs": 0, "bwd_cs": 0}
 # Launches of the atlas mode (near_cs takes no atlas).
@@ -161,17 +166,60 @@ def near_cs_plain(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, 
     return idx, hit.to(o.dtype), p, normal, sval
 
 
+def fwd_cs_reach(p_n, to_light, light, geom, s_cheap: int, sharp_s: float, tile_rays: int) -> torch.Tensor:
+    """(W, S) the (warp, sphere) pairs ``fwd_cs``'s skip visits for shadow
+    rays ``p_n``/``to_light`` (N, 3) aimed at ``light`` (3,): the cheap-tier
+    spheres whose ``r_eff`` some line of the warp may reach
+    (:func:`.intersect_fused.line_test`; beyond it the shadow sigmoid is
+    exactly 0 and the factor exactly 1), every exact-tier sphere, and every
+    sphere of a warp whose bound is not ``ok``, or where ``sharp_s`` is not a
+    positive finite number or a tile is not whole warps."""
+    b = warp_bundles(p_n, to_light, light)
+    reach = torch.ones((b.ok.shape[0], geom.shape[0]), dtype=torch.bool, device=p_n.device)
+    if 0.0 < sharp_s < float("inf") and tile_rays % WARP == 0:
+        dtype = geom.dtype
+        edge = torch.tensor(-SIG_EDGE[dtype], dtype=dtype) / (4 * torch.tensor(sharp_s, dtype=dtype))
+        reach[:, :s_cheap] = line_test(b, geom[:s_cheap], edge.to(p_n.device)) | ~b.ok[:, None]
+    return reach
+
+
+def _shadow_keep(light, geom, s_cheap: int, sharp_s: float, tile_rays: int):
+    """``fwd_sub_math``'s ``shadow_keep`` for fwd_cs's skip: a lane takes a
+    sphere's factor where its warp's bound reaches the sphere
+    (:func:`fwd_cs_reach`), the sphere is not its winner, and (with a finite
+    ``sharp_s``) the pair's ``sig(sharp_s * disc)`` is not exactly 0."""
+    finite = abs(sharp_s) < float("inf")
+
+    def keep_of(f):
+        n = f.p_n[0].shape[0]
+        reach = fwd_cs_reach(torch.stack(f.p_n, 1), torch.stack(f.L, 1), light, geom, s_cheap, sharp_s, tile_rays)
+        warp = torch.arange(n, device=reach.device) // WARP
+
+        def keep(k, disc):
+            sid = k.long() if torch.is_tensor(k) else torch.full((n,), k, dtype=torch.long, device=reach.device)
+            kept = reach[warp, sid] & (f.idx.long() != sid)
+            return kept & (sig(sharp_s * disc) != 0) if finite else kept
+
+        return keep
+
+    return keep_of
+
+
 def fwd_cs_plain(o, d, thr, alive, acc, idx, hit, cand, cnt_cand, cnt_full, geom, mat, consts, xi=None, *,
-                 faraway, s_cheap, sharp_e, sharp_s, tile_rays, tex_hw=None):
+                 faraway, s_cheap, sharp_e, sharp_s, tile_rays, tex_hw=None, skip: bool = False):
     """Plain version of ``fwd_cs``: the smooth bounce from the state ``(o, d,
     thr, alive, acc)`` with the winner ``(idx, hit)`` known and the shadow
     loops over the tile's list; glossy with ``xi`` (2, N).  Returns the next
     ``(o, d, thr, alive, acc)`` and the shadow ``clear`` (N,), and with the
-    atlas's slot extents ``tex_hw`` also the flat texel ids and dww (N,)."""
+    atlas's slot extents ``tex_hw`` also the flat texel ids and dww (N,).
+    ``skip``: the shadow product over the pairs the kernel's skip keeps only
+    (:func:`_shadow_keep`), bitwise the product over every listed pair; only
+    the tests and the card check's counts run it."""
+    keep = _shadow_keep(consts[0, 3:6], geom, s_cheap, sharp_s, tile_rays) if skip else None
     f = fwd_sub_math(
         tuple(o), tuple(d), thr, alive, geom, mat, consts, _xi_pair(xi, 0), faraway=faraway, s_cheap=s_cheap,
         sharp_e=sharp_e, sharp_s=sharp_s, known=(idx, hit != 0), cand_sh=(cand, cnt_cand, cnt_full, tile_rays),
-        tex_hw=tex_hw,
+        tex_hw=tex_hw, shadow_keep=keep,
     )
     acc_n = torch.stack([acc[i] + f.color[i] * f.w for i in range(3)])
     outs = (torch.stack(f.p_n), torch.stack(f.dout), f.thr_out, f.coverage, acc_n, f.clear)
@@ -266,8 +314,8 @@ _SIGNATURES = {
     # o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom, mat,
     # consts, xi; o, d, thr, alive, acc, clear out; flat and dww (or null);
     # n, s_cheap, s_total, tile_rays, cand_stride; faraway, sharp_e,
-    # sharp_s; the atlas's slot extents
-    "fwd_cs": "pppppppppppppp" "pppppp" "pp" "iiiii" "rrr" "ii",
+    # sharp_s; the atlas's slot extents; skip
+    "fwd_cs": "pppppppppppppp" "pppppp" "pp" "iiiii" "rrr" "ii" "i",
     # o, d, thr, alive, idx, hit, clear, shadow lists, nearest lists, geom,
     # mat, consts, xi, cotangents g_o, g_d, g_thr, g_alive, g_acc, g_dww (or
     # null); the four input cotangents; the rows pg, pm, pc and the reduced
@@ -322,6 +370,17 @@ def bwd_blocks_per_sm(dtype: torch.dtype, glossy: bool, atlas: bool, s: int) -> 
     return blocks
 
 
+def fwd_blocks_per_sm(dtype: torch.dtype, glossy: bool, atlas: bool, skip: bool, s: int) -> int:
+    """Resident ``fwd_cs`` blocks per SM of the instantiation (glossy, atlas,
+    skip) for ``s`` spheres on the current card."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    blocks = getattr(_build.load_library(_SOURCE), f"prt_fwd_cs_blocks_per_sm_{suffix}")(
+        int(glossy), int(atlas), int(skip), s)
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query of fwd_cs failed: CUDA error {-blocks}")
+    return blocks
+
+
 def near_cs(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_cheap, sharp_e, tile_rays):
     """The culled smooth winner of rays ``o``/``d`` (3, N); outputs as
     :func:`near_cs_plain`."""
@@ -341,9 +400,13 @@ def near_cs(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_chea
 
 
 def fwd_cs(o, d, thr, alive, acc, idx, hit, cand, cnt_cand, cnt_full, geom, mat, consts, xi=None, *,
-           faraway, s_cheap, sharp_e, sharp_s, tile_rays, tex_hw=None):
+           faraway, s_cheap, sharp_e, sharp_s, tile_rays, tex_hw=None, skip: str = "auto"):
     """One culled smooth bounce per launch, in the atlas mode with the
-    atlas's slot extents ``tex_hw``; outputs as :func:`fwd_cs_plain`."""
+    atlas's slot extents ``tex_hw``; outputs as :func:`fwd_cs_plain`.
+    ``skip`` ("auto", "on", "off") picks the kernel that skips the shadow
+    pairs whose factor is exactly 1 or the kernel without, the outputs the
+    same bitwise."""
+    code = _skip_code(skip)
     device = _check({"o": o, "d": d, "acc": acc}, {"thr": thr, "alive": alive, "idx": idx, "hit": hit},
                     [(cand, cnt_cand, cnt_full)], geom, {"mat": mat, "consts": consts}, xi, s_cheap, tile_rays)
     kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tile_rays=tile_rays, tex_hw=tex_hw)
@@ -356,7 +419,8 @@ def fwd_cs(o, d, thr, alive, acc, idx, hit, cand, cnt_cand, cnt_full, geom, mat,
                 torch.empty_like(acc), torch.empty_like(thr))
         tex = () if tex_hw is None else (torch.empty_like(idx), torch.empty_like(thr))
         _launch("fwd_cs", o.dtype, *args, xi, *outs, *(tex or (None, None)), n, s_cheap, geom.shape[0], tile_rays,
-                cand.shape[1], float(faraway), float(sharp_e), float(sharp_s), *slot_args(tex_hw), atlas=bool(tex))
+                cand.shape[1], float(faraway), float(sharp_e), float(sharp_s), *slot_args(tex_hw), code,
+                atlas=bool(tex))
     return outs + tex
 
 

@@ -62,9 +62,12 @@ _BIG = {torch.float32: 3.0e38, torch.float64: 1.0e300}
 # Ray-sphere pairs per chunk of the plain versions.
 _CHUNK_PAIRS = 1 << 24
 
-# The skip of the shadow sweep and bounce_lane (csrc/sweep_math.cuh Skip):
-# "auto" takes the launcher's rule.
+# The skip of the sweeps and bounce_lane (csrc/sweep_math.cuh Skip): "auto"
+# takes the launcher's rule, from SKIP_MIN_CHEAP cheap spheres on
+# (kSkipMinCheap; the nearest sweep NEAREST_SKIP_MIN_CHEAP).
 SKIP = {"auto": -1, "off": 0, "on": 1}
+SKIP_MIN_CHEAP = 16
+NEAREST_SKIP_MIN_CHEAP = 24
 WARP = 32
 # The bundle test's limits and its margin's unit, the dtype's unit roundoff
 # (csrc/sweep_math.cuh kBundleMaxCoord, kBundleMaxV2, unit_roundoff).
@@ -143,26 +146,46 @@ def _outside_cone(b: Bundles, v, v2, vl, rho, doubled: bool):
     return (v2 < BUNDLE_MAX_V2) & (x > 0) & (lhs < rhs)
 
 
-def bundle_test(b: Bundles, geom) -> torch.Tensor:
-    """``bundle_reaches`` of ``csrc/sweep_math.cuh``: (W, S) whether a ray of
-    warp w may hit sphere k of ``geom`` (S, 4), as the test of a cheap-tier
-    sphere answers: not if the cone from the ball of origins rules it out,
-    nor if the double cone from the apex does (the margin the source states;
-    NaN never rules out)."""
+def _rules_out(b: Bundles, geom, doubled: bool, q_of):
+    """``rules_out`` of ``csrc/bundle_math.cuh``: (W, S) whether warp w's
+    bound rules sphere k out, ``q_of(w)`` the distance from its centre within
+    which a line counts."""
     u = UNIT_ROUNDOFF[geom.dtype]
     v = tuple(geom[None, :, i] - b.c[:, i, None] for i in range(3))
     v2 = _dot3(v, v)
     vl = sqrt(v2)
     w = vl + b.r[:, None]
-    r = geom[None, :, 3]
-    q = sqrt(r * r * (1 + 16 * u) + (256 * u) * (w * w))
-    outside = _outside_cone(b, v, v2, vl, b.r[:, None] + q + (64 * u) * w, False)
+    q = q_of(w)
+    outside = _outside_cone(b, v, v2, vl, b.r[:, None] + q + (64 * u) * w, doubled)
     if bool((b.eps == b.eps).any()):  # an apex (one for every warp of the call)
         vp = tuple(geom[None, :, i] - b.p[:, i, None] for i in range(3))
         vp2 = _dot3(vp, vp)
         vpl = sqrt(vp2)
         outside = outside | _outside_cone(b, vp, vp2, vpl, b.eps[:, None] + q + (64 * u) * (w + vpl), True)
-    return ~outside
+    return outside
+
+
+def bundle_test(b: Bundles, geom) -> torch.Tensor:
+    """``bundle_reaches`` of ``csrc/bundle_math.cuh``: (W, S) whether a ray of
+    warp w may hit sphere k of ``geom`` (S, 4), as the test of a cheap-tier
+    sphere answers: not if the cone from the ball of origins rules it out,
+    nor if the double cone from the apex does (the margin the source states;
+    NaN never rules out)."""
+    u = UNIT_ROUNDOFF[geom.dtype]
+    r = geom[None, :, 3]
+    return ~_rules_out(b, geom, False, lambda w: sqrt(r * r * (1 + 16 * u) + (256 * u) * (w * w)))
+
+
+def line_test(b: Bundles, geom, edge) -> torch.Tensor:
+    """``line_reaches`` of ``csrc/bundle_math.cuh``: (W, S) whether some
+    line (both ways) of warp w may pass within ``r_eff`` of sphere k's centre,
+    ``r_eff^2 = r^2 + edge`` (``edge`` a () tensor in the dtype: ``fwd_cs``'s
+    |SigEdge lo| / (4 sharp_s), past which its shadow sigmoid is exactly 0),
+    with the margin the source states: the doubled cone from the ball of
+    origins, and from the apex where the bundles have one."""
+    u = UNIT_ROUNDOFF[geom.dtype]
+    r = geom[None, :, 3]
+    return ~_rules_out(b, geom, True, lambda w: sqrt((r * r + edge) * (1 + 64 * u) + (256 * u) * (w * w)))
 
 
 def bundle_reach(o, d, geom, s_cheap: int, apex=None) -> torch.Tensor:
@@ -288,7 +311,7 @@ def _check(o, d, geom, s_cheap: int, self_idx=None) -> torch.device:
 # C signatures of the entries in csrc/intersect_fused.cu, before the
 # trailing stream: p = pointer, i = int, r = the dtype's real.
 _SIGNATURES = {
-    "nearest_sweep": "ppppp" "iii" "r",  # o, d, geom, t, idx; n, s_cheap, s_total; faraway
+    "nearest_sweep": "ppppp" "iii" "r" "i",  # o, d, geom, t, idx; n, s_cheap, s_total; faraway; skip
     # o, d, geom, self_idx, lit; n, s_cheap, s_total; faraway; the light (3,) or null; skip
     "shadow_sweep": "ppppp" "iii" "r" "p" "i",
     "shadow_parts": "pppppp" "iii" "r" "p" "i",  # ... t_others, t_self; the rest as shadow_sweep
@@ -301,9 +324,12 @@ def _launch(name: str, dtype: torch.dtype, *args) -> None:
     (PARTS_LAUNCHES if name in PARTS_LAUNCHES else LAUNCHES)[name] += 1
 
 
-def nearest_sweep(o, d, geom, *, faraway: float, s_cheap: int) -> NearestHit:
+def nearest_sweep(o, d, geom, *, faraway: float, s_cheap: int, skip: str = "auto") -> NearestHit:
     """Nearest hit of rays ``o``/``d`` (N, 3) over the spheres ``geom`` (S,
-    4), rows ``s_cheap..S`` in the compensated tier."""
+    4), rows ``s_cheap..S`` in the compensated tier; ``skip`` ("auto", "on",
+    "off") picks the kernel with the warp-bundle sphere skip or without, the
+    result the same bitwise."""
+    code = _skip_code(skip)
     device = _check(o, d, geom, s_cheap)
     if device.type == "cpu":
         t, idx = nearest_sweep_plain(o, d, geom, faraway=faraway, s_cheap=s_cheap)
@@ -312,7 +338,7 @@ def nearest_sweep(o, d, geom, *, faraway: float, s_cheap: int) -> NearestHit:
         with torch.cuda.device(device):
             t = torch.empty((n,), dtype=o.dtype, device=device)
             idx = torch.empty((n,), dtype=torch.int32, device=device)
-            _launch("nearest_sweep", o.dtype, o, d, geom, t, idx, n, s_cheap, geom.shape[0], float(faraway))
+            _launch("nearest_sweep", o.dtype, o, d, geom, t, idx, n, s_cheap, geom.shape[0], float(faraway), code)
     return NearestHit(t=t, idx=idx, hit=t != faraway)
 
 
@@ -374,3 +400,10 @@ def shadow_blocks_per_sm(dtype: torch.dtype, s: int, *, parts: bool, skip: bool)
     current card."""
     suffix = "f32" if dtype == torch.float32 else "f64"
     return getattr(_build.load_library(_SOURCE), f"prt_shadow_blocks_per_sm_{suffix}")(int(parts), int(skip), s)
+
+
+def nearest_blocks_per_sm(dtype: torch.dtype, s: int, *, skip: bool) -> int:
+    """Resident 256-thread blocks per SM of the nearest_sweep instantiation
+    (``skip``) at ``s`` spheres' shared memory, on the current card."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(_build.load_library(_SOURCE), f"prt_nearest_blocks_per_sm_{suffix}")(int(skip), s)

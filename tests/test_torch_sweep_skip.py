@@ -1,6 +1,6 @@
-"""The warp-bundle sphere skip of ``shadow_sweep`` (both modes) and
-``bounce_lane`` (``csrc/sweep_math.cuh``, ``csrc/intersect_fused.cu``,
-``csrc/bounce_lane.cu``).
+"""The warp-bundle sphere skip of ``shadow_sweep`` (both modes),
+``nearest_sweep`` and ``bounce_lane`` (``csrc/bundle_math.cuh``,
+``csrc/sweep_math.cuh``, ``csrc/intersect_fused.cu``, ``csrc/bounce_lane.cu``).
 
 A warp of 32 consecutive rays bounds its rays by a ball of origins and a
 cone of directions, tests each cheap-tier sphere once against that bound,
@@ -24,6 +24,7 @@ The full plain sweeps are held against JAX elsewhere
 and no kernel: the kernels run on the card (``chip_smoke.py``).
 """
 
+import importlib
 import re
 
 import numpy as np
@@ -32,6 +33,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from python_ray_tracer_tpu_torch import RenderConfig, render  # noqa: E402
+from python_ray_tracer_tpu_torch.camera import ray_directions  # noqa: E402
 from python_ray_tracer_tpu_torch.io import load_scene  # noqa: E402
 from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene  # noqa: E402
 from python_ray_tracer_tpu_torch.ops import _build  # noqa: E402
@@ -403,24 +405,58 @@ def test_wrappers_take_the_skip_on_the_cpu(dtype):
                        skip="maybe")
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=IDS)
+def test_nearest_skip_on_glossy_rays_is_bitwise_the_full_sweep(dtype, monkeypatch):
+    """(b) On every bounce of the glossy frame's kernel branch (render.trace,
+    seed 7: GGX draws scatter a warp's rays past the first bounce) the plain
+    nearest sweep with the skip is bitwise the full one, and the wrapper takes
+    every value of ``skip`` on the CPU, the same bitwise; a bad value raises."""
+    render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")
+    calls = []
+    real = render_mod.nearest_sweep
+    monkeypatch.setattr(render_mod, "nearest_sweep", lambda *a, **kw: calls.append((a, kw)) or real(*a, **kw))
+    scene = _scene(dtype)
+    cfg = RenderConfig(max_depth=3, dtype=dtype, use_pallas=True, stochastic_roughness=True, rng_seed=7)
+    with torch.no_grad():
+        render_mod.trace(scene.camera.position, ray_directions(scene.camera, dtype), scene, cfg,
+                         key=render_mod.fold_seed(render_mod.seed_root(7), 4))
+    assert len(calls) == 3
+    reached = []
+    for (o, d, geom), kw in calls:
+        full = f.nearest_sweep_plain(o, d, geom, **kw)
+        for a, b in zip(full, f.nearest_sweep_plain(o, d, geom, **kw, skip=True)):
+            assert torch.equal(a, b)
+        reached.append(float(f.bundle_reach(o, d, geom, kw["s_cheap"]).float().mean()))
+        for skip in f.SKIP:
+            near = f.nearest_sweep(o, d, geom, **kw, skip=skip)
+            assert torch.equal(near.t, full[0]) and torch.equal(near.idx, full[1])
+    assert min(reached) < 1.0
+    with pytest.raises(ValueError, match="skip"):
+        f.nearest_sweep(o, d, geom, **kw, skip="never")
+
+
 def test_python_constants_mirror_the_source():
     """The launch rules, the limits and the margin's coefficients of the
     plain test are the CUDA source's."""
     sweep = (_build.CSRC / "sweep_math.cuh").read_text()
+    bundle = (_build.CSRC / "bundle_math.cuh").read_text()
     assert re.search(r"enum Skip \{ kSkipAuto = (-?\d+), kSkipOff = (\d+), kSkipOn = (\d+) \};", sweep).groups() == (
         str(f.SKIP["auto"]), str(f.SKIP["off"]), str(f.SKIP["on"]))
     for src in ("intersect_fused.cu", "bounce_lane.cu"):
         assert "takes_skip(skip, s_cheap)" in (_build.CSRC / src).read_text()
-    assert float(re.search(r"kBundleMaxCoord = ([\d.]+);", sweep).group(1)) == f.BUNDLE_MAX_COORD
-    assert float(re.search(r"kBundleMaxV2 = ([\d.]+);", sweep).group(1)) == f.BUNDLE_MAX_V2
+    assert "takes_skip(skip, s_cheap, kNearestSkipMinCheap)" in (_build.CSRC / "intersect_fused.cu").read_text()
+    for name, want in (("kSkipMinCheap", f.SKIP_MIN_CHEAP), ("kNearestSkipMinCheap", f.NEAREST_SKIP_MIN_CHEAP)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", sweep).group(1)) == want
+    assert float(re.search(r"kBundleMaxCoord = ([\d.]+);", bundle).group(1)) == f.BUNDLE_MAX_COORD
+    assert float(re.search(r"kBundleMaxV2 = ([\d.]+);", bundle).group(1)) == f.BUNDLE_MAX_V2
     for name, want in (("float", 2.0**-24), ("double", 2.0**-53)):
-        got = re.search(rf"unit_roundoff<{name}>\(\) {{ return ([\d.e-]+)f?; }}", sweep).group(1)
+        got = re.search(rf"unit_roundoff<{name}>\(\) {{ return ([\d.e-]+)f?; }}", bundle).group(1)
         assert float(got) == want
-    body = sweep[sweep.index("bool outside_cone"):sweep.index("// Bit j:")]
+    body = bundle[bundle.index("bool outside_cone"):bundle.index("// Whether some lane's line")]
     for term in ("T(1) + T(16) * u", "T(256) * u * (w * w)", "r_b + q + T(64) * u * w", "T(8) * u * (v2 + rho2)",
                  "T(64) * u * (vl + rho)", "b.s[12] + q + T(64) * u * (w + vpl)", "doubled ? m_abs(av) : av"):
         assert term in body, term
-    bundle = sweep[sweep.index("Bundle<T> warp_bundle"):sweep.index("// Whether the sphere lies outside")]
+    bundle = bundle[bundle.index("Bundle<T> warp_bundle"):bundle.index("// Whether the sphere lies outside")]
     for term in ("T(32) * u", "(T(1) + T(16) * u)", "- T(64) * u", "cos_t > T(0)",
                  "m_sqrt(dot3(f, f)) + T(16) * u * m_sqrt(dot3(w, w))"):
         assert term in bundle, term
