@@ -132,7 +132,12 @@ kernel is held bitwise to the same kernel with the skip compiled out
 pairs the skip reaches (the plain bundle test) and the operations on every
 pair beside those on the reached pairs with the bundles and the tests; the
 f32 launches' bound (the kernels line's) is the second, the skip-off kernel
-timed beside in turns.
+timed beside in turns.  The same holds for ``nearest_sweep``, ``fwd_cs``,
+``clear_fwd`` (both ranks' launches, f32 and f64) and ``smooth_fwd_step``
+(every recorded launch, with the skip also forced on where the launch rule
+leaves it off, and the 8192-sphere step's again upcast to f64), whose
+``[skip]`` lines print the (warp, sphere) pairs their winner sweep and
+shadow product visit.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -737,15 +742,17 @@ def _twice_bitwise(name: str, label: str, fn):
 def _check_step_pair(label: str, o, d, tables, kw, xis, dtype, err: dict, state_by_kernel: bool = False,
                      plain_ms: dict | None = None, also_f64: bool = False) -> dict:
     """smooth_fwd_step and smooth_bwd_step on the second bounce of the chain
-    against their plain versions; smooth_bwd_step twice, bitwise.  With
-    ``also_f64`` both again in float64 on the same inputs upcast, under the
-    float64 limits.  Returns the two calls (``{name: (kernel callable,
-    bytes it moves)}``)."""
+    against their plain versions; smooth_bwd_step twice, bitwise;
+    smooth_fwd_step's skip bitwise the kernel without it.  With ``also_f64``
+    both again in float64 on the same inputs upcast, under the float64
+    limits.  Returns the two calls (``{name: (kernel callable, bytes it
+    moves)}``)."""
     from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
 
     skw = {k: v for k, v in kw.items() if k != "depth"}
     state = _step_state(o, d, tables, skw, xis[0], kernel=state_by_kernel)
     fk = bss.smooth_fwd_step(*state, *tables, xis[1], **skw)
+    _step_skip_lines(label, [((*state, *tables, xis[1]), skw)], upcast=also_f64)
     fp = _plain_call("smooth_fwd_step", lambda: bss.smooth_fwd_step_plain(*state, *tables, xis[1], **skw), plain_ms)
     for out_name, k, p in zip(("o", "d", "thr", "alive", "acc", "idx", "hit", "clear"), fk, fp):
         err["smooth_fwd_step"] = max(err["smooth_fwd_step"], _per_value_check(f"smooth_fwd_step {label} {out_name}", k, p, dtype))
@@ -772,6 +779,7 @@ def _check_step_pair(label: str, o, d, tables, kw, xis, dtype, err: dict, state_
         "smooth_bwd_step": (lambda: bss.smooth_bwd_step(*args, **skw),
                             _nbytes(*[a for a in args if a is not None], *bk)),
         "bwd_step_args": (args, skw),
+        "fwd_step_args": ((*state, *tables, xis[1]), skw),
     }
 
 
@@ -1146,9 +1154,12 @@ def phase_step_main() -> dict[str, int]:
     """The one-bounce smooth pair's main path: a weighted-sum loss through
     render() at smooth depth 1, stochastic, on CUDA; its gradients against
     torch autograd of the pure-torch route (f64, and f32 under the noise
-    rule).  Returns the pair's launches from the f32 kernel run."""
+    rule); smooth_fwd_step's skip (forced on: the rule leaves it off at 3
+    spheres) bitwise the kernel without it.  Returns the pair's launches
+    from the f32 kernel run."""
     from python_ray_tracer_tpu_torch import render
     from python_ray_tracer_tpu_torch.models.scenes import reference_scene
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
     from python_ray_tracer_tpu_torch.optim import combine, scene_to_params
 
     weight = torch.rand((HEIGHT, WIDTH, 3), generator=torch.Generator("cuda").manual_seed(3), device="cuda")
@@ -1160,13 +1171,17 @@ def phase_step_main() -> dict[str, int]:
             _reset_launches()
             cfg = _smooth_cfg(dtype, use_pallas=use_pallas, stochastic_roughness=True, rng_seed=SEED)
             cfg = dataclasses.replace(cfg, max_depth=1)
-            loss = torch.sum(render(combine(params, scene), cfg) * weight.to(dtype)) / N_RAYS
-            loss.backward()
+            fwd_calls: list = []
+            with _capture(bss, "smooth_fwd_step", fwd_calls):
+                loss = torch.sum(render(combine(params, scene), cfg) * weight.to(dtype)) / N_RAYS
+                loss.backward()
             torch.cuda.synchronize()
             if use_pallas and dtype == torch.float32:
                 counts = _launches()
                 _expect_launched("the depth-1 loss through render()", counts, ("smooth_fwd_step", "smooth_bwd_step"))
                 launches = {k: counts[k] for k in ("smooth_fwd_step", "smooth_bwd_step")}
+            if use_pallas:  # after the count: the check's launches are not the path's
+                _step_skip_lines(f"the 3-sphere depth-1 loss {str(dtype).split('.')[-1]}", fwd_calls)
             grads[route, dtype] = _leaf_grads(params)
             print(f"[main] depth-1 loss, {route} {str(dtype).split('.')[-1]}: {float(loss.detach()):.10e}")
     for key, exact in grads["pure-torch", torch.float64].items():
@@ -1858,16 +1873,20 @@ def _sweep_bound(name: str, call) -> tuple[float, str]:
 # --- The warp-bundle sphere skip of rows 4 (both modes) and 5 (both modes) ---
 
 
-def _skip_bitwise(name: str, label: str, kernel, args, kw) -> None:
-    """The kernel with its skip (the launcher's rule) bitwise the same
+def _skip_bitwise(name: str, label: str, kernel, args, kw, forced: bool = False) -> None:
+    """The kernel with its skip (the launcher's rule; with ``forced`` also
+    the skip forced on, where the rule may leave it off) bitwise the same
     kernel with the skip compiled out (skip="off")."""
     with torch.no_grad():
-        got, off = kernel(*args, **kw), kernel(*args, **kw, skip="off")
-    got, off = (got if isinstance(got, tuple) else (got,)), (off if isinstance(off, tuple) else (off,))
-    same = all(bool(torch.equal(x, y)) for x, y in zip(got, off))
-    print(f"[skip] {name} {label}: with the skip bitwise the kernel without it: {same}", flush=True)
-    if not same:
-        fail(f"{name} {label}: the skip changes the output")
+        off = kernel(*args, **kw, skip="off")
+        runs = {"": kernel(*args, **kw), **({" (forced on)": kernel(*args, **kw, skip="on")} if forced else {})}
+    off = off if isinstance(off, tuple) else (off,)
+    for how, got in runs.items():
+        got = got if isinstance(got, tuple) else (got,)
+        same = all(bool(torch.equal(x, y)) for x, y in zip(got, off))
+        print(f"[skip] {name} {label}{how}: with the skip bitwise the kernel without it: {same}", flush=True)
+        if not same:
+            fail(f"{name} {label}{how}: the skip changes the output")
 
 
 def _skip_sweep(plain, args: tuple, kw: dict) -> dict:
@@ -1939,11 +1958,7 @@ def _skip_bound(name: str, sweeps: list[dict], ops: float, n_bytes: int, label: 
     """The least time of a launch with the skip: the plain version's
     operations ``ops`` less what the skip saves (:func:`_skip_sweep`), beside
     the bound on every pair; returns the first."""
-    reached_ops = _skip_line(name, label, sweeps, ops)
-    every, bound = _bound(int(ops), n_bytes), _bound(int(reached_ops), n_bytes)
-    print(f"{f'[skip] {name} {label}'.rstrip()}: bound {bound[0]:.4f} ms by {bound[1]} on the reached pairs, "
-          f"{every[0]:.4f} ms by {every[1]} on every pair", flush=True)
-    return bound
+    return _skip_bound_line(name, label, ops, _skip_line(name, label, sweeps, ops), n_bytes)
 
 
 def _sweep_skip_ops(name: str, label: str, args: tuple, kw: dict) -> None:
@@ -2011,6 +2026,148 @@ def _fwd_cs_bound(args: tuple, kw: dict, label: str) -> tuple[float, str]:
           f"a pair's test {test_ops:g}, a whole pair {per_sphere:g} operations), {every[0]:.4f} ms by {every[1]} on "
           f"every listed pair", flush=True)
     return bound
+
+
+# --- The skips of smooth_fwd_step (rows 6 and 8) and clear_fwd (row 19) ---
+
+
+def _step_skip_lines(tag: str, calls: list, upcast: bool = False) -> None:
+    """Each recorded smooth_fwd_step launch with its skip (the launch rule's
+    and forced on) bitwise the kernel without it, with ``upcast`` again on
+    the same inputs in float64, and the (warp, sphere) pairs its winner
+    sweep and its shadow product visit (``benchmarks/sweep_skip_ab``'s
+    step_counts)."""
+    from python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab import step_counts, step_counts_text
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    for b, (args, kw) in enumerate(calls):
+        args = [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+        for label, a in ((tag, args), *(((f"{tag}, upcast to float64", _upcast(args)),) if upcast else ())):
+            _skip_bitwise("smooth_fwd_step", f"{label} bounce {b}", bss.smooth_fwd_step, a, kw, forced=True)
+            print(f"[skip] smooth_fwd_step {label} bounce {b}: {step_counts_text(step_counts(a, kw))}", flush=True)
+
+
+def _clear_skip_line(label: str, args, kw) -> None:
+    """One clear_fwd launch with its skip (the rule's and forced on) bitwise
+    the kernel without it, and the share of the cheap-tier (warp, sphere)
+    pairs its shadow bound keeps."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss, smooth_parts as sp
+
+    _skip_bitwise("clear_fwd", label, sp.clear_fwd, args, kw, forced=True)
+    with torch.no_grad():
+        reach = bss.shadow_reach(args[0], args[1], kw.get("light"), args[2], kw["s_cheap"], kw["sharpness"])
+    print(f"[skip] clear_fwd {label}: the shadow bound keeps {float(reach[:, :kw['s_cheap']].float().mean()):.2%} of "
+          f"the cheap-tier (warp, sphere) pairs", flush=True)
+
+
+def _shadow_skip_costs(p_n, to_light, light, geom, s_cheap: int, sharp: float) -> dict:
+    """What shadow_skip_product does on one launch's shadow rays p_n/to_light
+    (N, 3): the cheap-tier (warp, sphere) pairs its bound keeps (each then
+    takes the quadratic and the zero test on every lane), the lane-sphere
+    pairs whose sigmoid is not exactly 0 (each computed whole), and the
+    operations of its bundle (a lane), of its test (a warp and sphere) and
+    of a pair's quadratic and zero test (a lane and sphere), as count_ops
+    counts their plain versions on 4096 lanes."""
+    from python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab import _live_pairs
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss, intersect_fused as f
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain
+
+    part = min(p_n.shape[0] // 32 * 32, 4096)
+    o, d, dtype = p_n[:part], to_light[:part], p_n.dtype
+    with torch.no_grad():
+        reach = bss.shadow_reach(p_n, to_light, light, geom, s_cheap, sharp)
+        live = _live_pairs(p_n, to_light, geom[:s_cheap], sharp)
+        edge = torch.tensor(-bss.SIG_EDGE[dtype], dtype=dtype) / (4 * torch.tensor(sharp, dtype=dtype))
+        sample = f.warp_bundles(o, d, light)
+        g = geom[0]
+
+        def zero_test():
+            b, ct = b_cterm_plain(tuple(o.T), tuple(d.T), (g[0], g[1], g[2]), g[3])
+            return sharp * (b * b - 4.0 * ct) < bss.SIG_EDGE[dtype]
+
+        return dict(kept=int(reach[:, :s_cheap].sum()), live=live, warps=reach.shape[0],
+                    bundle_ops=count_ops(lambda: f.warp_bundles(o, d, light)) / part,
+                    test_ops=count_ops(lambda: f.line_test(sample, geom[:1], edge.to(o.device))) / (part // 32),
+                    zero_ops=count_ops(zero_test) / part)
+
+
+def _skip_bound_line(name: str, label: str, ops: float, skip_ops: float, n_bytes: int, detail: str = "") -> tuple:
+    """Print the bound on the work a skip leaves (``skip_ops``) beside the
+    bound on every pair (``ops``); returns the first."""
+    every, bound = _bound(int(ops), n_bytes), _bound(int(skip_ops), n_bytes)
+    print(f"{f'[skip] {name} {label}'.rstrip()}: bound {bound[0]:.4f} ms by {bound[1]} on the reached pairs"
+          f"{f' ({detail})' if detail else ''}, {every[0]:.4f} ms by {every[1]} on every pair", flush=True)
+    return bound
+
+
+def _step_skip_bound(label: str, args, kw, ops: float, n_bytes: int) -> tuple[float, str]:
+    """smooth_fwd_step's least time with its skips on one call, from its
+    plain version's operations ``ops`` on every pair: every cheap-tier
+    (warp, sphere) pair pays a winner test and a shadow test (one lane
+    each), the winner pairs the rules keep the winner sweep's body on every
+    lane, the shadow pairs the bound keeps the quadratic and zero test, and
+    only the lane pairs whose sigmoid is not 0 the whole shadow body; two
+    bundles a lane.  The per-pair bodies are count_ops' counts of
+    fwd_sub_math over one and two spheres on 4096 lanes, with and without
+    the winner known."""
+    from python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab import step_counts
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss, intersect_fused as f
+
+    o, d, thr, alive, acc, geom, mat, consts = args[:8]
+    xi = args[8] if len(args) > 8 else None
+    n, s_cheap, part = d.shape[1], kw["s_cheap"], min(d.shape[1] // 32 * 32, 4096)
+    c = step_counts(args, kw)
+    with torch.no_grad():
+        outs = bss.smooth_fwd_step(*args, **kw)
+        f_all = bss.fwd_sub_math(tuple(o), tuple(d), thr, alive, geom, mat, consts, bss._xi_pair(xi, 0),
+                                 faraway=kw["faraway"], s_cheap=s_cheap, sharp_e=kw["sharp_e"], sharp_s=kw["sharp_s"],
+                                 saved=(outs[5], outs[6] != 0, outs[7]), tex_hw=kw.get("tex_hw"))
+        shadow = _shadow_skip_costs(torch.stack(f_all.p_n, 1), torch.stack(f_all.L, 1), consts[0, 3:6], geom, s_cheap,
+                                    kw["sharp_s"])
+        lanes = (tuple(o[:, :part]), tuple(d[:, :part]), thr[:part], alive[:part])
+        xi_p = bss._xi_pair(None if xi is None else xi[:, :part], 0)
+        known = (torch.zeros((part,), dtype=torch.int32, device=d.device), torch.zeros((part,), dtype=torch.bool,
+                                                                                      device=d.device))
+
+        def body(k: int, winner_known: bool) -> float:
+            return count_ops(lambda: bss.fwd_sub_math(
+                *lanes, geom[:k].contiguous(), mat[:k].contiguous(), consts, xi_p, faraway=kw["faraway"], s_cheap=k,
+                sharp_e=kw["sharp_e"], sharp_s=kw["sharp_s"], known=known if winner_known else None,
+                tex_hw=kw.get("tex_hw")))
+
+        shadow_pair = (body(2, True) - body(1, True)) / part
+        winner_pair = (body(2, False) - body(2, True) - body(1, False) + body(1, True)) / part
+        wo, wd = o[:, :part].T.contiguous(), d[:, :part].T.contiguous()
+        sample = f.warp_bundles(wo, wd)
+        m = torch.zeros((sample.ok.shape[0], 1), dtype=d.dtype, device=d.device)
+        winner_test = count_ops(lambda: f.winner_test(sample, geom[:1], m)) / (part // 32)
+        winner_bundle = count_ops(lambda: f.warp_bundles(wo, wd)) / part
+    pairs = n * s_cheap
+    skip_ops = (ops - winner_pair * (pairs - 32 * c["winner_kept"]) - shadow_pair * (pairs - shadow["live"])
+                + shadow["zero_ops"] * (32 * shadow["kept"] - shadow["live"])
+                + (winner_bundle + shadow["bundle_ops"]) * n + (winner_test + shadow["test_ops"]) * c["warps"] * s_cheap)
+    return _skip_bound_line("smooth_fwd_step", label, ops, skip_ops, n_bytes,
+                            f"winner {c['winner']:.2%}, shadow {c['shadow']:.2%} of the warp-sphere pairs; a winner "
+                            f"pair {winner_pair:g}, a shadow pair {shadow_pair:g}, its zero test {shadow['zero_ops']:g}, "
+                            f"the tests {winner_test:g} and {shadow['test_ops']:g} operations")
+
+
+def _clear_skip_bound(args, kw, ops: float, n_bytes: int) -> tuple[float, str]:
+    """clear_fwd's least time with its skip on one call, from its plain
+    version's operations ``ops`` on every pair: each cheap-tier (warp,
+    sphere) pair pays a test, each pair the bound keeps the quadratic and
+    zero test on every lane, and only the lane pairs whose sigmoid is not 0
+    the whole pair; a bundle a lane."""
+    o, d, geom = args[:3]
+    n, s, s_cheap = o.shape[0], geom.shape[0], kw["s_cheap"]
+    c = _shadow_skip_costs(o, d, kw.get("light"), geom, s_cheap, kw["sharpness"])
+    pair_ops = ops / (n * s)
+    skip_ops = (ops - pair_ops * (n * s_cheap - c["live"]) + c["zero_ops"] * (32 * c["kept"] - c["live"])
+                + c["bundle_ops"] * n + c["test_ops"] * c["warps"] * s_cheap)
+    return _skip_bound_line("clear_fwd", f"{s} spheres", ops, skip_ops, n_bytes,
+                            f"{c['kept'] / (c['warps'] * s_cheap):.2%} of the warp-sphere pairs kept, "
+                            f"{c['live'] / (n * s_cheap):.3%} of the lane pairs whole; a pair {pair_ops:g}, its zero "
+                            f"test {c['zero_ops']:g}, a test {c['test_ops']:g} operations")
 
 
 def _time_launches(name: str, calls: list, card: str, context: str, what: str) -> dict:
@@ -2432,13 +2589,23 @@ def phase_blocked_kernels(card: str) -> tuple[dict[str, float], dict[str, dict]]
             for name in kernels:
                 call, n_bytes = calls[name]
                 ms = time_ms(call, warmup=2, iters=10)
+                beside = ""
                 p_ms, ops = plain_ms[name]
                 bound_ms, bound_by = _bound(ops, n_bytes)
                 if name == "smooth_bwd_step":
                     bound_ms, bound_by = _step_reach_bound(label, *calls["bwd_step_args"], ops, n_bytes)
+                if name == "smooth_fwd_step":  # with the launch rule's skip and without it, in turns
+                    args, skw = calls["fwd_step_args"]
+                    turns = [time_ms(fn, warmup=2, iters=10) for fn in (
+                        call, lambda: bss.smooth_fwd_step(*args, **skw, skip="off"),
+                        lambda: bss.smooth_fwd_step(*args, **skw, skip="off"), call)]
+                    ms, off_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                    skip_blocks = bss.blocks_per_sm(name, dtype, glossy, s, skip=True)
+                    beside = f" (skip off {off_ms:.4f} ms, {off_ms / ms:.2f}x; {skip_blocks} blocks per SM with the skip)"
+                    bound_ms, bound_by = _step_skip_bound(label, args, skw, ops, n_bytes)
                 res[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-                print(f"[timing] {name} at {label}: kernel {ms:.4f} ms, plain version {p_ms:.1f} ms (one call, under "
-                      f"the op counter), bound {bound_ms:.4f} ms by {bound_by} ({ops / n:.0f} operations per ray, "
+                print(f"[timing] {name} at {label}: kernel {ms:.4f} ms{beside}, plain version {p_ms:.1f} ms (one call, "
+                      f"under the op counter), bound {bound_ms:.4f} ms by {bound_by} ({ops / n:.0f} operations per ray, "
                       f"{n_bytes} bytes), kernel at {bound_ms / ms:.1%} of its bound; {occupancy[name]} blocks per SM "
                       f"({card})", flush=True)
             timings[label] = res
@@ -2489,6 +2656,7 @@ def phase_c5_main(tmp: Path) -> dict[str, int]:
     each of smooth_fwd_step and smooth_bwd_step.  Returns the launches of
     train_deep (config 5's first step) and of the pair past 4096 spheres."""
     from python_ray_tracer_tpu_torch import cli
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
     from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
     from python_ray_tracer_tpu_torch.utils.image import to_uint8
 
@@ -2549,8 +2717,10 @@ def phase_c5_main(tmp: Path) -> dict[str, int]:
     target = _c5_target(scene)
     params = scene_to_params(scene)
     _reset_launches()
-    loss = make_loss_fn(scene, target, _c5_cfg())(params)
-    loss.backward()
+    fwd_calls: list = []
+    with _capture(bss, "smooth_fwd_step", fwd_calls):
+        loss = make_loss_fn(scene, target, _c5_cfg())(params)
+        loss.backward()
     torch.cuda.synchronize()
     counts = _launches()
     _expect_launched(f"an L2 step at {LANE_SPHERES} spheres", counts, STEP, exactly=C5_DEPTH,
@@ -2560,6 +2730,7 @@ def phase_c5_main(tmp: Path) -> dict[str, int]:
         fail(f"the L2 step at {LANE_SPHERES} spheres gave a non-finite loss or gradient")
     print(f"[main] L2 step at {LANE_SPHERES} spheres: loss {float(loss.detach()):.8e}", flush=True)
     launches.update({LANE[k]: counts[k] for k in STEP})
+    _step_skip_lines(f"the {LANE_SPHERES}-sphere L2 step", fwd_calls, upcast=True)
     return launches
 
 
@@ -2898,6 +3069,7 @@ def phase_tex_main(tmp: Path) -> dict[str, int]:
     fwd_cs and bwd_cs (atlas) a step, the loss finite and falling.  Returns
     the launches of each path's kernels."""
     from python_ray_tracer_tpu_torch import cli, render
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
     from python_ray_tracer_tpu_torch.optim import fit, make_loss_fn
     from python_ray_tracer_tpu_torch.utils.image import save_png, to_uint8
 
@@ -2986,10 +3158,13 @@ def phase_tex_main(tmp: Path) -> dict[str, int]:
 
     params = _tex_params(scene, every_leaf=True)
     _reset_launches()
-    loss = make_loss_fn(scene, target, _tex_cfg(depth=1))(params)
-    loss.backward()
+    fwd_calls: list = []
+    with _capture(bss, "smooth_fwd_step", fwd_calls):
+        loss = make_loss_fn(scene, target, _tex_cfg(depth=1))(params)
+        loss.backward()
     torch.cuda.synchronize()
     counts = _launches()
+    _step_skip_lines("the texture task's depth-1 step (atlas)", fwd_calls)
     _atlas_launched("the texture task's step at depth 1, every leaf", counts, ("smooth_fwd_step", "smooth_bwd_step"), 1)
     launches.update({ATLAS[k]: counts[ATLAS[k]] for k in ("smooth_fwd_step", "smooth_bwd_step")})
     grads = _leaf_grads(params)
@@ -3460,8 +3635,8 @@ def _check_parts_calls(tag: str, calls: dict, dtype: torch.dtype, err: dict) -> 
     """Each recorded per-shard call of the first two bounces, its kernel
     against its plain version: indices exactly, values as PERF.md section 2
     states (THRESHOLD, RAY_GRAD_TOL, COLUMN_RTOL); clear_bwd twice, bitwise;
-    shadow_parts and the shard's nearest_sweep on every bounce bitwise the
-    kernel without its skip, with the pairs the skip reaches."""
+    shadow_parts, clear_fwd and the shard's nearest_sweep on every bounce
+    bitwise the kernel without its skip, with the pairs the skip reaches."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
 
     def det(args):
@@ -3493,6 +3668,8 @@ def _check_parts_calls(tag: str, calls: dict, dtype: torch.dtype, err: dict) -> 
             else:
                 err["smooth_nearest_parts"] = max(err["smooth_nearest_parts"], _per_value_check(
                     f"smooth_nearest_parts {tag} bounce {b} {name}", k, p, dtype))
+    for b, (args, kw) in enumerate(calls.get("clear", [])):
+        _clear_skip_line(f"{tag} bounce {b}", det(args), kw)
     for b, (args, kw) in enumerate(calls.get("clear", [])[:2]):
         args = det(args)
         got = sp.clear_fwd(*args, **kw)
@@ -3773,7 +3950,8 @@ def phase_multi_card(tmp: Path) -> None:
 def _parts_bound(name: str, args: list, kw: dict) -> tuple[float, str]:
     """The least time of one launch: each input and output once, and the plain
     version's operations counted over 4096 of the lanes, scaled to all;
-    clear_bwd's on the pairs its skip reaches (:func:`_clear_reach_bound`)."""
+    clear_bwd's on the pairs its skip reaches (:func:`_clear_reach_bound`),
+    clear_fwd's and shadow_parts' on the pairs their skips keep."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
 
     plain, kernel = {
@@ -3792,6 +3970,8 @@ def _parts_bound(name: str, args: list, kw: dict) -> tuple[float, str]:
     n_bytes = _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *out)
     if name == "clear_bwd":
         return _clear_reach_bound(args, kw, ops, n_bytes)
+    if name == "clear_fwd":
+        return _clear_skip_bound(args, kw, ops, n_bytes)
     if name == "shadow_parts":
         return _skip_bound(name, [_skip_sweep(plain, tuple(args), kw)], ops, n_bytes)
     return _bound(int(ops), n_bytes)
@@ -3800,7 +3980,8 @@ def _parts_bound(name: str, args: list, kw: dict) -> tuple[float, str]:
 def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
     """Each new kernel at its shard's shape (shard 0 of config 4, f32):
     shadow_parts on each bounce of the 1920x1080 frame, beside the kernel
-    without its skip; rows 18-20 on the first bounce at 960x540; each beside
+    without its skip; rows 18-20 on the first bounce at 960x540 (clear_fwd
+    beside the kernel without its skip, and its resident CTAs); each beside
     its plain version and its bound by counted operations."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
 
@@ -3816,13 +3997,15 @@ def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
         for name, (key, kernel, plain, size) in kernels.items():
             calls = [(lambda a=a, k=k: kernel(*a, **k), lambda a=a, k=k: plain(*a, **k),
                       lambda a=a, k=k, n=name: _parts_bound(n, a, k),
-                      *([lambda a=a, k=k: kernel(*a, **k, skip="off")] if name == "shadow_parts" else []))
+                      *([lambda a=a, k=k: kernel(*a, **k, skip="off")] if name in ("shadow_parts", "clear_fwd") else []))
                      for a, k in saved[key]]
             res[name] = _time_launches(name, calls, card, f"config 4 sphere shard 0 of 2, {saved[key][0][0][2].shape[0]} "
                                        f"spheres, {size} f32", f"the frame's {len(calls)}" if len(calls) > 1 else "one")
         args = saved["clear_bwd"][0][0]
         print(f"[timing] clear_bwd: {sp.clear_bwd_blocks_per_sm(torch.float32, args[2].shape[0])} resident CTAs of 256 "
               f"an SM, {-(-args[0].shape[0] // 256)} CTAs a launch ({card})", flush=True)
+        blocks = {k: sp.clear_fwd_blocks_per_sm(torch.float32, args[2].shape[0], skip=k) for k in (False, True)}
+        print(f"[timing] clear_fwd: resident CTAs of 256 an SM without and with the skip {blocks} ({card})", flush=True)
     return res
 
 

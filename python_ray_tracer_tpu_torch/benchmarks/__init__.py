@@ -13,14 +13,17 @@ A/B scripts of the port's own build variants (no JAX counterpart):
 global memory), :mod:`.gather_lanes` (the register gather's indices a
 thread), and the splits :mod:`.bwd_cs_split` (``bwd_cs``),
 :mod:`.smooth_bwd_split` (``smooth_bwd_step`` and ``clear_bwd``) and
-:mod:`.fwd_cs_split` (``fwd_cs``'s shadow loop and skip), which stub out
-one part of a kernel at a time.  Each builds its variants in
-copies of the package made by :func:`package_copy`; the splits share
-:mod:`.splits` (the builds, one recording of the inputs, the timing turns,
-``--tree``, the ptxas parser).  :mod:`.sweep_skip_ab` times the skips of the
-sweeps, ``bounce_lane`` and ``fwd_cs`` off and on through the wrappers' own
-``skip`` switch (a template argument of the shipped source), in one
-process, with their counts.
+:mod:`.fwd_cs_split` (``fwd_cs``'s shadow loop and skip) and
+:mod:`.smooth_fwd_split` (``smooth_fwd_step``'s shadow product and winner
+sweep, ``clear_fwd``'s product), which stub out one part of a kernel at a
+time.  Each builds its variants in copies of the package made by
+:func:`package_copy`; the splits share :mod:`.splits` (the builds, one
+recording of the inputs, the timing turns, ``--tree``, the ptxas parser).
+:mod:`.sweep_skip_ab` times the skips of the sweeps, ``bounce_lane``,
+``fwd_cs``, ``clear_fwd`` and ``smooth_fwd_step`` off and on through the
+wrappers' own ``skip`` switch (a template argument of the shipped source),
+in one process, with their counts.  :mod:`.sass_diff` compares two
+checkouts' kernels instruction by instruction (``cuobjdump -sass``).
 
 An entry point runs on ``cuda`` unless ``--device cpu`` is given, and then
 runs the plain versions at the size the caller gives; without a card it

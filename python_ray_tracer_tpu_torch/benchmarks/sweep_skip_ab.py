@@ -6,12 +6,16 @@ warp can hit (``csrc/sweep_math.cuh``); ``fwd_cs`` (row 16, both modes)
 skips the shadow pairs whose factor is exactly 1: the spheres no shadow
 line of a warp comes near enough to shade (``csrc/bundle_math.cuh``
 ``line_reaches``), and per lane the pairs whose ``sig(sharp_s disc)`` is
-exactly 0.  Their wrappers take ``skip="off"`` to launch the same source
-with the skip compiled out, so this A/B needs no build variant: it records
-the main path's inputs once, checks every launch with the skip bitwise
-equal to the launch without, and times the two in turns (off, on, on, off;
-each turn the mean over the record's launches of the median of 10
-CUDA-event timings):
+exactly 0; ``clear_fwd`` (row 19) skips those pairs of its shadow product
+the same way, and ``smooth_fwd_step`` (rows 6 and 8) those of its shadow
+product and, in its winner sweep, the cheap-tier spheres no half-line of
+the warp can hit whose disc cannot exceed any lane's running dmax
+(``csrc/smooth_math.cuh`` ``SkipAll``).  Their wrappers take ``skip="off"``
+to launch the same source with the skip compiled out, so this A/B needs no
+build variant: it records the main path's inputs once, checks every launch
+with the skip bitwise equal to the launch without, and times the two in
+turns (off, on, on, off; each turn the mean over the record's launches of
+the median of 10 CUDA-event timings):
 
 * ``bounce_lane`` on the 1032-sphere frame's 4 launches (config 4's
   spheres with 8 more in the exact tier, 1920x1080 f32) and on lane80's 4
@@ -31,10 +35,23 @@ CUDA-event timings):
   ``random_spheres_scene(n)`` for each n of ``SMALL`` (its ground the one
   exact sphere), ``bounce_lane`` through ``trace_fused_lane`` (mirror) and
   ``nearest_sweep``/``shadow_sweep`` through ``render.trace`` (glossy,
-  seed 7), 4 bounces.
+  seed 7), 4 bounces;
+* ``smooth_fwd_step`` on the one-bounce pair's launches (``route="step"``)
+  at 256x144 (scaled with ``--width``/``--height``): the 8192-sphere L2
+  step's 3 (f32, and the same inputs upcast to f64), ``inverse_task(1024)``
+  (staged geometry) mirror at depth 3 and glossy at depth 2, the 3-sphere
+  ``reference_scene`` at 960x540 depth 1, ``textured_spheres_scene(1024)``
+  (32x32 textures, atlas mode) at depth 1, and ``random_spheres_scene(n)``
+  at depth 1 for each n of ``SMALL``;
+* ``clear_fwd`` on sphere shard 0's 3 launches of config 4's smooth step
+  at 960x540 (half the width and height; two ranks on the card over gloo,
+  the loss against a flat target; f32, and upcast to f64), and on the same
+  rays against the shard's first n spheres for each n of ``SMALL``.
 
 Beside the times it prints each launch's share of (warp, sphere) pairs
-the skip reaches (:func:`..ops.intersect_fused.bundle_reach`); for
+the skip reaches (:func:`..ops.intersect_fused.bundle_reach`; for
+``smooth_fwd_step`` the winner sweep's and the shadow product's,
+:func:`..ops.bounce_smooth_sub.winner_reach` and ``shadow_reach``); for
 ``nearest_sweep`` also the share of those a distance cut could drop (a
 sphere whose nearest possible hit from the warp's ball of origins lies
 past the largest ``t`` the warp's lanes end with), and for ``fwd_cs`` the
@@ -46,7 +63,7 @@ spill bytes of every instantiation of the four kernels (the build's
 each instantiation's resident blocks per SM::
 
     python -m python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab [--device cpu --width 64 --height 36]
-        [--rows K] [--split] [--frames]
+        [--rows K] [--split] [--frames] [--kernels a,b,...]
 
 On ``--device cpu`` it runs the plain versions at the size given (a check
 of the script, no times).  ``--rows K`` prints only the counts of the
@@ -56,8 +73,9 @@ with its own ray offset (the xi the whole frame draws there), so that a
 warp is 32 neighbouring pixels as in the frame.  ``--split`` runs
 :mod:`.fwd_cs_split` after the A/B (``fwd_cs`` with its shadow loop
 stubbed out, beside the source as it is).  ``--frames`` times only the
-frames and steps ``nearest_sweep`` and ``fwd_cs`` sit in, with their skips
-off and on in turns (:func:`frames`; the card only).
+frames and steps ``nearest_sweep``, ``fwd_cs`` and ``smooth_fwd_step`` sit
+in, with their skips off and on in turns (:func:`frames`; the card only).
+``--kernels`` keeps the cases of those kernels only (default: all six).
 """
 
 from __future__ import annotations
@@ -82,6 +100,9 @@ SEED, DEPTH, SHARD, CS_DEPTH = 7, 4, 512, 3
 TURNS = ("off", "on", "on", "off")
 # Table sizes below the main path's, for the launch rule (kSkipMinCheap).
 SMALL = (4, 8, 16, 17, 25, 32, 48)
+KERNELS = ("bounce_lane", "nearest_sweep", "shadow_sweep", "fwd_cs", "smooth_fwd_step", "clear_fwd")
+# smooth_fwd_step's frame at 1920x1080 (scaled with the frame) and its big table.
+STEP_SIZE, STEP_SPHERES = (256, 144), 8192
 
 
 def _glossy():
@@ -151,8 +172,23 @@ def _lane_big_scene(device, width: int, height: int):
                       width, height, dtype=torch.float32, device=device)
 
 
-def record(device, width: int, height: int) -> dict[str, list]:
-    """Each case's launches: ``(args, kwargs)`` of its wrapper."""
+def record(device, width: int, height: int, kernels=KERNELS) -> dict[str, list]:
+    """Each case's launches: ``(args, kwargs)`` of its wrapper (the cases of
+    ``kernels`` only)."""
+    cases: dict[str, list] = {}
+    if {"bounce_lane", "nearest_sweep", "shadow_sweep", "fwd_cs"} & set(kernels):
+        cases.update(_record_sweeps(device, width, height))
+    if "smooth_fwd_step" in kernels:
+        cases.update(_record_step(device, width, height))
+    if "clear_fwd" in kernels:
+        cases.update(_record_clear(device, width, height))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {name: calls for name, calls in cases.items() if name.split()[0] in kernels}
+
+
+def _record_sweeps(device, width: int, height: int) -> dict[str, list]:
+    """The cases of the four kernels of PRs 13-14."""
     from python_ray_tracer_tpu_torch import RenderConfig, render
     from python_ray_tracer_tpu_torch.io import load_scene, load_settings
     from python_ray_tracer_tpu_torch.models import scenes
@@ -228,8 +264,106 @@ def record(device, width: int, height: int) -> dict[str, list]:
                                  key=_key())
         finally:
             render_mod.nearest_sweep, render_mod.shadow_sweep = real
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    return cases
+
+
+def _step_record(scene, cfg, key=None) -> list:
+    """smooth_fwd_step's launches through the one-bounce pair's route."""
+    from python_ray_tracer_tpu_torch.camera import ray_directions_t
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    calls: list = []
+    real = _capture(bss, "smooth_fwd_step", calls)
+    try:
+        with torch.no_grad():
+            bss.trace_fused_smooth_sub(scene.camera.position, ray_directions_t(scene.camera, cfg.dtype), scene, cfg,
+                                       route="step", key=key)
+    finally:
+        bss.smooth_fwd_step = real
+    return calls
+
+
+def _upcast(calls: list) -> list:
+    """The launches on the same inputs in float64."""
+    return [(tuple(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args), kw)
+            for args, kw in calls]
+
+
+def _record_step(device, width: int, height: int) -> dict[str, list]:
+    """smooth_fwd_step's cases (see the module's docstring)."""
+    from python_ray_tracer_tpu_torch import RenderConfig
+    from python_ray_tracer_tpu_torch.models import scenes
+
+    sw, sh = max(8, STEP_SIZE[0] * width // 1920), max(4, STEP_SIZE[1] * height // 1080)
+
+    def cfg(depth: int, **kw):
+        return RenderConfig(max_depth=depth, dtype=torch.float32, visibility="smooth", use_pallas=True, **kw)
+
+    f32 = torch.float32
+    cases = {f"smooth_fwd_step {STEP_SPHERES}-sphere step": _step_record(
+        scenes.random_spheres_scene(STEP_SPHERES, sw, sh, dtype=f32, device=device), cfg(3))}
+    cases[f"smooth_fwd_step {STEP_SPHERES}-sphere step f64 (upcast)"] = _upcast(cases[
+        f"smooth_fwd_step {STEP_SPHERES}-sphere step"])
+    inverse = scenes.inverse_task_scene(1024, sw, sh, dtype=f32, device=device)
+    cases["smooth_fwd_step inverse_task(1024) mirror (staged)"] = _step_record(inverse, cfg(3))
+    cases["smooth_fwd_step inverse_task(1024) glossy (staged)"] = _step_record(
+        inverse, cfg(2, stochastic_roughness=True, rng_seed=SEED), _key())
+    cases["smooth_fwd_step reference(3) depth 1"] = _step_record(
+        scenes.reference_scene(width // 2, height // 2, dtype=f32, device=device), cfg(1))
+    cases["smooth_fwd_step textured1024 depth 1 (atlas)"] = _step_record(
+        scenes.textured_spheres_scene(1024, sw, sh, tex_side=32, dtype=f32, device=device), cfg(1))
+    for n in SMALL:
+        cases[f"smooth_fwd_step {n} spheres depth 1"] = _step_record(
+            scenes.random_spheres_scene(n, sw, sh, dtype=f32, device=device), cfg(1))
+    return cases
+
+
+def clear_rank(path: str, size: tuple[int, int], device_type: str) -> None:
+    """One of two ranks (spawned by run_local): the forward of config 4's
+    smooth loss at ``size`` (depth 3, a flat target) on sphere shard (1, 2);
+    rank 0 saves its clear_fwd calls to ``path``."""
+    from python_ray_tracer_tpu_torch import RenderConfig
+    from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene
+    from python_ray_tracer_tpu_torch.ops import smooth_parts
+    from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
+    from python_ray_tracer_tpu_torch.parallel import make_mesh
+    from python_ray_tracer_tpu_torch.parallel.distributed import rank_device
+
+    mesh = make_mesh(1, 2)
+    device = rank_device(device_type)
+    scene = random_spheres_scene(1024, *size, dtype=torch.float32, device=device)
+    target = torch.full((size[1], size[0], 3), 0.5, device=device)
+    cfg = RenderConfig(max_depth=CS_DEPTH, dtype=torch.float32, visibility="smooth", use_pallas=True)
+    calls: list = []
+    real = _capture(smooth_parts, "clear_fwd", calls)
+    try:
+        with torch.no_grad():
+            make_loss_fn(scene, target, cfg, mesh)(scene_to_params(scene))
+    finally:
+        smooth_parts.clear_fwd = real
+    if mesh.spheres.index == 0:
+        torch.save([([a.detach().cpu() if torch.is_tensor(a) else a for a in args],
+                     {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}) for args, kw in calls], path)
+
+
+def _record_clear(device, width: int, height: int) -> dict[str, list]:
+    """clear_fwd's cases (see the module's docstring)."""
+    import tempfile
+
+    from python_ray_tracer_tpu_torch.parallel.distributed import run_local
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "clear_fwd.pt")
+        run_local(clear_rank, 2, path, (width // 2, height // 2), device.type, device_type=device.type)
+        calls = [([a.to(device) if torch.is_tensor(a) else a for a in args],
+                  {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()})
+                 for args, kw in torch.load(path, weights_only=False)]
+    size = f"{width // 2}x{height // 2}"
+    cases = {f"clear_fwd config 4 shard 0 {size}": calls,
+             f"clear_fwd config 4 shard 0 {size} f64 (upcast)": _upcast(calls)}
+    for n in SMALL:
+        cases[f"clear_fwd shard 0's first {n} spheres {size}"] = [
+            ((*args[:2], args[2][:n].contiguous(), *args[3:]), {**kw, "s_cheap": n - 1}) for args, kw in calls]
     return cases
 
 
@@ -275,8 +409,12 @@ def _join(calls: list) -> tuple:
 
 
 def _kernel(name: str):
-    from python_ray_tracer_tpu_torch.ops import bounce_lane, culled_smooth, intersect_fused
+    from python_ray_tracer_tpu_torch.ops import bounce_lane, bounce_smooth_sub, culled_smooth, intersect_fused, smooth_parts
 
+    if name.startswith("smooth_fwd_step"):
+        return bounce_smooth_sub.smooth_fwd_step
+    if name.startswith("clear_fwd"):
+        return smooth_parts.clear_fwd
     if name.startswith("bounce_lane"):
         return bounce_lane.bounce_lane
     if name.startswith("fwd_cs"):
@@ -369,14 +507,68 @@ def cs_counts_text(c: dict) -> str:
             f"shades ({c['w_live'] / w_listed:.2%}), {c['missed']} of those dropped")
 
 
+def step_counts(args, kw) -> dict:
+    """Counts of one smooth_fwd_step launch's cheap-tier pairs: the shares
+    of (warp, sphere) pairs its winner sweep and its shadow product visit
+    with the skip (:func:`..ops.bounce_smooth_sub.winner_reach`,
+    ``shadow_reach``), the lane-sphere shadow pairs whose sigmoid is not
+    exactly 0 and those the shadow bound keeps."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    o, d, thr, alive, acc, geom, mat, consts = args[:8]
+    xi = args[8] if len(args) > 8 else None
+    s_cheap, sharp_s = kw["s_cheap"], kw["sharp_s"]
+    with torch.no_grad():
+        outs = bss.smooth_fwd_step(*args, **kw, skip="off")
+        winner = bss.winner_reach(o.T.contiguous(), d.T.contiguous(), geom, s_cheap, kw["faraway"])
+        f = bss.fwd_sub_math(tuple(o), tuple(d), thr, alive, geom, mat, consts, bss._xi_pair(xi, 0),
+                             faraway=kw["faraway"], s_cheap=s_cheap, sharp_e=kw["sharp_e"], sharp_s=sharp_s,
+                             saved=(outs[5], outs[6] != 0, outs[7]), tex_hw=kw.get("tex_hw"))
+        shadow = bss.shadow_reach(torch.stack(f.p_n, 1), torch.stack(f.L, 1), consts[0, 3:6], geom, s_cheap, sharp_s)
+        live = _live_pairs(torch.stack(f.p_n, 1), torch.stack(f.L, 1), geom[:s_cheap], sharp_s)
+    n = d.shape[1]
+    return dict(winner=float(winner[:, :s_cheap].float().mean()), shadow=float(shadow[:, :s_cheap].float().mean()),
+                live=live / max(n * s_cheap, 1), pairs=n * s_cheap, warps=winner.shape[0], s_cheap=s_cheap,
+                winner_kept=int(winner[:, :s_cheap].sum()), shadow_kept=int(shadow[:, :s_cheap].sum()))
+
+
+def _live_pairs(p_n, to_light, geom, sharp_s: float, chunk: int = 4096) -> int:
+    """Lane-sphere pairs of shadow rays ``p_n``/``to_light`` (N, 3) over the
+    cheap spheres ``geom`` whose shadow sigmoid is not exactly 0."""
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain, sig
+
+    live = 0
+    c, r = tuple(geom[None, :, i] for i in range(3)), geom[None, :, 3]
+    for a in range(0, p_n.shape[0], chunk):
+        b, ct = b_cterm_plain(tuple(p_n[a:a + chunk, i, None] for i in range(3)),
+                              tuple(to_light[a:a + chunk, i, None] for i in range(3)), c, r)
+        live += int((sig(sharp_s * (b * b - 4.0 * ct)) != 0).sum())
+    return live
+
+
+def step_counts_text(c: dict) -> str:
+    """:func:`step_counts`' figures of one launch as the scripts print them."""
+    return (f"the winner sweep visits {c['winner']:.2%} and the shadow product {c['shadow']:.2%} of the "
+            f"{c['warps'] * c['s_cheap']} cheap-tier (warp, sphere) pairs; sig(sharp_s disc) is not exactly 0 on "
+            f"{c['live']:.4%} of the {c['pairs']} lane-sphere pairs")
+
+
 def _counts_line(name: str, calls: list) -> list:
     """The counts of each launch of a case, printed; returns the reached
     shares the A/B line shows."""
-    from python_ray_tracer_tpu_torch.ops import intersect_fused
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, intersect_fused
 
     shares = []
     for b, (args, kw) in enumerate(calls):
-        if name.startswith("fwd_cs"):
+        if name.startswith("smooth_fwd_step"):
+            c = step_counts(args, kw)
+            shares.append([round(c["winner"], 4), round(c["shadow"], 4)])
+            print(f"[sweep_skip_ab] {name} bounce {b}: {step_counts_text(c)}", flush=True)
+        elif name.startswith("clear_fwd"):
+            o, d, geom = args[:3]
+            reach = bounce_smooth_sub.shadow_reach(o, d, kw.get("light"), geom, kw["s_cheap"], kw["sharpness"])
+            shares.append([round(float(reach[:, :kw["s_cheap"]].float().mean()), 4)])
+        elif name.startswith("fwd_cs"):
             c = cs_counts(args, kw)
             shares.append([round(c["w_kept"] / max(c["w_listed"], 1), 4)])
             print(f"[sweep_skip_ab] {name} bounce {b}: {cs_counts_text(c)}", flush=True)
@@ -429,7 +621,8 @@ def _instantiations(log: str) -> dict[str, dict]:
     its template arguments."""
     out = {}
     for mangled, figures in ptxas_kernels(log).items():
-        m = re.search(r"(bounce_lane|shadow_sweep|nearest_sweep|fwd_cs)I([fd])((?:Lb[01]E)+)", mangled)
+        m = re.search(r"(bounce_lane|shadow_sweep|nearest_sweep|fwd_cs|smooth_fwd_step|clear_fwd)I([fd])((?:Lb[01]E)+)",
+                      mangled)
         if m:
             flags = ", ".join("true" if b == "1" else "false" for b in re.findall(r"Lb([01])E", m.group(3)))
             out[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}, {flags}>"] = figures
@@ -437,7 +630,7 @@ def _instantiations(log: str) -> dict[str, dict]:
 
 
 def _layout(logs: dict[str, str], label: str) -> None:
-    from python_ray_tracer_tpu_torch.ops import bounce_lane, culled_smooth, intersect_fused
+    from python_ray_tracer_tpu_torch.ops import bounce_lane, bounce_smooth_sub, culled_smooth, intersect_fused, smooth_parts
 
     for source in SOURCES:
         found = _instantiations(logs.get(source, ""))
@@ -462,6 +655,14 @@ def _layout(logs: dict[str, str], label: str) -> None:
                   for g in (False, True) for a in (False, True) for k in (False, True)}
         print(f"[sweep_skip_ab] fwd_cs {dtype} 1024 spheres, resident blocks of 256 an SM: {blocks} ({label})",
               flush=True)
+        for s in (3, 1024, STEP_SPHERES):
+            blocks = {f"glossy={g} skip={k}": bounce_smooth_sub.blocks_per_sm("smooth_fwd_step", dtype, g, s, skip=k)
+                      for g in (False, True) for k in (False, True)}
+            print(f"[sweep_skip_ab] smooth_fwd_step {dtype} {s} spheres, resident blocks of 128 an SM: {blocks} "
+                  f"({label})", flush=True)
+        blocks = {f"skip={k}": smooth_parts.clear_fwd_blocks_per_sm(dtype, SHARD, skip=k) for k in (False, True)}
+        print(f"[sweep_skip_ab] clear_fwd {dtype} {SHARD} spheres, resident blocks of 256 an SM: {blocks} ({label})",
+              flush=True)
 
 
 def _host_ms(fn, warmup: int = 1, iters: int = 5) -> float:
@@ -480,24 +681,25 @@ def _host_ms(fn, warmup: int = 1, iters: int = 5) -> float:
     return statistics.median(times)
 
 
-def frames(device, label: str, width: int = 1920, height: int = 1080) -> None:
-    """The frames and steps the two kernels sit in, with every skip of this
-    PR's two kernels off and on in turns (off, on, on, off; the wrappers'
+def frames(device, label: str, width: int = 1920, height: int = 1080, kernels=KERNELS) -> None:
+    """The frames and steps the skips' kernels sit in, with the skips of
+    ``kernels`` off and on in turns (off, on, on, off; the wrappers'
     ``skip`` forced through the modules that call them): config 4's glossy
-    frame (the sweeps; ``render()``), its smooth frame, its smooth loss and
-    gradient (the culled smooth route at 1920x1080, depth 3), and the
-    textured1024 loss and gradient at 960x540."""
+    frame (``nearest_sweep``; ``render()``), its smooth frame, its smooth
+    loss and gradient (``fwd_cs``: the culled smooth route at 1920x1080,
+    depth 3), the textured1024 loss and gradient at 960x540 (``fwd_cs``),
+    and the 8192-sphere L2 step's loss and gradient (``smooth_fwd_step``: the
+    one-bounce pair at 256x144, depth 3).  A case runs where one of its
+    kernels is among ``kernels``."""
     import functools
 
     from python_ray_tracer_tpu_torch import RenderConfig, render
     from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene, textured_spheres_scene
-    from python_ray_tracer_tpu_torch.ops import culled_smooth, intersect_fused
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub, culled_smooth, intersect_fused
     from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
 
     render_mod = importlib.import_module("python_ray_tracer_tpu_torch.render")
     smooth = RenderConfig(max_depth=CS_DEPTH, dtype=torch.float32, visibility="smooth", use_pallas=True)
-    config4 = random_spheres_scene(1024, width, height, dtype=torch.float32, device=device)
-    textured = textured_spheres_scene(1024, width // 2, height // 2, dtype=torch.float32, device=device)
 
     def loss_grad(scene):
         target = torch.full((scene.camera.height, scene.camera.width, 3), 0.5, device=device)
@@ -509,29 +711,40 @@ def frames(device, label: str, width: int = 1920, height: int = 1080) -> None:
         return run
 
     size, half = f"{width}x{height}", f"{width // 2}x{height // 2}"
-    cases = {
-        f"config-4 glossy frame (render(), {size} depth {DEPTH})": lambda: render(config4, _glossy()),
-        f"config-4 smooth frame (render(), {size} depth {CS_DEPTH})": lambda: render(config4, smooth),
-        f"config-4 smooth loss and gradient ({size} depth {CS_DEPTH})": loss_grad(config4),
-        f"textured1024 smooth loss and gradient ({half} depth {CS_DEPTH})": loss_grad(textured),
-    }
-    real = render_mod.nearest_sweep, culled_smooth.fwd_cs
-    for name, fn in cases.items():
+    sw, sh = STEP_SIZE[0] * width // 1920, STEP_SIZE[1] * height // 1080
+    cases = []
+    if {"nearest_sweep", "fwd_cs"} & set(kernels):
+        config4 = random_spheres_scene(1024, width, height, dtype=torch.float32, device=device)
+        textured = textured_spheres_scene(1024, width // 2, height // 2, dtype=torch.float32, device=device)
+        cases += [
+            (f"config-4 glossy frame (render(), {size} depth {DEPTH})", lambda: render(config4, _glossy())),
+            (f"config-4 smooth frame (render(), {size} depth {CS_DEPTH})", lambda: render(config4, smooth)),
+            (f"config-4 smooth loss and gradient ({size} depth {CS_DEPTH})", loss_grad(config4)),
+            (f"textured1024 smooth loss and gradient ({half} depth {CS_DEPTH})", loss_grad(textured)),
+        ]
+    if "smooth_fwd_step" in kernels:
+        big = random_spheres_scene(STEP_SPHERES, sw, sh, dtype=torch.float32, device=device)
+        cases.append((f"{STEP_SPHERES}-sphere L2 loss and gradient ({sw}x{sh} depth {CS_DEPTH})", loss_grad(big)))
+    # The wrappers whose skip a turn forces: (module the caller reads it from, name, the wrapper).
+    forced = [(m, name, getattr(m, name)) for m, name in ((render_mod, "nearest_sweep"), (culled_smooth, "fwd_cs"),
+                                                          (bounce_smooth_sub, "smooth_fwd_step")) if name in kernels]
+    for name, fn in cases:
         turns = {"off": [], "on": []}
         for skip in TURNS:
-            render_mod.nearest_sweep = functools.partial(intersect_fused.nearest_sweep, skip=skip)
-            culled_smooth.fwd_cs = functools.partial(real[1], skip=skip)
+            for module, attr, wrapper in forced:
+                setattr(module, attr, functools.partial(wrapper, skip=skip))
             try:
                 turns[skip].append(_host_ms(fn))
             finally:
-                render_mod.nearest_sweep, culled_smooth.fwd_cs = real
+                for module, attr, wrapper in forced:
+                    setattr(module, attr, wrapper)
         off, on = statistics.mean(turns["off"]), statistics.mean(turns["on"])
         print(f"[sweep_skip_ab] {name}: skips off {off:.3f} ms ({', '.join(f'{x:.3f}' for x in turns['off'])}), on "
               f"{on:.3f} ms ({', '.join(f'{x:.3f}' for x in turns['on'])}), {off / on:.3f}x; host clock, median of 5 "
               f"a turn ({label})", flush=True)
 
 
-SOURCES = ("bounce_lane.cu", "intersect_fused.cu", "culled_smooth.cu")
+SOURCES = ("bounce_lane.cu", "intersect_fused.cu", "culled_smooth.cu", "bounce_smooth_sub.cu", "smooth_parts.cu")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -543,14 +756,18 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--split", action="store_true", help="run fwd_cs_split after the A/B")
     ap.add_argument("--frames", action="store_true",
                     help="only the frames and steps with the skips off and on (card only)")
+    ap.add_argument("--kernels", default=",".join(KERNELS), help="the kernels whose cases to run (default: all)")
     args = ap.parse_args(argv)
+    kernels = tuple(args.kernels.split(","))
+    if not set(kernels) <= set(KERNELS):
+        raise SystemExit(f"--kernels: {sorted(set(kernels) - set(KERNELS))} not among {KERNELS}")
     device = resolve_device(args.device)
     label = card_label(device)
     print(label, flush=True)
     if args.frames:
         if device.type != "cuda":
             raise SystemExit("--frames times the card; it has no CPU mode")
-        frames(device, label, args.width, args.height)
+        frames(device, label, args.width, args.height, kernels)
         return 0
     if args.rows:
         for name, calls in record_rows(device, args.width, args.height, args.rows).items():
@@ -565,7 +782,7 @@ def main(argv: list[str] | None = None) -> int:
         from python_ray_tracer_tpu_torch.ops import _build
 
         logs = {source: log for source, (_, log, _) in _build.build_all(SOURCES).items()}
-    cases = record(device, args.width, args.height)
+    cases = record(device, args.width, args.height, kernels)
     for name, calls in cases.items():
         kernel = _kernel(name)
         shares = _counts_line(name, calls)

@@ -74,7 +74,15 @@
 //     rays and sums the rest over its CTA in shared memory into one row a
 //     CTA, (19 S + 16) values (see the kernel).  A second kernel sums the
 //     columns or rows in a fixed order: two launches on the same inputs
-//     give bitwise-equal gradients.
+//     give bitwise-equal gradients;
+//   * smooth_fwd_step (kSkip, by the launch rule from kStepSkipMinCheap
+//     cheap spheres) leaves out of its winner sweep and its shadow product
+//     the cheap-tier spheres a warp's bounds show cannot change them
+//     (smooth_math.cuh SkipAll): at 8192 spheres the two full sweeps took
+//     96% of its time (benchmarks/smooth_fwd_split.py), and a warp's bounds
+//     rule out most of their pairs; what is left is held by the warps whose
+//     rays scatter too wide for a bound (PERF.md).  Its outputs stay
+//     bitwise the full sweeps'.
 //
 // Numerics: smooth_math.cuh (no FMA contraction, the smooth split factor,
 // the sigmoid's form, the tie rules); x**n for integer n is binary
@@ -368,8 +376,12 @@ __global__ void __launch_bounds__(kThreads)
 // One smooth bounce per launch (_fwd_kernel_sub; above 4096 spheres the
 // lane kernel _fwd_kernel of pallas_bounce_smooth.py): the state (o, d,
 // thr, alive, acc) in, the next state and the bounce's residuals (idx, hit,
-// clear) out.
-template <typename T, bool kXi, bool kStaged, bool kAtlas>
+// clear) out.  kSkip: the winner sweep and the shadow product over SkipAll
+// (smooth_math.cuh), which leave out the cheap-tier spheres that cannot
+// change them; each warp's two bundles sit in the dynamic shared memory
+// after the consts row (kStepBundleValues).  Every output stays bitwise the
+// kernel's without the skip.
+template <typename T, bool kXi, bool kStaged, bool kAtlas, bool kSkip = false>
 __global__ void __launch_bounds__(kThreads)
     smooth_fwd_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
                     const T* __restrict__ alive, const T* __restrict__ acc, const T* __restrict__ geom,
@@ -380,6 +392,7 @@ __global__ void __launch_bounds__(kThreads)
                     T* __restrict__ dww_out, int n, Scal<T> sc) {
   const Tables<T, kStaged> tb = stage_tables<T, kStaged>(geom, cst, sc.s_total);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool warp_full = kSkip && __all_sync(0xffffffffu, i < n);
   if (i >= n) return;
   const long long N = n;
   const V3<T> ro = {o[i], o[N + i], o[2 * N + i]};
@@ -387,8 +400,16 @@ __global__ void __launch_bounds__(kThreads)
   T xi1, xi2;
   load_xi<T, kXi>(xi, 0, N, i, xi1, xi2);
   Fwd<T> f;
-  fwd_bounce<T, kXi, Winner::kSweep, kAtlas>(f, ro, rd, thr[i], alive[i], tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1,
-                                             xi2);
+  if constexpr (kSkip) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* const slots = reinterpret_cast<T*>(smem_raw) + (kStaged ? 4 * sc.s_total : 0) + kNConst;
+    const SkipAll<T> sets = {slots + 2 * kBundleValues * (threadIdx.x / kWarp), warp_full};
+    fwd_bounce<T, kXi, Winner::kSweep, kAtlas, true>(f, ro, rd, thr[i], alive[i], tb.geom, mat, tb.cst, sc, sets, xi1,
+                                                     xi2);
+  } else {
+    fwd_bounce<T, kXi, Winner::kSweep, kAtlas>(f, ro, rd, thr[i], alive[i], tb.geom, mat, tb.cst, sc, AllSpheres{},
+                                               xi1, xi2);
+  }
   if constexpr (kAtlas) {
     flat_out[i] = f.flat;
     dww_out[i] = f.dww;
@@ -856,18 +877,49 @@ int launch_train(const T* o, const T* d, const T* tgt, const T* geom, const T* m
   return launch_reduce(err, parts, flat, n_cols, s_total, st);
 }
 
+// smooth_fwd_step's skip: the launcher takes it from kStepSkipMinCheap
+// cheap-tier spheres on (skip = -1), or as the caller forces it (0 off, 1
+// on: the card check and the A/B time both sides; ops/bounce_smooth_sub.py
+// STEP_SKIP_MIN_CHEAP).  Below it the bundles and the tests cost more than
+// the pairs they leave out (benchmarks/sweep_skip_ab.py).
+constexpr int kStepSkipMinCheap = 16;
+// The skip's dynamic shared memory after the consts row: two bundles a warp.
+constexpr int kStepBundleValues = 2 * kBundleValues * kWarpsPerBlock;
+
+template <typename T, bool kXi, bool kStaged, bool kAtlas, typename... A>
+int launch_step_skip(int blocks, int s_total, cudaStream_t stream, A... args) {
+  const auto kernel = smooth_fwd_step<T, kXi, kStaged, kAtlas, true>;
+  const int smem = smem_bytes<T>(kStaged, s_total) + kStepBundleValues * static_cast<int>(sizeof(T));
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_fwd_step(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const T* geom,
                     const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, T* thr_out, T* alive_out,
                     T* acc_out, int* idx, T* hit, T* clear, int* flat, T* dww, int n, int s_cheap, int s_total,
-                    T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w, void* stream) {
-  if (bad_args(n, s_cheap, s_total, 1) || bad_atlas(flat, dww, tex_h, tex_w)) {
+                    T faraway, T sharp_e, T sharp_s, int tex_h, int tex_w, int skip, void* stream) {
+  if (bad_args(n, s_cheap, s_total, 1) || bad_atlas(flat, dww, tex_h, tex_w) || skip < -1 || skip > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total, tex_h, tex_w};
-  return PRT_DISPATCH_ATLAS(smooth_fwd_step, T, flat, ray_blocks(n), s_total, static_cast<cudaStream_t>(stream), o,
-                            d, thr, alive, acc, geom, mat, cst, xi, o_out, d_out, thr_out, alive_out, acc_out, idx,
-                            hit, clear, flat, dww, n, sc);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (skip < 0 ? s_cheap >= kStepSkipMinCheap : skip == 1) {
+#define PRT_STEP_SKIP(XI, ATLAS)                                                                                   \
+  (staged<T>(s_total) ? launch_step_skip<T, XI, true, ATLAS>(ray_blocks(n), s_total, st, o, d, thr, alive, acc,    \
+                                                            geom, mat, cst, xi, o_out, d_out, thr_out, alive_out,  \
+                                                            acc_out, idx, hit, clear, flat, dww, n, sc)            \
+                      : launch_step_skip<T, XI, false, ATLAS>(ray_blocks(n), s_total, st, o, d, thr, alive, acc,   \
+                                                             geom, mat, cst, xi, o_out, d_out, thr_out, alive_out, \
+                                                             acc_out, idx, hit, clear, flat, dww, n, sc))
+    const int err = xi ? (flat ? PRT_STEP_SKIP(true, true) : PRT_STEP_SKIP(true, false))
+                       : (flat ? PRT_STEP_SKIP(false, true) : PRT_STEP_SKIP(false, false));
+#undef PRT_STEP_SKIP
+    return err;
+  }
+  return PRT_DISPATCH_ATLAS(smooth_fwd_step, T, flat, ray_blocks(n), s_total, st, o, d, thr, alive, acc, geom, mat,
+                            cst, xi, o_out, d_out, thr_out, alive_out, acc_out, idx, hit, clear, flat, dww, n, sc);
 }
 
 // smooth_bwd_step's dynamic shared memory: the consts row, its scratch and
@@ -915,8 +967,9 @@ int launch_bwd_step(const T* o, const T* d, const T* thr, const T* alive, const 
 
 // Resident blocks per SM of a kernel's instantiation for a table size, or a
 // negative CUDA error.
-template <typename T, bool kStaged, typename... P> int blocks_per_sm(void (*kernel)(P...), int s_total) {
-  const int smem = smem_bytes<T>(kStaged, s_total);
+template <typename T, bool kStaged, typename... P>
+int blocks_per_sm(void (*kernel)(P...), int s_total, int extra = 0) {
+  const int smem = smem_bytes<T>(kStaged, s_total) + extra;
   if (const int err = allow_smem(kernel, smem)) return -err;
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
@@ -944,6 +997,11 @@ template <typename T, bool kXi> int occupancy_xi(int which, int s_total) {
     case 3: return PRT_OCC4(smooth_fwd_step);
     case 4:
       return step_blocks_per_sm<T>(smooth_bwd_step<T, kXi, false>);
+    case 5: {  // smooth_fwd_step with its skip
+      const int extra = kStepBundleValues * static_cast<int>(sizeof(T));
+      return is_staged ? blocks_per_sm<T, true>(smooth_fwd_step<T, kXi, true, false, true>, s_total, extra)
+                       : blocks_per_sm<T, false>(smooth_fwd_step<T, kXi, false, false, true>, s_total, extra);
+    }
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PRT_OCC
@@ -956,7 +1014,8 @@ template <typename T, bool kXi> int occupancy_xi(int which, int s_total) {
 // Each launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() so the caller can raise on a refused launch;
 // prt_smooth_blocks_per_sm_* reports a kernel's resident blocks per SM
-// (which: 0-4 in the order above) for a table size, and
+// (which: 0-4 in the order above, 5 smooth_fwd_step with its skip) for a
+// table size, and
 // prt_smooth_shared_bytes_* the shared memory a block of any of them takes.
 extern "C" {
 
@@ -990,10 +1049,10 @@ extern "C" {
                                    const T* geom, const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, \
                                    T* thr_out, T* alive_out, T* acc_out, int* idx, T* hit, T* clear,          \
                                    int* tflat, T* dww, int n, int s_cheap, int s_total, T faraway, T sharp_e,  \
-                                   T sharp_s, int tex_h, int tex_w, void* stream) {                            \
+                                   T sharp_s, int tex_h, int tex_w, int skip, void* stream) {                  \
     return launch_fwd_step<T>(o, d, thr, alive, acc, geom, mat, cst, xi, o_out, d_out, thr_out, alive_out,    \
                               acc_out, idx, hit, clear, tflat, dww, n, s_cheap, s_total, faraway, sharp_e,     \
-                              sharp_s, tex_h, tex_w, stream);                                                  \
+                              sharp_s, tex_h, tex_w, skip, stream);                                            \
   }                                                                                                            \
   int prt_smooth_bwd_step_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const int* idx,       \
                                    const T* hit, const T* clear, const T* geom, const T* mat, const T* cst,    \

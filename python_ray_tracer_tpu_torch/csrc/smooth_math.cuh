@@ -17,6 +17,10 @@
 //     (AllSpheres), or a tile's candidate list, its full-tier fallback and
 //     the exact tier (culled_smooth.cu).  A sphere left out has an
 //     occlusion factor of exactly 1 in f32, so the product is the same.
+//     With kSkip the set computes the product itself, leaving out factors
+//     of exactly 1 (SkipList over a tile's list, SkipAll over every
+//     sphere), and SkipAll also sweeps the winner, leaving out spheres that
+//     cannot win (winner_reaches); every output stays bitwise the same.
 // adjoint_bounce hands its table gradients to a Sink: geom(slot, k, c, x)
 // for the shadow spheres, winner(sc, idx, rows) for the winner's material
 // row and consts(sc, c, x) for the scene constants.
@@ -35,6 +39,7 @@
 
 #pragma once
 
+#include "bundle_math.cuh"
 #include "sphere_math.cuh"
 
 namespace {
@@ -254,12 +259,154 @@ __device__ __forceinline__ void shadow_fold(int k, const V3<T>& p_n, const V3<T>
   clear = clear * (T(1) - sig(x) * sig(sc.sharp_s * sol));
 }
 
+// Whether the cheap-tier sphere g = (cx, cy, cz, r) may change some lane's
+// smooth winner (SkipAll::sweep): its nearest hit (strict t < tmin) or its
+// max-discriminant fallback (strict disc > dmax), m the least of the warp's
+// running dmax, read before a chunk of spheres (dmax only grows).  A sphere
+// may be left out only where both fail on every lane: no half-line of the
+// warp can hit it (bundle_reaches: t = faraway, which never wins), and its
+// disc cannot exceed m.
+//
+// The margin of the second test.  disc = b^2 - 4 ct as the sweep rounds it
+// (sphere_quad: b_cterm_plain, quad_sol_disc) is compared with the lane's
+// dmax >= m, itself a rounded value: disc > dmax fails once the rounded
+// disc is at most m.  As bundle_math.cuh's line_reaches says, with
+// | |d|^2 - 1 | <= 32u the rounded disc / 4 is at most
+//   r^2 (1 + 3u) - (1 - 32u) dist^2 + 49u |oc|^2,
+// dist the line's distance from the centre.  With e = -m / 4 (exact, a power
+// of two; below 4x the least normal number off by half the least
+// subnormal, which the w^2 term covers) and p = r^2 + e, that is at most
+// -e, so the rounded disc at most m, once
+//   (1 - 32u) dist^2 >= p + 3u r^2 + 49u w^2   (w >= |oc|),
+// which 1 / (1 - 32u) <= 1 + 33u turns, for p > 0, into
+//   dist^2 >= p (1 + 33u) + 4u r^2 + 50u w^2.
+// p as rounded (r * r, then + e) is within 1.01u r^2 + u p of p (e < 0
+// cancels only against r^2 > |e|), which adds at most 2u p + 2u r^2 there.
+// So q^2 = p (1 + 64u) + 16u r^2 + 256u w^2, its three terms positive and
+// each rounded at most 4u low, covers the bound with room, and dist > q
+// keeps the rounded disc at most m.  rules_out carries dist > q to every
+// line of the warp with its own rounding margins (q's root among them), the
+// cone doubled (disc sees the whole line), as for line_reaches.
+// Nothing is left out while some lane's dmax is still the sentinel kNegBig
+// or m is not finite (no finite disc bounds it), where the rounded p <= 0
+// (m >= 4 r^2: no room below r^2 for a margin), or with a NaN anywhere
+// (every comparison of outside_cone then fails).
+template <typename T> __device__ __forceinline__ bool winner_reaches(const Bundle<T>& b, const T* g, T m) {
+  if (bundle_reaches(b, g) || !(m > T(kNegBig) && m - m == T(0))) return true;
+  const T u = unit_roundoff<T>();
+  const T r2 = g[3] * g[3];
+  const T p = r2 - m * T(0.25);
+  return !(p > T(0)) || !rules_out(b, g, true, [&](T w) {
+    return m_sqrt(p * (T(1) + T(64) * u) + T(16) * u * r2 + T(256) * u * (w * w));
+  });
+}
+
+// Sphere k's row (cx, cy, cz, r) for one lane's test against a bundle: from
+// a staged table, or from global memory (LdgGeom: the warp's 32 lanes read
+// 32 consecutive rows, coalesced).
+template <typename T, typename G> __device__ __forceinline__ void sphere_row(const G& geom, int k, T (&g)[4]) {
+  for (int c = 0; c < 4; ++c) g[c] = geom[4 * k + c];
+}
+
+// The shadow product over every sphere in index order (fwd_bounce's loop
+// over AllSpheres), less the factors of exactly 1: per lane those
+// shadow_fold leaves out, and, where every lane of the warp runs (warp_full)
+// and sharp_s is a positive finite number, per warp the cheap-tier spheres
+// that no shadow line of the warp comes within r_eff of (line_reaches; the
+// warp's bundle, apex its apex, in slot; 32 spheres a ballot, one lane a
+// sphere), as culled_smooth.cu's SkipList does over a tile's list.  The
+// exact tier is always visited; the factors left are multiplied in index
+// order, so the product is the full loop's bitwise.  Shared by SkipAll
+// (smooth_fwd_step) and smooth_parts.cu's clear_fwd.
+template <typename T, typename G>
+__device__ __forceinline__ T shadow_skip_product(const V3<T>& p_n, const V3<T>& L, int idx, const G& geom,
+                                                 const Scal<T>& sc, const V3<T>& apex, T* slot, bool warp_full) {
+  const bool finite = sc.sharp_s - sc.sharp_s == T(0);
+  T clear = T(1);
+  const Bundle<T> b = warp_full && finite && sc.sharp_s > T(0) ? warp_bundle(p_n, L, apex, slot)
+                                                               : Bundle<T>{slot, false, false};
+  if (b.ok) {  // uniform over the warp
+    const T edge = T(-SigEdge<T>::lo) / (T(4) * sc.sharp_s);
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    for (int k0 = 0; k0 < sc.s_cheap; k0 += kWarp) {
+      T g[4];
+      sphere_row(geom, min(k0 + lane, sc.s_cheap - 1), g);
+      const unsigned reached = __ballot_sync(kFullWarp, k0 + lane < sc.s_cheap && line_reaches(b, g, edge));
+      for (unsigned m = reached; m != 0u; m &= m - 1u) {
+        shadow_fold<false>(k0 + __ffs(static_cast<int>(m)) - 1, p_n, L, idx, geom, sc, finite, clear);
+      }
+    }
+  } else {
+    for (int k = 0; k < sc.s_cheap; ++k) shadow_fold<false>(k, p_n, L, idx, geom, sc, finite, clear);
+  }
+  for (int k = sc.s_cheap; k < sc.s_total; ++k) shadow_fold<true>(k, p_n, L, idx, geom, sc, finite, clear);
+  return clear;
+}
+
+// smooth_fwd_step's sets with the skips (fwd_bounce's kSkip): every sphere
+// in index order, the winner sweep and the shadow product each leaving out
+// the cheap-tier spheres that cannot change what they compute.  slot: the
+// warp's two bundles (2 kBundleValues values: the bounce's rays, then its
+// shadow rays); warp_full: every lane of the warp runs (uniform over it).
+template <typename T> struct SkipAll {
+  T* slot;
+  bool warp_full;
+
+  // The winner sweep's (tmin, imin, dmax, idmax) as the full loop leaves
+  // them: the warp bounds its rays (no apex) and, a chunk of 32 cheap
+  // spheres at a time (one lane a sphere, under a ballot), visits the
+  // spheres winner_reaches keeps, in index order; a sphere left out is a
+  // miss (t = faraway) whose disc is at most every lane's dmax, which
+  // changes nothing under the strict compares.  The exact tier is always
+  // visited; a warp without a usable bound visits every sphere.
+  template <typename G>
+  __device__ __forceinline__ void sweep(const V3<T>& o, const V3<T>& d, const G& geom, const Scal<T>& sc, T& tmin,
+                                        int& imin, T& dmax, int& idmax) const {
+    auto take = [&](int k) {
+      T sol, disc, t, b, ct;
+      sphere_quad(k, sc, o, d, geom, sol, disc, t, b, ct);
+      if (t < tmin) {  // strict: lowest index wins exact ties
+        tmin = t;
+        imin = k;
+      }
+      if (disc > dmax) {
+        dmax = disc;
+        idmax = k;
+      }
+    };
+    const V3<T> no_apex = {quiet_nan<T>(), quiet_nan<T>(), quiet_nan<T>()};
+    const Bundle<T> b = warp_full ? warp_bundle(o, d, no_apex, slot) : Bundle<T>{slot, false, false};
+    int k = 0;
+    if (b.ok) {  // uniform over the warp
+      const int lane = static_cast<int>(threadIdx.x & 31u);
+      for (int k0 = 0; k0 < sc.s_cheap; k0 += kWarp) {
+        T g[4];
+        sphere_row(geom, min(k0 + lane, sc.s_cheap - 1), g);
+        const T m = warp_min(dmax);
+        const unsigned reached = __ballot_sync(kFullWarp, k0 + lane < sc.s_cheap && winner_reaches(b, g, m));
+        for (unsigned mm = reached; mm != 0u; mm &= mm - 1u) take(k0 + __ffs(static_cast<int>(mm)) - 1);
+      }
+      k = sc.s_cheap;
+    }
+    for (; k < sc.s_total; ++k) take(k);
+  }
+
+  template <typename G>
+  __device__ __forceinline__ T product(const V3<T>& p_n, const V3<T>& L, int idx, const G& geom, const T* cst,
+                                       const Scal<T>& sc) const {
+    return shadow_skip_product(p_n, L, idx, geom, sc, V3<T>{cst[3], cst[4], cst[5]}, slot + kBundleValues,
+                               warp_full);
+  }
+};
+
 // One smooth bounce.  kXi: the continuation is glossy, from the uniforms
 // (xi1, xi2); otherwise the mirror.  kAtlas: the atlas mode (sc.tex_h x
 // sc.tex_w slots).  kSkip: the shadow set computes the product itself,
 // shadow.product(p_n, L, idx, geom, cst, sc), leaving out factors of
-// exactly 1 (culled_smooth.cu's SkipList).  mat may lie in shared or global
-// memory; geom is anything sphere_quad indexes.
+// exactly 1 (culled_smooth.cu's SkipList, SkipAll below), and with the
+// winner swept, the sweep too, shadow.sweep(...), leaving out spheres that
+// cannot win (SkipAll).  mat may lie in shared or global memory; geom is
+// anything sphere_quad indexes.
 template <typename T, bool kXi, Winner kWin, bool kAtlas = false, bool kSkip = false, typename Shadow, typename G>
 __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T>& d, T thr, T alive,
                                            const G& geom, const T* mat, const T* cst, const Scal<T>& sc,
@@ -273,16 +420,20 @@ __device__ __forceinline__ void fwd_bounce(Fwd<T>& f, const V3<T>& o, const V3<T
     int imin = 0;
     T dmax = T(kNegBig);
     int idmax = 0;
-    for (int k = 0; k < sc.s_total; ++k) {
-      T sol, disc, t, b, ct;
-      sphere_quad(k, sc, o, d, geom, sol, disc, t, b, ct);
-      if (t < tmin) {  // strict: lowest index wins exact ties
-        tmin = t;
-        imin = k;
-      }
-      if (disc > dmax) {
-        dmax = disc;
-        idmax = k;
+    if constexpr (kSkip && kWin == Winner::kSweep) {
+      shadow.sweep(o, d, geom, sc, tmin, imin, dmax, idmax);
+    } else {
+      for (int k = 0; k < sc.s_total; ++k) {
+        T sol, disc, t, b, ct;
+        sphere_quad(k, sc, o, d, geom, sol, disc, t, b, ct);
+        if (t < tmin) {  // strict: lowest index wins exact ties
+          tmin = t;
+          imin = k;
+        }
+        if (disc > dmax) {
+          dmax = disc;
+          idmax = k;
+        }
       }
     }
     f.hit = tmin != sc.faraway;

@@ -36,11 +36,21 @@
 // A warp passes a sphere that reaches none of its rays (the ray's own, or
 // a shadow sigmoid of exactly 0): no second sigmoid, no branch adjoint, no
 // warp sums there, its slot +0; about 0.1% of warp-sphere pairs reach.
+// clear_fwd (kSkip, by the launch rule from kClearSkipMinCheap cheap
+// spheres) leaves its factors of exactly 1 out of the product the same way,
+// and more cheaply: each warp bounds its 32 shadow lines (a ball of
+// origins, a cone of directions, the light as apex) and tests 32 cheap
+// spheres a ballot against r_eff (bundle_math.cuh line_reaches), so a
+// sphere no line comes near costs no quadratic at all; a pair the bound
+// keeps takes its quadratic and the zero test, and the sigmoids only where
+// that test fails (smooth_math.cuh shadow_skip_product, shared with
+// smooth_fwd_step).  clear stays bitwise the full loop's.
 //
 // What bounds them on this card: per ray and sphere ~30 operations
-// (smooth_nearest_parts), ~45 with two sigmoids (clear_fwd) and ~110 with
-// the branch adjoint (clear_bwd), against 24-56 B a ray in and out (f32):
-// bound by operations at any shard size past a handful of spheres.
+// (smooth_nearest_parts), ~45 with two sigmoids (clear_fwd without its
+// skip) and ~110 with the branch adjoint (clear_bwd), against 24-56 B a ray
+// in and out (f32): bound by operations at any shard size past a handful of
+// spheres; with the skips, by the pairs they keep and their tests.
 //
 // Numerics: smooth_math.cuh (its tiers, quad_sol_disc, sol_disc_adjoint,
 // sig); no FMA (ops/_build.py).
@@ -125,24 +135,41 @@ __global__ void __launch_bounds__(kThreads)
   solf_out[i] = solf;
 }
 
-template <typename T, bool kStaged>
+// kSkip: the product leaves out the factors of exactly 1
+// (smooth_math.cuh shadow_skip_product): per lane a pair whose sig(k disc)
+// is exactly 0, and per warp the cheap-tier spheres no shadow line comes
+// within r_eff of (the warp's bundle, with light as its apex where given).
+// The factors left are multiplied in row order: clear is bitwise the full
+// loop's.  light: the point the shadow rays aim at (3 values), read by the
+// bundle only (nullptr: none; any point gives the same output).
+template <typename T, bool kStaged, bool kSkip>
 __global__ void __launch_bounds__(kThreads)
     clear_fwd(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ geom,
               const int* __restrict__ self_idx, T* __restrict__ clear_out, int n, int s_cheap, int s_total,
-              T faraway, T sharpness) {
+              T faraway, T sharpness, const T* __restrict__ light) {
   const T* g = block_geom<T, kStaged>(geom, s_total);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool warp_full = kSkip && __all_sync(0xffffffffu, i < n);
   if (i >= n) return;
   const V3<T> ro = row3(o, i);
   const V3<T> rd = row3(d, i);
   const int self = self_idx[i];
   T clear = T(1);
-  for (int k = 0; k < s_total; ++k) {
-    T sol, disc, t, b, ct;
-    V3<T> oc;
-    sphere_parts(k, s_cheap, ro, rd, g, faraway, sol, disc, t, b, ct, oc);
-    const T occl = sig(sharpness * disc) * sig(sharpness * sol);
-    clear = clear * (k == self ? T(1) : T(1) - occl);
+  if constexpr (kSkip) {
+    __shared__ T s_bundles[kBundleValues * kWarps];
+    const Scal<T> sc = {faraway, T(0), sharpness, s_cheap, s_total, 0, 0};
+    const V3<T> apex = light ? V3<T>{light[0], light[1], light[2]}
+                             : V3<T>{quiet_nan<T>(), quiet_nan<T>(), quiet_nan<T>()};
+    clear = shadow_skip_product(ro, rd, self, g, sc, apex, s_bundles + kBundleValues * (threadIdx.x / kWarp),
+                                warp_full);
+  } else {
+    for (int k = 0; k < s_total; ++k) {
+      T sol, disc, t, b, ct;
+      V3<T> oc;
+      sphere_parts(k, s_cheap, ro, rd, g, faraway, sol, disc, t, b, ct, oc);
+      const T occl = sig(sharpness * disc) * sig(sharpness * sol);
+      clear = clear * (k == self ? T(1) : T(1) - occl);
+    }
   }
   clear_out[i] = clear;
 }
@@ -307,18 +334,43 @@ int launch_nearest(const T* o, const T* d, const T* geom, T* t, int* idx, T* sol
                        n, s_cheap, s_total, faraway);
 }
 
+// clear_fwd's skip: the launcher takes it from kClearSkipMinCheap cheap-tier
+// spheres on (skip = -1), or as the caller forces it (0 off, 1 on: the card
+// check and the A/B time both sides; ops/smooth_parts.py
+// CLEAR_SKIP_MIN_CHEAP).
+constexpr int kClearSkipMinCheap = 16;
+
+template <typename T, bool kSkip>
+int launch_clear_fwd_as(const T* o, const T* d, const T* geom, const int* self_idx, T* clear, int n, int s_cheap,
+                        int s_total, T faraway, T sharpness, const T* light, cudaStream_t st) {
+  const long long geom_bytes = static_cast<long long>(sizeof(T)) * 4 * s_total;
+  if (staged(clear_fwd<T, true, kSkip>, clear_fwd<T, false, kSkip>, s_total, sizeof(T), 0)) {
+    return launch_one<T>(clear_fwd<T, true, kSkip>, geom_bytes, st, n, o, d, geom, self_idx, clear, n, s_cheap,
+                         s_total, faraway, sharpness, light);
+  }
+  return launch_one<T>(clear_fwd<T, false, kSkip>, 0, st, n, o, d, geom, self_idx, clear, n, s_cheap, s_total,
+                       faraway, sharpness, light);
+}
+
 template <typename T>
 int launch_clear_fwd(const T* o, const T* d, const T* geom, const int* self_idx, T* clear, int n, int s_cheap,
-                     int s_total, T faraway, T sharpness, void* stream) {
-  if (bad_args(n, s_cheap, s_total)) return static_cast<int>(cudaErrorInvalidValue);
+                     int s_total, T faraway, T sharpness, const T* light, int skip, void* stream) {
+  if (bad_args(n, s_cheap, s_total) || skip < -1 || skip > 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (skip < 0 ? s_cheap >= kClearSkipMinCheap : skip == 1)
+             ? launch_clear_fwd_as<T, true>(o, d, geom, self_idx, clear, n, s_cheap, s_total, faraway, sharpness,
+                                            light, st)
+             : launch_clear_fwd_as<T, false>(o, d, geom, self_idx, clear, n, s_cheap, s_total, faraway, sharpness,
+                                             light, st);
+}
+
+// Resident blocks per SM of the clear_fwd instantiation (skip) a launch for
+// s_total spheres takes (staged or global geometry), at its shared bytes.
+template <typename T, bool kSkip> int clear_fwd_blocks_per_sm(int s_total) {
   const long long geom_bytes = static_cast<long long>(sizeof(T)) * 4 * s_total;
-  if (staged(clear_fwd<T, true>, clear_fwd<T, false>, s_total, sizeof(T), 0)) {
-    return launch_one<T>(clear_fwd<T, true>, geom_bytes, st, n, o, d, geom, self_idx, clear, n, s_cheap, s_total,
-                         faraway, sharpness);
-  }
-  return launch_one<T>(clear_fwd<T, false>, 0, st, n, o, d, geom, self_idx, clear, n, s_cheap, s_total, faraway,
-                       sharpness);
+  return staged(clear_fwd<T, true, kSkip>, clear_fwd<T, false, kSkip>, s_total, sizeof(T), 0)
+             ? resident_blocks(clear_fwd<T, true, kSkip>, geom_bytes)
+             : resident_blocks(clear_fwd<T, false, kSkip>, 0);
 }
 
 // parts: scratch of (4 * s_total) x blocks_for(n) values; g_geom: (s_total, 4).
@@ -358,7 +410,8 @@ template <typename T> int clear_bwd_blocks_per_sm(int s_total) {
 // Plain C entries, bound with ctypes (ops/smooth_parts.py _SIGNATURES).
 // Each launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() so the caller can raise on a refused launch;
-// prt_clear_bwd_blocks_per_sm_* reports clear_bwd's resident blocks per SM.
+// prt_clear_bwd_blocks_per_sm_* and prt_clear_fwd_blocks_per_sm_* report
+// the kernels' resident blocks per SM.
 extern "C" {
 
 #define PRT_PARTS_ENTRIES(T, SUFFIX)                                                                               \
@@ -369,8 +422,10 @@ extern "C" {
                              stream);                                                                            \
   }                                                                                                              \
   int prt_clear_fwd_##SUFFIX(const T* o, const T* d, const T* geom, const int* self_idx, T* clear, int n,          \
-                             int s_cheap, int s_total, T faraway, T sharpness, void* stream) {                    \
-    return launch_clear_fwd<T>(o, d, geom, self_idx, clear, n, s_cheap, s_total, faraway, sharpness, stream);     \
+                             int s_cheap, int s_total, T faraway, T sharpness, const T* light, int skip,          \
+                             void* stream) {                                                                     \
+    return launch_clear_fwd<T>(o, d, geom, self_idx, clear, n, s_cheap, s_total, faraway, sharpness, light, skip, \
+                               stream);                                                                          \
   }                                                                                                              \
   int prt_clear_bwd_##SUFFIX(const T* o, const T* d, const T* geom, const int* self_idx, const T* clear,           \
                              const T* g_clear, T* go, T* gd, T* parts, T* g_geom, int n, int s_cheap, int s_total, \
@@ -384,6 +439,12 @@ PRT_PARTS_ENTRIES(double, f64)
 
 int prt_clear_bwd_blocks_per_sm_f32(int s_total) { return clear_bwd_blocks_per_sm<float>(s_total); }
 int prt_clear_bwd_blocks_per_sm_f64(int s_total) { return clear_bwd_blocks_per_sm<double>(s_total); }
+int prt_clear_fwd_blocks_per_sm_f32(int skip, int s_total) {
+  return skip ? clear_fwd_blocks_per_sm<float, true>(s_total) : clear_fwd_blocks_per_sm<float, false>(s_total);
+}
+int prt_clear_fwd_blocks_per_sm_f64(int skip, int s_total) {
+  return skip ? clear_fwd_blocks_per_sm<double, true>(s_total) : clear_fwd_blocks_per_sm<double, false>(s_total);
+}
 
 #undef PRT_PARTS_ENTRIES
 

@@ -70,6 +70,7 @@ from .bounce_smooth import (
     sol_disc_exact, sol_disc_plain,
 )
 from .bounce_sub import ggx_continuation, image_texels
+from .intersect_fused import WARP, _skip_code, line_test, warp_bundles, winner_test
 from .rng import bounce_xi
 from .shading import AMBIENT, GLINT_EXPONENT, NUDGE, SHADING_EPS
 from .tables import (
@@ -109,6 +110,14 @@ ATLAS_LAUNCHES = {"smooth_fwd_deep": 0, "smooth_bwd_deep": 0, "smooth_fwd_step":
 _SOURCE = "bounce_smooth_sub.cu"
 
 _NEG_BIG = -3.0e38  # max-disc fallback sentinel of the JAX kernel body
+
+# Below lo the shadow sigmoid is exactly 0 (csrc/smooth_math.cuh SigEdge):
+# exp(-x) overflows in the dtype.
+SIG_EDGE = {torch.float32: -89.0, torch.float64: -710.0}
+
+# smooth_fwd_step's skip (csrc/bounce_smooth_sub.cu kStepSkipMinCheap):
+# "auto" takes it from this many cheap-tier spheres on.
+STEP_SKIP_MIN_CHEAP = 16
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +165,7 @@ def shadow_spheres(geom, s_cheap: int, cand_sh=None, n: int = 0):
 
 
 def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s, saved=None,
-                 known=None, cand_sh=None, tex_hw=None, shadow_keep=None):
+                 known=None, cand_sh=None, tex_hw=None, shadow_keep=None, winner_keep=None):
     """One smooth bounce (``_FwdSub``): every intermediate the adjoint reads.
 
     ``o``/``d`` are 3-tuples of (N,) rows, ``thr``/``alive`` (N,).  With
@@ -171,7 +180,10 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_che
     ``dw * w`` weights.  ``shadow_keep(f)``, once ``f.p_n`` and ``f.L`` are
     known, gives ``keep(sid, disc)``: (N,) the lanes whose shadow product
     takes that sphere's factor (a skip that drops only factors of exactly 1
-    leaves the product bitwise as it is).
+    leaves the product bitwise as it is).  ``winner_keep(k)``: (N,) the lanes
+    whose winner sweep takes sphere k; elsewhere it counts as a miss with
+    disc -inf (a skip that drops only spheres that cannot win leaves the
+    winner as it is).
     """
     f = SimpleNamespace()
     f.tex_hw = tex_hw
@@ -195,6 +207,10 @@ def fwd_sub_math(o, d, thr, alive, geom, mat, consts, xi=None, *, faraway, s_che
         for k in range(s_total):
             c, r = _sphere(geom, k)
             sol, disc, t, _, _ = _sphere_fn(k, s_cheap)(o, d, c, r, faraway)
+            if winner_keep is not None:
+                kept = winner_keep(k)
+                t = torch.where(kept, t, far)
+                disc = torch.where(kept, disc, torch.full_like(disc, -math.inf))
             take = t < tmin  # strict: lowest index wins exact ties
             tmin = torch.where(take, t, tmin)
             imin = torch.where(take, k, imin)
@@ -762,16 +778,109 @@ def train_deep_plain(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s
     return (torch.sum(sse), *_reverse_chain(states, tuple(g_acc), geom, mat, consts, kw))
 
 
+def shadow_reach(p_n, to_light, light, geom, s_cheap: int, sharp_s: float) -> torch.Tensor:
+    """(W, S) the (warp, sphere) pairs a shadow product with the skip visits
+    (``csrc/smooth_math.cuh`` ``shadow_skip_product``) for shadow rays
+    ``p_n``/``to_light`` (N, 3) aimed at ``light`` (3,) or None: the
+    cheap-tier spheres whose ``r_eff`` some line of the warp may reach
+    (:func:`.intersect_fused.line_test`, ``r_eff^2 = r^2 + |SIG_EDGE| / (4
+    sharp_s)``; beyond it the shadow sigmoid is exactly 0 and the factor
+    exactly 1), every exact-tier sphere, and every sphere of a warp whose
+    bound is not ``ok`` or where ``sharp_s`` is not a positive finite number
+    in the dtype."""
+    dtype = geom.dtype
+    b = warp_bundles(p_n, to_light, light)
+    reach = torch.ones((b.ok.shape[0], geom.shape[0]), dtype=torch.bool, device=p_n.device)
+    sharp = torch.tensor(sharp_s, dtype=dtype)
+    if 0 < sharp < math.inf:
+        edge = torch.tensor(-SIG_EDGE[dtype], dtype=dtype) / (4 * sharp)
+        reach[:, :s_cheap] = line_test(b, geom[:s_cheap], edge.to(p_n.device)) | ~b.ok[:, None]
+    return reach
+
+
+def shadow_keep(reach_of, sharp_s: float, dtype: torch.dtype):
+    """``fwd_sub_math``'s ``shadow_keep`` for a kernel's shadow skip: a lane
+    takes sphere k's factor where its warp's bound reaches k (``reach_of(p_n,
+    to_light)``, (W, S) from (N, 3) rows), k is not its winner, and (with
+    ``sharp_s`` finite in the dtype) the pair's ``sig(sharp_s * disc)`` is
+    not exactly 0 (``csrc/smooth_math.cuh`` ``shadow_fold``)."""
+    finite = bool(torch.isfinite(torch.tensor(sharp_s, dtype=dtype)))
+
+    def keep_of(f):
+        n = f.p_n[0].shape[0]
+        reach = reach_of(torch.stack(f.p_n, 1), torch.stack(f.L, 1))
+        warp = torch.arange(n, device=reach.device) // WARP
+
+        def keep(k, disc):
+            sid = k.long() if torch.is_tensor(k) else torch.full((n,), k, dtype=torch.long, device=reach.device)
+            kept = reach[warp, sid] & (f.idx.long() != sid)
+            return kept & (sig(sharp_s * disc) != 0) if finite else kept
+
+        return keep
+
+    return keep_of
+
+
+def winner_reach(o, d, geom, s_cheap: int, faraway: float, chunk: int = 4096) -> torch.Tensor:
+    """(W, S) the (warp, sphere) pairs the winner sweep with the skip visits
+    (``csrc/smooth_math.cuh`` ``SkipAll::sweep``) for rays ``o``/``d`` (N,
+    3): every exact-tier sphere, every sphere of a warp whose bound is not
+    ``ok``, and the cheap-tier spheres :func:`.intersect_fused.winner_test`
+    keeps, each chunk of 32 against the least over the warp's lanes of the
+    running dmax before it.  A sphere the test leaves out cannot change
+    dmax, so that running dmax is the maximum of every earlier cheap
+    sphere's disc (and the sentinel), as the full sweep has it; it is taken
+    here over ``chunk`` rays at a time."""
+    n, s = o.shape[0], geom.shape[0]
+    b = warp_bundles(o, d)
+    reach = torch.ones((b.ok.shape[0], s), dtype=torch.bool, device=o.device)
+    if s_cheap == 0:
+        return reach
+    chunks = -(-s_cheap // WARP)
+    neg_big = torch.tensor(_NEG_BIG, dtype=o.dtype, device=o.device)
+    c = tuple(geom[None, :s_cheap, i] for i in range(3))
+    r = geom[None, :s_cheap, 3]
+    mins = []
+    for a in range(0, n, chunk):
+        rows = slice(a, min(n, a + chunk))
+        _, disc, _, _, _ = sol_disc_plain(tuple(o[rows, i, None] for i in range(3)),
+                                          tuple(d[rows, i, None] for i in range(3)), c, r, faraway)
+        disc = torch.where(torch.isnan(disc), torch.full_like(disc, -math.inf), disc)
+        pad = chunks * WARP - s_cheap
+        disc = torch.cat([disc, disc.new_full((disc.shape[0], pad), -math.inf)], 1) if pad else disc
+        best = torch.cummax(torch.amax(disc.reshape(-1, chunks, WARP), 2), 1).values
+        before = torch.cat([neg_big.expand(best.shape[0], 1), torch.maximum(best[:, :-1], neg_big)], 1)
+        lanes = (-before.shape[0]) % WARP  # the ragged warp's missing lanes: its bound is not ok
+        before = torch.cat([before, before.new_full((lanes, chunks), math.inf)]) if lanes else before
+        mins.append(torch.amin(before.reshape(-1, WARP, chunks), 1))
+    m = torch.cat(mins).repeat_interleave(WARP, 1)[:, :s_cheap]  # (W, s_cheap): each sphere's chunk's least dmax
+    reach[:, :s_cheap] = winner_test(b, geom[:s_cheap], m) | ~b.ok[:, None]
+    return reach
+
+
 def smooth_fwd_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s,
-                          tex_hw=None):
+                          tex_hw=None, skip: bool = False):
     """Plain version of ``smooth_fwd_step``: one smooth bounce from the state
     ``(o, d, thr, alive, acc)``, glossy with ``xi`` (2, N) when given.
     Returns the next state and the bounce's residuals: ``(o, d, thr, alive,
     acc, idx, hit, clear)``, idx int32 and hit 0/1, each (N,); with
-    ``tex_hw`` (the atlas mode) also the flat texel ids and dww (N,)."""
+    ``tex_hw`` (the atlas mode) also the flat texel ids and dww (N,).
+    ``skip``: the winner sweep over the pairs :func:`winner_reach` keeps and
+    the shadow product over those :func:`shadow_keep` keeps
+    (:func:`shadow_reach`, the light ``consts[0, 3:6]`` its apex), as the
+    kernel's skip visits them, bitwise the plain version without; only the
+    tests and the card check's counts run it."""
+    winner_keep = keep = None
+    if skip:
+        reach = winner_reach(o.T.contiguous(), d.T.contiguous(), geom, s_cheap, faraway)
+        warp = torch.arange(d.shape[1], device=d.device) // WARP
+        winner_keep = lambda k: reach[warp, k]  # noqa: E731
+        keep = shadow_keep(lambda p_n, to_light: shadow_reach(p_n, to_light, consts[0, 3:6], geom, s_cheap, sharp_s),
+                           sharp_s, d.dtype)
     f = fwd_sub_math(
         tuple(o), tuple(d), thr, alive, geom, mat, consts, _xi_pair(xi, 0),
-        faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw,
+        faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw, shadow_keep=keep,
+        winner_keep=winner_keep,
     )
     acc_n = torch.stack([acc[i] + f.color[i] * f.w for i in range(3)])
     outs = (
@@ -874,8 +983,8 @@ _SIGNATURES = {
     "train_deep": "ppp" "pppp" "pppp" "iiiii" "rrr",
     # o, d, thr, alive, acc, geom, mat, consts, xi, their five outputs, idx,
     # hit, clear, flat, dww; n, s_cheap, s_total; faraway, sharp_e,
-    # sharp_s; tex_h, tex_w
-    "smooth_fwd_step": "ppppp" "pppp" "ppppp" "ppp" "pp" "iii" "rrr" "ii",
+    # sharp_s; tex_h, tex_w; skip
+    "smooth_fwd_step": "ppppp" "pppp" "ppppp" "ppp" "pp" "iii" "rrr" "ii" "i",
     # o, d, thr, alive, idx, hit, clear, geom, mat, consts, xi, cotangents
     # g_o, g_d, g_thr, g_alive, g_acc, g_dww, the four input cotangents,
     # the rows' geometry, material and constants, table grads; n, rows,
@@ -923,10 +1032,13 @@ def _suffix(dtype: torch.dtype) -> str:
     return "f32" if dtype == torch.float32 else "f64"
 
 
-def blocks_per_sm(name: str, dtype: torch.dtype, glossy: bool, s: int) -> int:
+def blocks_per_sm(name: str, dtype: torch.dtype, glossy: bool, s: int, skip: bool = False) -> int:
     """Resident blocks per SM of kernel ``name``'s instantiation for ``s``
-    spheres on the current card (staged or global geometry as it launches)."""
-    which = tuple(LAUNCHES).index(name)
+    spheres on the current card (staged or global geometry as it launches);
+    ``skip``: smooth_fwd_step's with its skip."""
+    if skip and name != "smooth_fwd_step":
+        raise ValueError(f"{name} has no skip")
+    which = 5 if skip else tuple(LAUNCHES).index(name)
     blocks = getattr(_build.load_library(_SOURCE), f"prt_smooth_blocks_per_sm_{_suffix(dtype)}")(which, int(glossy), s)
     if blocks < 0:
         raise RuntimeError(f"occupancy query of {name} failed: CUDA error {-blocks}")
@@ -1045,9 +1157,14 @@ def train_deep(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap
 
 
 def smooth_fwd_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, faraway, s_cheap, sharp_e, sharp_s,
-                    tex_hw=None):
+                    tex_hw=None, skip: str = "auto"):
     """One smooth bounce per launch, glossy with ``xi`` (2, N) when given, in
-    the atlas mode with ``tex_hw``; outputs as :func:`smooth_fwd_step_plain`."""
+    the atlas mode with ``tex_hw``; outputs as :func:`smooth_fwd_step_plain`.
+    ``skip`` ("auto", "on", "off") picks the kernel whose winner sweep and
+    shadow product leave out the spheres that cannot change them, or the
+    kernel without; the outputs are the same bitwise.  "auto" takes it from
+    STEP_SKIP_MIN_CHEAP cheap-tier spheres on."""
+    code = _skip_code(skip)
     kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw)
     device = _check(
         {"o": o, "d": d, "acc": acc}, geom, mat, consts, s_cheap=s_cheap, depth=1,
@@ -1064,7 +1181,7 @@ def smooth_fwd_step(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, farawa
         )
         tex = () if tex_hw is None else (torch.empty((n,), dtype=torch.int32, device=device), torch.empty_like(thr))
         _launch("smooth_fwd_step", d.dtype, o, d, thr, alive, acc, geom, mat, consts, xi, *outs, *(tex or (None, None)),
-                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s), *slot_args(tex_hw), atlas=bool(tex))
+                *_scalars(n, s, s_cheap, None, faraway, sharp_e, sharp_s), *slot_args(tex_hw), code, atlas=bool(tex))
     return outs + tex
 
 

@@ -44,7 +44,9 @@ import torch
 from ..config import VISIBILITY_SMOOTH
 from . import _build
 from .bounce_smooth import b_cterm_plain, compensated_b_cterm, quad_sol_disc, sig, sol_disc_exact, sol_disc_plain
-from .bounce_smooth_sub import _NEG_BIG, _xi_pair, adjoint_bounce, fwd_sub_math
+from .bounce_smooth_sub import (  # noqa: F401 (SIG_EDGE: fwd_cs's edge, read through this module too)
+    SIG_EDGE, _NEG_BIG, _xi_pair, adjoint_bounce, fwd_sub_math, shadow_keep, shadow_reach,
+)
 from .culled import (
     CULL_BLOCK_RAYS,
     MAX_CULL_EXACT,
@@ -54,7 +56,7 @@ from .culled import (
     candidate_lists,
     ray_sort_keys,
 )
-from .intersect_fused import WARP, _skip_code, line_test, warp_bundles
+from .intersect_fused import WARP, _skip_code
 from .rng import fold_seed, uniform2
 from .shading import NUDGE
 from .tables import MAT_COLS, N_CONST, consts_row, geometry_table, material_table
@@ -69,10 +71,6 @@ MIN_CULL_SMOOTH_RAYS = 518_400  # 960x540
 MAX_BLK_SPHERES_SMOOTH = 4096
 # f32 sigmoid(x) == 0.0 exactly for x < -88.73; 90 leaves slack.
 _SIG_UNDERFLOW = 90.0
-
-# Below lo the shadow sigmoid is exactly 0 (csrc/smooth_math.cuh SigEdge):
-# exp(-x) overflows in the dtype.
-SIG_EDGE = {torch.float32: -89.0, torch.float64: -710.0}
 
 LAUNCHES = {"near_cs": 0, "fwd_cs": 0, "bwd_cs": 0}
 # Launches of the atlas mode (near_cs takes no atlas).
@@ -173,36 +171,18 @@ def fwd_cs_reach(p_n, to_light, light, geom, s_cheap: int, sharp_s: float, tile_
     (:func:`.intersect_fused.line_test`; beyond it the shadow sigmoid is
     exactly 0 and the factor exactly 1), every exact-tier sphere, and every
     sphere of a warp whose bound is not ``ok``, or where ``sharp_s`` is not a
-    positive finite number or a tile is not whole warps."""
-    b = warp_bundles(p_n, to_light, light)
-    reach = torch.ones((b.ok.shape[0], geom.shape[0]), dtype=torch.bool, device=p_n.device)
-    if 0.0 < sharp_s < float("inf") and tile_rays % WARP == 0:
-        dtype = geom.dtype
-        edge = torch.tensor(-SIG_EDGE[dtype], dtype=dtype) / (4 * torch.tensor(sharp_s, dtype=dtype))
-        reach[:, :s_cheap] = line_test(b, geom[:s_cheap], edge.to(p_n.device)) | ~b.ok[:, None]
-    return reach
+    positive finite number or a tile is not whole warps
+    (:func:`.bounce_smooth_sub.shadow_reach` over whole tiles)."""
+    if tile_rays % WARP:
+        return torch.ones((-(-p_n.shape[0] // WARP), geom.shape[0]), dtype=torch.bool, device=p_n.device)
+    return shadow_reach(p_n, to_light, light, geom, s_cheap, sharp_s)
 
 
 def _shadow_keep(light, geom, s_cheap: int, sharp_s: float, tile_rays: int):
-    """``fwd_sub_math``'s ``shadow_keep`` for fwd_cs's skip: a lane takes a
-    sphere's factor where its warp's bound reaches the sphere
-    (:func:`fwd_cs_reach`), the sphere is not its winner, and (with a finite
-    ``sharp_s``) the pair's ``sig(sharp_s * disc)`` is not exactly 0."""
-    finite = abs(sharp_s) < float("inf")
-
-    def keep_of(f):
-        n = f.p_n[0].shape[0]
-        reach = fwd_cs_reach(torch.stack(f.p_n, 1), torch.stack(f.L, 1), light, geom, s_cheap, sharp_s, tile_rays)
-        warp = torch.arange(n, device=reach.device) // WARP
-
-        def keep(k, disc):
-            sid = k.long() if torch.is_tensor(k) else torch.full((n,), k, dtype=torch.long, device=reach.device)
-            kept = reach[warp, sid] & (f.idx.long() != sid)
-            return kept & (sig(sharp_s * disc) != 0) if finite else kept
-
-        return keep
-
-    return keep_of
+    """``fwd_sub_math``'s ``shadow_keep`` for fwd_cs's skip
+    (:func:`.bounce_smooth_sub.shadow_keep` over :func:`fwd_cs_reach`)."""
+    return shadow_keep(lambda p_n, to_light: fwd_cs_reach(p_n, to_light, light, geom, s_cheap, sharp_s, tile_rays),
+                       sharp_s, geom.dtype)
 
 
 def fwd_cs_plain(o, d, thr, alive, acc, idx, hit, cand, cnt_cand, cnt_full, geom, mat, consts, xi=None, *,

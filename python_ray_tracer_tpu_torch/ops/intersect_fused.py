@@ -74,6 +74,9 @@ WARP = 32
 BUNDLE_MAX_COORD = 2.0**40
 BUNDLE_MAX_V2 = 2.0**100
 UNIT_ROUNDOFF = {torch.float32: 2.0**-24, torch.float64: 2.0**-53}
+# The smooth winner sweep's max-discriminant sentinel in the dtype
+# (csrc/smooth_math.cuh kNegBig), below which winner_test rules nothing out.
+NEG_BIG = {dt: float(torch.tensor(-3.0e38, dtype=dt)) for dt in (torch.float32, torch.float64)}
 
 
 class Bundles(NamedTuple):
@@ -186,6 +189,23 @@ def line_test(b: Bundles, geom, edge) -> torch.Tensor:
     u = UNIT_ROUNDOFF[geom.dtype]
     r = geom[None, :, 3]
     return ~_rules_out(b, geom, True, lambda w: sqrt((r * r + edge) * (1 + 64 * u) + (256 * u) * (w * w)))
+
+
+def winner_test(b: Bundles, geom, m) -> torch.Tensor:
+    """``winner_reaches`` of ``csrc/smooth_math.cuh``: (W, S) whether sphere k
+    of ``geom`` (S, 4) may change the smooth winner of some lane of warp w:
+    a ray of the warp may hit it (:func:`bundle_test`), or its disc may
+    exceed ``m`` (W, S), the least over the warp's lanes of the running
+    max-discriminant before the sphere's chunk: some line passes within
+    ``q`` of its centre, ``q^2 = p (1 + 64u) + 16u r^2 + 256u w^2``, ``p = r^2
+    - m / 4`` (the margin the source states).  It never rules a sphere out
+    where ``m`` is the sentinel or not finite, or ``p <= 0``."""
+    u = UNIT_ROUNDOFF[geom.dtype]
+    r2 = geom[None, :, 3] * geom[None, :, 3]
+    p = r2 - m * 0.25
+    usable = (m > NEG_BIG[geom.dtype]) & (m - m == 0) & (p > 0)
+    near = ~_rules_out(b, geom, True, lambda w: sqrt(p * (1 + 64 * u) + (16 * u) * r2 + (256 * u) * (w * w)))
+    return bundle_test(b, geom) | ~usable | near
 
 
 def bundle_reach(o, d, geom, s_cheap: int, apex=None) -> torch.Tensor:

@@ -29,6 +29,15 @@ same.  The JAX kernels pad each tier to their sphere block with zero-radius
 rows whose indices run on past the tier's end (into the exact tier's, for
 the cheap tier's padding); the port sweeps the real rows only.
 
+``clear_fwd`` leaves out of its product the factors that are exactly 1
+(``csrc/smooth_math.cuh`` ``shadow_skip_product``): per lane a pair whose
+``sig(k disc)`` is exactly 0, and per warp the cheap-tier spheres no shadow
+line of the warp comes within ``r_eff`` of, the warp's bound taking the
+light (``light``) as its apex.  :func:`clear_fwd_plain` with ``skip=True``
+multiplies those pairs only, bitwise the product over every pair; the
+wrapper's ``skip`` ("auto", "on", "off") picks the kernel with the skip or
+without, "auto" from :data:`CLEAR_SKIP_MIN_CHEAP` cheap-tier spheres on.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  :data:`LAUNCHES` counts the launches.
 """
@@ -41,7 +50,9 @@ import torch
 
 from . import _build
 from .bounce_smooth import EPS_DEN, b_cterm_plain, sig, sol_disc_adjoint
+from .bounce_smooth_sub import shadow_reach
 from .intersect import intersect_two_tier
+from .intersect_fused import WARP, _light, _skip_code
 from .tables import segment_sum
 
 LAUNCHES = {"smooth_nearest_parts": 0, "clear_fwd": 0, "clear_bwd": 0}
@@ -54,13 +65,17 @@ NEG_BIG = -3.0e38
 # Ray-sphere pairs per chunk of the plain versions.
 _CHUNK_PAIRS = 1 << 23
 
+# clear_fwd's skip (csrc/smooth_parts.cu kClearSkipMinCheap): "auto" takes
+# it from this many cheap-tier spheres on.
+CLEAR_SKIP_MIN_CHEAP = 16
+
 # C signatures of the entries in csrc/smooth_parts.cu, before the trailing
 # stream: p = pointer, i = int, r = the dtype's real.
 _SIGNATURES = {
     # o, d, geom, t, idx, sol_w, disc_w, dmax, fidx, sol_f; n, s_cheap, s_total; faraway
     "smooth_nearest_parts": "pppppppppp" "iii" "r",
-    # o, d, geom, self_idx, clear; n, s_cheap, s_total; faraway, sharpness
-    "clear_fwd": "ppppp" "iii" "rr",
+    # o, d, geom, self_idx, clear; n, s_cheap, s_total; faraway, sharpness; the light (3,) or null; skip
+    "clear_fwd": "ppppp" "iii" "rr" "p" "i",
     # o, d, geom, self_idx, clear, g_clear, g_o, g_d, parts, g_geom; n, s_cheap, s_total; faraway, sharpness
     "clear_bwd": "pppppppppp" "iii" "rr",
 }
@@ -126,15 +141,28 @@ def _factors(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap:
     return fac, sd, ss, is_self
 
 
-def clear_fwd_plain(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap: int) -> torch.Tensor:
+def clear_fwd_plain(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap: int, skip: bool = False,
+                    light=None) -> torch.Tensor:
     """Plain version of ``clear_fwd``: the product of the factors, taken in
-    row order as the kernel takes it."""
+    row order as the kernel takes it.  ``skip``: over the pairs the kernel's
+    skip keeps only (its warp bound, :func:`.bounce_smooth_sub.shadow_reach`
+    with ``light`` (3,) or None its apex; not the lane's own sphere; a
+    shadow sigmoid that is not exactly 0 where ``sharpness`` is finite),
+    bitwise the product over every pair; only the tests and the card check's
+    counts run it."""
+    reach = None
+    if skip:
+        reach = shadow_reach(o, d, _light(light, o), geom, s_cheap, sharpness)
+        finite = bool(torch.isfinite(torch.tensor(sharpness, dtype=o.dtype)))
     clears = []
     for a, b in _chunks(o.shape[0], geom.shape[0]):
-        fac = _factors(o[a:b], d[a:b], geom, self_idx[a:b], faraway=faraway, sharpness=sharpness, s_cheap=s_cheap)[0]
+        fac, sd, _, is_self = _factors(o[a:b], d[a:b], geom, self_idx[a:b], faraway=faraway, sharpness=sharpness,
+                                       s_cheap=s_cheap)
+        if reach is not None:
+            kept = reach[torch.arange(a, b, device=o.device) // WARP] & ~is_self & ((sd != 0) if finite else True)
         clear = torch.ones_like(fac[:, 0])
         for k in range(fac.shape[1]):
-            clear = clear * fac[:, k]
+            clear = clear * fac[:, k] if reach is None else torch.where(kept[:, k], clear * fac[:, k], clear)
         clears.append(clear)
     return torch.cat(clears)
 
@@ -245,19 +273,33 @@ def nearest_parts(o, d, geom, *, faraway: float, s_cheap: int) -> SmoothParts:
     return SmoothParts(t, idx, sol_w, disc_w, dmax, fidx, sol_f)
 
 
-def clear_fwd(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap: int) -> torch.Tensor:
+def clear_fwd(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap: int, light=None,
+              skip: str = "auto") -> torch.Tensor:
     """``clear_fwd``: the shard's shadow product (N,); no gradient (see
-    :func:`smooth_clear_parts`)."""
+    :func:`smooth_clear_parts`).  ``light`` (3,), the point the shadow rays
+    aim at, tightens the skip's bound and nothing else (any value, or None,
+    gives the same result); ``skip`` ("auto", "on", "off") picks the kernel
+    that leaves out the factors of exactly 1 or the kernel without, the
+    result the same bitwise."""
+    code = _skip_code(skip)
     device = _check(o, d, geom, s_cheap, self_idx)
     o, d, geom, self_idx = _contig(o, d, geom, self_idx)
+    light = _light(light, o)
     if device.type == "cpu":
         return clear_fwd_plain(o, d, geom, self_idx, faraway=faraway, sharpness=sharpness, s_cheap=s_cheap)
     n = o.shape[0]
     with torch.cuda.device(device):
         clear = torch.empty((n,), dtype=o.dtype, device=device)
         _launch("clear_fwd", o.dtype, o, d, geom, self_idx, clear, n, s_cheap, geom.shape[0], float(faraway),
-                float(sharpness))
+                float(sharpness), light, code)
     return clear
+
+
+def clear_fwd_blocks_per_sm(dtype: torch.dtype, s: int, *, skip: bool) -> int:
+    """Resident 256-thread blocks per SM of the clear_fwd instantiation
+    (``skip``) a launch for ``s`` spheres takes, on the current card."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(_build.load_library(_SOURCE), f"prt_clear_fwd_blocks_per_sm_{suffix}")(int(skip), s)
 
 
 def clear_bwd_blocks_per_sm(dtype: torch.dtype, s: int) -> int:
@@ -321,9 +363,9 @@ class _ClearParts(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(ctx, o, d, geom, self_idx, faraway, sharpness, s_cheap):
+    def forward(ctx, o, d, geom, self_idx, faraway, sharpness, s_cheap, light):
         kw = dict(faraway=faraway, sharpness=sharpness, s_cheap=s_cheap)
-        clear = clear_fwd(o, d, geom, self_idx, **kw)
+        clear = clear_fwd(o, d, geom, self_idx, **kw, light=light)
         ctx.kw = kw
         ctx.save_for_backward(o, d, geom, self_idx, clear)
         return clear
@@ -332,7 +374,7 @@ class _ClearParts(torch.autograd.Function):
     def backward(ctx, g_clear):
         o, d, geom, self_idx, clear = ctx.saved_tensors
         g_o, g_d, g_geom = clear_bwd(o, d, geom, self_idx, clear, g_clear, **ctx.kw)
-        return g_o, g_d, g_geom, None, None, None, None
+        return g_o, g_d, g_geom, None, None, None, None, None
 
 
 def smooth_nearest_parts(o, d, geom, *, faraway: float, s_cheap: int) -> SmoothParts:
@@ -341,9 +383,11 @@ def smooth_nearest_parts(o, d, geom, *, faraway: float, s_cheap: int) -> SmoothP
     return SmoothParts(*_NearestParts.apply(o, d, geom, faraway, s_cheap))
 
 
-def smooth_clear_parts(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap: int) -> torch.Tensor:
+def smooth_clear_parts(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap: int,
+                       light=None) -> torch.Tensor:
     """One shard's smooth shadow product (N,) over its spheres other than
     each lane's own ``self_idx`` (int32, LOCAL: an index out of ``0..S-1``
     matches no sphere); the caller multiplies the shards' products.
-    Differentiable in ``o``, ``d`` and ``geom``."""
-    return _ClearParts.apply(o, d, geom, self_idx, faraway, float(sharpness), s_cheap)
+    Differentiable in ``o``, ``d`` and ``geom``; ``light`` (3,), the point
+    the shadow rays aim at, only tightens the forward kernel's skip."""
+    return _ClearParts.apply(o, d, geom, self_idx, faraway, float(sharpness), s_cheap, light)

@@ -523,7 +523,8 @@ def _bounce_sphere_sharded(o, d, throughput, alive, accum, scene: Scene, cfg: Re
         in_light = (collectives.pmin(t_self, axis) <= collectives.pmin(t_others, axis)).to(dtype)
     elif parts_route:
         clear_l = smooth_clear_parts(collectives.vary(p_nudged, axis), collectives.vary(to_light, axis), geom,
-                                     (idx - offset).to(torch.int32), sharpness=cfg.shadow_sharpness, **kw)
+                                     (idx - offset).to(torch.int32), sharpness=cfg.shadow_sharpness,
+                                     light=scene.lights.point_position, **kw)
         in_light = collectives.gather_prod(clear_l, axis).to(dtype)
     else:
         shadow_res = _sweep_shard(collectives.vary(p_nudged, axis), collectives.vary(to_light, axis), shard, scene,

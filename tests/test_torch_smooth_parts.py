@@ -40,6 +40,7 @@ DTYPES = {"float32": (jnp.float32, torch.float32), "float64": (jnp.float64, torc
 N_RAYS, N_SPHERES, N_EXACT = 256, 24, 4
 S_CHEAP = N_SPHERES - N_EXACT
 SHARPNESS = 200.0
+LIGHT = (2.0, 12.0, -3.0)  # the point the shadow rays aim at
 # Rows 5 and 9 repeat rows 2 and 3: exact ties of t and disc.
 TWINS = {5: 2, 9: 3}
 # Lanes whose self index is out of the shard's range, and one inside the
@@ -113,7 +114,7 @@ def oracles():
             self_idx[lane] = v
         t = parts[0]
         p = o + d * np.where(t != far, t, 1.0)[:, None]
-        to_light = np.array([2.0, 12.0, -3.0]) - p
+        to_light = np.array(LIGHT) - p
         to_light /= np.linalg.norm(to_light, axis=1, keepdims=True)
         p = p - 1e-3 * d
         sargs = tuple(jnp.asarray(a, jdt) for a in (p, to_light, c, r))
@@ -202,6 +203,23 @@ def test_clear_and_shadow_parts_plain_match_jax(oracles, dtype):
     assert w_self[PAD_SELF_LANE] == case["far"]
     lit = (t_self <= t_others).numpy()
     assert lit.any() and not lit.all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_clear_parts_given_the_light_match_jax(oracles, dtype):
+    """``smooth_clear_parts`` given the light its shadow rays aim at (which
+    only the card kernel's skip reads), and ``clear_fwd_plain`` over the
+    pairs that skip keeps, against JAX's ``_clear_fwd_kernel``."""
+    case, tdt = oracles[dtype], DTYPES[dtype][1]
+    o, d = (_t(a, tdt) for a in case["shadow_ray"])
+    geom = _geom(case, tdt)
+    self_idx = torch.tensor(case["self_idx"], dtype=torch.int32)
+    kw = dict(faraway=case["far"], sharpness=SHARPNESS, s_cheap=S_CHEAP)
+    light = torch.tensor(LIGHT, dtype=tdt)
+    _close("clear given the light", sp.smooth_clear_parts(o, d, geom, self_idx, **kw, light=light).numpy(),
+           case["clear"], RTOL[dtype])
+    _close("clear over the kept pairs", sp.clear_fwd_plain(o, d, geom, self_idx, **kw, skip=True, light=light).numpy(),
+           case["clear"], RTOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
