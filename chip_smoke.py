@@ -137,7 +137,14 @@ timed beside in turns.  The same holds for ``nearest_sweep``, ``fwd_cs``,
 (every recorded launch, with the skip also forced on where the launch rule
 leaves it off, and the 8192-sphere step's again upcast to f64), whose
 ``[skip]`` lines print the (warp, sphere) pairs their winner sweep and
-shadow product visit.
+shadow product visit; for ``smooth_nearest_parts`` (both ranks' launches,
+f32 and f64) and ``train_deep`` (every recorded launch: the 3-sphere and
+stochastic ``optimize``, the 480x270 ``random1024`` CLI, config 5's first
+step f32 and native f64), held with their skips (forced on, and the
+launch rule's, which takes them from 16 cheap spheres) bitwise to the same
+kernel without them, each first launch's pairs printed a bounce; both
+kernels are timed beside their skip-off builds in turns with kept-pair
+bounds.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
 object: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -148,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import importlib
 import json
 import re
@@ -824,6 +832,7 @@ def _check_smooth_case(label: str, o, d, tables, kw, xis, dtype, plain_ms: dict 
                             _nbytes(o, d, *fp[1:], *tables, g_acc, *xi_in, *bk)),
         "train_deep": (lambda: bss.train_deep(o, d, tgt, *tables, xi, **kw), _nbytes(o, d, tgt, *tables, *xi_in, *tk)),
     })
+    calls["train_args"] = ((o, d, tgt, *tables, xi), kw)
     outs = {"smooth_bwd_deep": (bk, bp), "train_deep": (tk[1:], tp[1:]), "calls": calls,
             "inputs": dict(fwd=fp, g_acc=g_acc, tgt=tgt, xi=xi)}
     return err, outs
@@ -1018,6 +1027,7 @@ def phase_smooth_main(tmp: Path) -> dict[str, int]:
     launches, each read from the run that is its main path."""
     from python_ray_tracer_tpu_torch import cli, render
     from python_ray_tracer_tpu_torch.models.scenes import reference_scene
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
     from python_ray_tracer_tpu_torch.optim import adam, combine, init_state, make_loss_fn, make_train_step, scene_to_params
     from python_ray_tracer_tpu_torch.utils.image import load_png, to_uint8
 
@@ -1063,11 +1073,14 @@ def phase_smooth_main(tmp: Path) -> dict[str, int]:
     # 3. cli optimize against the port's own clipped hard-render PNG: train_deep.
     metrics = tmp / "optimize.jsonl"
     _reset_launches()
-    cli.main(["optimize", "--visibility", "smooth", *size, "--depth", "3", "--target", str(tmp / "d3.png"),
-              "--steps", "20", "--sync-every", "10", "--lr", "1e-3", "--metrics", str(metrics)])
+    train_calls: list = []
+    with _capture(bss, "train_deep", train_calls):
+        cli.main(["optimize", "--visibility", "smooth", *size, "--depth", "3", "--target", str(tmp / "d3.png"),
+                  "--steps", "20", "--sync-every", "10", "--lr", "1e-3", "--metrics", str(metrics)])
     counts = _launches()
     _expect_launched("cli optimize", counts, ("train_deep",))
     launches["train_deep"] = counts["train_deep"]
+    _train_skip_lines("the 3-sphere optimize", train_calls)  # after the count: its launches are not the path's
     losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
     print(f"[main] cli optimize: {len(losses)} steps, loss {losses[0]:.6e} -> {losses[-1]:.6e}")
     if len(losses) != 20 or not all(np.isfinite(losses)):
@@ -1198,15 +1211,19 @@ def phase_stochastic_train(tmp: Path) -> None:
     f32 under the noise rule, f64 within F64_RTOL."""
     from python_ray_tracer_tpu_torch import cli
     from python_ray_tracer_tpu_torch.models.scenes import reference_scene
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
     from python_ray_tracer_tpu_torch.optim import make_loss_fn, scene_to_params
 
     metrics = tmp / "optimize_stochastic.jsonl"
     _reset_launches()
-    cli.main(["optimize", "--visibility", "smooth", "--width", str(WIDTH), "--height", str(HEIGHT), "--depth", "3",
-              "--stochastic-roughness", "--seed", str(SEED), "--target", str(tmp / "d3.png"), "--steps", "5",
-              "--sync-every", "5", "--lr", "1e-3", "--metrics", str(metrics)])
+    train_calls: list = []
+    with _capture(bss, "train_deep", train_calls):
+        cli.main(["optimize", "--visibility", "smooth", "--width", str(WIDTH), "--height", str(HEIGHT), "--depth", "3",
+                  "--stochastic-roughness", "--seed", str(SEED), "--target", str(tmp / "d3.png"), "--steps", "5",
+                  "--sync-every", "5", "--lr", "1e-3", "--metrics", str(metrics)])
     counts = _launches()
     _expect_launched("cli optimize --stochastic-roughness", counts, ("train_deep",))
+    _train_skip_lines("the stochastic glossy optimize", train_calls)
     losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
     print(f"[main] cli optimize --stochastic-roughness: {len(losses)} steps, loss {losses[0]:.6e} -> {losses[-1]:.6e}")
     if len(losses) != 5 or not all(np.isfinite(losses)):
@@ -1376,10 +1393,11 @@ def phase_timing(card: str) -> dict[str, dict]:
         "smooth_bwd_step": lambda: bss.smooth_bwd_step(*sbwd_args, xi_1, **sskw),
     }
     res: dict[str, dict] = {}
+    counted: dict[str, int] = {}
     for name, (kernel, plain, n_bytes) in calls.items():
         ms = time_ms(kernel)
         plain_ms = time_ms(plain, warmup=1, iters=3)
-        ops = count_ops(plain)
+        ops = counted[name] = count_ops(plain)
         bound_ms, bound_by = _bound(ops, n_bytes)
         res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         print(f"[timing] {name}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -1390,6 +1408,20 @@ def phase_timing(card: str) -> dict[str, dict]:
         g_ms, ms = time_ms(fn), time_ms(calls[name][0])
         print(f"[timing] {name} glossy: kernel {g_ms:.4f} ms beside the mirror kernel's {ms:.4f} ms in turn "
               f"({g_ms / ms:.3f}x; reference {WIDTH}x{HEIGHT} f32; {card})", flush=True)
+    # train_deep on the 3-sphere launch: the launch rule's build (skip off
+    # below 16 cheap spheres) beside the skips forced on, in turns.
+    for tag, xi_t in (("mirror", None), ("glossy", xi_all)):
+        targs = (so, sd, tgt, *stables, xi_t)
+        fns = {"skip off (the launch rule's)": functools.partial(bss.train_deep, *targs, **skw),
+               "skip on": functools.partial(bss.train_deep, *targs, **skw, skip="on")}
+        turns: dict[str, list] = {k: [] for k in fns}
+        for k in (*fns, *reversed(fns)):
+            turns[k].append(time_ms(fns[k], warmup=2, iters=10))
+        print(f"[timing] train_deep {tag} (reference {WIDTH}x{HEIGHT} f32, depth 3), in turns: "
+              + ", ".join(f"{k} {statistics.mean(v):.4f} ms" for k, v in turns.items()) + f" ({card})", flush=True)
+        if xi_t is None:
+            _train_skip_bound(f"reference {WIDTH}x{HEIGHT} (the skips forced on)", targs, skw,
+                              counted["train_deep"], calls["train_deep"][2])
     scene = reference_scene(WIDTH, HEIGHT, dtype=torch.float32, device="cuda")
     with torch.no_grad():
         for label, cfg in (
@@ -2047,6 +2079,48 @@ def _step_skip_lines(tag: str, calls: list, upcast: bool = False) -> None:
             print(f"[skip] smooth_fwd_step {label} bounce {b}: {step_counts_text(step_counts(a, kw))}", flush=True)
 
 
+def _train_skip_lines(tag: str, calls: list) -> None:
+    """Each recorded train_deep launch: the kernel with its skips (forced on,
+    and by the launch rule, which takes them from STEP_SKIP_MIN_CHEAP
+    cheap-tier spheres on) bitwise the kernel without them in all six
+    outputs (the SSE, g_o, g_d, every table gradient); and, on the first
+    launch, each bounce's pairs the skips keep
+    (``benchmarks/sweep_skip_ab``'s train_counts)."""
+    from python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab import train_counts, train_counts_text
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    for b, (args, kw) in enumerate(calls):
+        args = [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+        label = f"{tag} launch {b}"
+        rule = "on" if kw["s_cheap"] >= bss.STEP_SKIP_MIN_CHEAP else "off"
+        with torch.no_grad():
+            off = bss.train_deep(*args, **kw, skip="off")
+            runs = {" (forced on)": bss.train_deep(*args, **kw, skip="on"),
+                    f" (the launch rule's, {rule})": bss.train_deep(*args, **kw)}
+        for how, got in runs.items():
+            same = all(bool(torch.equal(x, y)) for x, y in zip(got, off))
+            print(f"[skip] train_deep {label}{how}: bitwise the kernel without the skips: {same}", flush=True)
+            if not same:
+                fail(f"train_deep {label}{how}: the skips change the output")
+        if b == 0:
+            for dep, c in enumerate(train_counts(args, kw)):
+                print(f"[skip] train_deep {label} bounce {dep}: {train_counts_text(c)}", flush=True)
+
+
+def _nearest_skip_line(label: str, args, kw) -> None:
+    """One smooth_nearest_parts launch with its skip (the rule's and forced
+    on) bitwise the kernel without it, all seven outputs, and the share of
+    the cheap-tier (warp, sphere) pairs its winner rules keep."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss, smooth_parts as sp
+
+    _skip_bitwise("smooth_nearest_parts", label, lambda *a, **k: tuple(sp.nearest_parts(*a, **k)), args, kw,
+                  forced=True)
+    with torch.no_grad():
+        reach = bss.winner_reach(args[0], args[1], args[2], kw["s_cheap"], kw["faraway"])
+    print(f"[skip] smooth_nearest_parts {label}: the winner rules keep "
+          f"{float(reach[:, :kw['s_cheap']].float().mean()):.2%} of the cheap-tier (warp, sphere) pairs", flush=True)
+
+
 def _clear_skip_line(label: str, args, kw) -> None:
     """One clear_fwd launch with its skip (the rule's and forced on) bitwise
     the kernel without it, and the share of the cheap-tier (warp, sphere)
@@ -2168,6 +2242,93 @@ def _clear_skip_bound(args, kw, ops: float, n_bytes: int) -> tuple[float, str]:
                             f"{c['kept'] / (c['warps'] * s_cheap):.2%} of the warp-sphere pairs kept, "
                             f"{c['live'] / (n * s_cheap):.3%} of the lane pairs whole; a pair {pair_ops:g}, its zero "
                             f"test {c['zero_ops']:g}, a test {c['test_ops']:g} operations")
+
+
+def _train_skip_bound(label: str, args, kw, ops: float, n_bytes: int) -> tuple[float, str]:
+    """train_deep's least time with the row layout's skips on one launch,
+    from its plain version's operations ``ops`` on every pair: on each
+    bounce of the chain (``benchmarks/sweep_skip_ab``'s train_counts) the
+    winner sweep and the shadow product as _step_skip_bound counts
+    smooth_fwd_step's, and Phase C: every cheap-tier (lane, sphere) pair
+    pays its test (the quadratic and the zero test), and only the (warp,
+    sphere) pairs some lane reaches the whole term on every lane (the exact
+    tier counted whole).  The per-pair bodies are count_ops' counts of
+    fwd_sub_math over one and two spheres and of shadow_terms over one, on
+    4096 lanes of the launch's rays."""
+    from types import SimpleNamespace
+
+    from python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab import train_counts
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss, intersect_fused as f
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import sol_disc_plain
+
+    o, d, _, geom, mat, consts, xi = args[:7]
+    n, s_cheap, part, faraway = d.shape[1], kw["s_cheap"], min(d.shape[1] // 32 * 32, 4096), kw["faraway"]
+    counts = train_counts(args, kw)
+    with torch.no_grad():
+        ones = torch.ones((part,), dtype=d.dtype, device=d.device)
+        lanes = (tuple(o[:, :part]), tuple(d[:, :part]), ones, ones)
+        xi_p = bss._xi_pair(None if xi is None else xi[:, :part], 0)
+        known = (torch.zeros((part,), dtype=torch.int32, device=d.device),
+                 torch.zeros((part,), dtype=torch.bool, device=d.device))
+
+        def body(k: int, winner_known: bool) -> float:
+            return count_ops(lambda: bss.fwd_sub_math(
+                *lanes, geom[:k].contiguous(), mat[:k].contiguous(), consts, xi_p, faraway=faraway, s_cheap=k,
+                sharp_e=kw["sharp_e"], sharp_s=kw["sharp_s"], known=known if winner_known else None))
+
+        shadow_pair = (body(2, True) - body(1, True)) / part
+        winner_pair = (body(2, False) - body(2, True) - body(1, False) + body(1, True)) / part
+        wo, wd = o[:, :part].T.contiguous(), d[:, :part].T.contiguous()
+        sample = f.warp_bundles(wo, wd)
+        m = torch.zeros((sample.ok.shape[0], 1), dtype=d.dtype, device=d.device)
+        winner_test = count_ops(lambda: f.winner_test(sample, geom[:1], m)) / (part // 32)
+        winner_bundle = count_ops(lambda: f.warp_bundles(wo, wd)) / part
+        fs = counts[0]["f"]
+        sub = SimpleNamespace(p_n=tuple(x[:part] for x in fs.p_n), L=tuple(x[:part] for x in fs.L),
+                              idx=fs.idx[:part], sharp_s=fs.sharp_s)
+        g = geom[0]
+        c_pair = count_ops(lambda: bss.shadow_terms(sub, 0, (g[0], g[1], g[2]), g[3], sol_disc_plain, ones,
+                                                    faraway)) / part
+        saved = 0.0
+        for c in counts:
+            shadow = _shadow_skip_costs(torch.stack(c["f"].p_n, 1), torch.stack(c["f"].L, 1), consts[0, 3:6], geom,
+                                        s_cheap, kw["sharp_s"])
+            pairs = n * s_cheap
+            saved += (winner_pair * (pairs - 32 * c["winner_kept"]) + shadow_pair * (pairs - shadow["live"])
+                      - shadow["zero_ops"] * (32 * shadow["kept"] - shadow["live"])
+                      - (winner_bundle + shadow["bundle_ops"]) * n
+                      - (winner_test + shadow["test_ops"]) * c["warps"] * s_cheap
+                      + c_pair * (pairs - 32 * c["phase_c_cheap_kept"]) - shadow["zero_ops"] * pairs)
+    shares = "; ".join(f"bounce {dep}: winner {c['winner']:.2%}, shadow {c['shadow']:.2%}, Phase C {c['phase_c']:.2%}"
+                       for dep, c in enumerate(counts))
+    return _skip_bound_line("train_deep", label, ops, ops - saved, n_bytes,
+                            f"{shares} of the warp-sphere pairs; a winner pair {winner_pair:g}, a shadow pair "
+                            f"{shadow_pair:g}, a Phase C pair {c_pair:g}, the tests {winner_test:g} and "
+                            f"{shadow['test_ops']:g} operations")
+
+
+def _nearest_skip_bound(args, kw, ops: float, n_bytes: int) -> tuple[float, str]:
+    """smooth_nearest_parts' least time with its skip on one call, from its
+    plain version's operations ``ops`` on every pair: each cheap-tier (warp,
+    sphere) pair pays a test, each pair the winner rules keep the pair's
+    operations on every lane; a bundle a lane."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss, intersect_fused as f
+
+    o, d, geom = args[:3]
+    n, s, s_cheap = o.shape[0], geom.shape[0], kw["s_cheap"]
+    part = min(n // 32 * 32, 4096)
+    with torch.no_grad():
+        reach = bss.winner_reach(o, d, geom, s_cheap, kw["faraway"])
+        sample = f.warp_bundles(o[:part], d[:part])
+        m = torch.zeros((sample.ok.shape[0], 1), dtype=o.dtype, device=o.device)
+        test_ops = count_ops(lambda: f.winner_test(sample, geom[:1], m)) / (part // 32)
+        bundle_ops = count_ops(lambda: f.warp_bundles(o[:part], d[:part])) / part
+    kept, warps = int(reach[:, :s_cheap].sum()), reach.shape[0]
+    pair_ops = ops / (n * s)
+    skip_ops = ops - pair_ops * (n * s_cheap - 32 * kept) + bundle_ops * n + test_ops * warps * s_cheap
+    return _skip_bound_line("smooth_nearest_parts", f"{s} spheres", ops, skip_ops, n_bytes,
+                            f"{kept / (warps * s_cheap):.2%} of the warp-sphere pairs kept; a pair {pair_ops:g}, a "
+                            f"test {test_ops:g}, a bundle {bundle_ops:g} operations")
 
 
 def _time_launches(name: str, calls: list, card: str, context: str, what: str) -> dict:
@@ -2563,12 +2724,14 @@ def phase_blocked_kernels(card: str) -> tuple[dict[str, float], dict[str, dict]]
         tag = str(dtype).split(".")[-1]
         label = f"{scene_name}({s}) depth {depth} {tag} {width}x{height}{' glossy' if glossy else ''}"
         smem = bss.shared_bytes(dtype, s)
-        occupancy = {k: bss.blocks_per_sm(k, dtype, glossy, s) for k in kernels}
+        # The builds the launch rules take (smooth_fwd_step's and train_deep's skips from 16 cheap spheres on).
+        occupancy = {k: bss.blocks_per_sm(k, dtype, glossy, s, skip=k in ("smooth_fwd_step", "train_deep")
+                                          and kw["s_cheap"] >= bss.STEP_SKIP_MIN_CHEAP) for k in kernels}
         print(f"[blocked] {label}: geometry {'staged in shared memory' if smem > 16 * dtype.itemsize else 'read from global memory'} "
               f"({smem} B of shared memory a block); "
               f"resident blocks per SM {occupancy} (128 threads; smooth_bwd_step {bss.STEP_THREADS}); column partials "
               f"{bss.partials_bytes(n, s, dtype)} B = (23 x {s} + 17) x {min(-(-n // 32), bss.PARTIAL_COLS)} columns x "
-              f"{dtype.itemsize} B (smooth_bwd_deep, train_deep); smooth_bwd_step's rows "
+              f"{dtype.itemsize} B (smooth_bwd_deep); smooth_bwd_step's and train_deep's rows "
               f"{bss.step_rows_bytes(n, s, dtype)} B = {bss.step_rows(n)} rows x (19 x {s} + 16) x {dtype.itemsize} B",
               flush=True)
         plain_ms: dict | None = {} if timed else None
@@ -2603,6 +2766,16 @@ def phase_blocked_kernels(card: str) -> tuple[dict[str, float], dict[str, dict]]
                     skip_blocks = bss.blocks_per_sm(name, dtype, glossy, s, skip=True)
                     beside = f" (skip off {off_ms:.4f} ms, {off_ms / ms:.2f}x; {skip_blocks} blocks per SM with the skip)"
                     bound_ms, bound_by = _step_skip_bound(label, args, skw, ops, n_bytes)
+                if name == "train_deep":  # with the launch rule's skips and without, in turns
+                    targs, tkw = calls["train_args"]
+                    off = functools.partial(bss.train_deep, *targs, **tkw, skip="off")
+                    turns = [time_ms(fn, warmup=2, iters=10) for fn in (call, off, off, call)]
+                    ms, off_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                    blocks = {k: bss.blocks_per_sm(name, dtype, glossy, s, skip=k) for k in (False, True)}
+                    beside = f" (skip off {off_ms:.4f} ms, {off_ms / ms:.2f}x; blocks per SM without and with the " \
+                             f"skips {blocks})"
+                    if tkw["s_cheap"] >= bss.STEP_SKIP_MIN_CHEAP:
+                        bound_ms, bound_by = _train_skip_bound(label, targs, tkw, ops, n_bytes)
                 res[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
                 print(f"[timing] {name} at {label}: kernel {ms:.4f} ms{beside}, plain version {p_ms:.1f} ms (one call, "
                       f"under the op counter), bound {bound_ms:.4f} ms by {bound_by} ({ops / n:.0f} operations per ray, "
@@ -2665,11 +2838,14 @@ def phase_c5_main(tmp: Path) -> dict[str, int]:
     _cli_render(tmp, "c5_target.png", *size)
     metrics = tmp / "c5_optimize.jsonl"
     _reset_launches()
-    cli.main(["optimize", *size, "--visibility", "smooth", "--target", str(tmp / "c5_target.png"), "--steps", "3",
-              "--sync-every", "3", "--lr", "1e-3", "--metrics", str(metrics)])
+    train_calls: list = []
+    with _capture(bss, "train_deep", train_calls):
+        cli.main(["optimize", *size, "--visibility", "smooth", "--target", str(tmp / "c5_target.png"), "--steps", "3",
+                  "--sync-every", "3", "--lr", "1e-3", "--metrics", str(metrics)])
     counts = _launches()
     _expect_launched("cli optimize --builtin random1024 480x270 smooth, 3 steps", counts, ("train_deep",), exactly=3,
                      absent=tuple(k for k in others if k != "train_deep"))
+    _train_skip_lines("the random1024 480x270 optimize", train_calls)
     losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
     print(f"[main] cli optimize random1024 480x270 smooth: {len(losses)} steps, losses {losses}")
     if len(losses) != 3 or not all(np.isfinite(losses)):
@@ -2690,13 +2866,16 @@ def phase_c5_main(tmp: Path) -> dict[str, int]:
         target = torch.tensor(golden["image"], dtype=dtype, device=DEVICE) / 255.0
         params = scene_to_params(scene)
         _reset_launches()
-        loss = make_loss_fn(scene, target, _c5_cfg(dtype))(params)
-        loss.backward()
+        train_calls = []
+        with _capture(bss, "train_deep", train_calls):
+            loss = make_loss_fn(scene, target, _c5_cfg(dtype))(params)
+            loss.backward()
         torch.cuda.synchronize()
         tag = str(dtype).split(".")[-1]
         counts = _launches()
         _expect_launched(f"config 5's first step, {tag}", counts, ("train_deep",), exactly=1,
                          absent=tuple(k for k in others if k != "train_deep"))
+        _train_skip_lines(f"config 5's first step {tag}", train_calls)
         if dtype == torch.float32:
             launches["train_deep"] = counts["train_deep"]
         print(f"[main] config-5 first step {tag}: loss {float(loss.detach()):.8e}, the JAX golden f32 "
@@ -2734,6 +2913,19 @@ def phase_c5_main(tmp: Path) -> dict[str, int]:
     return launches
 
 
+@contextlib.contextmanager
+def _train_skip(skip: str):
+    """train_deep with ``skip`` forced, wherever the package calls it."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+
+    real = bss.train_deep
+    bss.train_deep = functools.partial(real, skip=skip)
+    try:
+        yield
+    finally:
+        bss.train_deep = real
+
+
 def phase_c5_timing(card: str) -> None:
     """Config 5's Adam step (ms/step, rays/s) with a torch.profiler split and
     the busy share, and the Adam step at 8192 spheres (one-bounce pair)."""
@@ -2741,13 +2933,21 @@ def phase_c5_timing(card: str) -> None:
 
     n = C5_WIDTH * C5_HEIGHT
     for label, scene, kernels in (
-        (f"config 5 ({C5_SPHERES} spheres, train_deep)", _c5_scene(torch.float32), ("train_deep", "reduce_partials")),
+        (f"config 5 ({C5_SPHERES} spheres, train_deep)", _c5_scene(torch.float32), ("train_deep", "reduce_rows")),
         (f"{LANE_SPHERES} spheres (one-bounce pair)", _lane_scene(), STEP + ("reduce_partials",)),
     ):
         ms, step_k, state = _best_step_ms(make_loss_fn(scene, _c5_target(scene), _c5_cfg()), scene, warmup=3, steps=10)
         print(f"[timing] Adam step, {label}: {ms:.3f} ms/step, {n / (ms * 1e-3):.4e} primary rays/s "
               f"({C5_WIDTH}x{C5_HEIGHT} depth {C5_DEPTH}, f32, best of 3 calls of 10 steps; {card})", flush=True)
         _device_profile(lambda: step_k(state, 1), f"Adam step, {label}", card, kernels)
+        if "train_deep" in kernels:  # the step with train_deep's skips on (the rule's) and off, in turns
+            loss_fn, turns = make_loss_fn(scene, _c5_target(scene), _c5_cfg()), {"on": [], "off": []}
+            for skip in ("on", "off", "off", "on"):
+                with _train_skip(skip):
+                    turns[skip].append(_best_step_ms(loss_fn, scene, warmup=3, steps=10)[0])
+            on, off = statistics.mean(turns["on"]), statistics.mean(turns["off"])
+            print(f"[timing] Adam step, {label}, in turns: train_deep's skips on {on:.3f} ms/step, off {off:.3f} "
+                  f"ms/step ({off / on:.2f}x; {card})", flush=True)
 
 
 def _cs_worst_lanes(tag: str, record: list[dict], gaps: list) -> None:
@@ -3657,6 +3857,8 @@ def _check_parts_calls(tag: str, calls: dict, dtype: torch.dtype, err: dict) -> 
         args = det(args)
         _skip_bitwise("nearest_sweep", f"{tag} bounce {b}", intersect_fused.nearest_sweep, args, kw)
         _sweep_skip_ops("nearest_sweep", f"{tag} bounce {b}", tuple(args), kw)
+    for b, (args, kw) in enumerate(calls.get("nearest", [])):
+        _nearest_skip_line(f"{tag} bounce {b}", det(args), kw)
     for b, (args, kw) in enumerate(calls.get("nearest", [])[:2]):
         args = det(args)
         got = sp.nearest_parts(*args, **kw)
@@ -3974,15 +4176,16 @@ def _parts_bound(name: str, args: list, kw: dict) -> tuple[float, str]:
         return _clear_skip_bound(args, kw, ops, n_bytes)
     if name == "shadow_parts":
         return _skip_bound(name, [_skip_sweep(plain, tuple(args), kw)], ops, n_bytes)
-    return _bound(int(ops), n_bytes)
+    return _nearest_skip_bound(args, kw, ops, n_bytes)
 
 
 def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
     """Each new kernel at its shard's shape (shard 0 of config 4, f32):
     shadow_parts on each bounce of the 1920x1080 frame, beside the kernel
-    without its skip; rows 18-20 on the first bounce at 960x540 (clear_fwd
-    beside the kernel without its skip, and its resident CTAs); each beside
-    its plain version and its bound by counted operations."""
+    without its skip; rows 18-20 on the first bounce at 960x540
+    (smooth_nearest_parts and clear_fwd beside the kernels without their
+    skips, and their resident CTAs); each beside its plain version and its
+    bound by counted operations (on the pairs a skip keeps)."""
     from python_ray_tracer_tpu_torch.ops import intersect_fused, smooth_parts as sp
 
     saved = torch.load(tmp / "parts_inputs.pt", weights_only=False)
@@ -3997,7 +4200,7 @@ def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
         for name, (key, kernel, plain, size) in kernels.items():
             calls = [(lambda a=a, k=k: kernel(*a, **k), lambda a=a, k=k: plain(*a, **k),
                       lambda a=a, k=k, n=name: _parts_bound(n, a, k),
-                      *([lambda a=a, k=k: kernel(*a, **k, skip="off")] if name in ("shadow_parts", "clear_fwd") else []))
+                      *([lambda a=a, k=k: kernel(*a, **k, skip="off")] if name != "clear_bwd" else []))
                      for a, k in saved[key]]
             res[name] = _time_launches(name, calls, card, f"config 4 sphere shard 0 of 2, {saved[key][0][0][2].shape[0]} "
                                        f"spheres, {size} f32", f"the frame's {len(calls)}" if len(calls) > 1 else "one")
@@ -4006,6 +4209,9 @@ def phase_parts_timing(card: str, tmp: Path) -> dict[str, dict]:
               f"an SM, {-(-args[0].shape[0] // 256)} CTAs a launch ({card})", flush=True)
         blocks = {k: sp.clear_fwd_blocks_per_sm(torch.float32, args[2].shape[0], skip=k) for k in (False, True)}
         print(f"[timing] clear_fwd: resident CTAs of 256 an SM without and with the skip {blocks} ({card})", flush=True)
+        blocks = {k: sp.nearest_parts_blocks_per_sm(torch.float32, args[2].shape[0], skip=k) for k in (False, True)}
+        print(f"[timing] smooth_nearest_parts: resident CTAs of 256 an SM without and with the skip {blocks} ({card})",
+              flush=True)
     return res
 
 

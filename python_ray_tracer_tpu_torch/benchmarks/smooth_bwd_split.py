@@ -153,13 +153,15 @@ LAYOUTS = {
         report=ptxas_report,
         stubs={
             "no_c_sink": [
-                (STEP_SRC, r"\n\s*for \(int c = 0; c < 4; \+\+c\) \{\n\s*const T s = warp_sum\(valid \? gk\[c\].*?\n\s*\}", ""),
+                (STEP_SRC, r"(auto put = \[&\]\(int k, const T \(&gk\)\[4\]\) \{)\n\s*for \(int c = 0; c < 4; "
+                           r"\+\+c\) \{\n\s*const T s = warp_sum\(valid \? gk\[c\] : T\(0\)\);\n"
+                           r"\s*if \(lane == 0\) red\[.*?\n\s*\}", r"\1"),
                 (STEP_SRC, r"(\n      __syncthreads\(\);)\n      // Thread x finishes.*?(\n      buf \^= 1;)", r"\1\2"),
             ],
             "no_c": [(STEP_SRC, r"\n    int buf = 0;\n    for \(int g = 0; g < groups; \+\+g\) \{.*?\n      buf \^= 1;\n    \}",
                       "")],
-            "no_f_sink": [(STEP_SRC, r"\n    // Phase F: each distinct winner.*?\n    for \(int t = 0; t < kStepRayWarps; \+\+t\) "
-                                     r"\{.*?\n    \}\n", "\n")],
+            "no_f_sink": [(STEP_SRC, r"\n    // Phase F: each distinct winner[^\n]*\n.*?\n    winner_rows_add\([^\n]*\n",
+                           "\n")],
             "store": [
                 (STEP_SRC, r"out = r == 0 \? v : out \+ v;", "out = v;"),
                 (STEP_SRC, r"rm\[c\] \+= sum\[c\];", "rm[c] = sum[c];"),

@@ -46,11 +46,19 @@ the median of 10 CUDA-event timings):
 * ``clear_fwd`` on sphere shard 0's 3 launches of config 4's smooth step
   at 960x540 (half the width and height; two ranks on the card over gloo,
   the loss against a flat target; f32, and upcast to f64), and on the same
-  rays against the shard's first n spheres for each n of ``SMALL``.
+  rays against the shard's first n spheres for each n of ``SMALL``;
+  ``smooth_nearest_parts`` on the same run's 3 shard launches the same way;
+* ``train_deep`` on its one launch of an L2 loss through the fused route:
+  config 5 (``inverse_task(1024)`` at 256x144, scaled with the frame,
+  depth 3) mirror and glossy, native f64 at half that size, the 3-sphere
+  ``reference_scene`` at half the frame mirror and glossy, and
+  ``random_spheres_scene(n)`` for each n of ``SMALL``.
 
 Beside the times it prints each launch's share of (warp, sphere) pairs
 the skip reaches (:func:`..ops.intersect_fused.bundle_reach`; for
-``smooth_fwd_step`` the winner sweep's and the shadow product's,
+``smooth_nearest_parts`` the winner rules', for ``train_deep`` each
+bounce's winner sweep, shadow product and Phase C (:func:`train_counts`),
+for ``smooth_fwd_step`` the winner sweep's and the shadow product's,
 :func:`..ops.bounce_smooth_sub.winner_reach` and ``shadow_reach``); for
 ``nearest_sweep`` also the share of those a distance cut could drop (a
 sphere whose nearest possible hit from the warp's ball of origins lies
@@ -75,7 +83,7 @@ warp is 32 neighbouring pixels as in the frame.  ``--split`` runs
 stubbed out, beside the source as it is).  ``--frames`` times only the
 frames and steps ``nearest_sweep``, ``fwd_cs`` and ``smooth_fwd_step`` sit
 in, with their skips off and on in turns (:func:`frames`; the card only).
-``--kernels`` keeps the cases of those kernels only (default: all six).
+``--kernels`` keeps the cases of those kernels only (default: all eight).
 """
 
 from __future__ import annotations
@@ -100,7 +108,8 @@ SEED, DEPTH, SHARD, CS_DEPTH = 7, 4, 512, 3
 TURNS = ("off", "on", "on", "off")
 # Table sizes below the main path's, for the launch rule (kSkipMinCheap).
 SMALL = (4, 8, 16, 17, 25, 32, 48)
-KERNELS = ("bounce_lane", "nearest_sweep", "shadow_sweep", "fwd_cs", "smooth_fwd_step", "clear_fwd")
+KERNELS = ("bounce_lane", "nearest_sweep", "shadow_sweep", "fwd_cs", "smooth_fwd_step", "clear_fwd", "train_deep",
+           "smooth_nearest_parts")
 # smooth_fwd_step's frame at 1920x1080 (scaled with the frame) and its big table.
 STEP_SIZE, STEP_SPHERES = (256, 144), 8192
 
@@ -180,8 +189,12 @@ def record(device, width: int, height: int, kernels=KERNELS) -> dict[str, list]:
         cases.update(_record_sweeps(device, width, height))
     if "smooth_fwd_step" in kernels:
         cases.update(_record_step(device, width, height))
-    if "clear_fwd" in kernels:
-        cases.update(_record_clear(device, width, height))
+    if {"clear_fwd", "smooth_nearest_parts"} & set(kernels):
+        shard = _shard_calls(device, width, height)
+        cases.update(_record_clear(shard, width, height))
+        cases.update(_record_nearest_parts(shard, width, height))
+    if "train_deep" in kernels:
+        cases.update(_record_train(device, width, height))
     if device.type == "cuda":
         torch.cuda.synchronize()
     return {name: calls for name, calls in cases.items() if name.split()[0] in kernels}
@@ -321,7 +334,8 @@ def _record_step(device, width: int, height: int) -> dict[str, list]:
 def clear_rank(path: str, size: tuple[int, int], device_type: str) -> None:
     """One of two ranks (spawned by run_local): the forward of config 4's
     smooth loss at ``size`` (depth 3, a flat target) on sphere shard (1, 2);
-    rank 0 saves its clear_fwd calls to ``path``."""
+    rank 0 saves its clear_fwd and nearest_parts calls to ``path``, a list
+    each under their names."""
     from python_ray_tracer_tpu_torch import RenderConfig
     from python_ray_tracer_tpu_torch.models.scenes import random_spheres_scene
     from python_ray_tracer_tpu_torch.ops import smooth_parts
@@ -334,30 +348,88 @@ def clear_rank(path: str, size: tuple[int, int], device_type: str) -> None:
     scene = random_spheres_scene(1024, *size, dtype=torch.float32, device=device)
     target = torch.full((size[1], size[0], 3), 0.5, device=device)
     cfg = RenderConfig(max_depth=CS_DEPTH, dtype=torch.float32, visibility="smooth", use_pallas=True)
-    calls: list = []
-    real = _capture(smooth_parts, "clear_fwd", calls)
+    calls: dict[str, list] = {"clear_fwd": [], "nearest_parts": []}
+    real = {name: _capture(smooth_parts, name, got) for name, got in calls.items()}
     try:
         with torch.no_grad():
             make_loss_fn(scene, target, cfg, mesh)(scene_to_params(scene))
     finally:
-        smooth_parts.clear_fwd = real
+        for name, fn in real.items():
+            setattr(smooth_parts, name, fn)
     if mesh.spheres.index == 0:
-        torch.save([([a.detach().cpu() if torch.is_tensor(a) else a for a in args],
-                     {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}) for args, kw in calls], path)
+        torch.save({name: [([a.detach().cpu() if torch.is_tensor(a) else a for a in args],
+                            {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}) for args, kw in got]
+                    for name, got in calls.items()}, path)
 
 
-def _record_clear(device, width: int, height: int) -> dict[str, list]:
-    """clear_fwd's cases (see the module's docstring)."""
+def _shard_calls(device, width: int, height: int) -> dict[str, list]:
+    """Sphere shard 0's clear_fwd and nearest_parts calls of config 4's
+    smooth step at half the width and height, recorded from two ranks
+    (:func:`clear_rank`), on ``device``."""
     import tempfile
 
     from python_ray_tracer_tpu_torch.parallel.distributed import run_local
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "clear_fwd.pt")
+        path = str(Path(tmp) / "shard_calls.pt")
         run_local(clear_rank, 2, path, (width // 2, height // 2), device.type, device_type=device.type)
-        calls = [([a.to(device) if torch.is_tensor(a) else a for a in args],
-                  {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()})
-                 for args, kw in torch.load(path, weights_only=False)]
+        saved = torch.load(path, weights_only=False)
+    return {name: [([a.to(device) if torch.is_tensor(a) else a for a in args],
+                    {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items() if k != "skip"})
+                   for args, kw in calls] for name, calls in saved.items()}
+
+
+def _record_nearest_parts(shard: dict, width: int, height: int) -> dict[str, list]:
+    """smooth_nearest_parts' cases: shard 0's launches of config 4's smooth
+    step (:func:`_shard_calls`), f32 and upcast to f64, and on the same rays
+    against the shard's first n spheres for each n of ``SMALL``."""
+    calls = shard["nearest_parts"]
+    size = f"{width // 2}x{height // 2}"
+    cases = {f"smooth_nearest_parts config 4 shard 0 {size}": calls,
+             f"smooth_nearest_parts config 4 shard 0 {size} f64 (upcast)": _upcast(calls)}
+    for n in SMALL:
+        cases[f"smooth_nearest_parts shard 0's first {n} spheres {size}"] = [
+            ((*args[:2], args[2][:n].contiguous(), *args[3:]), {**kw, "s_cheap": n - 1}) for args, kw in calls]
+    return cases
+
+
+def _record_train(device, width: int, height: int) -> dict[str, list]:
+    """train_deep's cases: its one launch of an L2 loss through the fused
+    route (:func:`.train_deep_split._calls`) on config 5 (inverse_task(1024),
+    256x144 scaled with the frame, depth 3) mirror and glossy, in native f64
+    at half that size, on the 3-sphere reference at half the frame, mirror
+    and glossy, and on ``random_spheres_scene(n)`` for each n of SMALL."""
+    from python_ray_tracer_tpu_torch import RenderConfig
+    from python_ray_tracer_tpu_torch.models import scenes
+
+    from .train_deep_split import _calls
+
+    sw, sh = max(8, STEP_SIZE[0] * width // 1920), max(4, STEP_SIZE[1] * height // 1080)
+
+    def cfg(dtype=torch.float32, **kw):
+        return RenderConfig(max_depth=3, dtype=dtype, visibility="smooth", use_pallas=True, **kw)
+
+    f32, f64 = torch.float32, torch.float64
+    glossy = dict(stochastic_roughness=True, rng_seed=SEED)
+    c5 = scenes.inverse_task_scene(1024, sw, sh, dtype=f32, device=device)
+    ref = scenes.reference_scene(width // 2, height // 2, dtype=f32, device=device)
+    cases = {
+        "train_deep config 5": _calls(c5, cfg()),
+        "train_deep config 5 glossy": _calls(c5, cfg(**glossy), _key()),
+        "train_deep config 5 f64 (native, half size)": _calls(
+            scenes.inverse_task_scene(1024, max(8, sw // 2), max(4, sh // 2), dtype=f64, device=device), cfg(f64)),
+        "train_deep reference(3)": _calls(ref, cfg()),
+        "train_deep reference(3) glossy": _calls(ref, cfg(**glossy), _key()),
+    }
+    for n in SMALL:
+        cases[f"train_deep {n} spheres"] = _calls(scenes.random_spheres_scene(n, sw, sh, dtype=f32, device=device),
+                                                  cfg())
+    return cases
+
+
+def _record_clear(shard: dict, width: int, height: int) -> dict[str, list]:
+    """clear_fwd's cases (see the module's docstring)."""
+    calls = shard["clear_fwd"]
     size = f"{width // 2}x{height // 2}"
     cases = {f"clear_fwd config 4 shard 0 {size}": calls,
              f"clear_fwd config 4 shard 0 {size} f64 (upcast)": _upcast(calls)}
@@ -413,6 +485,10 @@ def _kernel(name: str):
 
     if name.startswith("smooth_fwd_step"):
         return bounce_smooth_sub.smooth_fwd_step
+    if name.startswith("train_deep"):
+        return bounce_smooth_sub.train_deep
+    if name.startswith("smooth_nearest_parts"):
+        return lambda *a, **k: tuple(smooth_parts.nearest_parts(*a, **k))
     if name.startswith("clear_fwd"):
         return smooth_parts.clear_fwd
     if name.startswith("bounce_lane"):
@@ -553,6 +629,64 @@ def step_counts_text(c: dict) -> str:
             f"{c['live']:.4%} of the {c['pairs']} lane-sphere pairs")
 
 
+def train_counts(args, kw) -> list[dict]:
+    """Counts of one train_deep launch's pairs, bounce by bounce (the chain
+    from ``smooth_fwd_deep``, whose residuals replay each bounce's shadow
+    rays): the shares of cheap-tier (warp, sphere) pairs the kernel's
+    winner sweep and shadow product visit with the skips
+    (:func:`..ops.bounce_smooth_sub.winner_reach`, ``shadow_reach``), the
+    lane-sphere shadow pairs whose sigmoid is not exactly 0, and the share
+    of (warp, sphere) pairs, both tiers, Phase C takes (some lane reached:
+    the sphere not its winner and its shadow sigmoid not exactly 0)."""
+    from python_ray_tracer_tpu_torch.ops import bounce_smooth_sub as bss
+    from python_ray_tracer_tpu_torch.ops.bounce_smooth import b_cterm_plain, compensated_b_cterm, sig
+
+    o, d, _, geom, mat, consts, xi = args[:7]
+    s_cheap, sharp_s, faraway, depth = kw["s_cheap"], kw["sharp_s"], kw["faraway"], kw["depth"]
+    n, s = d.shape[1], geom.shape[0]
+    with torch.no_grad():
+        _, osave, dsave, thrsave, alivesave, idx, hit, clear = bss.smooth_fwd_deep(o, d, geom, mat, consts, xi, **kw)
+        ones = torch.ones_like(d[0])
+        out = []
+        for dep in range(depth):
+            ro, rd = (o, d) if dep == 0 else (osave[3 * dep - 3:3 * dep], dsave[3 * dep - 3:3 * dep])
+            thr, alive = (ones, ones) if dep == 0 else (thrsave[dep - 1], alivesave[dep - 1])
+            f = bss.fwd_sub_math(tuple(ro), tuple(rd), thr, alive, geom, mat, consts, bss._xi_pair(xi, dep),
+                                 faraway=faraway, s_cheap=s_cheap, sharp_e=kw["sharp_e"], sharp_s=sharp_s,
+                                 saved=(idx[dep], hit[dep] != 0, clear[dep]))
+            winner = bss.winner_reach(ro.T.contiguous(), rd.T.contiguous(), geom, s_cheap, faraway)
+            p_n, to_light = torch.stack(f.p_n, 1), torch.stack(f.L, 1)
+            shadow = bss.shadow_reach(p_n, to_light, consts[0, 3:6], geom, s_cheap, sharp_s)
+            lanes = torch.zeros((-(-n // 32) * 32, s), dtype=torch.bool, device=d.device)
+            c, r = tuple(geom[None, :, i] for i in range(3)), geom[None, :, 3]
+            for a in range(0, n, 4096):
+                rows = slice(a, min(n, a + 4096))
+                po, pl = tuple(p_n[rows, i, None] for i in range(3)), tuple(to_light[rows, i, None] for i in range(3))
+                b_p, ct_p = b_cterm_plain(po, pl, c, r)
+                b_e, ct_e = compensated_b_cterm(po, pl, c, r)
+                cheap = torch.arange(s, device=d.device)[None, :] < s_cheap
+                disc = torch.where(cheap, b_p * b_p - 4.0 * ct_p, b_e * b_e - 4.0 * ct_e)
+                own = idx[dep][rows, None].long() == torch.arange(s, device=d.device)[None, :]
+                lanes[rows] = ~own & (sig(sharp_s * disc) != 0)
+            phase_c = lanes.reshape(-1, 32, s).any(1)
+            live = _live_pairs(p_n, to_light, geom[:s_cheap], sharp_s)
+            out.append(dict(winner=float(winner[:, :s_cheap].float().mean()) if s_cheap else 0.0,
+                            shadow=float(shadow[:, :s_cheap].float().mean()) if s_cheap else 0.0,
+                            phase_c=float(phase_c.float().mean()), live=live, warps=winner.shape[0], n=n, s=s,
+                            s_cheap=s_cheap, winner_kept=int(winner[:, :s_cheap].sum()),
+                            shadow_kept=int(shadow[:, :s_cheap].sum()), phase_c_kept=int(phase_c.sum()),
+                            phase_c_cheap_kept=int(phase_c[:, :s_cheap].sum()), f=f))
+    return out
+
+
+def train_counts_text(c: dict) -> str:
+    """:func:`train_counts`' figures of one bounce as the scripts print them."""
+    return (f"the winner sweep visits {c['winner']:.2%} and the shadow product {c['shadow']:.2%} of the "
+            f"{c['warps'] * c['s_cheap']} cheap-tier (warp, sphere) pairs, Phase C takes {c['phase_c']:.2%} of the "
+            f"{c['warps'] * c['s']}; sig(sharp_s disc) is not exactly 0 on "
+            f"{c['live'] / max(c['n'] * c['s_cheap'], 1):.4%} of the cheap-tier lane-sphere pairs")
+
+
 def _counts_line(name: str, calls: list) -> list:
     """The counts of each launch of a case, printed; returns the reached
     shares the A/B line shows."""
@@ -564,6 +698,15 @@ def _counts_line(name: str, calls: list) -> list:
             c = step_counts(args, kw)
             shares.append([round(c["winner"], 4), round(c["shadow"], 4)])
             print(f"[sweep_skip_ab] {name} bounce {b}: {step_counts_text(c)}", flush=True)
+        elif name.startswith("train_deep"):
+            cs = train_counts(args, kw)
+            shares.append([[round(c["winner"], 4), round(c["shadow"], 4), round(c["phase_c"], 4)] for c in cs])
+            for dep, c in enumerate(cs):
+                print(f"[sweep_skip_ab] {name} launch {b} bounce {dep}: {train_counts_text(c)}", flush=True)
+        elif name.startswith("smooth_nearest_parts"):
+            o, d, geom = args[:3]
+            reach = bounce_smooth_sub.winner_reach(o, d, geom, kw["s_cheap"], kw["faraway"])
+            shares.append([round(float(reach[:, :kw["s_cheap"]].float().mean()), 4)])
         elif name.startswith("clear_fwd"):
             o, d, geom = args[:3]
             reach = bounce_smooth_sub.shadow_reach(o, d, kw.get("light"), geom, kw["s_cheap"], kw["sharpness"])
@@ -621,8 +764,8 @@ def _instantiations(log: str) -> dict[str, dict]:
     its template arguments."""
     out = {}
     for mangled, figures in ptxas_kernels(log).items():
-        m = re.search(r"(bounce_lane|shadow_sweep|nearest_sweep|fwd_cs|smooth_fwd_step|clear_fwd)I([fd])((?:Lb[01]E)+)",
-                      mangled)
+        m = re.search(r"(bounce_lane|shadow_sweep|nearest_sweep|fwd_cs|smooth_fwd_step|clear_fwd|train_deep|"
+                      r"smooth_nearest_parts)I([fd])((?:Lb[01]E)+)", mangled)
         if m:
             flags = ", ".join("true" if b == "1" else "false" for b in re.findall(r"Lb([01])E", m.group(3)))
             out[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}, {flags}>"] = figures
@@ -663,6 +806,14 @@ def _layout(logs: dict[str, str], label: str) -> None:
         blocks = {f"skip={k}": smooth_parts.clear_fwd_blocks_per_sm(dtype, SHARD, skip=k) for k in (False, True)}
         print(f"[sweep_skip_ab] clear_fwd {dtype} {SHARD} spheres, resident blocks of 256 an SM: {blocks} ({label})",
               flush=True)
+        blocks = {f"skip={k}": smooth_parts.nearest_parts_blocks_per_sm(dtype, SHARD, skip=k) for k in (False, True)}
+        print(f"[sweep_skip_ab] smooth_nearest_parts {dtype} {SHARD} spheres, resident blocks of 256 an SM: {blocks} "
+              f"({label})", flush=True)
+        for s in (3, 1024, 4096):
+            blocks = {f"glossy={g} skip={k}": bounce_smooth_sub.blocks_per_sm("train_deep", dtype, g, s, skip=k)
+                      for g in (False, True) for k in (False, True)}
+            print(f"[sweep_skip_ab] train_deep {dtype} {s} spheres, resident blocks an SM (128 threads): {blocks} "
+                  f"({label})", flush=True)
 
 
 def _host_ms(fn, warmup: int = 1, iters: int = 5) -> float:

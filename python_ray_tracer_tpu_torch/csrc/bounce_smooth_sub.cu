@@ -10,7 +10,9 @@
 //   _train_kernel_sub_deep (:1799, launched at :1896) -> train_deep
 //       forward chain, the L2 cotangent 2 (clip(acc) - tgt) clip'(acc), and
 //       the reverse adjoint in one launch; the per-bounce replay state stays
-//       in thread-local memory, nothing but gradients and the SSE leaves.
+//       in thread-local memory, nothing but gradients and the SSE leaves;
+//       one row of table gradients a CTA, and from 16 cheap-tier spheres on
+//       the skips of the one-bounce pair (see the kernel).
 //   _fwd_kernel_sub        (:544, launched at :1159)  -> smooth_fwd_step
 //       one bounce: the state (o, d, thr, alive, acc) in and out, plus the
 //       residuals (idx, hit, clear); the depth-1 route and the scan route.
@@ -64,15 +66,18 @@
 //     memory by index;
 //   * sphere and depth loops are runtime loops: no TPU compile-size caps;
 //   * table gradients without float atomics, in memory bounded in N.  In
-//     smooth_bwd_deep and train_deep each warp owns one column of a
+//     smooth_bwd_deep each warp owns one column of a
 //     (values, cols) partials array (cols given by the caller, at most
 //     ceil(N / 32); the wrapper's PARTIAL_COLS caps it), and walks the
 //     ray-warps col, col + cols, ... in that order; for each, the warp sums
 //     its lanes' contributions by a shuffle tree and lane 0 adds the sum
 //     into its column; the partials take (23 S + 17) * cols values.
-//     smooth_bwd_step skips the shadow spheres that reach none of a warp's
-//     rays and sums the rest over its CTA in shared memory into one row a
-//     CTA, (19 S + 16) values (see the kernel).  A second kernel sums the
+//     smooth_bwd_step and train_deep skip the shadow spheres that reach
+//     none of a warp's rays and sum the rest over their CTA in shared
+//     memory into one row a CTA, (19 S + 16) values (see the kernels).  At
+//     config 5 (1024 spheres) a column sink and Phase C over every sphere
+//     took 29% and ~44% of a column layout's train_deep
+//     (benchmarks/train_deep_split.py).  A second kernel sums the
 //     columns or rows in a fixed order: two launches on the same inputs
 //     give bitwise-equal gradients;
 //   * smooth_fwd_step (kSkip, by the launch rule from kStepSkipMinCheap
@@ -82,7 +87,8 @@
 //     96% of its time (benchmarks/smooth_fwd_split.py), and a warp's bounds
 //     rule out most of their pairs; what is left is held by the warps whose
 //     rays scatter too wide for a bound (PERF.md).  Its outputs stay
-//     bitwise the full sweeps'.
+//     bitwise the full sweeps'.  train_deep (kSkip, by the same rule)
+//     takes the same sets on each bounce of its chain.
 //
 // Numerics: smooth_math.cuh (no FMA contraction, the smooth split factor,
 // the sigmoid's form, the tie rules); x**n for integer n is binary
@@ -136,13 +142,12 @@ template <typename T> struct Partials {
   }
   __device__ __forceinline__ void consts(const Scal<T>& sc, int c, T x) const { add(v_const(sc.s_total, c), x); }
 
-  // Value indices of the partials: geom (S, 4), then mat (S, 19), consts 16, SSE.
+  // Value indices of the partials: geom (S, 4), then mat (S, 19), consts
+  // 16, and one value that no kernel writes.
   static __device__ __forceinline__ int v_geom(int k, int c) { return 4 * k + c; }
   static __device__ __forceinline__ int v_mat(int s, int k, int c) { return 4 * s + kMatCols * k + c; }
   static __device__ __forceinline__ int v_const(int s, int c) { return (4 + kMatCols) * s + c; }
 };
-
-__device__ __forceinline__ int v_sse(int s) { return (4 + kMatCols) * s + kNConst; }
 
 // The geometry as the kernels index it: staged in shared memory, or read
 // from global memory (LdgGeom).
@@ -302,77 +307,6 @@ __global__ void __launch_bounds__(kThreads)
   });
 }
 
-// Replay state of one bounce, kept in thread-local memory by train_deep.
-template <typename T> struct Replay {
-  V3<T> o, d;
-  T thr, alive, clear;
-  int idx;
-  bool hit;
-};
-
-template <typename T, bool kXi, bool kStaged>
-__global__ void __launch_bounds__(kThreads)
-    train_deep(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ tgt,
-               const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst,
-               const T* __restrict__ xi, T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ parts, int n,
-               int n_cols, int depth, Scal<T> sc) {
-  const Tables<T, kStaged> tb = stage_tables<T, kStaged>(geom, cst, sc.s_total);
-  const long long N = n;
-  for_ray_warps(parts, n, n_cols, [&](const Partials<T>& part, long long i) {
-    Replay<T> saved[kMaxTrainDepth];
-    V3<T> ro = {o[i], o[N + i], o[2 * N + i]};
-    V3<T> rd = {d[i], d[N + i], d[2 * N + i]};
-    T thr = T(1), alive = T(1);
-    V3<T> a = {T(0), T(0), T(0)};
-    Fwd<T> f;
-    for (int dep = 0; dep < depth; ++dep) {
-      T xi1, xi2;
-      load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
-      fwd_bounce<T, kXi, Winner::kSweep>(f, ro, rd, thr, alive, tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1, xi2);
-      for (int c = 0; c < 3; ++c) a[c] = a[c] + f.color[c] * f.w;
-      saved[dep] = {ro, rd, thr, alive, f.clear, f.idx, f.hit};
-      ro = f.p_n;
-      rd = f.dout;
-      thr = f.thr_out;
-      alive = f.coverage;
-    }
-
-    // In-kernel L2 cotangent: sse = sum (clip(acc) - tgt)^2; the 1/(3N) of
-    // the mean and the loss's upstream cotangent are applied by the caller.
-    T sse = T(0);
-    V3<T> g_acc;
-    for (int c = 0; c < 3; ++c) {
-      const T e = clip01(a[c]) - tgt[c * N + i];
-      sse = sse + e * e;
-      const T g_lo = T(0.5) * ((a[c] >= T(0) ? T(1) : T(0)) + (a[c] > T(0) ? T(1) : T(0)));
-      const T y = vmax(a[c], T(0));
-      const T g_hi = T(0.5) * ((y <= T(1) ? T(1) : T(0)) + (y < T(1) ? T(1) : T(0)));
-      g_acc[c] = T(2) * e * (g_lo * g_hi);
-    }
-    part.add(v_sse(sc.s_total), sse);
-
-    V3<T> g_o = {T(0), T(0), T(0)}, g_d = {T(0), T(0), T(0)};
-    T g_thr = T(0), g_alive = T(0);
-    for (int dep = depth - 1; dep >= 0; --dep) {
-      const Replay<T>& r = saved[dep];
-      f.idx = r.idx;
-      f.hit = r.hit;
-      f.clear = r.clear;
-      T xi1, xi2;  // read again: the replay keeps no xi
-      load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
-      fwd_bounce<T, kXi, Winner::kSaved>(f, r.o, r.d, r.thr, r.alive, tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1,
-                                         xi2);
-      adjoint_bounce<T, kXi>(f, g_o, g_d, g_thr, g_alive, g_acc, tb.geom, tb.cst, sc, AllSpheres{}, part);
-    }
-    if (part.valid) {
-      for (int c = 0; c < 3; ++c) {
-        g_o_out[c * N + i] = g_o[c];
-        g_d_out[c * N + i] = g_d[c];
-      }
-    }
-  });
-}
-
 // One smooth bounce per launch (_fwd_kernel_sub; above 4096 spheres the
 // lane kernel _fwd_kernel of pallas_bounce_smooth.py): the state (o, d,
 // thr, alive, acc) in, the next state and the bounce's residuals (idx, hit,
@@ -494,6 +428,115 @@ template <typename T> __device__ __forceinline__ T chunk_value(const T* geom, in
   return g < groups && k < s_total ? __ldg(geom + 4 * k + x % 4) : T(0);
 }
 
+// Phase C of one ray-warp over the spheres [ka, kb) of one tier (kExact,
+// known when compiled: a loop over one tier runs only that tier's
+// quadratic), in sphere order; each sphere taken adds its terms to the
+// lane's g_pn_s and g_L and hands its four table values to put(k, gk), on
+// every lane of the warp.  kTest: kStepTests spheres are tested at once,
+// independent chains without a branch under one vote, and a sphere that
+// reaches no valid lane of the warp is passed (its terms are all exactly
+// +-0, which leave every sum as it is).  The test is shadow_reaches'
+// without a branch where the answer is sure: below the sigmoid's zero edge
+// (SigEdge lo) the sphere is passed, above it (hi) it reaches; only where a
+// lane sits on the edge (or at a NaN) does the sigmoid decide, under a vote
+// of the warp.  Without kTest every sphere is taken.
+template <bool kExact, bool kTest = true, typename T, typename G, typename P>
+__device__ __forceinline__ void phase_c_tier(int ka, int kb, bool valid, const Fwd<T>& f, T g_cc, const G& geom,
+                                             const Scal<T>& sc, V3<T>& g_pn_s, V3<T>& g_L, P&& put) {
+  if constexpr (!kTest) {
+    for (int k = ka; k < kb; ++k) {
+      T gk[4];
+      shadow_adjoint(k, f.p_n, f.L, f.idx, g_cc, geom, sc, g_pn_s, g_L, gk);
+      put(k, gk);
+    }
+  } else {
+    for (int k = ka; k < kb; k += kStepTests) {
+      T xs[kStepTests];
+      unsigned reach = 0;  // bit j: sphere k + j reaches the lane
+      bool edge = false;
+#pragma unroll
+      for (int j = 0; j < kStepTests; ++j) {
+        const int kk = min(k + j, kb - 1);
+        xs[j] = shadow_arg<kExact>(kk, f.p_n, f.L, geom, sc);
+        const bool maybe = valid & (k + j < kb) & (f.idx != kk) & !(xs[j] < SigEdge<T>::lo);
+        edge |= maybe & !(xs[j] > SigEdge<T>::hi);
+        reach |= static_cast<unsigned>(maybe) << j;
+      }
+      if (__any_sync(0xffffffffu, edge)) {
+#pragma unroll
+        for (int j = 0; j < kStepTests; ++j) {
+          if ((reach >> j & 1u) && !(xs[j] > SigEdge<T>::hi) && sig(xs[j]) == T(0)) reach &= ~(1u << j);
+        }
+      }
+      if (!__any_sync(0xffffffffu, reach != 0)) continue;
+      for (int j = 0; j < kStepTests && k + j < kb; ++j) {
+        if (!__any_sync(0xffffffffu, reach >> j & 1u)) continue;
+        T gk[4];
+        shadow_adjoint(k + j, f.p_n, f.L, f.idx, g_cc, geom, sc, g_pn_s, g_L, gk);
+        put(k + j, gk);
+      }
+    }
+  }
+}
+
+// Phase F's sum in one warp: each distinct winner key (-1 where the lane
+// adds nothing) once, at its lowest lane (the leader: returns true), the
+// peers' rows summed in lane order into sum through the warp's exchange
+// (slot's (kStepMat, kWarp) values of scratch).
+template <typename T>
+__device__ __forceinline__ bool winner_sum(int key, int lane, const T (&rows_f)[kAdjMat], T* scratch, int slot,
+                                           T (&sum)[kStepMat]) {
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const bool leader = key >= 0 && __ffs(peers) - 1 == lane;
+  T* ex = scratch + slot * (kStepMat * kWarp);
+  for (int c = 0; c < kStepMat; ++c) ex[c * kWarp + lane] = rows_f[c];
+  __syncwarp();
+  if (leader) {
+    for (int c = 0; c < kStepMat; ++c) sum[c] = T(0);
+    for (unsigned m = peers; m != 0; m &= m - 1) {
+      const int p = __ffs(m) - 1;
+      for (int c = 0; c < kStepMat; ++c) sum[c] += ex[c * kWarp + p];
+    }
+  }
+  return leader;
+}
+
+// Phase F's rows: the CTA's ray-warps in turn (turn: the caller's, 0 ..
+// kStepRayWarps - 1), each leader adding its sum into its winner's row of
+// row_m: one writer a slot.  Every thread of the CTA calls it (its
+// barriers).
+template <typename T>
+__device__ __forceinline__ void winner_rows_add(bool leader, int key, int turn, const T (&sum)[kStepMat], T* row_m) {
+  for (int t = 0; t < kStepRayWarps; ++t) {
+    if (t == turn && leader) {
+      T* rm = row_m + static_cast<long long>(kStepMat) * key;
+      for (int c = 0; c < kStepMat; ++c) rm[c] += sum[c];
+    }
+    __syncthreads();
+  }
+}
+
+// Phase G of a CTA: the kN values each thread summed in registers, each
+// summed over the warp and then over the CTA's kWarps warps in order
+// through scratch (kWarps, kN), into the constants row row_c (kNConst
+// values, zeros past kN).
+template <int kN, int kWarps, typename T>
+__device__ __forceinline__ void phase_g_row(const T (&v_in)[kN], int x, int lane, int warp, T* scratch, T* row_c) {
+  for (int c = 0; c < kN; ++c) {
+    const T s = warp_sum(v_in[c]);
+    if (lane == 0) scratch[warp * kN + c] = s;
+  }
+  __syncthreads();
+  if (x < kNConst) {
+    T v = T(0);
+    if (x < kN) {
+      v = scratch[x];
+      for (int w = 1; w < kWarps; ++w) v += scratch[w * kN + x];
+    }
+    row_c[x] = v;
+  }
+}
+
 template <typename T, bool kXi, bool kAtlas>
 __global__ void __launch_bounds__(kStepThreads)
     smooth_bwd_step(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
@@ -560,47 +603,15 @@ __global__ void __launch_bounds__(kStepThreads)
       const T next = chunk_value(geom, g + 1, groups, S, x);  // the next group's, read while this one runs
       const ChunkGeom<T> cg{chunks + buf * kStepThreads + slice * kStepChunk * 4, k0};
       T* red = scratch + buf * kStepRed;
-      // The spheres [ka, kb) of one tier (kExact, known when compiled),
-      // kStepTests at a time under one vote; a sphere that reaches no valid
-      // lane of the warp is passed (its terms are all exactly +-0, which
-      // leave every sum as it is), the others take Phase C in sphere order.
-      // The test is shadow_reaches' without a branch where the answer is
-      // sure: below the sigmoid's zero edge (SigEdge lo) the sphere is
-      // passed, above it (hi) it reaches; only where a lane sits on the edge
-      // (or at a NaN) does the sigmoid decide, under a vote of the warp.
-      auto spheres = [&](auto exact, int ka, int kb) {
-        for (int k = ka; k < kb; k += kStepTests) {
-          T xs[kStepTests];
-          unsigned reach = 0;  // bit j: sphere k + j reaches the lane
-          bool edge = false;
-#pragma unroll
-          for (int j = 0; j < kStepTests; ++j) {
-            const int kk = min(k + j, kb - 1);
-            xs[j] = shadow_arg<decltype(exact)::value>(kk, f.p_n, f.L, cg, sc);
-            const bool maybe = valid & (k + j < kb) & (f.idx != kk) & !(xs[j] < SigEdge<T>::lo);
-            edge |= maybe & !(xs[j] > SigEdge<T>::hi);
-            reach |= static_cast<unsigned>(maybe) << j;
-          }
-          if (__any_sync(0xffffffffu, edge)) {
-#pragma unroll
-            for (int j = 0; j < kStepTests; ++j) {
-              if ((reach >> j & 1u) && !(xs[j] > SigEdge<T>::hi) && sig(xs[j]) == T(0)) reach &= ~(1u << j);
-            }
-          }
-          if (!__any_sync(0xffffffffu, reach != 0)) continue;
-          for (int j = 0; j < kStepTests && k + j < kb; ++j) {
-            if (!__any_sync(0xffffffffu, reach >> j & 1u)) continue;
-            T gk[4];
-            shadow_adjoint(k + j, f.p_n, f.L, f.idx, g_cc, cg, sc, g_pn_s, g_L, gk);
-            for (int c = 0; c < 4; ++c) {
-              const T s = warp_sum(valid ? gk[c] : T(0));
-              if (lane == 0) red[((slice * kStepChunk + (k + j - k0)) * kStepRayWarps + rws) * 4 + c] = s;
-            }
-          }
+      // A reached sphere's four values, each summed over the warp into its slot.
+      auto put = [&](int k, const T (&gk)[4]) {
+        for (int c = 0; c < 4; ++c) {
+          const T s = warp_sum(valid ? gk[c] : T(0));
+          if (lane == 0) red[((slice * kStepChunk + (k - k0)) * kStepRayWarps + rws) * 4 + c] = s;
         }
       };
-      spheres(std::false_type{}, k0, min(k1, sc.s_cheap));
-      spheres(std::true_type{}, max(k0, sc.s_cheap), k1);
+      phase_c_tier<false>(k0, min(k1, sc.s_cheap), valid, f, g_cc, cg, sc, g_pn_s, g_L, put);
+      phase_c_tier<true>(max(k0, sc.s_cheap), k1, valid, f, g_cc, cg, sc, g_pn_s, g_L, put);
       chunks[(buf ^ 1) * kStepThreads + x] = next;  // the buffer the previous group read
       __syncthreads();
       // Thread x finishes value x % 4 of slot (x / 4) % kStepChunk of the
@@ -663,44 +674,198 @@ __global__ void __launch_bounds__(kStepThreads)
     // Phase F: each distinct winner of a warp once, at its lowest lane.
     T sum[kStepMat];
     bool leader = false;
-    if (slice == 0) {
-      const unsigned peers = __match_any_sync(0xffffffffu, key);
-      leader = key >= 0 && __ffs(peers) - 1 == lane;
-      T* ex = scratch + rws * (kStepMat * kWarp);
-      for (int c = 0; c < kStepMat; ++c) ex[c * kWarp + lane] = rows_f[c];
-      __syncwarp();
-      if (leader) {
-        for (int c = 0; c < kStepMat; ++c) sum[c] = T(0);
-        for (unsigned m = peers; m != 0; m &= m - 1) {
-          const int p = __ffs(m) - 1;
-          for (int c = 0; c < kStepMat; ++c) sum[c] += ex[c * kWarp + p];
-        }
-      }
-    }
-    for (int t = 0; t < kStepRayWarps; ++t) {  // the ray-warps in turn: one writer a slot
-      if (t == rws && leader) {
-        T* rm = row_m + static_cast<long long>(kStepMat) * key;
-        for (int c = 0; c < kStepMat; ++c) rm[c] += sum[c];
-      }
-      __syncthreads();
-    }
+    if (slice == 0) leader = winner_sum(key, lane, rows_f, scratch, rws, sum);
+    winner_rows_add(leader, key, rws, sum, row_m);
   }
 
   // Phase G: the CTA's sums of the scene constants, warps in order (the
   // slice-0 warps hold them; the others add zeros).
-  for (int c = 0; c < kAdjConsts; ++c) {
-    const T s = warp_sum(g_consts[c]);
-    if (lane == 0) scratch[warp * kAdjConsts + c] = s;
-  }
-  __syncthreads();
-  if (x < kNConst) {
-    T v = T(0);
-    if (x < kAdjConsts) {
-      v = scratch[x];
-      for (int w = 1; w < kStepRayWarps * kStepSplit; ++w) v += scratch[w * kAdjConsts + x];
+  phase_g_row<kAdjConsts, kStepRayWarps * kStepSplit>(g_consts, x, lane, warp, scratch, row_c);
+}
+
+// Replay state of one bounce, kept in thread-local memory by train_deep.
+template <typename T> struct Replay {
+  V3<T> o, d;
+  T thr, alive, clear;
+  int idx;
+  bool hit;
+};
+
+// The whole L2 training step of each ray in one launch
+// (_train_kernel_sub_deep): the forward chain, the in-kernel L2 cotangent
+// (sse = sum (clip(acc) - tgt)^2; the 1/(3N) of the mean and the loss's
+// upstream cotangent are the caller's) and the reverse adjoint over the
+// replayed bounces, laid out as smooth_bwd_step is.  A CTA takes
+// kStepRayWarps ray-warps a round, one a warp; rows CTAs (at most
+// kStepMaxRows) walk the ray-warps in rounds, CTA b taking ray-warps (r *
+// rows + b) * kStepRayWarps + 0..3 in round r.  Each CTA owns one row of
+// table gradients: geometry (S, 4) and material (S, 15) added into (the
+// wrapper zeroes them), constants 16 written whole, the SSE in the
+// constants' column kTrainSse (no constant takes a gradient there);
+// reduce_rows sums the rows in a fixed order.  No float atomics, no
+// read-modify-write of device memory in the sphere loops.
+//   forward  kSkip: each bounce's winner sweep and shadow product over
+//            SkipAll (smooth_math.cuh), which leaves out the cheap-tier
+//            spheres the warp's bounds show cannot change them, as
+//            smooth_fwd_step does (the warp's two bundles in the dynamic
+//            shared memory after the scratch; warp_full: all 32 rays real).
+//   Phase C  a chunk of kStepChunk spheres at a time, each tier its own
+//            loop (phase_c_tier, smooth_bwd_step's); kSkip: kStepTests
+//            spheres tested under one vote, and a sphere that reaches no
+//            valid lane of the warp passed.  A sphere taken has its four
+//            values summed over the warp into a shared slot; after the
+//            chunk, where a warp of the CTA took one, the CTA sums each
+//            sphere's slots over its warps in order into the row (one
+//            thread a value) and clears them.  The geometry is the kernel's
+//            own (staged whole, or read from global memory).
+//   Phase F  winner_sum and winner_rows_add, smooth_bwd_step's.
+//   Phase G  the constants and the SSE summed in registers over a thread's
+//            rays, then phase_g_row, smooth_bwd_step's.
+// Every output (g_o, g_d, the SSE, the table gradients) with kSkip is bitwise
+// the kernel's without.
+constexpr int kTrainSse = kAdjConsts;
+// Shared scratch after the consts row: Phase C's slots (kStepChunk,
+// kStepRayWarps, 4), kept clear between chunks; then Phase F's exchange
+// (kStepRayWarps, kStepMat, kWarp), reused by Phase G (warps, kAdjConsts +
+// 1); then (kSkip) the forward's two bundles a warp.
+constexpr int kTrainSlots = kStepChunk * kStepRayWarps * 4;
+constexpr int kTrainScratch = kTrainSlots + cmax(kStepRayWarps * kStepMat * kWarp, kStepRayWarps * (kAdjConsts + 1));
+constexpr int kTrainBundleValues = 2 * kBundleValues * kStepRayWarps;
+static_assert(kStepChunk * 4 == kStepThreads, "a flush takes one value a thread");
+
+template <typename T, bool kXi, bool kStaged, bool kSkip>
+__global__ void __launch_bounds__(kStepThreads)
+    train_deep(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ tgt,
+               const T* __restrict__ geom, const T* __restrict__ mat, const T* __restrict__ cst,
+               const T* __restrict__ xi, T* __restrict__ g_o_out, T* __restrict__ g_d_out, T* __restrict__ pg,
+               T* __restrict__ pm, T* __restrict__ pc, int n, int rows, int depth, Scal<T> sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S = sc.s_total;
+  T* const slots = reinterpret_cast<T*>(smem_raw) + (kStaged ? 4 * S : 0) + kNConst;
+  T* const ex = slots + kTrainSlots;
+  const int x = threadIdx.x, lane = x % kWarp, warp = x / kWarp;
+  for (int v = x; v < kTrainSlots; v += kStepThreads) slots[v] = T(0);
+  const Tables<T, kStaged> tb = stage_tables<T, kStaged>(geom, cst, S);  // its barrier covers the slots too
+  const long long N = n;
+  T* const row_g = pg + static_cast<long long>(blockIdx.x) * S * 4;
+  T* const row_m = pm + static_cast<long long>(blockIdx.x) * S * kStepMat;
+  T* const row_c = pc + static_cast<long long>(blockIdx.x) * kNConst;
+  const int n_ray_warps = ray_warps(n);
+  const int rounds = (n_ray_warps + rows * kStepRayWarps - 1) / (rows * kStepRayWarps);
+  T g_consts[kAdjConsts + 1];  // the scene constants' gradients, then the SSE
+  for (int c = 0; c <= kAdjConsts; ++c) g_consts[c] = T(0);
+
+  for (int r = 0; r < rounds; ++r) {  // uniform over the CTA
+    const long long rw = (static_cast<long long>(r) * rows + blockIdx.x) * kStepRayWarps + warp;
+    const long long gi = rw * kWarp + lane;
+    const bool valid = gi < n;
+    const long long i = valid ? gi : N - 1;  // past the edge: a copy of the last ray, adding zero
+    const bool warp_full = kSkip && __all_sync(0xffffffffu, valid);
+    Replay<T> saved[kMaxTrainDepth];
+    V3<T> ro = {o[i], o[N + i], o[2 * N + i]};
+    V3<T> rd = {d[i], d[N + i], d[2 * N + i]};
+    T thr = T(1), alive = T(1);
+    V3<T> a = {T(0), T(0), T(0)};
+    Fwd<T> f;
+    for (int dep = 0; dep < depth; ++dep) {
+      T xi1, xi2;
+      load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
+      if constexpr (kSkip) {
+        const SkipAll<T> sets = {slots + kTrainScratch + 2 * kBundleValues * warp, warp_full};
+        fwd_bounce<T, kXi, Winner::kSweep, false, true>(f, ro, rd, thr, alive, tb.geom, mat, tb.cst, sc, sets, xi1,
+                                                        xi2);
+      } else {
+        fwd_bounce<T, kXi, Winner::kSweep>(f, ro, rd, thr, alive, tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1, xi2);
+      }
+      for (int c = 0; c < 3; ++c) a[c] = a[c] + f.color[c] * f.w;
+      saved[dep] = {ro, rd, thr, alive, f.clear, f.idx, f.hit};
+      ro = f.p_n;
+      rd = f.dout;
+      thr = f.thr_out;
+      alive = f.coverage;
     }
-    row_c[x] = v;
+
+    // The L2 cotangent.
+    T sse = T(0);
+    V3<T> g_acc;
+    for (int c = 0; c < 3; ++c) {
+      const T e = clip01(a[c]) - tgt[c * N + i];
+      sse = sse + e * e;
+      const T g_lo = T(0.5) * ((a[c] >= T(0) ? T(1) : T(0)) + (a[c] > T(0) ? T(1) : T(0)));
+      const T y = vmax(a[c], T(0));
+      const T g_hi = T(0.5) * ((y <= T(1) ? T(1) : T(0)) + (y < T(1) ? T(1) : T(0)));
+      g_acc[c] = T(2) * e * (g_lo * g_hi);
+    }
+    if (valid) g_consts[kTrainSse] += sse;
+
+    V3<T> g_o = {T(0), T(0), T(0)}, g_d = {T(0), T(0), T(0)};
+    T g_thr = T(0), g_alive = T(0);
+    for (int dep = depth - 1; dep >= 0; --dep) {
+      const Replay<T>& rp = saved[dep];
+      f.idx = rp.idx;
+      f.hit = rp.hit;
+      f.clear = rp.clear;
+      T xi1, xi2;  // read again: the replay keeps no xi
+      load_xi<T, kXi>(xi, dep, N, i, xi1, xi2);
+      fwd_bounce<T, kXi, Winner::kSaved>(f, rp.o, rp.d, rp.thr, rp.alive, tb.geom, mat, tb.cst, sc, AllSpheres{}, xi1,
+                                         xi2);
+      AdjShade<T> adj = adjoint_shade<T, kXi>(f, g_d, g_thr, g_alive, g_acc, tb.cst, sc);
+
+      // --- Phase C, a chunk of spheres at a time ---
+      const T g_cc = adj.g_clear * f.clear;
+      V3<T> g_pn_s = {T(0), T(0), T(0)};
+      for (int k0 = 0; k0 < S; k0 += kStepChunk) {  // uniform over the CTA
+        const int k1 = min(k0 + kStepChunk, S);
+        bool took = false;
+        auto put = [&](int k, const T (&gk)[4]) {
+          for (int c = 0; c < 4; ++c) {
+            const T s = warp_sum(valid ? gk[c] : T(0));
+            if (lane == 0) slots[((k - k0) * kStepRayWarps + warp) * 4 + c] = s;
+          }
+          took = true;
+        };
+        phase_c_tier<false, kSkip>(k0, min(k1, sc.s_cheap), valid, f, g_cc, tb.geom, sc, g_pn_s, adj.g_L, put);
+        phase_c_tier<true, kSkip>(max(k0, sc.s_cheap), k1, valid, f, g_cc, tb.geom, sc, g_pn_s, adj.g_L, put);
+        if (__syncthreads_or(took)) {
+          // Thread x finishes value x % 4 of sphere k0 + x / 4: its slots
+          // over the warps in order (a warp that took no sphere there left
+          // its slot clear), into the row; then clears them.
+          const int e = x / 4, c = x % 4;
+          T* const sl = slots + e * kStepRayWarps * 4 + c;
+          if (k0 + e < S) {
+            T v = sl[0];
+            for (int w = 1; w < kStepRayWarps; ++w) v += sl[4 * w];
+            row_g[4 * static_cast<long long>(k0 + e) + c] += v;
+          }
+          for (int w = 0; w < kStepRayWarps; ++w) sl[4 * w] = T(0);
+          __syncthreads();
+        }
+      }
+
+      // --- Phases D-E, then F's row and G's constants ---
+      T rows_f[kAdjMat], consts[kAdjConsts];
+      adjoint_geometry(f, adj, g_pn_s, g_o, g_d, rows_f, consts);
+      g_thr = adj.g_thr_in;
+      g_alive = adj.g_alive_in;
+      if (valid) {
+        for (int c = 0; c < kAdjConsts; ++c) g_consts[c] += consts[c];
+      }
+      // Phase F: each distinct winner of a warp once, at its lowest lane.
+      const int key = valid ? f.idx : -1;  // -1 where it adds nothing
+      T sum[kStepMat];
+      const bool leader = winner_sum(key, lane, rows_f, ex, warp, sum);
+      winner_rows_add(leader, key, warp, sum, row_m);
+    }
+    if (valid) {
+      for (int c = 0; c < 3; ++c) {
+        g_o_out[c * N + i] = g_o[c];
+        g_d_out[c * N + i] = g_d[c];
+      }
+    }
   }
+
+  // Phase G: the CTA's sums of the constants and the SSE, warps in order.
+  phase_g_row<kAdjConsts + 1, kStepRayWarps>(g_consts, x, lane, warp, ex, row_c);
 }
 
 // smooth_bwd_step's second pass, a fixed order: block k < S sums sphere k's
@@ -805,18 +970,9 @@ int launch_reduce(int err, const T* parts, T* flat, int n_cols, int s_total, cud
 }
 
 // Launch KERNEL's instantiation for the xi pointer (null: the deterministic
-// kernel, else the glossy one) and the table size (staged geometry up to
-// kStageMaxBytes); evaluates to the launch's CUDA error.
-#define PRT_DISPATCH(KERNEL, T, BLOCKS, S_TOTAL, STREAM, ...)                                        \
-  (xi ? (staged<T>(S_TOTAL)                                                                    \
-             ? launch_one<T, true>(KERNEL<T, true, true>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)     \
-             : launch_one<T, false>(KERNEL<T, true, false>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__))  \
-      : (staged<T>(S_TOTAL)                                                                    \
-             ? launch_one<T, true>(KERNEL<T, false, true>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)    \
-             : launch_one<T, false>(KERNEL<T, false, false>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)))
-
-// The same for a kernel with an atlas mode: ATLAS (the flat-id pointer, or
-// the g_dww one) non-null launches that instantiation.
+// kernel, else the glossy one), the table size (staged geometry up to
+// kStageMaxBytes) and ATLAS (the flat-id pointer, or the g_dww one: non-null
+// launches the atlas mode); evaluates to the launch's CUDA error.
 #define PRT_DISPATCH_ATLAS(KERNEL, T, ATLAS, BLOCKS, S_TOTAL, STREAM, ...)                                    \
   (xi ? (staged<T>(S_TOTAL)                                                                                \
              ? (ATLAS ? launch_one<T, true>(KERNEL<T, true, true, true>, BLOCKS, S_TOTAL, STREAM, __VA_ARGS__)    \
@@ -860,20 +1016,6 @@ int launch_bwd(const T* o, const T* d, const T* osave, const T* dsave, const T* 
   const int err = PRT_DISPATCH_ATLAS(smooth_bwd_deep, T, g_dww, col_blocks(n_cols), s_total, st, o, d, osave, dsave,
                                      thrsave, alivesave, idx, hit, clear, geom, mat, cst, xi, g_acc, g_dww, g_o, g_d,
                                      parts, n, n_cols, depth, sc);
-  return launch_reduce(err, parts, flat, n_cols, s_total, st);
-}
-
-template <typename T>
-int launch_train(const T* o, const T* d, const T* tgt, const T* geom, const T* mat, const T* cst, const T* xi,
-                 T* g_o, T* g_d, T* parts, T* flat, int n, int n_cols, int s_cheap, int s_total, int depth,
-                 T faraway, T sharp_e, T sharp_s, void* stream) {
-  if (bad_args(n, s_cheap, s_total, depth) || bad_cols(n, n_cols) || depth > kMaxTrainDepth) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = PRT_DISPATCH(train_deep, T, col_blocks(n_cols), s_total, st, o, d, tgt, geom, mat, cst, xi, g_o,
-                               g_d, parts, n, n_cols, depth, sc);
   return launch_reduce(err, parts, flat, n_cols, s_total, st);
 }
 
@@ -962,7 +1104,48 @@ int launch_bwd_step(const T* o, const T* d, const T* thr, const T* alive, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-#undef PRT_DISPATCH
+// train_deep's dynamic shared memory: the tables' and the scratch, and
+// with the skips the bundles.
+template <typename T> int train_smem_bytes(bool is_staged, bool skip, int s_total) {
+  const int scratch = kTrainScratch + (skip ? kTrainBundleValues : 0);
+  return smem_bytes<T>(is_staged, s_total) + static_cast<int>(sizeof(T)) * scratch;
+}
+
+template <typename T, bool kXi, bool kStaged, bool kSkip, typename... A>
+int launch_train_as(int rows, int s_total, cudaStream_t stream, A... args) {
+  const auto kernel = train_deep<T, kXi, kStaged, kSkip>;
+  const int smem = train_smem_bytes<T>(kStaged, kSkip, s_total);
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<rows, kStepThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// train_deep's skips: taken as smooth_fwd_step's, from kStepSkipMinCheap
+// cheap-tier spheres on (skip = -1), or as the caller forces them (0 off, 1
+// on: the card check and the A/B time both sides).
+template <typename T>
+int launch_train(const T* o, const T* d, const T* tgt, const T* geom, const T* mat, const T* cst, const T* xi, T* g_o,
+                 T* g_d, T* pg, T* pm, T* pc, T* flat, int n, int rows, int s_cheap, int s_total, int depth,
+                 T faraway, T sharp_e, T sharp_s, int skip, void* stream) {
+  if (bad_args(n, s_cheap, s_total, depth) || bad_rows(n, rows) || depth > kMaxTrainDepth || skip < -1 || skip > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Scal<T> sc = {faraway, sharp_e, sharp_s, s_cheap, s_total};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool on = skip < 0 ? s_cheap >= kStepSkipMinCheap : skip == 1;
+#define PRT_TRAIN(XI, SKIP)                                                                                       \
+  (staged<T>(s_total) ? launch_train_as<T, XI, true, SKIP>(rows, s_total, st, o, d, tgt, geom, mat, cst, xi, g_o, \
+                                                          g_d, pg, pm, pc, n, rows, depth, sc)                     \
+                      : launch_train_as<T, XI, false, SKIP>(rows, s_total, st, o, d, tgt, geom, mat, cst, xi, g_o, \
+                                                           g_d, pg, pm, pc, n, rows, depth, sc))
+  const int err = xi ? (on ? PRT_TRAIN(true, true) : PRT_TRAIN(true, false))
+                     : (on ? PRT_TRAIN(false, true) : PRT_TRAIN(false, false));
+#undef PRT_TRAIN
+  if (err != 0) return err;
+  reduce_rows<T><<<2 * s_total + 1, kReduceThreads, 0, st>>>(pg, pm, pc, flat, rows, s_total);
+  return static_cast<int>(cudaGetLastError());
+}
+
 #undef PRT_DISPATCH_ATLAS
 
 // Resident blocks per SM of a kernel's instantiation for a table size, or a
@@ -983,17 +1166,26 @@ template <typename T, typename... P> int step_blocks_per_sm(void (*kernel)(P...)
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+template <typename T, bool kXi, bool kSkip> int train_blocks_per_sm(int s_total) {
+  const bool is_staged = staged<T>(s_total);
+  const auto kernel = is_staged ? train_deep<T, kXi, true, kSkip> : train_deep<T, kXi, false, kSkip>;
+  const int smem = train_smem_bytes<T>(is_staged, kSkip, s_total);
+  if (const int err = allow_smem(kernel, smem)) return -err;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kStepThreads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 template <typename T, bool kXi> int occupancy_xi(int which, int s_total) {
   const bool is_staged = staged<T>(s_total);
-#define PRT_OCC(KERNEL) \
-  (is_staged ? blocks_per_sm<T, true>(KERNEL<T, kXi, true>, s_total) : blocks_per_sm<T, false>(KERNEL<T, kXi, false>, s_total))
 #define PRT_OCC4(KERNEL) \
   (is_staged ? blocks_per_sm<T, true>(KERNEL<T, kXi, true, false>, s_total) \
              : blocks_per_sm<T, false>(KERNEL<T, kXi, false, false>, s_total))
   switch (which) {
     case 0: return PRT_OCC4(smooth_fwd_deep);
     case 1: return PRT_OCC4(smooth_bwd_deep);
-    case 2: return PRT_OCC(train_deep);
+    case 2:
+      return train_blocks_per_sm<T, kXi, false>(s_total);
     case 3: return PRT_OCC4(smooth_fwd_step);
     case 4:
       return step_blocks_per_sm<T>(smooth_bwd_step<T, kXi, false>);
@@ -1002,9 +1194,10 @@ template <typename T, bool kXi> int occupancy_xi(int which, int s_total) {
       return is_staged ? blocks_per_sm<T, true>(smooth_fwd_step<T, kXi, true, false, true>, s_total, extra)
                        : blocks_per_sm<T, false>(smooth_fwd_step<T, kXi, false, false, true>, s_total, extra);
     }
+    case 6:  // train_deep with its skips
+      return train_blocks_per_sm<T, kXi, true>(s_total);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
-#undef PRT_OCC
 #undef PRT_OCC4
 }
 
@@ -1014,8 +1207,8 @@ template <typename T, bool kXi> int occupancy_xi(int which, int s_total) {
 // Each launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() so the caller can raise on a refused launch;
 // prt_smooth_blocks_per_sm_* reports a kernel's resident blocks per SM
-// (which: 0-4 in the order above, 5 smooth_fwd_step with its skip) for a
-// table size, and
+// (which: 0-4 in the order above, 5 smooth_fwd_step with its skip, 6
+// train_deep with its skips) for a table size, and
 // prt_smooth_shared_bytes_* the shared memory a block of any of them takes.
 extern "C" {
 
@@ -1040,10 +1233,11 @@ extern "C" {
                          sharp_s, tex_h, tex_w, stream);                                                       \
   }                                                                                                            \
   int prt_train_deep_##SUFFIX(const T* o, const T* d, const T* tgt, const T* geom, const T* mat, const T* cst, \
-                              const T* xi, T* g_o, T* g_d, T* parts, T* flat, int n, int n_cols, int s_cheap,  \
-                              int s_total, int depth, T faraway, T sharp_e, T sharp_s, void* stream) {         \
-    return launch_train<T>(o, d, tgt, geom, mat, cst, xi, g_o, g_d, parts, flat, n, n_cols, s_cheap, s_total,  \
-                           depth, faraway, sharp_e, sharp_s, stream);                                          \
+                              const T* xi, T* g_o, T* g_d, T* pg, T* pm, T* pc, T* flat, int n, int rows,      \
+                              int s_cheap, int s_total, int depth, T faraway, T sharp_e, T sharp_s, int skip,  \
+                              void* stream) {                                                                  \
+    return launch_train<T>(o, d, tgt, geom, mat, cst, xi, g_o, g_d, pg, pm, pc, flat, n, rows, s_cheap, s_total, \
+                           depth, faraway, sharp_e, sharp_s, skip, stream);                                      \
   }                                                                                                            \
   int prt_smooth_fwd_step_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const T* acc,         \
                                    const T* geom, const T* mat, const T* cst, const T* xi, T* o_out, T* d_out, \

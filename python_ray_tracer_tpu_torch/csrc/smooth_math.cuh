@@ -343,6 +343,32 @@ __device__ __forceinline__ T shadow_skip_product(const V3<T>& p_n, const V3<T>& 
   return clear;
 }
 
+// The cheap tier of a winner sweep with the skip (SkipAll::sweep, and
+// smooth_parts.cu's smooth_nearest_parts): the warp bounds its rays (no
+// apex; slot its bundle, warp_full: every lane of the warp runs) and, a
+// chunk of 32 cheap spheres at a time (one lane a sphere, under a ballot),
+// calls take(k) for the spheres winner_reaches keeps against the warp's
+// least running dmax (which take updates), in index order; a sphere left
+// out is a miss whose disc is at most every lane's dmax, which changes
+// nothing under the strict compares.  Returns the first sphere the caller
+// still sweeps: s_cheap, or 0 where the warp has no usable bound.
+template <typename T, typename G, typename F>
+__device__ __forceinline__ int winner_skip_cheap(const V3<T>& o, const V3<T>& d, const G& geom, int s_cheap, T* slot,
+                                                 bool warp_full, const T& dmax, F&& take) {
+  const V3<T> no_apex = {quiet_nan<T>(), quiet_nan<T>(), quiet_nan<T>()};
+  const Bundle<T> b = warp_full ? warp_bundle(o, d, no_apex, slot) : Bundle<T>{slot, false, false};
+  if (!b.ok) return 0;  // uniform over the warp
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  for (int k0 = 0; k0 < s_cheap; k0 += kWarp) {
+    T g[4];
+    sphere_row(geom, min(k0 + lane, s_cheap - 1), g);
+    const T m = warp_min(dmax);
+    const unsigned reached = __ballot_sync(kFullWarp, k0 + lane < s_cheap && winner_reaches(b, g, m));
+    for (unsigned mm = reached; mm != 0u; mm &= mm - 1u) take(k0 + __ffs(static_cast<int>(mm)) - 1);
+  }
+  return s_cheap;
+}
+
 // smooth_fwd_step's sets with the skips (fwd_bounce's kSkip): every sphere
 // in index order, the winner sweep and the shadow product each leaving out
 // the cheap-tier spheres that cannot change what they compute.  slot: the
@@ -374,21 +400,7 @@ template <typename T> struct SkipAll {
         idmax = k;
       }
     };
-    const V3<T> no_apex = {quiet_nan<T>(), quiet_nan<T>(), quiet_nan<T>()};
-    const Bundle<T> b = warp_full ? warp_bundle(o, d, no_apex, slot) : Bundle<T>{slot, false, false};
-    int k = 0;
-    if (b.ok) {  // uniform over the warp
-      const int lane = static_cast<int>(threadIdx.x & 31u);
-      for (int k0 = 0; k0 < sc.s_cheap; k0 += kWarp) {
-        T g[4];
-        sphere_row(geom, min(k0 + lane, sc.s_cheap - 1), g);
-        const T m = warp_min(dmax);
-        const unsigned reached = __ballot_sync(kFullWarp, k0 + lane < sc.s_cheap && winner_reaches(b, g, m));
-        for (unsigned mm = reached; mm != 0u; mm &= mm - 1u) take(k0 + __ffs(static_cast<int>(mm)) - 1);
-      }
-      k = sc.s_cheap;
-    }
-    for (; k < sc.s_total; ++k) take(k);
+    for (int k = winner_skip_cheap(o, d, geom, sc.s_cheap, slot, warp_full, dmax, take); k < sc.s_total; ++k) take(k);
   }
 
   template <typename G>

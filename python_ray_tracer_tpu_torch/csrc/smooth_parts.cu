@@ -21,6 +21,10 @@
 //       max(fac, 1e-6) (:382) and the branch adjoint taken at the plain
 //       tier's (b, c_term) for every row, as the TPU kernel takes it.
 // The plain PyTorch versions sit in ops/smooth_parts.py.
+// smooth_nearest_parts (kSkip, by the launch rule from kNearestSkipMinCheap
+// cheap spheres) walks the cheap tier as smooth_fwd_step's winner sweep
+// does (smooth_math.cuh winner_skip_cheap), leaving out the spheres that can
+// win neither strict compare; its seven outputs stay bitwise the full loop's.
 //
 // Design: one thread per ray over the (N, 3) rows render.trace carries;
 // one ascending loop over the shard's (S, 4) geometry table, every lane of a
@@ -96,7 +100,13 @@ template <typename T, bool kStaged> __device__ __forceinline__ const T* block_ge
   return s;
 }
 
-template <typename T, bool kStaged>
+// kSkip: the cheap tier walked as smooth_fwd_step's winner sweep walks it
+// (smooth_math.cuh winner_skip_cheap): a warp whose 32 rays have a usable
+// bound (no apex) visits only the spheres winner_reaches keeps against its
+// least running dmax, read before each chunk of 32, in index order; a
+// sphere left out can win neither strict compare, so every output is
+// bitwise the full loop's.  The exact tier is always visited.
+template <typename T, bool kStaged, bool kSkip>
 __global__ void __launch_bounds__(kThreads)
     smooth_nearest_parts(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ geom,
                          T* __restrict__ t_out, int* __restrict__ idx_out, T* __restrict__ solw_out,
@@ -104,13 +114,15 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ solf_out, int n, int s_cheap, int s_total, T faraway) {
   const T* g = block_geom<T, kStaged>(geom, s_total);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool warp_full = kSkip && __all_sync(0xffffffffu, i < n);
   if (i >= n) return;
   const V3<T> ro = row3(o, i);
   const V3<T> rd = row3(d, i);
   T tmin = faraway, solw = T(0), discw = T(0);
   T dmax = T(kNegBig), solf = T(0);
   int imin = 0, fidx = 0;
-  for (int k = 0; k < s_total; ++k) {
+  // Sphere k's two strict compares, in index order.
+  auto take = [&](int k) {
     T sol, disc, t, b, ct;
     V3<T> oc;
     sphere_parts(k, s_cheap, ro, rd, g, faraway, sol, disc, t, b, ct, oc);
@@ -125,7 +137,14 @@ __global__ void __launch_bounds__(kThreads)
       fidx = k;
       solf = sol;
     }
+  };
+  int k0 = 0;
+  if constexpr (kSkip) {
+    __shared__ T s_bundles[kBundleValues * kWarps];
+    k0 = winner_skip_cheap(ro, rd, g, s_cheap, s_bundles + kBundleValues * (threadIdx.x / kWarp), warp_full, dmax,
+                           take);
   }
+  for (int k = k0; k < s_total; ++k) take(k);
   t_out[i] = tmin;
   idx_out[i] = tmin == faraway ? 0 : imin;
   solw_out[i] = solw;
@@ -320,18 +339,43 @@ int launch_one(K kernel, long long smem, cudaStream_t stream, int n, Args... arg
   return static_cast<int>(cudaGetLastError());
 }
 
+// smooth_nearest_parts' skip: the launcher takes it from
+// kNearestSkipMinCheap cheap-tier spheres on (skip = -1), or as the caller
+// forces it (0 off, 1 on: the card check and the A/B time both sides;
+// ops/smooth_parts.py NEAREST_SKIP_MIN_CHEAP), as clear_fwd's.
+constexpr int kNearestSkipMinCheap = 16;
+
+template <typename T, bool kSkip>
+int launch_nearest_as(const T* o, const T* d, const T* geom, T* t, int* idx, T* solw, T* discw, T* dmax, int* fidx,
+                      T* solf, int n, int s_cheap, int s_total, T faraway, cudaStream_t st) {
+  const long long geom_bytes = static_cast<long long>(sizeof(T)) * 4 * s_total;
+  if (staged(smooth_nearest_parts<T, true, kSkip>, smooth_nearest_parts<T, false, kSkip>, s_total, sizeof(T), 0)) {
+    return launch_one<T>(smooth_nearest_parts<T, true, kSkip>, geom_bytes, st, n, o, d, geom, t, idx, solw, discw,
+                         dmax, fidx, solf, n, s_cheap, s_total, faraway);
+  }
+  return launch_one<T>(smooth_nearest_parts<T, false, kSkip>, 0, st, n, o, d, geom, t, idx, solw, discw, dmax, fidx,
+                       solf, n, s_cheap, s_total, faraway);
+}
+
 template <typename T>
 int launch_nearest(const T* o, const T* d, const T* geom, T* t, int* idx, T* solw, T* discw, T* dmax, int* fidx,
-                   T* solf, int n, int s_cheap, int s_total, T faraway, void* stream) {
-  if (bad_args(n, s_cheap, s_total)) return static_cast<int>(cudaErrorInvalidValue);
+                   T* solf, int n, int s_cheap, int s_total, T faraway, int skip, void* stream) {
+  if (bad_args(n, s_cheap, s_total) || skip < -1 || skip > 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (skip < 0 ? s_cheap >= kNearestSkipMinCheap : skip == 1)
+             ? launch_nearest_as<T, true>(o, d, geom, t, idx, solw, discw, dmax, fidx, solf, n, s_cheap, s_total,
+                                          faraway, st)
+             : launch_nearest_as<T, false>(o, d, geom, t, idx, solw, discw, dmax, fidx, solf, n, s_cheap, s_total,
+                                           faraway, st);
+}
+
+// Resident blocks per SM of the smooth_nearest_parts instantiation (skip) a
+// launch for s_total spheres takes (staged or global geometry).
+template <typename T, bool kSkip> int nearest_blocks_per_sm(int s_total) {
   const long long geom_bytes = static_cast<long long>(sizeof(T)) * 4 * s_total;
-  if (staged(smooth_nearest_parts<T, true>, smooth_nearest_parts<T, false>, s_total, sizeof(T), 0)) {
-    return launch_one<T>(smooth_nearest_parts<T, true>, geom_bytes, st, n, o, d, geom, t, idx, solw, discw, dmax,
-                         fidx, solf, n, s_cheap, s_total, faraway);
-  }
-  return launch_one<T>(smooth_nearest_parts<T, false>, 0, st, n, o, d, geom, t, idx, solw, discw, dmax, fidx, solf,
-                       n, s_cheap, s_total, faraway);
+  return staged(smooth_nearest_parts<T, true, kSkip>, smooth_nearest_parts<T, false, kSkip>, s_total, sizeof(T), 0)
+             ? resident_blocks(smooth_nearest_parts<T, true, kSkip>, geom_bytes)
+             : resident_blocks(smooth_nearest_parts<T, false, kSkip>, 0);
 }
 
 // clear_fwd's skip: the launcher takes it from kClearSkipMinCheap cheap-tier
@@ -410,16 +454,17 @@ template <typename T> int clear_bwd_blocks_per_sm(int s_total) {
 // Plain C entries, bound with ctypes (ops/smooth_parts.py _SIGNATURES).
 // Each launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() so the caller can raise on a refused launch;
-// prt_clear_bwd_blocks_per_sm_* and prt_clear_fwd_blocks_per_sm_* report
-// the kernels' resident blocks per SM.
+// prt_clear_bwd_blocks_per_sm_*, prt_clear_fwd_blocks_per_sm_* and
+// prt_nearest_parts_blocks_per_sm_* report the kernels' resident blocks per
+// SM.
 extern "C" {
 
 #define PRT_PARTS_ENTRIES(T, SUFFIX)                                                                               \
   int prt_smooth_nearest_parts_##SUFFIX(const T* o, const T* d, const T* geom, T* t, int* idx, T* solw, T* discw,  \
                                         T* dmax, int* fidx, T* solf, int n, int s_cheap, int s_total, T faraway,  \
-                                        void* stream) {                                                          \
+                                        int skip, void* stream) {                                                \
     return launch_nearest<T>(o, d, geom, t, idx, solw, discw, dmax, fidx, solf, n, s_cheap, s_total, faraway,     \
-                             stream);                                                                            \
+                             skip, stream);                                                                      \
   }                                                                                                              \
   int prt_clear_fwd_##SUFFIX(const T* o, const T* d, const T* geom, const int* self_idx, T* clear, int n,          \
                              int s_cheap, int s_total, T faraway, T sharpness, const T* light, int skip,          \
@@ -439,6 +484,12 @@ PRT_PARTS_ENTRIES(double, f64)
 
 int prt_clear_bwd_blocks_per_sm_f32(int s_total) { return clear_bwd_blocks_per_sm<float>(s_total); }
 int prt_clear_bwd_blocks_per_sm_f64(int s_total) { return clear_bwd_blocks_per_sm<double>(s_total); }
+int prt_nearest_parts_blocks_per_sm_f32(int skip, int s_total) {
+  return skip ? nearest_blocks_per_sm<float, true>(s_total) : nearest_blocks_per_sm<float, false>(s_total);
+}
+int prt_nearest_parts_blocks_per_sm_f64(int skip, int s_total) {
+  return skip ? nearest_blocks_per_sm<double, true>(s_total) : nearest_blocks_per_sm<double, false>(s_total);
+}
 int prt_clear_fwd_blocks_per_sm_f32(int skip, int s_total) {
   return skip ? clear_fwd_blocks_per_sm<float, true>(s_total) : clear_fwd_blocks_per_sm<float, false>(s_total);
 }

@@ -11,7 +11,11 @@ of :func:`..camera.ray_directions_t`:
   chain from those residuals: ray and table gradients;
 * ``_train_kernel_sub_deep`` -> ``train_deep``: forward chain, the L2
   loss's cotangent and the reverse adjoint in one launch; returns the SSE
-  and every gradient and writes no residuals;
+  and every gradient and writes no residuals.  From ``STEP_SKIP_MIN_CHEAP``
+  cheap-tier spheres on its winner sweeps and shadow products leave out the
+  spheres the warp's bounds rule out (as ``smooth_fwd_step``'s) and its
+  Phase C passes the spheres that reach no ray of a warp (as
+  ``smooth_bwd_step``'s), every output bitwise the kernel without them;
 * ``_fwd_kernel_sub`` -> ``smooth_fwd_step``: one bounce, the state
   ``(o, d, thr, alive, acc)`` in and out, plus its residuals;
 * ``_bwd_kernel_sub`` -> ``smooth_bwd_step``: that bounce's adjoint from
@@ -21,12 +25,12 @@ None has a sphere cap: the geometry table sits in shared memory up to
 64 KB (4096 spheres in f32, 2048 in f64) and is read from global memory
 past that, the winner's material row is read from global memory, and the
 table-gradient partials take ``(23 S + 17) * min(ceil(N / 32),
-PARTIAL_COLS)`` values in ``smooth_bwd_deep`` and ``train_deep``
-(:func:`partials_bytes`) and ``(19 S + 16)`` a row, one row a CTA of
-``STEP_RAY_WARPS`` ray-warps, in ``smooth_bwd_step``
-(:func:`step_rows_bytes`), whatever the frame.  ``smooth_bwd_step``'s warps
-pass the shadow spheres that reach none of their rays
-(:func:`shadow_terms`: those terms are exactly +-0).  Above
+PARTIAL_COLS)`` values in ``smooth_bwd_deep`` (:func:`partials_bytes`)
+and ``(19 S + 16)`` a row, one row a CTA of ``STEP_RAY_WARPS`` ray-warps,
+in ``smooth_bwd_step`` and ``train_deep`` (:func:`step_rows_bytes`),
+whatever the frame.  ``smooth_bwd_step``'s warps and ``train_deep``'s pass
+the shadow spheres that reach none of their rays (:func:`shadow_terms`:
+those terms are exactly +-0).  Above
 4096 spheres, where the JAX package runs its lane pair
 (:func:`python_ray_tracer_tpu.ops.pallas_bounce_smooth.trace_fused_smooth`),
 the renderer takes ``smooth_fwd_step``/``smooth_bwd_step`` once per bounce.
@@ -115,9 +119,13 @@ _NEG_BIG = -3.0e38  # max-disc fallback sentinel of the JAX kernel body
 # exp(-x) overflows in the dtype.
 SIG_EDGE = {torch.float32: -89.0, torch.float64: -710.0}
 
-# smooth_fwd_step's skip (csrc/bounce_smooth_sub.cu kStepSkipMinCheap):
-# "auto" takes it from this many cheap-tier spheres on.
+# smooth_fwd_step's and train_deep's skips (csrc/bounce_smooth_sub.cu
+# kStepSkipMinCheap): "auto" takes them from this many cheap-tier spheres on.
 STEP_SKIP_MIN_CHEAP = 16
+
+# train_deep's constants row carries the SSE in this column
+# (csrc/bounce_smooth_sub.cu kTrainSse); no constant takes a gradient there.
+TRAIN_SSE_COL = 10
 
 
 # ---------------------------------------------------------------------------
@@ -435,14 +443,16 @@ def shadow_terms(f, k, c, r, fn, g_cc, faraway, active=None):
     return pn_b, pn_ct, l_b, row
 
 
-def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap):
+def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap, reach=None):
     """One bounce's handwritten adjoint (``_adjoint_bounce``, Phases A-G).
 
     ``cots = (g_o_out, g_dout, g_thr_out, g_alive_out, g_acc)``, the
     cotangents of the bounce's outputs, and in the atlas mode ``g_dww`` after
     them.  Returns those of its inputs ``(g_o, g_d, g_thr, g_alive)``; the
     table gradients are added into ``ggeom`` (S, 4), ``gmat`` (S, 19) and
-    ``gconst`` (1, 16) in place.
+    ``gconst`` (1, 16) in place.  ``reach(f, k, c, r, fn, faraway)``, (N,),
+    leaves Phase C's terms of a sphere out of the lanes where it is False
+    (:func:`phase_c_reach`).
     """
     g_o_out, g_dout, g_thr_o, g_alive_o, g_acc, *g_dww_raw = cots
     dtype = f.dtype
@@ -588,6 +598,8 @@ def adjoint_bounce(f, o, d, cots, geom, ggeom, gmat, gconst, *, faraway, s_cheap
     g_pn_s = [zero, zero, zero]
     g_cc = g_clear * f.clear
     for k, c, r, fn, active in shadow_spheres(geom, s_cheap, f.cand_sh, zero.shape[0]):
+        if reach is not None:
+            active = reach(f, k, c, r, fn, faraway) if active is None else active & reach(f, k, c, r, fn, faraway)
         pn_b, pn_ct, l_b, row = shadow_terms(f, k, c, r, fn, g_cc, faraway, active)
         for i in range(3):
             g_pn_s[i] = g_pn_s[i] + pn_b[i] + pn_ct[i]
@@ -703,14 +715,14 @@ def smooth_fwd_deep_plain(o, d, geom, mat, consts, xi=None, *, depth, faraway, s
     return outs if tex_hw is None else outs + (stack(flat, torch.int32), stack(dww))
 
 
-def _reverse_chain(states, g_acc, geom, mat, consts, kw):
+def _reverse_chain(states, g_acc, geom, mat, consts, kw, reach=None):
     """The adjoint chain in reverse depth order over replayed bounces.
 
     ``states[dep] = (o, d, thr, alive, saved, xi, g_dww)``, ``g_dww`` the
     cotangent of the bounce's dww in the atlas mode (else None).  The trace
     discards the last bounce's ``(o, d, thr, alive)``, so their cotangents
     start at zero; ``g_acc`` is the same for every bounce (acc is a pure
-    accumulator)."""
+    accumulator).  ``reach``: Phase C's (:func:`adjoint_bounce`)."""
     ggeom, gmat, gconst = torch.zeros_like(geom), torch.zeros_like(mat), torch.zeros_like(consts)
     zero = torch.zeros_like(g_acc[0])
     g_o, g_d, g_thr, g_alive = (zero, zero, zero), (zero, zero, zero), zero, zero
@@ -718,7 +730,7 @@ def _reverse_chain(states, g_acc, geom, mat, consts, kw):
         f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, xi, saved=saved, **kw)
         g_o, g_d, g_thr, g_alive = adjoint_bounce(
             f, o3, d3, (g_o, g_d, g_thr, g_alive, g_acc) + (() if g_dww is None else (g_dww,)),
-            geom, ggeom, gmat, gconst, faraway=kw["faraway"], s_cheap=kw["s_cheap"],
+            geom, ggeom, gmat, gconst, faraway=kw["faraway"], s_cheap=kw["s_cheap"], reach=reach,
         )
     return torch.stack(g_o), torch.stack(g_d), ggeom, gmat, gconst
 
@@ -754,10 +766,16 @@ def clip_gate(x, lo: float, hi: float):
     return g_lo * g_hi
 
 
-def train_deep_plain(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+def train_deep_plain(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s,
+                     skip: bool = False):
     """Plain version of ``train_deep``: ``sum((clip(acc, 0, 1) - tgt)^2)``
     over all (3, N) values and its gradients.  Returns ``(sse, g_o, g_d,
-    g_geom, g_mat, g_consts)``; the 1/(3N) of the mean is the caller's."""
+    g_geom, g_mat, g_consts)``; the 1/(3N) of the mean is the caller's.
+    ``skip``: each bounce's winner sweep and shadow product over the pairs
+    the row layout's skips visit (:func:`skip_keeps`), and Phase C over the
+    pairs that reach a lane (:func:`phase_c_reach`), as the kernel's skips
+    visit them, bitwise the plain version without; only the tests and the
+    card check's counts run it."""
     kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
     o3, d3 = tuple(o), tuple(d)
     thr = torch.ones_like(d[0])
@@ -765,7 +783,9 @@ def train_deep_plain(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s
     acc = [torch.zeros_like(d[0]) for _ in range(3)]
     states = []
     for dep in range(depth):
-        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, _xi_pair(xi, dep), **kw)
+        keeps = skip_keeps(torch.stack(o3), torch.stack(d3), geom, consts, s_cheap=s_cheap, faraway=faraway,
+                           sharp_s=sharp_s) if skip else {}
+        f = fwd_sub_math(o3, d3, thr, alive, geom, mat, consts, _xi_pair(xi, dep), **kw, **keeps)
         acc = [acc[i] + f.color[i] * f.w for i in range(3)]
         states.append((o3, d3, thr, alive, (f.idx, f.hit, f.clear), f.xi, None))
         o3, d3, thr, alive = f.p_n, f.dout, f.thr_out, f.coverage
@@ -775,7 +795,35 @@ def train_deep_plain(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s
         e = torch.clamp(acc[i], 0.0, 1.0) - tgt[i]
         sse = sse + e * e
         g_acc.append(2.0 * e * clip_gate(acc[i], 0.0, 1.0))
-    return (torch.sum(sse), *_reverse_chain(states, tuple(g_acc), geom, mat, consts, kw))
+    reach = phase_c_reach if skip else None
+    return (torch.sum(sse), *_reverse_chain(states, tuple(g_acc), geom, mat, consts, kw, reach))
+
+
+def skip_keeps(o, d, geom, consts, *, s_cheap: int, faraway: float, sharp_s: float) -> dict:
+    """``fwd_sub_math``'s ``winner_keep`` and ``shadow_keep`` for one bounce of
+    rays ``o``/``d`` (3, N) under the skips of ``smooth_fwd_step`` and of
+    ``train_deep`` (``csrc/smooth_math.cuh`` ``SkipAll``): the
+    winner sweep over the pairs :func:`winner_reach` keeps, the shadow
+    product over those :func:`shadow_keep` keeps (:func:`shadow_reach`, the
+    light ``consts[0, 3:6]`` its apex)."""
+    reach = winner_reach(o.T.contiguous(), d.T.contiguous(), geom, s_cheap, faraway)
+    warp = torch.arange(d.shape[1], device=d.device) // WARP
+    return dict(winner_keep=lambda k: reach[warp, k], shadow_keep=shadow_keep(
+        lambda p_n, to_light: shadow_reach(p_n, to_light, consts[0, 3:6], geom, s_cheap, sharp_s), sharp_s, d.dtype))
+
+
+def phase_c_reach(f, k, c, r, fn, faraway) -> torch.Tensor:
+    """(N,) the lanes whose warp takes sphere ``k`` (center ``c``, radius
+    ``r``, tier ``fn``) in Phase C with the exact skip (``csrc/
+    bounce_smooth_sub.cu`` ``phase_c_tier``): those of a warp where some
+    lane reaches it, the sphere not its winner and its shadow sigmoid not
+    exactly 0 (:func:`shadow_terms`: elsewhere every term is exactly +-0)."""
+    _, disc, _, _, _ = fn(f.p_n, f.L, c, r, faraway)
+    lane = (f.idx != k) & (sig(f.sharp_s * disc) != 0)
+    n = lane.shape[0]
+    warp = torch.zeros(-(-n // WARP) * WARP, dtype=torch.bool, device=lane.device)
+    warp[:n] = lane
+    return warp.reshape(-1, WARP).any(1).repeat_interleave(WARP)[:n]
 
 
 def shadow_reach(p_n, to_light, light, geom, s_cheap: int, sharp_s: float) -> torch.Tensor:
@@ -870,17 +918,10 @@ def smooth_fwd_step_plain(o, d, thr, alive, acc, geom, mat, consts, xi=None, *, 
     (:func:`shadow_reach`, the light ``consts[0, 3:6]`` its apex), as the
     kernel's skip visits them, bitwise the plain version without; only the
     tests and the card check's counts run it."""
-    winner_keep = keep = None
-    if skip:
-        reach = winner_reach(o.T.contiguous(), d.T.contiguous(), geom, s_cheap, faraway)
-        warp = torch.arange(d.shape[1], device=d.device) // WARP
-        winner_keep = lambda k: reach[warp, k]  # noqa: E731
-        keep = shadow_keep(lambda p_n, to_light: shadow_reach(p_n, to_light, consts[0, 3:6], geom, s_cheap, sharp_s),
-                           sharp_s, d.dtype)
+    keeps = skip_keeps(o, d, geom, consts, s_cheap=s_cheap, faraway=faraway, sharp_s=sharp_s) if skip else {}
     f = fwd_sub_math(
         tuple(o), tuple(d), thr, alive, geom, mat, consts, _xi_pair(xi, 0),
-        faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw, shadow_keep=keep,
-        winner_keep=winner_keep,
+        faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s, tex_hw=tex_hw, **keeps,
     )
     acc_n = torch.stack([acc[i] + f.color[i] * f.w for i in range(3)])
     outs = (
@@ -978,9 +1019,10 @@ _SIGNATURES = {
     # consts, xi, g_acc, g_dww, g_o, g_d, partials, table grads; n, n_cols,
     # s_cheap, s_total, depth; faraway, sharp_e, sharp_s; tex_h, tex_w
     "smooth_bwd_deep": "ppppppppp" "pppp" "pp" "pppp" "iiiii" "rrr" "ii",
-    # o, d, tgt, geom, mat, consts, xi, g_o, g_d, partials, sse + table
-    # grads; n, n_cols, s_cheap, s_total, depth; faraway, sharp_e, sharp_s
-    "train_deep": "ppp" "pppp" "pppp" "iiiii" "rrr",
+    # o, d, tgt, geom, mat, consts, xi, g_o, g_d, the rows' geometry,
+    # material and constants (with the SSE), table grads; n, rows, s_cheap,
+    # s_total, depth; faraway, sharp_e, sharp_s; skip
+    "train_deep": "ppp" "pppp" "pp" "ppp" "p" "iiiii" "rrr" "i",
     # o, d, thr, alive, acc, geom, mat, consts, xi, their five outputs, idx,
     # hit, clear, flat, dww; n, s_cheap, s_total; faraway, sharp_e,
     # sharp_s; tex_h, tex_w; skip
@@ -1006,9 +1048,8 @@ def _n_cols(n: int) -> int:
 
 
 def partials_bytes(n: int, s: int, dtype: torch.dtype) -> int:
-    """Bytes of the partials smooth_bwd_deep and train_deep take for ``n``
-    rays and ``s`` spheres: ``(23 s + 17) * min(ceil(n / 32), PARTIAL_COLS)``
-    values."""
+    """Bytes of the partials smooth_bwd_deep takes for ``n`` rays and ``s``
+    spheres: ``(23 s + 17) * min(ceil(n / 32), PARTIAL_COLS)`` values."""
     return _n_vals(s) * _n_cols(n) * torch.empty((), dtype=dtype).element_size()
 
 
@@ -1022,7 +1063,7 @@ def step_rows(n: int) -> int:
 
 
 def step_rows_bytes(n: int, s: int, dtype: torch.dtype) -> int:
-    """Bytes of smooth_bwd_step's rows for ``n`` rays and ``s`` spheres:
+    """Bytes of smooth_bwd_step's and train_deep's rows for ``n`` rays and ``s`` spheres:
     ``step_rows(n) * (19 s + 16)`` values (geometry (s, 4), material (s, 15),
     16 constants a row)."""
     return step_rows(n) * ((4 + STEP_MAT) * s + N_CONST) * torch.empty((), dtype=dtype).element_size()
@@ -1032,13 +1073,18 @@ def _suffix(dtype: torch.dtype) -> str:
     return "f32" if dtype == torch.float32 else "f64"
 
 
+# prt_smooth_blocks_per_sm's codes past the five kernels: smooth_fwd_step
+# and train_deep with their skips.
+_SKIP_OCCUPANCY = {"smooth_fwd_step": 5, "train_deep": 6}
+
+
 def blocks_per_sm(name: str, dtype: torch.dtype, glossy: bool, s: int, skip: bool = False) -> int:
     """Resident blocks per SM of kernel ``name``'s instantiation for ``s``
     spheres on the current card (staged or global geometry as it launches);
-    ``skip``: smooth_fwd_step's with its skip."""
-    if skip and name != "smooth_fwd_step":
+    ``skip``: smooth_fwd_step's or train_deep's with its skips."""
+    if skip and name not in _SKIP_OCCUPANCY:
         raise ValueError(f"{name} has no skip")
-    which = 5 if skip else tuple(LAUNCHES).index(name)
+    which = _SKIP_OCCUPANCY[name] if skip else tuple(LAUNCHES).index(name)
     blocks = getattr(_build.load_library(_SOURCE), f"prt_smooth_blocks_per_sm_{_suffix(dtype)}")(which, int(glossy), s)
     if blocks < 0:
         raise RuntimeError(f"occupancy query of {name} failed: CUDA error {-blocks}")
@@ -1135,9 +1181,15 @@ def smooth_bwd_deep(
     return g_o, g_d, g_geom, g_mat, g_consts
 
 
-def train_deep(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s):
+def train_deep(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap, sharp_e, sharp_s,
+               skip: str = "auto"):
     """Loss and every gradient in one launch (plus the fixed-order reduction
-    of the table gradients and the SSE); outputs as :func:`train_deep_plain`."""
+    of the table gradients and the SSE); outputs as :func:`train_deep_plain`.
+    ``skip`` ("auto", "on", "off") picks the kernel whose winner sweeps,
+    shadow products and Phase C leave out the spheres that cannot change
+    them, or the kernel without; the outputs are the same bitwise.  "auto"
+    takes it from STEP_SKIP_MIN_CHEAP cheap-tier spheres on."""
+    code = _skip_code(skip)
     kw = dict(depth=depth, faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, sharp_s=sharp_s)
     device = _check(
         {"o": o, "d": d, "tgt": tgt}, geom, mat, consts, s_cheap=s_cheap, depth=depth, stacks={"xi": (xi, 2 * depth)}
@@ -1149,10 +1201,17 @@ def train_deep(o, d, tgt, geom, mat, consts, xi=None, *, depth, faraway, s_cheap
     n, s = d.shape[1], geom.shape[0]
     with torch.cuda.device(device):
         g_o, g_d = torch.empty_like(d), torch.empty_like(d)
-        partials, flat = _grad_buffers(n, s, d)
-        _launch("train_deep", d.dtype, o, d, tgt, geom, mat, consts, xi, g_o, g_d, partials, flat,
-                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, partials.shape[1]))
-    g_geom, g_mat, g_consts, sse = _split_grads(flat, s)
+        rows = step_rows(n)
+        # The geometry and material rows are added into, the constants row
+        # (with the SSE) written whole.
+        z = functools.partial(torch.zeros, dtype=d.dtype, device=device)
+        pg, pm, pc = z((rows, s, 4)), z((rows, s, STEP_MAT)), torch.empty((rows, N_CONST), dtype=d.dtype, device=device)
+        flat = torch.empty((_n_vals(s),), dtype=d.dtype, device=device)
+        _launch("train_deep", d.dtype, o, d, tgt, geom, mat, consts, xi, g_o, g_d, pg, pm, pc, flat,
+                *_scalars(n, s, s_cheap, depth, faraway, sharp_e, sharp_s, rows), code)
+    g_geom, g_mat, g_consts, _ = _split_grads(flat, s)
+    sse = g_consts[0, TRAIN_SSE_COL].clone()
+    g_consts[0, TRAIN_SSE_COL].zero_()  # a fill on the card: assigning a Python 0 would copy it over and synchronise
     return sse, g_o, g_d, g_geom, g_mat, g_consts
 
 

@@ -38,19 +38,29 @@ multiplies those pairs only, bitwise the product over every pair; the
 wrapper's ``skip`` ("auto", "on", "off") picks the kernel with the skip or
 without, "auto" from :data:`CLEAR_SKIP_MIN_CHEAP` cheap-tier spheres on.
 
+``smooth_nearest_parts`` leaves out of its cheap tier the spheres that can
+win neither the strict hit compare nor the strict disc compare: a warp's
+rays bounded (no apex), each chunk of 32 against the warp's least running
+dmax (:func:`.bounce_smooth_sub.winner_reach`, smooth_fwd_step's rules);
+:func:`smooth_nearest_parts_plain` with ``skip=True`` sweeps those pairs
+only, bitwise the full sweep, and the wrappers' ``skip`` ("auto", "on",
+"off") picks the kernel, "auto" from :data:`NEAREST_SKIP_MIN_CHEAP`
+cheap-tier spheres on.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  :data:`LAUNCHES` counts the launches.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from . import _build
 from .bounce_smooth import EPS_DEN, b_cterm_plain, sig, sol_disc_adjoint
-from .bounce_smooth_sub import shadow_reach
+from .bounce_smooth_sub import shadow_reach, winner_reach
 from .intersect import intersect_two_tier
 from .intersect_fused import WARP, _light, _skip_code
 from .tables import segment_sum
@@ -68,12 +78,14 @@ _CHUNK_PAIRS = 1 << 23
 # clear_fwd's skip (csrc/smooth_parts.cu kClearSkipMinCheap): "auto" takes
 # it from this many cheap-tier spheres on.
 CLEAR_SKIP_MIN_CHEAP = 16
+# smooth_nearest_parts' skip (kNearestSkipMinCheap), the same way.
+NEAREST_SKIP_MIN_CHEAP = 16
 
 # C signatures of the entries in csrc/smooth_parts.cu, before the trailing
 # stream: p = pointer, i = int, r = the dtype's real.
 _SIGNATURES = {
-    # o, d, geom, t, idx, sol_w, disc_w, dmax, fidx, sol_f; n, s_cheap, s_total; faraway
-    "smooth_nearest_parts": "pppppppppp" "iii" "r",
+    # o, d, geom, t, idx, sol_w, disc_w, dmax, fidx, sol_f; n, s_cheap, s_total; faraway; skip
+    "smooth_nearest_parts": "pppppppppp" "iii" "r" "i",
     # o, d, geom, self_idx, clear; n, s_cheap, s_total; faraway, sharpness; the light (3,) or null; skip
     "clear_fwd": "ppppp" "iii" "rr" "p" "i",
     # o, d, geom, self_idx, clear, g_clear, g_o, g_d, parts, g_geom; n, s_cheap, s_total; faraway, sharpness
@@ -107,19 +119,28 @@ def _ids(geom: torch.Tensor) -> torch.Tensor:
     return torch.arange(geom.shape[0], dtype=torch.int32, device=geom.device)[None, :]
 
 
-def smooth_nearest_parts_plain(o, d, geom, *, faraway: float, s_cheap: int) -> SmoothParts:
+def smooth_nearest_parts_plain(o, d, geom, *, faraway: float, s_cheap: int, skip: bool = False) -> SmoothParts:
     """Plain version of ``smooth_nearest_parts``: the first minimum of ``t``
     (a miss keeps idx 0 and zero ``sol_w``, ``disc_w``) and the first maximum
-    of ``disc`` above the sentinel (else 0, and ``sol_f`` 0)."""
+    of ``disc`` above the sentinel (else 0, and ``sol_f`` 0).  ``skip``: over
+    the pairs the kernel's skip visits (:func:`.bounce_smooth_sub.winner_reach`;
+    a pair left out a miss with disc -inf), bitwise the plain version over
+    every pair; only the tests and the card check's counts run it."""
+    reach = winner_reach(o, d, geom, s_cheap, faraway) if skip else None
     outs = []
     for a, b in _chunks(o.shape[0], geom.shape[0]):
         res = _tables(o[a:b], d[a:b], geom, faraway, s_cheap)
-        tmin, imin = torch.min(res.t, dim=1)
+        t, disc = res.t, res.disc
+        if reach is not None:
+            kept = reach[torch.arange(a, b, device=o.device) // WARP]
+            t = torch.where(kept, t, torch.full_like(t, faraway))
+            disc = torch.where(kept, disc, torch.full_like(disc, -math.inf))
+        tmin, imin = torch.min(t, dim=1)
         hit = tmin != faraway
         zero = torch.zeros_like(tmin)
         sol_w = torch.where(hit, torch.gather(res.sol, 1, imin[:, None])[:, 0], zero)
         disc_w = torch.where(hit, torch.gather(res.disc, 1, imin[:, None])[:, 0], zero)
-        dmax, fidx = torch.max(res.disc, dim=1)
+        dmax, fidx = torch.max(disc, dim=1)
         found = dmax > NEG_BIG
         sol_f = torch.where(found, torch.gather(res.sol, 1, fidx[:, None])[:, 0], zero)
         outs.append((
@@ -255,9 +276,14 @@ def _contig(*xs):
     return [x.detach().contiguous() for x in xs]
 
 
-def nearest_parts(o, d, geom, *, faraway: float, s_cheap: int) -> SmoothParts:
+def nearest_parts(o, d, geom, *, faraway: float, s_cheap: int, skip: str = "auto") -> SmoothParts:
     """``smooth_nearest_parts`` of rays ``o``/``d`` (N, 3) over the shard
-    ``geom`` (S, 4); no gradient (see :func:`smooth_nearest_parts`)."""
+    ``geom`` (S, 4); no gradient (see :func:`smooth_nearest_parts`).
+    ``skip`` ("auto", "on", "off") picks the kernel whose cheap tier leaves
+    out the spheres that can win neither compare or the kernel without, the
+    outputs the same bitwise; "auto" takes it from NEAREST_SKIP_MIN_CHEAP
+    cheap-tier spheres on."""
+    code = _skip_code(skip)
     device = _check(o, d, geom, s_cheap)
     o, d, geom = _contig(o, d, geom)
     if device.type == "cpu":
@@ -269,7 +295,7 @@ def nearest_parts(o, d, geom, *, faraway: float, s_cheap: int) -> SmoothParts:
         t, sol_w, disc_w, dmax, sol_f = real
         idx, fidx = ints
         _launch("smooth_nearest_parts", o.dtype, o, d, geom, t, idx, sol_w, disc_w, dmax, fidx, sol_f, n, s_cheap,
-                geom.shape[0], float(faraway))
+                geom.shape[0], float(faraway), code)
     return SmoothParts(t, idx, sol_w, disc_w, dmax, fidx, sol_f)
 
 
@@ -293,6 +319,14 @@ def clear_fwd(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap
         _launch("clear_fwd", o.dtype, o, d, geom, self_idx, clear, n, s_cheap, geom.shape[0], float(faraway),
                 float(sharpness), light, code)
     return clear
+
+
+def nearest_parts_blocks_per_sm(dtype: torch.dtype, s: int, *, skip: bool) -> int:
+    """Resident 256-thread blocks per SM of the smooth_nearest_parts
+    instantiation (``skip``) a launch for ``s`` spheres takes, on the current
+    card."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(_build.load_library(_SOURCE), f"prt_nearest_parts_blocks_per_sm_{suffix}")(int(skip), s)
 
 
 def clear_fwd_blocks_per_sm(dtype: torch.dtype, s: int, *, skip: bool) -> int:
@@ -336,8 +370,8 @@ class _NearestParts(torch.autograd.Function):
     adjoints of the two selected rows backward."""
 
     @staticmethod
-    def forward(ctx, o, d, geom, faraway, s_cheap):
-        parts = nearest_parts(o, d, geom, faraway=faraway, s_cheap=s_cheap)
+    def forward(ctx, o, d, geom, faraway, s_cheap, skip):
+        parts = nearest_parts(o, d, geom, faraway=faraway, s_cheap=s_cheap, skip=skip)
         ctx.faraway = faraway
         ctx.save_for_backward(o, d, geom, parts.t, parts.idx, parts.fidx)
         ctx.mark_non_differentiable(parts.idx, parts.fidx)
@@ -355,7 +389,7 @@ class _NearestParts(torch.autograd.Function):
             g_o1, g_d1, rows1 = _row_adjoint(o, d, geom, idx, g_sol_w, g_disc_w)
             g_o2, g_d2, rows2 = _row_adjoint(o, d, geom, fidx, g_solf, g_dmax)
             g_geom = segment_sum(torch.cat([rows1, rows2]), torch.cat([idx, fidx]), geom.shape[0])
-        return g_o1 + g_o2, g_d1 + g_d2, g_geom, None, None
+        return g_o1 + g_o2, g_d1 + g_d2, g_geom, None, None, None
 
 
 class _ClearParts(torch.autograd.Function):
@@ -377,10 +411,11 @@ class _ClearParts(torch.autograd.Function):
         return g_o, g_d, g_geom, None, None, None, None, None
 
 
-def smooth_nearest_parts(o, d, geom, *, faraway: float, s_cheap: int) -> SmoothParts:
+def smooth_nearest_parts(o, d, geom, *, faraway: float, s_cheap: int, skip: str = "auto") -> SmoothParts:
     """One shard's smooth nearest and coverage partials (:class:`SmoothParts`),
-    differentiable in ``o``, ``d`` (N, 3) and the shard ``geom`` (S, 4)."""
-    return SmoothParts(*_NearestParts.apply(o, d, geom, faraway, s_cheap))
+    differentiable in ``o``, ``d`` (N, 3) and the shard ``geom`` (S, 4);
+    ``skip`` as :func:`nearest_parts` takes it (the same result bitwise)."""
+    return SmoothParts(*_NearestParts.apply(o, d, geom, faraway, s_cheap, skip))
 
 
 def smooth_clear_parts(o, d, geom, self_idx, *, faraway: float, sharpness: float, s_cheap: int,

@@ -181,6 +181,28 @@ def test_nearest_parts_plain_matches_jax(oracles, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_nearest_parts_with_the_skip_match_jax(oracles, dtype):
+    """``smooth_nearest_parts_plain`` over the pairs the card kernel's winner
+    skip keeps, and the wrapper with ``skip="on"`` (on CPU tensors the
+    wrapper takes the full plain version whatever ``skip`` says; the card
+    kernel's skip is held bitwise to its skip-off build by chip_smoke.py),
+    against JAX's ``_smooth_nearest_kernel``: indices exactly, values within
+    RTOL, every lane but the padding one."""
+    case, tdt = oracles[dtype], DTYPES[dtype][1]
+    o, d = (_t(a, tdt) for a in case["ray"])
+    kw = dict(faraway=case["far"], s_cheap=S_CHEAP)
+    keep = np.arange(N_RAYS) != PAD_DMAX_LANE
+    for how, got in (("skip on", sp.smooth_nearest_parts(o, d, _geom(case, tdt), **kw, skip="on")),
+                     ("kept pairs", sp.smooth_nearest_parts_plain(o, d, _geom(case, tdt), **kw, skip=True))):
+        for name, g, w in zip(sp.SmoothParts._fields, got, case["parts"]):
+            g = g.detach().numpy()
+            if name in ("idx", "fidx"):
+                np.testing.assert_array_equal(g[keep], w[keep].astype(np.int32), err_msg=f"{how} {name}")
+            else:
+                _close(f"{how} {name}", g[keep], w[keep], RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_clear_and_shadow_parts_plain_match_jax(oracles, dtype):
     """The shadow product and the hard-shadow partials on the shadow rays
     of the nearest hits, self indices in and out of range."""
