@@ -144,6 +144,13 @@ step f32 and native f64), held with their skips (forced on, and the
 launch rule's, which takes them from 16 cheap spheres) bitwise to the same
 kernel without them, each first launch's pairs printed a bounce; both
 kernels are timed beside their skip-off builds in turns with kept-pair
+bounds.  ``near_cs`` (every bounce of the config-4 and textured1024 smooth
+steps, mirror and glossy) and ``shade_culled`` (every bounce of the
+config-4 mirror frame and, in its atlas mode, the textured1024 frame), f32
+and native f64, are held with the warp-bundle skip over each tile's list
+bitwise to the same kernel without it; ``[skip]`` lines print each f64
+launch's listed (warp, slot) pairs and those the skip keeps, and the f32
+launches are timed beside their skip-off builds in turns with kept-pair
 bounds.
 Phases print on their own lines; any failure exits non-zero.  The line
 before the last lists the kernels as JSON; the last line is one JSON
@@ -1555,7 +1562,9 @@ def phase_big_kernels() -> tuple[dict[str, float], dict]:
     re-sorted and first full-sweep bounce, the sweeps on every bounce of the
     stochastic frame, each against its plain version (idx exactly), f32 at
     1920x1080 and f64 at 480x270; both sweeps with their skip bitwise the
-    kernel without it, and (f64) the pairs the skip reaches; the primary
+    kernel without it, and (f64) the pairs the skip reaches; shade_culled
+    with its list skip bitwise the kernel without it on every bounce (and on
+    one with half the table as fallback), (f64) the pairs it keeps; the primary
     lists checked conservative against the full sweep.  Returns the max abs
     error per kernel over the f32 cases and the f32 inputs (for the
     timings)."""
@@ -1586,6 +1595,16 @@ def phase_big_kernels() -> tuple[dict[str, float], dict]:
             sp = culled.shade_culled_plain(*r["shade"], **r["kw"])
             for name, k, p in zip(("o", "d", "thr", "alive", "acc"), sk, sp):
                 err["shade_culled"] = max(err["shade_culled"], _per_value_check(f"shade_culled {tag} bounce {b} {name}", k, p, dtype))
+        for b, r in enumerate(record):  # every bounce: the list skip bitwise the kernel without it
+            _skip_bitwise("shade_culled", f"{tag} bounce {b}", culled.shade_culled, r["shade"], r["kw"])
+            if dtype == torch.float64:
+                _list_skip_line("shade_culled", f"{tag} bounce {b}", r["shade"], r["kw"])
+        # A tile with candidates and the full-tier fallback both: the
+        # candidates below s_cheap / 2 are listed twice.
+        args = record[1]["shade"]
+        half = torch.full_like(args[12], record[1]["kw"]["s_cheap"] // 2)
+        _skip_bitwise("shade_culled", f"{tag} bounce 1, half the table as fallback",
+                      culled.shade_culled, (*args[:13], half, *args[14:]), record[1]["kw"])
         # Conservative lists: at the primary bounce (every tile live) the
         # candidate sweep finds what the full sweep finds.
         o, d, cand, _, _, geom = record[0]["near"]
@@ -2060,6 +2079,72 @@ def _fwd_cs_bound(args: tuple, kw: dict, label: str) -> tuple[float, str]:
     return bound
 
 
+# --- The list skips of near_cs (row 15) and shade_culled (row 14, both modes) ---
+
+
+def _list_skip_line(name: str, label: str, args: tuple, kw: dict) -> dict:
+    """near_cs's or shade_culled's skip on one recorded launch: its listed
+    cheap-tier (warp, list slot) pairs and those the skip keeps
+    (``benchmarks/sweep_skip_ab.list_counts``, the vectorised plain reach
+    functions).  Returns the counts."""
+    from python_ray_tracer_tpu_torch.benchmarks.sweep_skip_ab import list_counts, list_counts_text
+
+    c = list_counts(name, args, kw)
+    print(f"[skip] {name} {label}: {list_counts_text(c)}", flush=True)
+    return c
+
+
+def _straddling_tiles(args: tuple, kw: dict) -> tuple[tuple, dict]:
+    """near_cs's recorded launch cut into tiles of a ray count that is no
+    multiple of 32 (the largest such divisor of the rays below twice the
+    recorded tile), so that some warps hold lanes of two tiles, whose lists
+    differ; new tile t reads recorded list t modulo their count."""
+    o, d, thr, alive, cand, cnt, cnt_full, geom = args
+    n = o.shape[1]
+    tile = max(t for t in range(1, 2 * kw["tile_rays"]) if n % t == 0 and t % 32)
+    rows = torch.arange(n // tile, device=cand.device) % cand.shape[0]
+    return ((o, d, thr, alive, cand[rows].contiguous(), cnt[rows].contiguous(), cnt_full[rows].contiguous(), geom),
+            {**kw, "tile_rays": tile})
+
+
+def _list_skip_bound(name: str, args: tuple, kw: dict, label: str) -> tuple[float, str]:
+    """near_cs's or shade_culled's least time on one recorded call: as
+    :func:`_list_bound`, with the list counted on the pairs the skip keeps:
+    each (warp, slot) pair the kernel tests pays one test of the warp bound
+    (for one lane; near_cs's winner rule, shade_culled's bundle test with
+    the light as the apex), each kept pair the whole pair on all 32 lanes,
+    each lane of a warp that builds its bundle that bundle once
+    (``list_counts``: near_cs tests no slot of its list's first chunk and
+    builds no bundle where the list holds no more).  Prints it beside the
+    bound that counts every listed pair."""
+    from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs, intersect_fused as f
+
+    base = name.split()[0]
+    near = base == "near_cs"
+    module, ci = (cs, 4) if near else (culled, 11)
+    per_lane, per_sphere, swept = _list_ops(getattr(module, f"{base}_plain"), args, kw, ci)
+    c = _list_skip_line(name, label, args, kw)
+    n_bytes = _io_bytes(getattr(module, base), args, kw)
+    n, part = args[0].shape[1], 4096
+    o, d, geom, apex = (args[0], args[1], args[7], None) if near else (args[7], args[9], args[14], args[15][0, 3:6])
+    o, d = o[:, :part].T.contiguous(), d[:, :part].T.contiguous()
+    with torch.no_grad():
+        sample = f.warp_bundles(o, d, apex)
+        bundle_ops = count_ops(lambda: f.warp_bundles(o, d, apex)) / part
+        if near:
+            m = torch.zeros((part // 32, 1), dtype=o.dtype, device=o.device)
+            test_ops = count_ops(lambda: f.winner_test(sample, geom[:1], m)) / (part // 32)
+        else:
+            test_ops = count_ops(lambda: f.bundle_test(sample, geom[:1])) / (part // 32)
+    every = _bound(int(per_lane * n + per_sphere * swept), n_bytes)
+    ops = per_lane * n + bundle_ops * 32 * c["bundled"] + test_ops * c["tested"] + per_sphere * 32 * c["kept"]
+    bound = _bound(int(ops), n_bytes)
+    print(f"[skip] {name} {label}: bound {bound[0]:.4f} ms by {bound[1]} on the kept pairs ({c['tested']} warp "
+          f"tests of {test_ops:g}, a lane's pair {per_sphere:g}, a lane's bundle {bundle_ops:g} operations on "
+          f"{c['bundled']} of {c['warps']} warps), {every[0]:.4f} ms by {every[1]} on every listed pair", flush=True)
+    return bound
+
+
 # --- The skips of smooth_fwd_step (rows 6 and 8) and clear_fwd (row 19) ---
 
 
@@ -2375,7 +2460,9 @@ def phase_big_timing(card: str, inputs: dict) -> dict[str, dict]:
                          lambda r=r: _culled_bound("near_culled", r)) for r in inputs["record"]],
         "shade_culled": [(lambda r=r: culled.shade_culled(*r["shade"], **r["kw"]),
                           lambda r=r: culled.shade_culled_plain(*r["shade"], **r["kw"]),
-                          lambda r=r: _culled_bound("shade_culled", r)) for r in inputs["record"]],
+                          lambda r=r: _list_skip_bound("shade_culled", r["shade"], r["kw"], "config 4"),
+                          lambda r=r: culled.shade_culled(*r["shade"], **r["kw"], skip="off"))
+                         for r in inputs["record"]],
         "nearest_sweep": [(lambda c=c: intersect_fused.nearest_sweep(*c[0], **c[1]),
                            lambda c=c: intersect_fused.nearest_sweep_plain(*c[0], **c[1]),
                            lambda c=c: _sweep_bound("nearest_sweep", c),
@@ -2463,9 +2550,9 @@ def phase_cs_kernels() -> tuple[dict[str, float], list[dict]]:
     bounce of the config-4 step's forward and backward (primary, then two
     re-sorted reflected bounces), mirror and glossy, f32 at 1920x1080 and f64
     at 480x270: idx exactly, the rest under the per-value, per-ray and
-    per-column limits; bwd_cs twice, bitwise; fwd_cs with its skip bitwise
-    the kernel without it (f64: the pairs the skip keeps; f32 in the
-    timings).  On the f32 primary bounce the lists lose nothing: near_cs's (idx, hit) equal the plain full sweep's on
+    per-column limits; bwd_cs twice, bitwise; fwd_cs and near_cs with their
+    skips bitwise the kernels without them, near_cs also on tiles that are
+    not whole warps (f64: the pairs the skips keep; f32 in the timings).  On the f32 primary bounce the lists lose nothing: near_cs's (idx, hit) equal the plain full sweep's on
     every lane.  Returns the max abs error per kernel over the f32 cases and
     the f32 mirror record (for the timings)."""
     from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs
@@ -2492,6 +2579,12 @@ def phase_cs_kernels() -> tuple[dict[str, float], list[dict]]:
                             _exact_check(f"near_cs {tag} bounce {b} {name}", k, p)
                         else:
                             err["near_cs"] = max(err["near_cs"], _per_value_check(f"near_cs {tag} bounce {b} {name}", k, p, dtype))
+                    _skip_bitwise("near_cs", f"{tag} bounce {b}", cs.near_cs, na, nkw)
+                    sa, skw = _straddling_tiles(na, nkw)
+                    _skip_bitwise("near_cs", f"{tag} bounce {b}, tiles of {skw['tile_rays']} rays (warps across two "
+                                  f"tiles)", cs.near_cs, sa, skw)
+                    if dtype == torch.float64:
+                        _list_skip_line("near_cs", f"{tag} bounce {b}", na, nkw)
                     fk = cs.fwd_cs(*fa, **fkw)
                     torch.cuda.synchronize()
                     fp = cs.fwd_cs_plain(*fa, **fkw)
@@ -2612,6 +2705,8 @@ def _cs_bound(name: str, r: dict) -> tuple[float, str]:
         return _bwd_cs_bound(*r["bwd"], "config 4")
     if name == "fwd_cs":
         return _fwd_cs_bound(*r["fwd"], "config 4")
+    if name == "near_cs":
+        return _list_skip_bound("near_cs", *r["near"], "config 4")
     args, kw = r[{"near_cs": "near", "fwd_cs": "fwd", "bwd_cs": "bwd"}[name]]
     ci = 4 if name == "near_cs" else 7  # the nearest lists, or the shadow lists
     return _list_bound(getattr(cs, f"{name}_plain"), getattr(cs, name), args, kw, ci)
@@ -2653,8 +2748,11 @@ def phase_cs_timing(card: str, record: list[dict], logs: dict[str, str]) -> dict
 
     parts = {"near_cs": "near", "fwd_cs": "fwd", "bwd_cs": "bwd"}
 
-    def off(name, r):  # fwd_cs without its skip, timed beside in turns
-        return (lambda: cs.fwd_cs(*r["fwd"][0], **r["fwd"][1], skip="off"),) if name == "fwd_cs" else ()
+    def off(name, r):  # fwd_cs and near_cs without their skips, timed beside in turns
+        if name == "bwd_cs":
+            return ()
+        part = parts[name]
+        return (lambda: getattr(cs, name)(*r[part][0], **r[part][1], skip="off"),)
 
     with torch.no_grad():
         res = {
@@ -3157,8 +3255,8 @@ def phase_atlas_kernels() -> tuple[dict[str, float], dict]:
     frame (f32 1920x1080, f64 480x270); fwd_cs and bwd_cs on every bounce of
     a textured1024 smooth loss (f32 960x540, f64 480x270).  Texel ids
     exactly, the rest under the per-value, per-ray and per-column limits;
-    the gradient kernels twice, bitwise; fwd_cs with its skip bitwise the
-    kernel without it.  Returns the max abs error per kernel (f32) and the
+    the gradient kernels twice, bitwise; fwd_cs, near_cs and shade_culled
+    with their skips bitwise the kernels without them.  Returns the max abs error per kernel (f32) and the
     f32 calls and records for the timings."""
     from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs
 
@@ -3180,6 +3278,9 @@ def phase_atlas_kernels() -> tuple[dict[str, float], dict]:
                     err["shade_culled"] = max(err["shade_culled"],
                                               _per_value_check(f"shade_culled (atlas) {tag} bounce {b} {name}", k, p, dtype))
                 n_image += _check_texels(f"{tag} bounce {b}", "shade_culled", sk[5:], sp[5:], dtype, err, False)
+                _skip_bitwise("shade_culled (atlas)", f"{tag} bounce {b}", culled.shade_culled, r["shade"], r["shade_kw"])
+                if dtype == torch.float64:
+                    _list_skip_line("shade_culled (atlas)", f"{tag} bounce {b}", r["shade"], r["shade_kw"])
         if n_image == 0:
             fail(f"shade_culled (atlas) {tag}: no image lane on any bounce")
         cs_size = TEX_CS_SIZE if dtype == torch.float32 else CS_F64_SIZE
@@ -3188,7 +3289,8 @@ def phase_atlas_kernels() -> tuple[dict[str, float], dict]:
         n_image = 0
         with torch.no_grad():
             for b, r in enumerate(cs_record):
-                (fa, fkw), (ba, bkw) = r["fwd"], r["bwd"]
+                (na, nkw), (fa, fkw), (ba, bkw) = r["near"], r["fwd"], r["bwd"]
+                _skip_bitwise("near_cs", f"{tag} bounce {b}", cs.near_cs, na, nkw)
                 fk = cs.fwd_cs(*fa, **fkw)
                 torch.cuda.synchronize()
                 fp = cs.fwd_cs_plain(*fa, **fkw)
@@ -3422,7 +3524,8 @@ def phase_atlas_timing(card: str, inputs: dict) -> dict[str, dict]:
     with torch.no_grad():
         rows = [(lambda r=r: culled.shade_culled(*r["shade"], **r["shade_kw"]),
                  lambda r=r: culled.shade_culled_plain(*r["shade"], **r["shade_kw"]),
-                 lambda r=r: _list_bound(culled.shade_culled_plain, culled.shade_culled, r["shade"], r["shade_kw"], 11))
+                 lambda r=r: _list_skip_bound("shade_culled (atlas)", r["shade"], r["shade_kw"], "textured1024 atlas"),
+                 lambda r=r: culled.shade_culled(*r["shade"], **r["shade_kw"], skip="off"))
                 for r in inputs["culled"]]
         res[ATLAS["shade_culled"]] = _time_launches("shade_culled (atlas)", rows, card, "textured1024, 1920x1080 f32",
                                                     f"the mirror frame's {len(rows)}")

@@ -52,7 +52,13 @@ the median of 10 CUDA-event timings):
   config 5 (``inverse_task(1024)`` at 256x144, scaled with the frame,
   depth 3) mirror and glossy, native f64 at half that size, the 3-sphere
   ``reference_scene`` at half the frame mirror and glossy, and
-  ``random_spheres_scene(n)`` for each n of ``SMALL``.
+  ``random_spheres_scene(n)`` for each n of ``SMALL``;
+* ``near_cs`` on the config-4 smooth frame's 3 bounces (1920x1080, depth 3,
+  mirror), on the ``textured1024`` frame's 3 at 960x540 and in f64 on the
+  config-4 frame's 3 at 480x270; ``shade_culled`` on the config-4 mirror
+  frame's 4 (1920x1080, depth 4, the culled hard route), on the
+  ``textured1024`` frame's 4 (atlas mode) and in f64 on the config-4
+  frame's 4 at 480x270.
 
 Beside the times it prints each launch's share of (warp, sphere) pairs
 the skip reaches (:func:`..ops.intersect_fused.bundle_reach`; for
@@ -65,7 +71,9 @@ sphere whose nearest possible hit from the warp's ball of origins lies
 past the largest ``t`` the warp's lanes end with), and for ``fwd_cs`` the
 listed (ray, sphere) pairs whose shadow sigmoid is exactly 0, those whose
 warp has that on every lane, and those the warp bound keeps
-(:func:`..ops.culled_smooth.fwd_cs_reach`).  Then ptxas's registers and
+(:func:`..ops.culled_smooth.fwd_cs_reach`); for ``near_cs`` and
+``shade_culled`` the listed (warp, list slot) pairs and those the skip
+keeps (:func:`list_counts`).  Then ptxas's registers and
 spill bytes of every instantiation of the four kernels (the build's
 ``-Xptxas -v`` log, read when this process builds the libraries), and
 each instantiation's resident blocks per SM::
@@ -81,9 +89,10 @@ with its own ray offset (the xi the whole frame draws there), so that a
 warp is 32 neighbouring pixels as in the frame.  ``--split`` runs
 :mod:`.fwd_cs_split` after the A/B (``fwd_cs`` with its shadow loop
 stubbed out, beside the source as it is).  ``--frames`` times only the
-frames and steps ``nearest_sweep``, ``fwd_cs`` and ``smooth_fwd_step`` sit
-in, with their skips off and on in turns (:func:`frames`; the card only).
-``--kernels`` keeps the cases of those kernels only (default: all eight).
+frames and steps ``nearest_sweep``, ``fwd_cs``, ``smooth_fwd_step``,
+``near_cs`` and ``shade_culled`` sit in, with their skips off and on in
+turns (:func:`frames`; the card only).  ``--kernels`` keeps the cases of
+those kernels only (default: all ten).
 """
 
 from __future__ import annotations
@@ -109,7 +118,7 @@ TURNS = ("off", "on", "on", "off")
 # Table sizes below the main path's, for the launch rule (kSkipMinCheap).
 SMALL = (4, 8, 16, 17, 25, 32, 48)
 KERNELS = ("bounce_lane", "nearest_sweep", "shadow_sweep", "fwd_cs", "smooth_fwd_step", "clear_fwd", "train_deep",
-           "smooth_nearest_parts")
+           "smooth_nearest_parts", "near_cs", "shade_culled")
 # smooth_fwd_step's frame at 1920x1080 (scaled with the frame) and its big table.
 STEP_SIZE, STEP_SPHERES = (256, 144), 8192
 
@@ -195,6 +204,8 @@ def record(device, width: int, height: int, kernels=KERNELS) -> dict[str, list]:
         cases.update(_record_nearest_parts(shard, width, height))
     if "train_deep" in kernels:
         cases.update(_record_train(device, width, height))
+    if {"near_cs", "shade_culled"} & set(kernels):
+        cases.update(_record_lists(device, width, height))
     if device.type == "cuda":
         torch.cuda.synchronize()
     return {name: calls for name, calls in cases.items() if name.split()[0] in kernels}
@@ -277,6 +288,44 @@ def _record_sweeps(device, width: int, height: int) -> dict[str, list]:
                                  key=_key())
         finally:
             render_mod.nearest_sweep, render_mod.shadow_sweep = real
+    return cases
+
+
+def _record_lists(device, width: int, height: int) -> dict[str, list]:
+    """near_cs's and shade_culled's cases (see the module's docstring)."""
+    from python_ray_tracer_tpu_torch import RenderConfig
+    from python_ray_tracer_tpu_torch.camera import ray_directions_t
+    from python_ray_tracer_tpu_torch.models import scenes
+    from python_ray_tracer_tpu_torch.ops import culled, culled_smooth
+
+    cases: dict[str, list] = {}
+    f32, f64 = torch.float32, torch.float64
+    for tag, kind, size, dtype in (("config 4", "random_spheres", (width, height), f32),
+                                   ("textured1024", "textured_spheres", (width // 2, height // 2), f32),
+                                   ("config 4 f64 (a quarter of the size)", "random_spheres",
+                                    (width // 4, height // 4), f64)):
+        scene = getattr(scenes, f"{kind}_scene")(1024, *size, dtype=dtype, device=device)
+        dirs = ray_directions_t(scene.camera, dtype)
+        smooth = RenderConfig(max_depth=CS_DEPTH, dtype=dtype, visibility="smooth", use_pallas=True)
+        calls = cases.setdefault(f"near_cs {tag} step", [])
+        real = _capture(culled_smooth, "near_cs", calls)
+        try:
+            with torch.no_grad():
+                culled_smooth.trace_culled_smooth(scene.camera.position, dirs, scene, smooth)
+        finally:
+            culled_smooth.near_cs = real
+        if kind == "textured_spheres":  # the atlas frame at the full size, as the CLI renders it
+            scene = scenes.textured_spheres_scene(1024, width, height, dtype=dtype, device=device)
+            dirs = ray_directions_t(scene.camera, dtype)
+        calls = cases.setdefault(f"shade_culled {tag} mirror frame{' (atlas)' if kind == 'textured_spheres' else ''}",
+                                 [])
+        real = _capture(culled, "shade_culled", calls)
+        try:
+            with torch.no_grad():
+                culled.trace_fused_culled(scene.camera.position, dirs, scene,
+                                          RenderConfig(max_depth=DEPTH, dtype=dtype, use_pallas=True))
+        finally:
+            culled.shade_culled = real
     return cases
 
 
@@ -495,6 +544,12 @@ def _kernel(name: str):
         return bounce_lane.bounce_lane
     if name.startswith("fwd_cs"):
         return culled_smooth.fwd_cs
+    if name.startswith("near_cs"):
+        return culled_smooth.near_cs
+    if name.startswith("shade_culled"):
+        from python_ray_tracer_tpu_torch.ops import culled
+
+        return culled.shade_culled
     if name.startswith("nearest_sweep"):
         return lambda *a, **k: tuple(intersect_fused.nearest_sweep(*a, **k))
     return intersect_fused.shadow_parts if name.startswith("shadow_parts") else intersect_fused.shadow_sweep
@@ -521,6 +576,57 @@ def nearest_counts(o, d, geom, s_cheap: int, faraway: float) -> dict:
     n_reach = max(int(reach.sum()), 1)
     return dict(reached=float(reach.float().mean()), cut=int(cut.sum()) / n_reach, cut_all=float(cut.float().mean()),
                 miss_warps=float((t_max == faraway).float().mean()))
+
+
+def list_counts(name: str, args, kw) -> dict:
+    """Counts of one near_cs or shade_culled launch's (warp, list slot)
+    pairs over each tile's cheap-tier list (its candidates and full-tier
+    fallback): those listed and those the skip keeps
+    (:func:`..ops.culled_smooth.near_cs_reach`,
+    :func:`..ops.culled.shade_culled_reach`), those the kernel tests against
+    its warp bound, and the warps, and of those the warps that build the
+    bound.  A warp tests and bounds only where its lanes all run, in one
+    tile; near_cs's warp neither tests its list's first chunk of 32 (its
+    candidates', or where it has none its fallback's) nor builds a bound
+    where the list holds no more."""
+    from python_ray_tracer_tpu_torch.ops import culled, culled_smooth as cs
+
+    with torch.no_grad():
+        if name.startswith("near_cs"):
+            o, d, _, _, cand, cnt, cnt_full, geom = args[:8]
+            reach = cs.near_cs_reach(o.T.contiguous(), d.T.contiguous(), cand, cnt, cnt_full, geom,
+                                     s_cheap=kw["s_cheap"], faraway=kw["faraway"], tile_rays=kw["tile_rays"])
+        else:
+            p_n, to_light, cand, cnt, cnt_full, geom, consts = args[7], args[9], args[11], args[12], args[13], \
+                args[14], args[15]
+            reach = culled.shade_culled_reach(p_n.T.contiguous(), to_light.T.contiguous(), consts[0, 3:6], geom,
+                                              kw["s_cheap"], kw["tile_rays"])
+        c, s_cheap, tile = cand.shape[1], kw["s_cheap"], kw["tile_rays"]
+        cc, cf = torch.clamp(cnt.long(), 0, c), torch.clamp(cnt_full.long(), 0, s_cheap)
+        tile_of = torch.arange(reach.shape[0], device=reach.device) * 32 // tile
+        listed = int((cc + cf)[tile_of].sum())
+        n = args[7 if name.startswith("shade_culled") else 0].shape[1]
+        w = torch.arange(reach.shape[0], device=reach.device)
+        full = ((w + 1) * 32 <= n) & (tile % 32 == 0)
+        first = torch.where(cc > 0, torch.clamp(cc, max=32), torch.clamp(cf, max=32))
+        tests = (cc + cf - (first if name.startswith("near_cs") else 0))[tile_of] * full
+        bundled = int((full & (tests > 0) if name.startswith("near_cs") else full).sum())
+        if name.startswith("near_cs"):
+            kept = int(reach.sum())
+        else:
+            ids, slots = cs._list_slots(cand, cc, cf, c)
+            kept = 0
+            for w0 in range(0, reach.shape[0], 4096):
+                t = tile_of[w0:w0 + 4096]
+                got = reach[w0:w0 + 4096].gather(1, ids[t].long().clamp(0, geom.shape[0] - 1))
+                kept += int((got & slots[t]).sum())
+    return dict(listed=listed, kept=kept, tested=int(tests.sum()), warps=reach.shape[0], bundled=bundled)
+
+
+def list_counts_text(c: dict) -> str:
+    """:func:`list_counts`' figures of one launch as the scripts print them."""
+    return (f"the skip keeps {c['kept']} of {c['listed']} listed cheap-tier (warp, slot) pairs "
+            f"({c['kept'] / max(c['listed'], 1):.2%}) over {c['warps']} warps")
 
 
 def cs_counts(args, kw) -> dict:
@@ -711,6 +817,10 @@ def _counts_line(name: str, calls: list) -> list:
             o, d, geom = args[:3]
             reach = bounce_smooth_sub.shadow_reach(o, d, kw.get("light"), geom, kw["s_cheap"], kw["sharpness"])
             shares.append([round(float(reach[:, :kw["s_cheap"]].float().mean()), 4)])
+        elif name.startswith(("near_cs", "shade_culled")):
+            c = list_counts(name, args, kw)
+            shares.append([round(c["kept"] / max(c["listed"], 1), 4)])
+            print(f"[sweep_skip_ab] {name} bounce {b}: {list_counts_text(c)}", flush=True)
         elif name.startswith("fwd_cs"):
             c = cs_counts(args, kw)
             shares.append([round(c["w_kept"] / max(c["w_listed"], 1), 4)])
@@ -765,7 +875,7 @@ def _instantiations(log: str) -> dict[str, dict]:
     out = {}
     for mangled, figures in ptxas_kernels(log).items():
         m = re.search(r"(bounce_lane|shadow_sweep|nearest_sweep|fwd_cs|smooth_fwd_step|clear_fwd|train_deep|"
-                      r"smooth_nearest_parts)I([fd])((?:Lb[01]E)+)", mangled)
+                      r"smooth_nearest_parts|near_cs|shade_culled)I([fd])((?:Lb[01]E)+)", mangled)
         if m:
             flags = ", ".join("true" if b == "1" else "false" for b in re.findall(r"Lb([01])E", m.group(3)))
             out[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}, {flags}>"] = figures
@@ -773,7 +883,8 @@ def _instantiations(log: str) -> dict[str, dict]:
 
 
 def _layout(logs: dict[str, str], label: str) -> None:
-    from python_ray_tracer_tpu_torch.ops import bounce_lane, bounce_smooth_sub, culled_smooth, intersect_fused, smooth_parts
+    from python_ray_tracer_tpu_torch.ops import (bounce_lane, bounce_smooth_sub, culled, culled_smooth, intersect_fused,
+                                                 smooth_parts)
 
     for source in SOURCES:
         found = _instantiations(logs.get(source, ""))
@@ -797,6 +908,11 @@ def _layout(logs: dict[str, str], label: str) -> None:
         blocks = {f"glossy={g} atlas={a} skip={k}": culled_smooth.fwd_blocks_per_sm(dtype, g, a, k, 1024)
                   for g in (False, True) for a in (False, True) for k in (False, True)}
         print(f"[sweep_skip_ab] fwd_cs {dtype} 1024 spheres, resident blocks of 256 an SM: {blocks} ({label})",
+              flush=True)
+        blocks = {f"skip={k}": culled_smooth.near_blocks_per_sm(dtype, k, 1024) for k in (False, True)}
+        blocks.update({f"shade_culled atlas={a} skip={k}": culled.shade_blocks_per_sm(dtype, a, k, 1024)
+                       for a in (False, True) for k in (False, True)})
+        print(f"[sweep_skip_ab] near_cs {dtype} 1024 spheres, resident blocks of 256 an SM: {blocks} ({label})",
               flush=True)
         for s in (3, 1024, STEP_SPHERES):
             blocks = {f"glossy={g} skip={k}": bounce_smooth_sub.blocks_per_sm("smooth_fwd_step", dtype, g, s, skip=k)
@@ -864,7 +980,13 @@ def frames(device, label: str, width: int = 1920, height: int = 1080, kernels=KE
     size, half = f"{width}x{height}", f"{width // 2}x{height // 2}"
     sw, sh = STEP_SIZE[0] * width // 1920, STEP_SIZE[1] * height // 1080
     cases = []
-    if {"nearest_sweep", "fwd_cs"} & set(kernels):
+    if "shade_culled" in kernels:
+        mirror = RenderConfig(max_depth=DEPTH, dtype=torch.float32, use_pallas=True)
+        config4 = random_spheres_scene(1024, width, height, dtype=torch.float32, device=device)
+        textured = textured_spheres_scene(1024, width, height, dtype=torch.float32, device=device)
+        cases += [(f"config-4 mirror frame (render(), {size} depth {DEPTH})", lambda: render(config4, mirror)),
+                  (f"textured1024 mirror frame (render(), {size} depth {DEPTH})", lambda: render(textured, mirror))]
+    if {"nearest_sweep", "fwd_cs", "near_cs"} & set(kernels):
         config4 = random_spheres_scene(1024, width, height, dtype=torch.float32, device=device)
         textured = textured_spheres_scene(1024, width // 2, height // 2, dtype=torch.float32, device=device)
         cases += [
@@ -877,8 +999,12 @@ def frames(device, label: str, width: int = 1920, height: int = 1080, kernels=KE
         big = random_spheres_scene(STEP_SPHERES, sw, sh, dtype=torch.float32, device=device)
         cases.append((f"{STEP_SPHERES}-sphere L2 loss and gradient ({sw}x{sh} depth {CS_DEPTH})", loss_grad(big)))
     # The wrappers whose skip a turn forces: (module the caller reads it from, name, the wrapper).
+    from python_ray_tracer_tpu_torch.ops import culled
+
     forced = [(m, name, getattr(m, name)) for m, name in ((render_mod, "nearest_sweep"), (culled_smooth, "fwd_cs"),
-                                                          (bounce_smooth_sub, "smooth_fwd_step")) if name in kernels]
+                                                          (bounce_smooth_sub, "smooth_fwd_step"),
+                                                          (culled_smooth, "near_cs"), (culled, "shade_culled"))
+              if name in kernels]
     for name, fn in cases:
         turns = {"off": [], "on": []}
         for skip in TURNS:
@@ -895,7 +1021,8 @@ def frames(device, label: str, width: int = 1920, height: int = 1080, kernels=KE
               f"a turn ({label})", flush=True)
 
 
-SOURCES = ("bounce_lane.cu", "intersect_fused.cu", "culled_smooth.cu", "bounce_smooth_sub.cu", "smooth_parts.cu")
+SOURCES = ("bounce_lane.cu", "intersect_fused.cu", "culled_smooth.cu", "bounce_smooth_sub.cu", "smooth_parts.cu",
+           "culled.cu")
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -71,12 +71,35 @@
 // the A/B time both sides); smooth_fwd_step and the other kernels that
 // share fwd_bounce compile as before (its kSkip is false there).
 //
+// near_cs's winner sweep (kSkip, winner_skip_list): the same warp bound,
+// here of the bounce's rays with no apex, and the rule of smooth_fwd_step's
+// sweep (smooth_math.cuh winner_reaches): a listed cheap-tier sphere that no
+// half-line of the warp can hit (its t is faraway, which never wins) and
+// whose disc cannot exceed m, the least of the warp's running dmax read at
+// the start of each chunk of 32 list slots, changes no lane's (tmin, imin,
+// dmax, idmax) under the strict compares, so the warp visits only the
+// others, in the list's order, and (idx, hit, p, normal, sval) stay bitwise
+// the skip-off build's.  While some lane's dmax is still the sentinel -3e38
+// nothing is left out, so the list's first chunk is visited whole before
+// the bound is built, and a list of at most 32 slots (the primary bounce's,
+// ~7 a warp at config 4) runs as the skip-off build.  The candidates and the
+// full-tier fallback are walked in chunks of their own, lane j reading slot
+// j0 + j; the exact tier is always swept.  A warp whose lanes do not all run
+// in one tile (tile_rays not a multiple of 32, the frame's last warp) visits
+// every listed sphere and runs no warp collective.
+//
 // What bounds them on this card: per ray and listed sphere ~40 operations
-// (a quadratic, two sigmoids) in near_cs, ~120 in bwd_cs's Phase C, and in
+// (a quadratic, two compares) in near_cs, ~120 in bwd_cs's Phase C, and in
 // fwd_cs the pairs its skip keeps (the quadratic, and the whole pair only
 // where a lane's sigmoid is not 0), plus the BRDF and its adjoint per ray,
 // against 60-150 B of state per ray: bound by operations once a list holds
-// more than a few spheres.
+// more than a few spheres.  With its skip near_cs pays one test a (warp,
+// listed sphere) pair (~96 operations for one lane, 32 spheres a ballot)
+// and the quadratic only on the pairs the rule keeps: on config 4's smooth
+// step it keeps 96 / 49 / 60% of the listed (warp, slot) pairs, bounce by
+// bounce, and runs 1.0 / 1.4 / 1.3x the skip-off build (an H100).  Its skip
+// builds take 48 registers in f32 (39 without; 5 CTAs of 256 an SM at 1024
+// spheres against 6) and 80 in f64 (56; 3 against 4), no spills (ptxas -v).
 
 #include "bundle_math.cuh"
 #include "smooth_math.cuh"
@@ -159,6 +182,52 @@ template <typename T> struct SkipList {
   }
 };
 
+// near_cs's winner sweep over a tile's list with the skip: after the list's
+// first chunk the warp bounds its rays (no apex; slot its bundle) and walks
+// the rest of the candidates, then of the full-tier fallback, in chunks of
+// 32 slots (one lane a slot, under a ballot), calling take(k) for the
+// spheres winner_reaches keeps against the warp's least running dmax (which
+// take updates), in the list's order; a sphere left out is a miss whose disc
+// is at most every lane's dmax.  A candidate id outside the cheap tier is
+// always kept.  The exact tier is always visited.  A warp that is not
+// warp_full (some lane does not run, or its lanes span two tiles, whose
+// lists differ) visits every listed sphere and runs no warp collective; a
+// warp without a usable bound keeps every listed sphere.
+template <typename T, typename F>
+__device__ __forceinline__ void winner_skip_list(const V3<T>& o, const V3<T>& d, const TileList& list, const T* geom,
+                                                 const Scal<T>& sc, T* slot, bool warp_full, const T& dmax, F&& take) {
+  if (!warp_full) {
+    list.visit(sc, [&](int, int k) { take(k); });
+    return;
+  }
+  // The list's first chunk is visited whole, with no bound: every lane's dmax
+  // is still the sentinel there, and winner_reaches keeps every sphere.
+  int j0 = min(list.nc, kWarp);
+  int k0 = list.nc > 0 ? 0 : min(list.nf, kWarp);
+  for (int j = 0; j < j0; ++j) take(__ldg(list.row + j));
+  for (int k = 0; k < k0; ++k) take(k);
+  if (j0 < list.nc || k0 < list.nf) {  // uniform over the warp: one tile
+    const V3<T> no_apex = {quiet_nan<T>(), quiet_nan<T>(), quiet_nan<T>()};
+    const Bundle<T> b = warp_bundle(o, d, no_apex, slot);
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    for (; j0 < list.nc; j0 += kWarp) {  // the candidates, lane j reading j0 + j
+      const int j = j0 + lane;
+      const int k = j < list.nc ? __ldg(list.row + j) : 0;
+      const T m = warp_min(dmax);
+      const unsigned reached = __ballot_sync(
+          kFullWarp, j < list.nc && (!b.ok || k >= sc.s_cheap || winner_reaches(b, geom + 4 * k, m)));
+      for (unsigned mm = reached; mm != 0u; mm &= mm - 1u) take(__shfl_sync(kFullWarp, k, __ffs(static_cast<int>(mm)) - 1));
+    }
+    for (; k0 < list.nf; k0 += kWarp) {  // the full-tier fallback
+      const int k = k0 + lane;
+      const T m = warp_min(dmax);
+      const unsigned reached = __ballot_sync(kFullWarp, k < list.nf && (!b.ok || winner_reaches(b, geom + 4 * k, m)));
+      for (unsigned mm = reached; mm != 0u; mm &= mm - 1u) take(k0 + __ffs(static_cast<int>(mm)) - 1);
+    }
+  }
+  for (int k = sc.s_cheap; k < sc.s_total; ++k) take(k);
+}
+
 // Stage the geometry table and the consts row in dynamic shared memory;
 // every thread of the block takes part, before any leaves.
 template <typename T> __device__ __forceinline__ T* stage_geom_consts(const T* geom, const T* cst, int s_total) {
@@ -170,7 +239,9 @@ template <typename T> __device__ __forceinline__ T* stage_geom_consts(const T* g
   return s;
 }
 
-template <typename T>
+// kSkip: the winner sweep leaves out the listed spheres that cannot change
+// any lane's winner (winner_skip_list).
+template <typename T, bool kSkip>
 __global__ void __launch_bounds__(kThreads)
     near_cs(const T* __restrict__ o, const T* __restrict__ d, const T* __restrict__ thr,
             const T* __restrict__ alive, const int* __restrict__ cand, const int* __restrict__ cnt,
@@ -179,6 +250,7 @@ __global__ void __launch_bounds__(kThreads)
             int tile_rays, int cand_stride, Scal<T> sc) {
   const T* s_geom = stage_geom(geom, sc.s_total);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool warp_full = kSkip && tile_rays % kWarp == 0 && __all_sync(kFullWarp, i < n);
   if (i >= n) return;
   const V3<T> ro = load3(o, n, i);
   const V3<T> rd = load3(d, n, i);
@@ -192,7 +264,7 @@ __global__ void __launch_bounds__(kThreads)
   int imin = 0;
   T dmax = T(kNegBig);
   int idmax = 0;
-  list.visit(sc, [&](int, int k) {
+  auto take = [&](int k) {
     T sol, disc, t, b, ct;
     sphere_quad(k, sc, ro, rd, s_geom, sol, disc, t, b, ct);
     if (t < tmin) {  // strict: lowest index wins exact ties
@@ -203,7 +275,14 @@ __global__ void __launch_bounds__(kThreads)
       dmax = disc;
       idmax = k;
     }
-  });
+  };
+  if constexpr (kSkip) {
+    __shared__ T s_bundles[kBundleValues * (kThreads / kWarp)];
+    winner_skip_list(ro, rd, list, s_geom, sc, s_bundles + kBundleValues * (threadIdx.x / kWarp), warp_full, dmax,
+                     take);
+  } else {
+    list.visit(sc, [&](int, int k) { take(k); });
+  }
   const bool hit = tmin != sc.faraway;
   const int idx = hit ? imin : idmax;
 
@@ -616,17 +695,38 @@ template <typename T> int geom_consts_smem(int s_total) {
   return (4 * s_total + kNConst) * static_cast<int>(sizeof(T));
 }
 
+// fwd_cs's and near_cs's skip code, as the sweeps' (sweep_math.cuh Skip): -1
+// the launcher's rule, 0 off, 1 on.  The rule takes the skip on every launch:
+// the culled route's tables hold at least 96 spheres.
+inline bool fwd_takes_skip(int skip) { return skip != 0; }
+
+template <typename T> auto near_kernel(bool skip) { return skip ? near_cs<T, true> : near_cs<T, false>; }
+
 template <typename T>
 int launch_near(const T* o, const T* d, const T* thr, const T* alive, const int* cand, const int* cnt,
                 const int* cnt_full, const T* geom, int* idx, T* hit, T* p, T* nrm, T* sval, int n, int s_cheap,
-                int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e, void* stream) {
-  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride)) return static_cast<int>(cudaErrorInvalidValue);
+                int s_total, int tile_rays, int cand_stride, T faraway, T sharp_e, int skip, void* stream) {
+  if (bad_args(n, s_cheap, s_total, tile_rays, cand_stride) || skip < -1 || skip > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Scal<T> sc = {faraway, sharp_e, T(0), s_cheap, s_total};
   const int smem = 4 * s_total * static_cast<int>(sizeof(T));
-  if (const int err = allow_smem(near_cs<T>, smem)) return err;
-  near_cs<T><<<blocks_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = near_kernel<T>(fwd_takes_skip(skip));
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<blocks_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       o, d, thr, alive, cand, cnt, cnt_full, geom, idx, hit, p, nrm, sval, n, tile_rays, cand_stride, sc);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of near_cs's instantiation (skip) at its launch's
+// dynamic shared bytes for s_total spheres, or a negative CUDA error.
+template <typename T> int near_blocks_per_sm(int skip, int s_total) {
+  const int smem = 4 * s_total * static_cast<int>(sizeof(T));
+  const auto kernel = near_kernel<T>(skip != 0);
+  if (const int err = allow_smem(kernel, smem)) return -err;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // KERNEL's instantiation for glossy (kXi) and ATLAS.
@@ -653,11 +753,6 @@ template <typename T> auto fwd_kernel(bool glossy, bool atlas, bool skip) {
   return glossy ? (atlas ? fwd_cs<T, true, true, false> : fwd_cs<T, true, false, false>)
                 : (atlas ? fwd_cs<T, false, true, false> : fwd_cs<T, false, false, false>);
 }
-
-// fwd_cs's skip code, as the sweeps' (sweep_math.cuh Skip): -1 the
-// launcher's rule, 0 off, 1 on.  The rule takes the skip on every launch:
-// the culled route's tables hold at least 96 spheres.
-inline bool fwd_takes_skip(int skip) { return skip != 0; }
 
 template <typename T>
 int launch_fwd(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const int* idx, const T* hit,
@@ -736,17 +831,21 @@ template <typename T> int fwd_blocks_per_sm(int glossy, int atlas, int skip, int
 // Each launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.  xi may
 // be null: the mirror instantiation; non-null launches the glossy one.
-// prt_bwd_cs_blocks_per_sm_* and prt_fwd_cs_blocks_per_sm_* report an
-// instantiation's resident blocks per SM.
+// prt_bwd_cs_blocks_per_sm_*, prt_fwd_cs_blocks_per_sm_* and
+// prt_near_cs_blocks_per_sm_* report an instantiation's resident blocks per
+// SM.
 extern "C" {
 
 #define PRT_CS_ENTRIES(T, SUFFIX)                                                                              \
   int prt_near_cs_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const int* cand,              \
                            const int* cnt, const int* cnt_full, const T* geom, int* idx, T* hit, T* p, T* nrm,  \
                            T* sval, int n, int s_cheap, int s_total, int tile_rays, int cand_stride, T faraway, \
-                           T sharp_e, void* stream) {                                                          \
+                           T sharp_e, int skip, void* stream) {                                                \
     return launch_near<T>(o, d, thr, alive, cand, cnt, cnt_full, geom, idx, hit, p, nrm, sval, n, s_cheap,     \
-                          s_total, tile_rays, cand_stride, faraway, sharp_e, stream);                          \
+                          s_total, tile_rays, cand_stride, faraway, sharp_e, skip, stream);                    \
+  }                                                                                                            \
+  int prt_near_cs_blocks_per_sm_##SUFFIX(int skip, int s_total) {                                              \
+    return near_blocks_per_sm<T>(skip, s_total);                                                              \
   }                                                                                                            \
   int prt_fwd_cs_##SUFFIX(const T* o, const T* d, const T* thr, const T* alive, const T* acc, const int* idx,  \
                           const T* hit, const int* cand, const int* cnt, const int* cnt_full, const T* geom,    \

@@ -44,6 +44,7 @@ import torch
 
 from . import _build
 from .bounce_sub import _dot3, _normalize3, _sphere_t, _sphere_t_exact, shade_color
+from .intersect_fused import WARP, _skip_code, bundle_reach
 from .shading import NUDGE
 from .tables import MAT_COLS, N_CONST, SG, consts_row, geometry_table, material_table
 from .texture import atlas_texels, compose_texels, slot_args
@@ -353,12 +354,30 @@ def near_culled_plain(o, d, cand, cnt_cand, cnt_full, geom, *, faraway: float, s
     return tmin, torch.where(hit, imin, 0), p, normal
 
 
+def shade_culled_reach(p_n, to_light, light, geom, s_cheap: int, tile_rays: int) -> torch.Tensor:
+    """(W, S) the (warp, sphere) pairs ``shade_culled``'s skip sweeps, where
+    listed, for shadow rays ``p_n``/``to_light`` (N, 3) aimed at ``light``
+    (3,) (``csrc/culled.cu`` ``list_minima_skip``): the cheap-tier spheres
+    that a shadow ray of the warp may hit (:func:`.intersect_fused.bundle_reach`,
+    the light the bound's apex), every exact-tier sphere, and every sphere of
+    a warp whose bound is not ``ok`` or where a tile is not whole warps.  A
+    sphere left out is a miss (``sol_fast`` not valid) on every lane of the
+    warp."""
+    reach = bundle_reach(p_n, to_light, geom, s_cheap, light)
+    return torch.ones_like(reach) if tile_rays % WARP else reach
+
+
 def shade_culled_plain(o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, cand, cnt_cand, cnt_full,
-                       geom, consts, *, faraway: float, s_cheap: int, tile_rays: int, tex_hw=None):
+                       geom, consts, *, faraway: float, s_cheap: int, tile_rays: int, tex_hw=None,
+                       skip: bool = False):
     """Plain version of ``shade_culled``: the candidate shadow sweep, the
     shading and the mirror continuation; returns the next ``(o, d, thr,
     alive, acc)``, and with the atlas's slot extents ``tex_hw`` also each
-    lane's flat texel id and dww (N,)."""
+    lane's flat texel id and dww (N,).  ``skip``: the shadow sweep evaluates
+    only the pairs :func:`shade_culled_reach` keeps, a skipped pair folding
+    faraway (a miss) into its lane's minima as the kernel's skip does,
+    bitwise the sweep of every listed pair; only the tests and the card
+    check's counts run it."""
     dtype = o.dtype
     n = o.shape[1]
     far = torch.tensor(faraway, dtype=dtype, device=o.device)
@@ -385,8 +404,18 @@ def shade_culled_plain(o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat
         new_self = torch.where(is_self, torch.minimum(t_self, t_k), t_self)
         return torch.where(active, new_others, t_others), torch.where(active, new_self, t_self)
 
+    kept = None
+    if skip:
+        reach = shade_culled_reach(p_n.T, to_light.T, consts[0, 3:6], geom, s_cheap, tile_rays)
+        warp = torch.arange(n, device=o.device) // WARP
+
+        def kept(sid):
+            return reach[warp, sid.long()]
+
     def cheap(active, sid, g, sol, valid, carry):
         # The miss sentinel is faraway, as the exact tier's: all-miss lanes tie.
+        if kept is not None:
+            valid = valid & kept(sid)
         return shadow(active, sid, torch.where(valid, sol, far), carry)
 
     carry = (big.expand(n), big.expand(n))
@@ -469,8 +498,8 @@ _SIGNATURES = {
     # o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, cand,
     # cnt_cand, cnt_full, geom, consts; their five outputs; flat and dww
     # (or null); n, s_cheap, s_total, tile_rays, cand_stride; faraway; the
-    # atlas's slot extents
-    "shade_culled": "pppppppppppppppp" "ppppp" "pp" "iiiii" "r" "ii",
+    # atlas's slot extents; skip
+    "shade_culled": "pppppppppppppppp" "ppppp" "pp" "iiiii" "r" "ii" "i",
 }
 
 
@@ -503,11 +532,15 @@ def near_culled(o, d, cand, cnt_cand, cnt_full, geom, *, faraway: float, s_cheap
 
 
 def shade_culled(o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, cand, cnt_cand, cnt_full, geom,
-                 consts, *, faraway: float, s_cheap: int, tile_rays: int, tex_hw=None):
+                 consts, *, faraway: float, s_cheap: int, tile_rays: int, tex_hw=None, skip: str = "auto"):
     """The culled shadow sweep, shading and mirror continuation of the hits
     ``near_culled`` found; returns the next ``(o, d, thr, alive, acc)``, and
     with the atlas's slot extents ``tex_hw`` (the atlas mode) also each
-    lane's flat texel id and dww (N,)."""
+    lane's flat texel id and dww (N,).  ``skip`` ("auto", "on", "off") picks
+    the kernel whose shadow sweep leaves out the listed spheres no shadow ray
+    of a warp can hit, or the kernel without; the outputs are the same
+    bitwise."""
+    code = _skip_code(skip)
     device = _check(
         o, {"o": o, "d": d, "acc": acc, "p_n": p_n, "normal": normal, "to_light": to_light},
         {"thr": thr, "alive": alive, "t": t}, {"idx": idx}, cand, cnt_cand, cnt_full, geom, tile_rays, s_cheap,
@@ -524,9 +557,20 @@ def shade_culled(o, d, thr, alive, acc, t, idx, p_n, normal, to_light, mat, cand
         _launch(
             "shade_culled", o.dtype, *args, *out, *(tex or (None, None)),
             o.shape[1], s_cheap, geom.shape[0], tile_rays, cand.shape[1], float(faraway),
-            *slot_args(tex_hw), atlas=bool(tex),
+            *slot_args(tex_hw), code, atlas=bool(tex),
         )
     return out + tex
+
+
+def shade_blocks_per_sm(dtype: torch.dtype, atlas: bool, skip: bool, s: int) -> int:
+    """Resident ``shade_culled`` blocks per SM of the instantiation (atlas,
+    skip) for ``s`` spheres on the current card."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    blocks = getattr(_build.load_library(_SOURCE), f"prt_shade_culled_blocks_per_sm_{suffix}")(
+        int(atlas), int(skip), s)
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query of shade_culled failed: CUDA error {-blocks}")
+    return blocks
 
 
 # ---------------------------------------------------------------------------

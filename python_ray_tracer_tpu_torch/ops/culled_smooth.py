@@ -39,6 +39,8 @@ tensors runs it, given CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..config import VISIBILITY_SMOOTH
@@ -56,7 +58,7 @@ from .culled import (
     candidate_lists,
     ray_sort_keys,
 )
-from .intersect_fused import WARP, _skip_code
+from .intersect_fused import NEG_BIG, WARP, Bundles, _skip_code, warp_bundles, winner_test
 from .rng import fold_seed, uniform2
 from .shading import NUDGE
 from .tables import MAT_COLS, N_CONST, consts_row, geometry_table, material_table
@@ -106,13 +108,91 @@ def cull_smooth_ok(scene, cfg, n_rays: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def near_cs_plain(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_cheap, sharp_e, tile_rays):
+def _list_slots(cand, cc, cf, c_pad: int):
+    """(T, c_pad + F) the sphere ids of each tile's list slots and (T, c_pad
+    + F) whether a slot is listed: the candidates ``cand[t, :cc[t]]`` in
+    columns 0.., the full-tier fallback ``0..cf[t]-1`` in columns c_pad..,
+    F the largest fallback count."""
+    cols_c = torch.arange(c_pad, device=cand.device)
+    cols_f = torch.arange(int(cf.max()) if cf.numel() else 0, device=cand.device)
+    ids_c = cand[:, :c_pad] if cand.shape[1] >= c_pad else torch.cat(
+        [cand, cand.new_zeros((cand.shape[0], c_pad - cand.shape[1]))], 1)
+    ids = torch.cat([ids_c, cols_f.to(torch.int32).expand(cand.shape[0], -1)], 1)
+    listed = torch.cat([cols_c[None, :] < cc[:, None], cols_f[None, :] < cf[:, None]], 1)
+    return ids, listed
+
+
+_REACH_PAIRS = 1 << 24  # near_cs_reach's lane-slot pairs a group of tiles
+
+
+def near_cs_reach(o, d, cand, cnt_cand, cnt_full, geom, *, s_cheap: int, faraway: float,
+                  tile_rays: int) -> torch.Tensor:
+    """(W, C + s_cheap) the (warp, list slot) pairs ``near_cs``'s skip visits
+    for rays ``o``/``d`` (N, 3) (``csrc/culled_smooth.cu``
+    ``winner_skip_list``), over each warp's tile's list: column j < C (the
+    list width, ``cand.shape[1]``) its candidate slot j, column C + k its
+    full-tier fallback sphere k; False where the slot is not listed.  A warp
+    keeps a listed cheap-tier sphere that :func:`.intersect_fused.winner_test`
+    keeps against the least over its lanes of the running dmax before the
+    slot's chunk (32 slots of the candidates, then of the fallback, counted
+    from each part's start), every listed id outside the cheap tier, and
+    every listed sphere where its bound is not ``ok`` or a tile is not whole
+    warps.  A sphere the test leaves out cannot change dmax, so that running
+    dmax is the maximum of the sentinel and every earlier listed disc, as
+    the full sweep has it; taken here a few tiles at a time
+    (``_REACH_PAIRS`` lane-slot pairs)."""
+    n, c = o.shape[0], cand.shape[1]
+    n_tiles = -(-n // tile_rays)
+    tile = torch.arange(n_tiles, device=o.device)
+    cc = torch.clamp(cnt_cand.long(), 0, c)
+    cf = torch.clamp(cnt_full.long(), 0, s_cheap)
+    b = warp_bundles(o, d)
+    n_warps = b.ok.shape[0]
+    reach = torch.zeros((n_warps, c + s_cheap), dtype=torch.bool, device=o.device)
+    whole = tile_rays % WARP == 0
+    neg_big = torch.tensor(NEG_BIG[o.dtype], dtype=o.dtype, device=o.device)
+    step = max(1, _REACH_PAIRS // max(tile_rays * (c + s_cheap), 1))
+    for t0 in range(0, n_tiles, step):
+        ts = tile[t0:t0 + step]
+        c_pad = -(-int(cc[ts].max()) // WARP) * WARP  # the candidates' chunks, then the fallback's
+        ids, listed = _list_slots(cand[ts], cc[ts], cf[ts], c_pad)
+        w0, w1 = t0 * tile_rays // WARP, min(n_warps, -(-min(n, (t0 + len(ts)) * tile_rays) // WARP))
+        wt = torch.arange(w0, w1, device=o.device) * WARP // tile_rays - t0  # each warp's tile in the group
+        keep = listed[wt]
+        if whole and ids.shape[1]:
+            rows = slice(w0 * WARP, min(n, w1 * WARP))
+            lt = torch.arange(rows.start, rows.stop, device=o.device) // tile_rays - t0
+            g = geom[ids.long().clamp(0, geom.shape[0] - 1)]  # (Tg, L, 4)
+            gl = g[lt]
+            _, disc, _, _, _ = sol_disc_plain(tuple(o[rows, i, None] for i in range(3)),
+                                              tuple(d[rows, i, None] for i in range(3)),
+                                              tuple(gl[..., i] for i in range(3)), gl[..., 3], faraway)
+            disc = torch.where(listed[lt] & ~torch.isnan(disc), disc, torch.full_like(disc, -math.inf))
+            pad = (-disc.shape[1]) % WARP
+            disc = torch.cat([disc, disc.new_full((disc.shape[0], pad), -math.inf)], 1) if pad else disc
+            best = torch.cummax(torch.amax(disc.reshape(disc.shape[0], -1, WARP), 2), 1).values
+            before = torch.cat([neg_big.expand(best.shape[0], 1), torch.maximum(best[:, :-1], neg_big)], 1)
+            lanes = (-before.shape[0]) % WARP  # the ragged warp's missing lanes: its bound is not ok
+            before = torch.cat([before, before.new_full((lanes, before.shape[1]), math.inf)]) if lanes else before
+            m = torch.amin(before.reshape(-1, WARP, before.shape[1]), 1).repeat_interleave(WARP, 1)[:, :ids.shape[1]]
+            bw = Bundles(*(x[w0:w1] for x in b))
+            keep = keep & (winner_test(bw, g[wt], m) | ~bw.ok[:, None] | (ids[wt] >= s_cheap))
+        n_c = min(c_pad, c)
+        reach[w0:w1, :n_c] = keep[:, :n_c]
+        reach[w0:w1, c:c + ids.shape[1] - c_pad] = keep[:, c_pad:]
+    return reach
+
+
+def near_cs_plain(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_cheap, sharp_e, tile_rays,
+                  skip: bool = False):
     """Plain version of ``near_cs``: ``(idx, hit, p, normal, sval)``, idx int32
     and hit, sval 0/1 (N,), the hit point and ``(p - c) * (1 / r)`` (3, N).
 
     Tile ``i // tile_rays`` of ray ``i`` sweeps its candidates, then its
     ``cnt_full`` full-tier spheres, then the exact tier, with the smooth
-    formulas and tie rules of the unculled sweep."""
+    formulas and tie rules of the unculled sweep.  ``skip``: over the (warp,
+    slot) pairs :func:`near_cs_reach` keeps only, bitwise the sweep of every
+    listed slot; only the tests and the card check's counts run it."""
     n = o.shape[1]
     o3, d3 = tuple(o), tuple(d)
     tile = torch.arange(n, device=o.device) // tile_rays
@@ -133,13 +213,22 @@ def near_cs_plain(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, 
         return (torch.where(t_take, t, tmin), torch.where(t_take, sid, imin),
                 torch.where(d_take, disc, dmax), torch.where(d_take, sid, idmax))
 
+    c = cand.shape[1]
+    if skip:
+        reach = near_cs_reach(o.T, d.T, cand, cnt_cand, cnt_full, geom, s_cheap=s_cheap, faraway=faraway,
+                              tile_rays=tile_rays)
+        warp = torch.arange(n, device=o.device) // WARP
+
+    def kept(col):
+        return reach[warp, col] if skip else True
+
     carry = (tmin, imin, dmax, idmax)
     for j in range(int(cc.max())):
         sid = cand[tile, j]
         g = geom[sid.long()]
-        carry = take(j < cc, sid, (g[:, 0], g[:, 1], g[:, 2]), g[:, 3], sol_disc_plain, carry)
+        carry = take((j < cc) & kept(j), sid, (g[:, 0], g[:, 1], g[:, 2]), g[:, 3], sol_disc_plain, carry)
     for k in range(int(cf.max())):
-        carry = take(k < cf, k, tuple(geom[k, :3]), geom[k, 3], sol_disc_plain, carry)
+        carry = take((k < cf) & kept(c + k), k, tuple(geom[k, :3]), geom[k, 3], sol_disc_plain, carry)
     for k in range(s_cheap, geom.shape[0]):  # exact tier: always swept
         carry = take(None, k, tuple(geom[k, :3]), geom[k, 3], sol_disc_exact, carry)
     tmin, imin, _, idmax = carry
@@ -289,8 +378,9 @@ def _check(rays: dict, lanes: dict, lists: list, geom, tables: dict | None, xi, 
 # stream: p = pointer, i = int, r = the dtype's real.
 _SIGNATURES = {
     # o, d, thr, alive, cand, cnt, cnt_full, geom; idx, hit, p, normal,
-    # sval; n, s_cheap, s_total, tile_rays, cand_stride; faraway, sharp_e
-    "near_cs": "pppppppp" "ppppp" "iiiii" "rr",
+    # sval; n, s_cheap, s_total, tile_rays, cand_stride; faraway, sharp_e;
+    # skip
+    "near_cs": "pppppppp" "ppppp" "iiiii" "rr" "i",
     # o, d, thr, alive, acc, idx, hit, cand, cnt, cnt_full, geom, mat,
     # consts, xi; o, d, thr, alive, acc, clear out; flat and dww (or null);
     # n, s_cheap, s_total, tile_rays, cand_stride; faraway, sharp_e,
@@ -361,9 +451,23 @@ def fwd_blocks_per_sm(dtype: torch.dtype, glossy: bool, atlas: bool, skip: bool,
     return blocks
 
 
-def near_cs(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_cheap, sharp_e, tile_rays):
+def near_blocks_per_sm(dtype: torch.dtype, skip: bool, s: int) -> int:
+    """Resident ``near_cs`` blocks per SM of the instantiation (skip) for
+    ``s`` spheres on the current card."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    blocks = getattr(_build.load_library(_SOURCE), f"prt_near_cs_blocks_per_sm_{suffix}")(int(skip), s)
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query of near_cs failed: CUDA error {-blocks}")
+    return blocks
+
+
+def near_cs(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_cheap, sharp_e, tile_rays,
+            skip: str = "auto"):
     """The culled smooth winner of rays ``o``/``d`` (3, N); outputs as
-    :func:`near_cs_plain`."""
+    :func:`near_cs_plain`.  ``skip`` ("auto", "on", "off") picks the kernel
+    whose winner sweep leaves out the listed spheres that cannot change any
+    lane's winner, or the kernel without; the outputs are the same bitwise."""
+    code = _skip_code(skip)
     device = _check({"o": o, "d": d}, {"thr": thr, "alive": alive}, [(cand, cnt_cand, cnt_full)], geom, None, None,
                     s_cheap, tile_rays)
     kw = dict(faraway=faraway, s_cheap=s_cheap, sharp_e=sharp_e, tile_rays=tile_rays)
@@ -375,7 +479,7 @@ def near_cs(o, d, thr, alive, cand, cnt_cand, cnt_full, geom, *, faraway, s_chea
         hit, sval = torch.empty_like(thr), torch.empty_like(thr)
         p, normal = torch.empty_like(o), torch.empty_like(o)
         _launch("near_cs", o.dtype, o, d, thr, alive, cand, cnt_cand, cnt_full, geom, idx, hit, p, normal, sval,
-                n, s_cheap, geom.shape[0], tile_rays, cand.shape[1], float(faraway), float(sharp_e))
+                n, s_cheap, geom.shape[0], tile_rays, cand.shape[1], float(faraway), float(sharp_e), code)
     return idx, hit, p, normal, sval
 
 

@@ -152,16 +152,17 @@ def _outside_cone(b: Bundles, v, v2, vl, rho, doubled: bool):
 def _rules_out(b: Bundles, geom, doubled: bool, q_of):
     """``rules_out`` of ``csrc/bundle_math.cuh``: (W, S) whether warp w's
     bound rules sphere k out, ``q_of(w)`` the distance from its centre within
-    which a line counts."""
+    which a line counts; ``geom`` (S, 4) for every warp, or (W, S, 4) a row
+    of spheres a warp (a tile's list)."""
     u = UNIT_ROUNDOFF[geom.dtype]
-    v = tuple(geom[None, :, i] - b.c[:, i, None] for i in range(3))
+    v = tuple(geom[..., i] - b.c[:, i, None] for i in range(3))
     v2 = _dot3(v, v)
     vl = sqrt(v2)
     w = vl + b.r[:, None]
     q = q_of(w)
     outside = _outside_cone(b, v, v2, vl, b.r[:, None] + q + (64 * u) * w, doubled)
     if bool((b.eps == b.eps).any()):  # an apex (one for every warp of the call)
-        vp = tuple(geom[None, :, i] - b.p[:, i, None] for i in range(3))
+        vp = tuple(geom[..., i] - b.p[:, i, None] for i in range(3))
         vp2 = _dot3(vp, vp)
         vpl = sqrt(vp2)
         outside = outside | _outside_cone(b, vp, vp2, vpl, b.eps[:, None] + q + (64 * u) * (w + vpl), True)
@@ -173,9 +174,9 @@ def bundle_test(b: Bundles, geom) -> torch.Tensor:
     warp w may hit sphere k of ``geom`` (S, 4), as the test of a cheap-tier
     sphere answers: not if the cone from the ball of origins rules it out,
     nor if the double cone from the apex does (the margin the source states;
-    NaN never rules out)."""
+    NaN never rules out).  ``geom`` may also be (W, S, 4): a row a warp."""
     u = UNIT_ROUNDOFF[geom.dtype]
-    r = geom[None, :, 3]
+    r = geom[..., 3]
     return ~_rules_out(b, geom, False, lambda w: sqrt(r * r * (1 + 16 * u) + (256 * u) * (w * w)))
 
 
@@ -187,7 +188,7 @@ def line_test(b: Bundles, geom, edge) -> torch.Tensor:
     with the margin the source states: the doubled cone from the ball of
     origins, and from the apex where the bundles have one."""
     u = UNIT_ROUNDOFF[geom.dtype]
-    r = geom[None, :, 3]
+    r = geom[..., 3]
     return ~_rules_out(b, geom, True, lambda w: sqrt((r * r + edge) * (1 + 64 * u) + (256 * u) * (w * w)))
 
 
@@ -199,9 +200,10 @@ def winner_test(b: Bundles, geom, m) -> torch.Tensor:
     max-discriminant before the sphere's chunk: some line passes within
     ``q`` of its centre, ``q^2 = p (1 + 64u) + 16u r^2 + 256u w^2``, ``p = r^2
     - m / 4`` (the margin the source states).  It never rules a sphere out
-    where ``m`` is the sentinel or not finite, or ``p <= 0``."""
+    where ``m`` is the sentinel or not finite, or ``p <= 0``.  ``geom`` may
+    also be (W, S, 4): a row a warp (a tile's list)."""
     u = UNIT_ROUNDOFF[geom.dtype]
-    r2 = geom[None, :, 3] * geom[None, :, 3]
+    r2 = geom[..., 3] * geom[..., 3]
     p = r2 - m * 0.25
     usable = (m > NEG_BIG[geom.dtype]) & (m - m == 0) & (p > 0)
     near = ~_rules_out(b, geom, True, lambda w: sqrt(p * (1 + 64 * u) + (16 * u) * r2 + (256 * u) * (w * w)))

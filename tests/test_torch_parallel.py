@@ -142,15 +142,21 @@ def jax_grads(target):
 
 
 @pytest.fixture(scope="module")
-def sharded(target):
-    """Every rank's results, for each mesh."""
+def rank_runs(target):
+    """The three meshes' rank processes, started at once; the JAX oracles
+    compile in this process while they run."""
     jobs = [dict(name=case, scene=_spec(s, dt), cfg=kw, dtype=dt) for case, (s, dt, kw) in CASES.items()]
     jobs += [dict(name=f"grad_{case}", scene=_spec("random", "float64"), cfg=CASES[case][2], dtype="float64",
                   target=target) for case in GRAD_CASES]
-    with ThreadPoolExecutor(len(MESHES)) as pool:  # the three jobs' ranks start at once
-        runs = {shape: pool.submit(run_local, torch_parallel_worker.run, shape[0] * shape[1], shape, jobs,
-                                   device_type="cpu") for shape in MESHES}
-        return {shape: run.result() for shape, run in runs.items()}
+    with ThreadPoolExecutor(len(MESHES)) as pool:
+        yield {shape: pool.submit(run_local, torch_parallel_worker.run, shape[0] * shape[1], shape, jobs,
+                                  device_type="cpu") for shape in MESHES}
+
+
+@pytest.fixture(scope="module")
+def sharded(rank_runs, jax_frames, jax_grads):
+    """Every rank's results, for each mesh (the oracles built meanwhile)."""
+    return {shape: run.result() for shape, run in rank_runs.items()}
 
 
 def test_mesh_layout_and_one_rank_mesh(sharded):
